@@ -1,0 +1,79 @@
+'''
+Batched inference: network loading from self-describing .npz checkpoints and the plugin
+(usage-mode) forward with per-example metrics. The port of
+tcow_tpu/evaluation/inference.py (:25-81, :184-213).
+'''
+
+import dataclasses
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from tcow_tpu_torch import resolve_device
+from tcow_tpu_torch.models.mask_tracker import MaskTracker, SeekerConfig, seeker_config_from_args
+from tcow_tpu_torch.objectives import metrics as metrics_lib
+from tcow_tpu_torch.train import checkpoint as ckpt_lib
+from tcow_tpu_torch.weights import params_from_jax
+
+
+def load_networks(checkpoint_path: str, logger=None, epoch: int = -1, compute_dtype=None,
+                  device='cuda') -> Tuple[Dict, SeekerConfig, Dict, Dict, Dict, int]:
+    '''(params, seeker_cfg, train_args, dset_args, seeker_args, epoch) from a .npz
+    checkpoint file or experiment directory. params is the JAX-layout tree of numpy
+    arrays. `device` is the one the networks will run on: without CUDA it raises unless
+    the caller asks for the CPU. There is no kernel switch to turn on (the counterpart of
+    :56-58): on CUDA every attention call launches the fused kernel.'''
+    print_fn = logger.info if logger is not None else print
+    resolve_device(device)
+    if checkpoint_path.endswith('.pth'):
+        raise NotImplementedError('.pth checkpoints are not ported yet; use .npz')
+    checkpoint_path = ckpt_lib.resolve_checkpoint_path(checkpoint_path, epoch)
+    print_fn('Loading weights from: ' + checkpoint_path)
+    loaded = ckpt_lib.load_checkpoint(checkpoint_path)
+    seeker_args = loaded['seeker_args']
+    cfg = seeker_config_from_args(seeker_args)
+    if compute_dtype is not None:
+        cfg = dataclasses.replace(cfg, compute_dtype=compute_dtype)
+    epoch = int(loaded['epoch'])
+    print_fn('=> Loaded epoch (1-based): ' + str(epoch + 1))
+    return loaded['params'], cfg, loaded['train_args'], loaded['dset_args'], seeker_args, epoch
+
+
+class InferenceEngine:
+    '''The seeker on one device, answering batched plugin requests.'''
+
+    def __init__(self, params, cfg: SeekerConfig, device='cuda'):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.model = MaskTracker(cfg, device=self.device)
+        self.model.load_state_dict(params_from_jax(params))
+        self.model.eval()
+
+    def run_plugin(self, rgb: np.ndarray, query: np.ndarray, target: np.ndarray):
+        '''Batched usage modes (B, 3|1|3, T, H, W) -> per-example (model_retval,
+        loss_retval) lists in the schema of tcow_tpu InferenceEngine.run_plugin.'''
+        with torch.inference_mode():
+            out_mask, out_flags = self.model(torch.as_tensor(rgb, device=self.device),
+                                             torch.as_tensor(query, device=self.device))
+            tgt = torch.as_tensor(target, device=self.device)
+            per_ex = [metrics_lib.mask_track_metric_sums(out_mask[b][None, None],
+                                                         tgt[b][None, None])
+                      for b in range(rgb.shape[0])]
+            keys = list(per_ex[0])
+            sums = torch.stack([torch.stack([d[k] for k in keys]) for d in per_ex]).cpu().numpy()
+            out_mask = out_mask.cpu().numpy()
+            out_flags = out_flags.cpu().numpy() if out_flags is not None else None
+        results = []
+        for b in range(rgb.shape[0]):
+            model_retval = {
+                'seeker_input': rgb[b:b + 1],
+                'output_mask': out_mask[b:b + 1],
+                'output_flags': None if out_flags is None else out_flags[b:b + 1],
+                'target_mask': target[b:b + 1],
+                'seeker_query_mask': query[b:b + 1],
+            }
+            loss_retval = {'metrics': metrics_lib.finalize_metric_sums(
+                dict(zip(keys, sums[b])))}
+            results.append((model_retval, loss_retval))
+        return results

@@ -1,0 +1,284 @@
+'''
+Divided space-time TimeSformer backbone in PyTorch, inference only: the port of
+tcow_tpu/models/timesformer.py (forward :713-862, _divided_block :388-450).
+
+Parameters keep the JAX layout and names (linear `w` is (din, dout), LayerNorm `g`/`b`),
+with the stacked block axis unrolled into a ModuleList; weights.py converts between the
+two. Master weights stay float32 and are cast to the compute dtype at use.
+'''
+
+import dataclasses
+import math
+from typing import Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tcow_tpu_torch.ops.fused_attention import fused_attention
+
+# Input normalization constants for pretrained backbones.
+TIMESFORMER_MEAN = (0.45, 0.45, 0.45)
+TIMESFORMER_STD = (0.225, 0.225, 0.225)
+
+# network_depth -> (embed_dim, num_heads), as in tcow_tpu timesformer.py:39.
+DEPTH_PRESETS = {12: (768, 12), 18: (896, 14), 24: (1024, 16)}
+
+
+def check_ported(attention_type: str, temporal_rope: bool):
+    '''Raises for the configurations this port does not run yet.'''
+    if attention_type != 'divided_space_time':
+        raise NotImplementedError(f'attention_type={attention_type!r} is not ported yet '
+                                  '(only divided_space_time)')
+    if temporal_rope:
+        raise NotImplementedError('temporal_rope is not ported yet')
+
+
+@dataclasses.dataclass(frozen=True)
+class TimeSformerConfig:
+    frame_height: int = 240
+    frame_width: int = 320
+    patch_size: int = 16
+    in_channels: int = 4
+    num_frames: int = 30
+    depth: int = 12
+    embed_dim: int = 768
+    num_heads: int = 12
+    mlp_ratio: float = 4.0
+    attention_type: str = 'divided_space_time'
+    causal_attention: int = 0  # 0 off; 1/2 tril; >=3 tril(diagonal=ca-2); -1 no-cls variant
+    norm_embeddings: bool = False
+    normalize_inputs: bool = False  # subtract ImageNet-video mean/std on RGB channels
+    ln_eps: float = 1e-6
+    compute_dtype: torch.dtype = torch.float32
+    temporal_rope: bool = False
+
+    def __post_init__(self):
+        check_ported(self.attention_type, self.temporal_rope)
+
+    @property
+    def grid_h(self) -> int:
+        return self.frame_height // self.patch_size
+
+    @property
+    def grid_w(self) -> int:
+        return self.frame_width // self.patch_size
+
+    @property
+    def num_patches(self) -> int:
+        return self.grid_h * self.grid_w
+
+    @property
+    def mlp_dim(self) -> int:
+        return int(self.embed_dim * self.mlp_ratio)
+
+
+# ---------------------------------------------------------------------------
+# Initialization
+# ---------------------------------------------------------------------------
+
+_TRUNC_LO = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))   # standard normal CDF at -2
+
+
+def trunc_normal_(t: torch.Tensor, generator: torch.Generator, std: float = 0.02):
+    '''Fills t with a normal truncated at +-2 sigma (torch trunc_normal_ semantics), drawn
+    by inverse CDF from `generator` (on the generator's device) and copied into t.'''
+    u = torch.empty(t.shape, dtype=torch.float64, device=generator.device)
+    u.uniform_(_TRUNC_LO, 1.0 - _TRUNC_LO, generator=generator)
+    z = torch.erfinv(2.0 * u - 1.0) * math.sqrt(2.0)
+    with torch.no_grad():
+        t.copy_((z.clamp_(-2.0, 2.0) * std).to(t.dtype))
+    return t
+
+
+# ---------------------------------------------------------------------------
+# Core ops
+# ---------------------------------------------------------------------------
+
+class Dense(nn.Module):
+    '''y = x w + b with w (din, dout), both cast to x's dtype at use (timesformer.py:207).'''
+
+    def __init__(self, din: int, dout: int, device=None):
+        super().__init__()
+        self.w = nn.Parameter(torch.zeros(din, dout, device=device))
+        self.b = nn.Parameter(torch.zeros(dout, device=device))
+
+    def forward(self, x):
+        return torch.matmul(x, self.w.to(x.dtype)) + self.b.to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    '''LayerNorm computed in float32, result in the input dtype (timesformer.py:199-204).'''
+
+    def __init__(self, dim: int, eps: float, device=None):
+        super().__init__()
+        self.eps = eps
+        self.g = nn.Parameter(torch.ones(dim, device=device))
+        self.b = nn.Parameter(torch.zeros(dim, device=device))
+
+    def forward(self, x):
+        xf = x.float()
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = (xf - mean).square().mean(dim=-1, keepdim=True)
+        y = (xf - mean) * torch.rsqrt(var + self.eps)
+        return (y * self.g + self.b).to(x.dtype)
+
+
+class Attention(nn.Module):
+    '''Multi-head self-attention over the second-to-last axis (timesformer.py:212-316),
+    always through ops.fused_attention: the plain version on the CPU, the kernel on CUDA.'''
+
+    def __init__(self, dim: int, num_heads: int, device=None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.qkv = Dense(dim, 3 * dim, device)
+        self.proj = Dense(dim, dim, device)
+
+    def forward(self, x, causal_attention: int):
+        *lead, S, D = x.shape
+        out = fused_attention(x.reshape(-1, S, D).contiguous(), self.qkv.w, self.qkv.b,
+                              self.proj.w, self.proj.b, self.num_heads, causal_attention)
+        return out.reshape(*lead, S, D)
+
+
+class Mlp(nn.Module):
+    def __init__(self, dim: int, hidden: int, device=None):
+        super().__init__()
+        self.fc1 = Dense(dim, hidden, device)
+        self.fc2 = Dense(hidden, dim, device)
+
+    def forward(self, x):
+        return self.fc2(F.gelu(self.fc1(x)))   # exact (erf) GELU
+
+
+class DividedBlock(nn.Module):
+    '''One divided space-time block at inference (timesformer.py:388-450).'''
+
+    def __init__(self, cfg: TimeSformerConfig, device=None):
+        super().__init__()
+        D = cfg.embed_dim
+        self.cfg = cfg
+        self.norm1 = LayerNorm(D, cfg.ln_eps, device)
+        self.attn = Attention(D, cfg.num_heads, device)
+        self.norm2 = LayerNorm(D, cfg.ln_eps, device)
+        self.mlp = Mlp(D, cfg.mlp_dim, device)
+        self.temporal_norm1 = LayerNorm(D, cfg.ln_eps, device)
+        self.temporal_attn = Attention(D, cfg.num_heads, device)
+        self.temporal_fc = Dense(D, D, device)
+
+    def forward(self, xs, cls):
+        '''xs (B, N, T, D) patch tokens, cls (B, D) -> updated (xs, cls).'''
+        B, N, T, D = xs.shape
+        ca = self.cfg.causal_attention
+
+        # Temporal attention over T per patch location.
+        res_t = self.temporal_attn(self.temporal_norm1(xs), ca)
+        xt = xs + self.temporal_fc(res_t)
+
+        # Spatial attention over patches per frame, with the three cls behaviours.
+        xsp = xt.transpose(1, 2)                                   # (B, T, N, D)
+        if ca in (0, 1):
+            seq = torch.cat([cls[:, None, None, :].expand(B, T, 1, D), xsp], dim=2)
+            res_sp = self.attn(self.norm1(seq), 0)                 # (B, T, N+1, D)
+            cls_out = res_sp[:, :, 0, :]
+            # ca 0: mean over frames; ca 1: frame-0 copy.
+            cls_new = cls_out.mean(dim=1) if ca == 0 else cls_out[:, 0, :]
+            res_sp = res_sp[:, :, 1:, :].transpose(1, 2)
+        else:  # ca >= 2 or ca == -1: no cls token in spatial attention.
+            res_sp = self.attn(self.norm1(xsp), 0).transpose(1, 2)
+            cls_new = torch.zeros_like(cls)
+
+        tokens = xt + res_sp
+        cls2 = cls + cls_new
+        tokens = tokens + self.mlp(self.norm2(tokens))
+        cls2 = cls2 + self.mlp(self.norm2(cls2))
+        return tokens, cls2
+
+
+def nearest_resize_1d(emb: torch.Tensor, new_len: int, dim: int = 0) -> torch.Tensor:
+    '''torch F.interpolate(mode=nearest) semantics: src = floor(dst * in/out).'''
+    n_in = emb.shape[dim]
+    if n_in == new_len:
+        return emb
+    idx = np.floor(np.arange(new_len) * n_in / new_len).astype(np.int64)
+    return emb.index_select(dim, torch.as_tensor(idx, device=emb.device))
+
+
+def resize_pos_embed(pos_embed: torch.Tensor, src_grid: Tuple[int, int],
+                     grid: Tuple[int, int]) -> torch.Tensor:
+    '''Nearest-resizes the non-cls part of a (N+1, D) pos embed laid out on `src_grid`
+    (h, w) to `grid`; kept as is when the patch counts agree (timesformer.py:349-372).'''
+    (sh, sw), (gh, gw) = src_grid, grid
+    if sh * sw == gh * gw:
+        return pos_embed
+    D = pos_embed.shape[1]
+    g = pos_embed[1:].reshape(sh, sw, D)
+    g = nearest_resize_1d(nearest_resize_1d(g, gh, dim=0), gw, dim=1)
+    return torch.cat([pos_embed[0:1], g.reshape(gh * gw, D)], dim=0)
+
+
+class TimeSformer(nn.Module):
+    '''Dense forward: pixels (B, C, T, H, W) -> (features (B, D, T, H', W'), cls (B, D)).'''
+
+    def __init__(self, cfg: TimeSformerConfig, device=None):
+        super().__init__()
+        D, p = cfg.embed_dim, cfg.patch_size
+        self.cfg = cfg
+        self.patch_embed = Dense(p * p * cfg.in_channels, D, device)
+        self.cls_token = nn.Parameter(torch.zeros(D, device=device))
+        self.pos_embed = nn.Parameter(torch.zeros(cfg.num_patches + 1, D, device=device))
+        self.time_embed = nn.Parameter(torch.zeros(cfg.num_frames, D, device=device))
+        self.norm = LayerNorm(D, cfg.ln_eps, device)
+        self.blocks = nn.ModuleList(DividedBlock(cfg, device) for _ in range(cfg.depth))
+
+    def init_params_(self, generator: torch.Generator):
+        '''Random init of tcow_tpu timesformer.init_params (:149-188): trunc-normal(0.02)
+        linears and embeddings, zero biases, unit LayerNorm, temporal_fc zero for blocks > 0.'''
+        for name, prm in self.named_parameters():
+            leaf = name.rsplit('.', 1)[-1]
+            with torch.no_grad():
+                if leaf in ('w', 'cls_token', 'pos_embed', 'time_embed'):
+                    trunc_normal_(prm, generator)
+                elif leaf == 'g':
+                    prm.fill_(1.0)
+                else:
+                    prm.zero_()
+        with torch.no_grad():
+            for blk in self.blocks[1:]:
+                blk.temporal_fc.w.zero_()
+
+    def forward(self, pixels: torch.Tensor):
+        cfg = self.cfg
+        B, C, T, H, W = pixels.shape
+        p, D = cfg.patch_size, cfg.embed_dim
+        gh, gw = H // p, W // p
+        N = gh * gw
+        x = pixels.to(cfg.compute_dtype)
+
+        if cfg.normalize_inputs:
+            mean = torch.tensor(TIMESFORMER_MEAN, dtype=x.dtype, device=x.device)
+            std = torch.tensor(TIMESFORMER_STD, dtype=x.dtype, device=x.device)
+            rgb = (x[:, 0:3] - mean.reshape(1, 3, 1, 1, 1)) / std.reshape(1, 3, 1, 1, 1)
+            x = torch.cat([rgb, x[:, 3:]], dim=1)
+
+        # Patch embed over (ph, pw, C) patch vectors (timesformer.py:738-744).
+        x = x.permute(0, 2, 3, 4, 1).reshape(B, T, gh, p, gw, p, C)
+        x = x.permute(0, 1, 2, 4, 3, 5, 6).reshape(B, T, N, p * p * C)
+        x = self.patch_embed(x)
+
+        pos = resize_pos_embed(self.pos_embed, (cfg.grid_h, cfg.grid_w), (gh, gw)).to(x.dtype)
+        x = x + pos[None, None, 1:, :]
+        cls = (self.cls_token.to(x.dtype) + pos[0])[None, :].expand(B, D)
+        time = nearest_resize_1d(self.time_embed, T, dim=0).to(x.dtype)
+        x = x + time[None, :, None, :]
+
+        xs = x.transpose(1, 2).contiguous()   # (B, N, T, D)
+        for blk in self.blocks:
+            xs, cls = blk(xs, cls)
+
+        if cfg.norm_embeddings:
+            xs = self.norm(xs)
+            cls = self.norm(cls)
+        feats = xs.reshape(B, gh, gw, T, D).permute(0, 4, 3, 1, 2)   # (B, D, T, H', W')
+        return feats, cls
