@@ -3,16 +3,26 @@
 Drives the PyTorch port (tcow_tpu_torch) on one NVIDIA GPU and checks it:
 
   1. device line: the card's name and power limit, torch / CUDA / nvcc versions, and the
-     time to build the CUDA source tcow_tpu_torch/ops/csrc/fused_attention.cu;
+     time to build tcow_tpu_torch/ops/csrc/fused_attention.cu (K1 and K4) with nvcc;
   2. each kernel against its plain PyTorch version on the card, at the shapes of the
-     main path (bf16), plus one float32 case;
+     inference and training paths (bf16), plus one float32 case; for K4 also the
+     gradients of the differentiable fused_attention against autograd through the plain
+     forward;
   3. the inference slice at full width: a seeded ViT-B/16 seeker (depth 12, T=30,
      240x320, causal_attention=1, bf16) written to an .npz, loaded back through
      load_networks, and 3 InferenceEngine.run_plugin requests of 2 clips each, with the
      kernel launch counts read around them; outputs are checked for shape, finiteness,
      metric schema, and against the same engine with the plain attention swapped in;
-  4. times: per request, per forward, and per kernel call beside its plain version, one
-     PyTorch library call computing the same function, and its bound on the card.
+  4. inference times: per request, per forward, and per kernel call beside its plain
+     version, one PyTorch library call computing the same function, and its bound;
+  5. the training slice at full width (the step of record: 2 clips, 3 queries, T=30 at
+     240x320, M=36, bf16, per-block remat, drop-path 0.1, AdamW): init_train_state ->
+     make_optimizer -> make_train_step, one warm-up and 3 timed steps, each checked for a
+     finite loss, an applied update, changed parameters and 48 K1 / 24 K4 launches;
+  6. training parity with drop-path off (first-step loss and concatenated gradient: bf16
+     kernel and plain paths against the f32 plain path; f32 kernel vs plain at depth 2);
+  7. training times: K4 and K1 per call at the training shapes beside their plain
+     versions, library yardsticks and bounds, and kernel-path vs plain-path steps.
 
 Run from the repository root: `python3 chip_smoke.py`. Prints one JSON object per phase,
 then the `{"kernels": [...]}` line, the nvidia-smi line, and last
@@ -32,12 +42,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tcow_tpu_torch.data.synthetic import synthetic_device_batch
 from tcow_tpu_torch.evaluation.inference import InferenceEngine, load_networks
 from tcow_tpu_torch.models import timesformer as tsf
 from tcow_tpu_torch.models.mask_tracker import MaskTracker, seeker_config_from_args
+from tcow_tpu_torch.objectives.losses import LossConfig
 from tcow_tpu_torch.objectives.metrics import METRIC_KEYS
 from tcow_tpu_torch.ops import _build
 from tcow_tpu_torch.ops import fused_attention as fa
+from tcow_tpu_torch.train import optim
+from tcow_tpu_torch.train import step as step_lib
 from tcow_tpu_torch.train.checkpoint import save_checkpoint
 from tcow_tpu_torch.weights import params_to_jax
 
@@ -59,6 +73,13 @@ D, HEADS = 768, 12
 # K1 geometries of the main path: temporal (B*N sequences of T, causal_attention=1)
 # and spatial (B*T sequences of N+1, never causal).
 GEOMETRIES = {'temporal': (BATCH * 300, 30, 1), 'spatial': (BATCH * 30, 301, 0)}
+# The training step of record (bench.py:36-52 of the JAX package): B=2 clips, Q=3 queries
+# folded into a backbone batch of 6; K4 geometries of its backward.
+TRAIN_B, TRAIN_Q, TRAIN_M, TRAIN_K = 2, 3, 36, 8
+TRAIN_GEOMETRIES = {'temporal': (TRAIN_B * TRAIN_Q * 300, 30, 1),
+                    'spatial': (TRAIN_B * TRAIN_Q * 30, 301, 0)}
+TRAIN_PROGRESS = 0.1
+TRAIN_STEPS = 3      # timed, after one warm-up step
 
 # Tolerances, relative L2 error ||kernel - plain|| / ||plain||:
 # bf16 kernel vs the plain version in float32 from the same bf16-rounded inputs: the
@@ -66,11 +87,24 @@ GEOMETRIES = {'temporal': (BATCH * 300, 30, 1), 'spatial': (BATCH * 30, 301, 0)}
 TOL_BF16 = 1e-2
 # float32 kernel vs float32 plain (TF32 off): only the order of the sums differs.
 TOL_F32 = 1e-4
+# K4 bf16 vs its plain version in f32 from the same bf16-rounded inputs: the kernel rounds
+# qkv, dattn, p, attn, dlog, dq, dk and dv to bf16, and dlog = pf (dp - delta) cancels.
+TOL_K4_BF16 = 2e-2
+# K4 and the whole Function in float32 vs the plain version / autograd in float32: only
+# the order of the sums differs.
+TOL_K4_F32 = 1e-4
 # Full seeker forward, bf16, kernel path vs plain path: both round to bf16 in every one
 # of 12 blocks, at different points (the kernel once per GEMM, the plain path twice).
 TOL_SEEKER_BF16 = 5e-2
 # Full seeker forward in float32, kernel path vs plain path.
 TOL_SEEKER_F32 = 1e-3
+# Training step, drop-path off: the kernel path's bf16 error in the loss and in the
+# concatenated gradient, against the plain path in f32, may be at most this multiple of
+# the plain path's own bf16 error (both round to bf16 in every block, at other points).
+TRAIN_BF16_ERR_RATIO = 1.5
+# Training step in float32 at depth 2, full width: kernel path vs plain path, relative L2
+# of the concatenated gradient and the loss (the order of the sums differs).
+TOL_TRAIN_F32 = 1e-3
 
 
 def fail(msg):
@@ -100,16 +134,18 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def attended_pairs(S, ca):
+    '''(query, key) pairs of one sequence that the mask keeps.'''
+    if ca > 0:
+        diag = 0 if ca <= 2 else ca - 2
+        return sum(min(S, q + diag + 1) for q in range(S))
+    return S * S
+
+
 def k1_flops(B, S, ca):
     '''Operations one fused attention call needs: qkv and proj GEMMs, and scores + P.v
     over the (query, key) pairs the mask keeps.'''
-    dh = D // HEADS
-    if ca > 0:
-        diag = 0 if ca <= 2 else ca - 2
-        pairs = sum(min(S, q + diag + 1) for q in range(S))
-    else:
-        pairs = S * S
-    return 2 * B * S * D * 4 * D + 2 * 2 * B * HEADS * pairs * dh
+    return 2 * B * S * D * 4 * D + 2 * 2 * B * HEADS * attended_pairs(S, ca) * (D // HEADS)
 
 
 def k1_bytes(B, S, itemsize):
@@ -117,9 +153,21 @@ def k1_bytes(B, S, itemsize):
     return 2 * B * S * D * itemsize + (4 * D * D + 4 * D) * 4
 
 
-def k1_bound_ms(B, S, ca):
-    '''The least time of one bf16 call on the card: operations or bytes, the larger.'''
-    return 1e3 * max(k1_flops(B, S, ca) / PEAK_BF16_FLOPS, k1_bytes(B, S, 2) / PEAK_HBM_BYTES)
+def k4_flops(B, S, ca):
+    '''Operations of one K4 call: the qkv recompute and g . proj_w^T (8 B S D^2), and
+    per kept (query, key) pair and head the logits, P.v, dv, dp, dq and dk (12 D).'''
+    return 8 * B * S * D * D + 12 * D * attended_pairs(S, ca) * B
+
+
+def k4_bytes(B, S, itemsize):
+    '''x and g read once, dqkv and attn written once, the f32 weights read once.'''
+    return 6 * B * S * D * itemsize + (4 * D * D + 3 * D) * 4
+
+
+def bound(flops, nbytes):
+    '''(least ms on the card, what bounds it) for bf16 work.'''
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    return 1e3 * max(t_ops, t_bytes), ('operations' if t_ops >= t_bytes else 'bytes')
 
 
 def seeker_forward_flops(cfg, B):
@@ -183,7 +231,11 @@ def phase_device():
 
 
 def phase_kernel_vs_plain():
+    '''K1 at the inference and training geometries (bf16) and one float32 case, against
+    attention_ref in f32 from the same inputs.'''
     cases = [(name, B, S, ca, torch.bfloat16) for name, (B, S, ca) in GEOMETRIES.items()]
+    cases += [(f'train_{name}', B, S, ca, torch.bfloat16)
+              for name, (B, S, ca) in TRAIN_GEOMETRIES.items()]
     cases.append(('f32_causal3', 16, 301, 3, torch.float32))
     errs = {}
     for i, (name, B, S, ca, dtype) in enumerate(cases):
@@ -200,6 +252,44 @@ def phase_kernel_vs_plain():
         if not errs[name]['rel_l2_err'] <= tol:
             fail(f'{name}: kernel vs plain rel L2 {errs[name]["rel_l2_err"]} > {tol}')
     emit({'phase': 'kernel_vs_plain', 'cases': errs})
+    return errs
+
+
+def phase_k4_vs_plain():
+    '''K4 at the training geometries (bf16) and one float32 case: (dqkv, attn) against
+    attention_bwd_ref in f32 from the same inputs, and the Function's gradients of x and
+    the four weights against autograd through attention_ref in f32.'''
+    cases = [(name, B, S, ca, torch.bfloat16) for name, (B, S, ca) in TRAIN_GEOMETRIES.items()]
+    cases.append(('f32_causal3', 16, 301, 3, torch.float32))
+    errs = {}
+    for i, (name, B, S, ca, dtype) in enumerate(cases):
+        x, w = attn_inputs(B, S, dtype, SEED + 10 + i)
+        g = torch.from_numpy(np.random.RandomState(SEED + 20 + i).randn(B, S, D)
+                             .astype(np.float32)).to(DEV, dtype)
+        dqkv, attn = fa.fused_attention_bwd(x, g, *w[:3], HEADS, ca)
+        want_dqkv, want_attn = fa.attention_bwd_ref(x.float(), g.float(), *w[:3], HEADS, ca)
+        leaves = [x.clone().requires_grad_()] + [a.clone().requires_grad_() for a in w]
+        fa.fused_attention(*leaves, HEADS, ca).backward(g)
+        ref = [x.float().requires_grad_()] + [a.clone().requires_grad_() for a in w]
+        fa.attention_ref(*ref, HEADS, ca).backward(g.float())
+        torch.cuda.synchronize()
+        if dqkv.shape != (B, S, 3 * D) or attn.shape != x.shape or dqkv.dtype != dtype:
+            fail(f'{name}: K4 outputs {tuple(dqkv.shape)} {tuple(attn.shape)} {dqkv.dtype}')
+        tol = TOL_K4_BF16 if dtype == torch.bfloat16 else TOL_K4_F32
+        e = dict(B=B, S=S, ca=ca, dtype=str(dtype).replace('torch.', ''), tol_rel_l2=tol,
+                 max_abs_err=max(float((dqkv.float() - want_dqkv).abs().max()),
+                                 float((attn.float() - want_attn).abs().max())),
+                 rel_l2_dqkv=rel_l2(dqkv.float(), want_dqkv),
+                 rel_l2_attn=rel_l2(attn.float(), want_attn))
+        for gname, a, b in zip(('dx', 'dqkv_w', 'dqkv_b', 'dproj_w', 'dproj_b'), leaves, ref):
+            if a.grad is None or a.grad.dtype != a.dtype:
+                fail(f'{name}: no {gname} of dtype {a.dtype} from the Function')
+            e[f'rel_l2_{gname}'] = rel_l2(a.grad.float(), b.grad)
+        errs[name] = e
+        bad = {k: v for k, v in e.items() if k.startswith('rel_l2') and not v <= tol}
+        if bad:
+            fail(f'{name}: K4 vs plain rel L2 above {tol}: {bad}')
+    emit({'phase': 'k4_vs_plain', 'cases': errs})
     return errs
 
 
@@ -314,17 +404,234 @@ def phase_times(params, cfg, inputs):
         for i, (name, (B, S, ca)) in enumerate(GEOMETRIES.items()):
             x, w = attn_inputs(B, S, torch.bfloat16, SEED + 100 + i)
             w16 = [a.to(torch.bfloat16) for a in w]
+            bound_ms, bound_by = bound(k1_flops(B, S, ca), k1_bytes(B, S, 2))
             per_geom[name] = dict(
                 B=B, S=S, ca=ca,
                 ms=cuda_ms(lambda: fa.fused_attention(x, *w, HEADS, ca)),
                 plain_ms=cuda_ms(lambda: fa.attention_ref(x, *w, HEADS, ca)),
                 library_ms=cuda_ms(lambda: library_attention(x, w16, ca)),
-                bound_ms=k1_bound_ms(B, S, ca),
-                bound_by=('operations' if k1_flops(B, S, ca) / PEAK_BF16_FLOPS
-                          >= k1_bytes(B, S, 2) / PEAK_HBM_BYTES else 'bytes'),
+                bound_ms=bound_ms, bound_by=bound_by,
                 flops=k1_flops(B, S, ca), bytes=k1_bytes(B, S, 2))
     emit({'phase': 'kernel_times', 'per_call': per_geom})
     return per_geom
+
+
+@contextlib.contextmanager
+def depth_preset(depth, width_heads):
+    '''Registers a backbone preset (network_depth -> (width, heads)) for the block.'''
+    tsf.DEPTH_PRESETS[depth] = width_heads
+    try:
+        yield
+    finally:
+        del tsf.DEPTH_PRESETS[depth]
+
+
+def train_config(dtype, drop_path_rate=0.1, depth=12):
+    '''The step of record: ViT-B/16, T=30 at 240x320, causal 1, per-block remat.'''
+    seeker = seeker_config_from_args(SEEKER_ARGS, drop_path_rate=drop_path_rate,
+                                     compute_dtype=dtype, remat=True, network_depth=depth)
+    return step_lib.StepConfig(seeker=seeker, loss=LossConfig(), num_queries=TRAIN_Q)
+
+
+def train_batch():
+    T, H, W = (SEEKER_ARGS[k] for k in ('num_total_frames', 'frame_height', 'frame_width'))
+    b = synthetic_device_batch(0, B=TRAIN_B, Q=TRAIN_Q, T=T, H=H, W=W, M=TRAIN_M, K=TRAIN_K)
+    return {k: torch.as_tensor(v, device=DEV) for k, v in b.items()}
+
+
+def step_flops(cfg, remat_recompute=True):
+    '''Matmul operations of one training step over the B*Q folded clips: the forward and a
+    backward of twice the forward (3 forwards), plus the forward's recompute under remat
+    (4 forwards) when remat_recompute. The recompute is a choice of design, not work the
+    step needs.'''
+    return (4 if remat_recompute else 3) * seeker_forward_flops(cfg.seeker, TRAIN_B * TRAIN_Q)
+
+
+def timed_step(train_step, state, batch, plain=False):
+    '''One train step; returns (state, aux, device ms by CUDA events, host ms).'''
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with plain_attention() if plain else contextlib.nullcontext():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        state, aux = train_step(state, batch, TRAIN_PROGRESS)
+        end.record()
+        torch.cuda.synchronize()
+    return state, aux, start.elapsed_time(end), 1e3 * (time.perf_counter() - t0)
+
+
+def phase_train():
+    '''The training main path: init_train_state -> make_optimizer -> make_train_step,
+    one warm-up and TRAIN_STEPS timed steps at full width, bf16, remat, drop-path 0.1.'''
+    cfg = train_config(torch.bfloat16)
+    tx = optim.make_optimizer('adamw', learn_rate=1e-4, num_epochs=70, steps_per_epoch=1000,
+                              gradient_clip=0.3)
+    state = step_lib.init_train_state(SEED, cfg, tx, device=DEV)
+    init_state = {k: v.clone() for k, v in state.model.state_dict().items()}
+    train_step = step_lib.make_train_step(cfg)
+    batch = train_batch()
+    last = cfg.seeker.network_depth - 1
+    watch = ('backbone.blocks.0.attn.qkv.w', f'backbone.blocks.{last}.temporal_attn.proj.w',
+             'post_linear.w')
+    per_step_k1, per_step_k4 = 4 * cfg.seeker.network_depth, 2 * cfg.seeker.network_depth
+    steps = []
+    torch.cuda.reset_peak_memory_stats()
+    fa.fused_attention.launches = fa.fused_attention_bwd.launches = 0
+    for i in range(1 + TRAIN_STEPS):
+        before = {k: state.model.state_dict()[k].clone() for k in watch}
+        k1, k4 = fa.fused_attention.launches, fa.fused_attention_bwd.launches
+        state, aux, ms, host_ms = timed_step(train_step, state, batch)
+        rec = dict(step=i, step_ms=ms, host_ms=host_ms, loss=float(aux['total_seeker']),
+                   grad_norm=float(aux['grad_norm']),
+                   skipped_nonfinite=float(aux['skipped_nonfinite']),
+                   k1_launches=fa.fused_attention.launches - k1,
+                   k4_launches=fa.fused_attention_bwd.launches - k4)
+        steps.append(rec)
+        if not np.isfinite(rec['loss']) or rec['skipped_nonfinite'] != 0.0:
+            fail(f'train step {i}: loss {rec["loss"]}, skipped {rec["skipped_nonfinite"]}')
+        if (rec['k1_launches'], rec['k4_launches']) != (per_step_k1, per_step_k4):
+            fail(f'train step {i}: K1 {rec["k1_launches"]} / K4 {rec["k4_launches"]} '
+                 f'launches, expected {per_step_k1} / {per_step_k4}')
+        unchanged = [k for k in watch if torch.equal(state.model.state_dict()[k], before[k])]
+        if unchanged:
+            fail(f'train step {i}: parameters did not change: {unchanged}')
+    launches = {'k1': fa.fused_attention.launches, 'k4': fa.fused_attention_bwd.launches}
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = sum(r['step_ms'] for r in steps[1:]) / TRAIN_STEPS
+    flops, flops3 = step_flops(cfg), step_flops(cfg, remat_recompute=False)
+    emit({'phase': 'train', 'clips': TRAIN_B, 'queries': TRAIN_Q, 'steps': steps,
+          'launches': launches, 'step_ms': step_ms, 'clips_per_s': TRAIN_B / (step_ms / 1e3),
+          'max_memory_allocated_bytes': peak, 'step_matmul_flops': flops,
+          'step_bound_ms': 1e3 * flops / PEAK_BF16_FLOPS,
+          'step_matmul_flops_no_recompute': flops3,
+          'step_bound_ms_no_recompute': 1e3 * flops3 / PEAK_BF16_FLOPS})
+    return dict(cfg=cfg, state=state, train_step=train_step, batch=batch,
+                init_state=init_state, launches=launches, step_ms=step_ms)
+
+
+def loss_and_flat_grad(model, cfg, batch, plain):
+    '''(loss, every parameter gradient concatenated in f32) of one batch, drop-path off.'''
+    model.zero_grad(set_to_none=True)
+    with plain_attention() if plain else contextlib.nullcontext():
+        loss, _ = step_lib.loss_and_aux(model, cfg, batch, None, TRAIN_PROGRESS, True)
+        loss.backward()
+    grad = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).float().flatten()
+                      for p in model.parameters()])
+    return float(loss.detach()), grad
+
+
+def model_from(cfg, state_dict):
+    model = MaskTracker(cfg.seeker, device=DEV)
+    model.load_state_dict(state_dict)
+    return model
+
+
+def phase_train_parity(init_state, batch):
+    '''First-step loss and gradient with drop-path off. bf16 kernel path and bf16 plain
+    path, each against the f32 plain path; and f32 kernel vs f32 plain at depth 2.'''
+    rel = lambda a, b: abs(a - b) / abs(b)
+    cfg16, cfg32 = train_config(torch.bfloat16, 0.0), train_config(torch.float32, 0.0)
+    model = model_from(cfg16, init_state)
+    loss_k, grad_k = loss_and_flat_grad(model, cfg16, batch, plain=False)
+    loss_p, grad_p = loss_and_flat_grad(model, cfg16, batch, plain=True)
+    del model
+    model = model_from(cfg32, init_state)
+    loss_r, grad_r = loss_and_flat_grad(model, cfg32, batch, plain=True)
+    del model
+    errs = {'loss_kernel_bf16': rel(loss_k, loss_r), 'loss_plain_bf16': rel(loss_p, loss_r),
+            'grad_kernel_bf16': rel_l2(grad_k, grad_r), 'grad_plain_bf16': rel_l2(grad_p, grad_r)}
+    del grad_k, grad_p, grad_r
+    with depth_preset(2, (D, HEADS)):
+        cfg2 = train_config(torch.float32, 0.0, depth=2)
+        model = MaskTracker(cfg2.seeker, device=DEV)
+        model.init_params_(torch.Generator().manual_seed(SEED))
+        loss_k2, grad_k2 = loss_and_flat_grad(model, cfg2, batch, plain=False)
+        loss_p2, grad_p2 = loss_and_flat_grad(model, cfg2, batch, plain=True)
+        del model
+    errs.update(loss_kernel_vs_plain_f32_depth2=rel(loss_k2, loss_p2),
+                grad_kernel_vs_plain_f32_depth2=rel_l2(grad_k2, grad_p2))
+    for what in ('loss', 'grad'):
+        if not errs[f'{what}_kernel_bf16'] <= TRAIN_BF16_ERR_RATIO * errs[f'{what}_plain_bf16']:
+            fail(f'train parity: bf16 {what} error of the kernel path '
+                 f'{errs[f"{what}_kernel_bf16"]} > {TRAIN_BF16_ERR_RATIO} x the plain '
+                 f'path\'s {errs[f"{what}_plain_bf16"]}')
+        if not errs[f'{what}_kernel_vs_plain_f32_depth2'] <= TOL_TRAIN_F32:
+            fail(f'train parity: f32 {what} kernel vs plain at depth 2 '
+                 f'{errs[f"{what}_kernel_vs_plain_f32_depth2"]} > {TOL_TRAIN_F32}')
+    emit({'phase': 'train_parity', 'losses': {'kernel_bf16': loss_k, 'plain_bf16': loss_p,
+                                              'plain_f32': loss_r, 'kernel_f32_depth2': loss_k2,
+                                              'plain_f32_depth2': loss_p2},
+          'rel_err': errs, 'bf16_err_ratio_limit': TRAIN_BF16_ERR_RATIO,
+          'tol_f32_depth2': TOL_TRAIN_F32})
+    return errs
+
+
+def library_attention_bwd(x, w16, ca, g):
+    '''K4's function, (dqkv, attn) from x and g, with library calls (yardstick only): the
+    qkv recompute and g . proj_w^T as addmm / mm, then SDPA's forward for attn and its
+    autograd backward for dq, dk and dv. No weight or input gradients.'''
+    B, S, _ = x.shape
+    dh = D // HEADS
+
+    def run():
+        qkv = torch.addmm(w16[1], x.reshape(B * S, D), w16[0]).reshape(B, S, 3, HEADS, dh)
+        q, k, v = (t.detach().requires_grad_() for t in qkv.permute(2, 0, 3, 1, 4).unbind(0))
+        dattn = torch.mm(g.reshape(B * S, D), w16[2].T).reshape(B, S, HEADS, dh).transpose(1, 2)
+        with torch.enable_grad():
+            attn = F.scaled_dot_product_attention(q, k, v, is_causal=ca > 0)
+            return attn, torch.autograd.grad(attn, (q, k, v), dattn)
+    return run
+
+
+def phase_train_times(train):
+    '''K4 (and K1) per call at the training geometries beside the plain version, the
+    library yardstick and the bound; then a kernel-path step against a plain-path step,
+    alternated in this process: plain, kernel, kernel, plain.'''
+    per_geom = {'k1': {}, 'k4': {}}
+    for i, (name, (B, S, ca)) in enumerate(TRAIN_GEOMETRIES.items()):
+        x, w = attn_inputs(B, S, torch.bfloat16, SEED + 200 + i)
+        g = torch.from_numpy(np.random.RandomState(SEED + 210 + i).randn(B, S, D)
+                             .astype(np.float32)).to(DEV, torch.bfloat16)
+        w16 = [a.to(torch.bfloat16) for a in w]
+        with torch.no_grad():
+            b4 = bound(k4_flops(B, S, ca), k4_bytes(B, S, 2))
+            per_geom['k4'][name] = dict(
+                B=B, S=S, ca=ca,
+                ms=cuda_ms(lambda: fa.fused_attention_bwd(x, g, *w[:3], HEADS, ca), iters=10),
+                plain_ms=cuda_ms(lambda: fa.attention_bwd_ref(x, g, *w[:3], HEADS, ca),
+                                 iters=10),
+                bound_ms=b4[0], bound_by=b4[1], flops=k4_flops(B, S, ca),
+                bytes=k4_bytes(B, S, 2))
+            b1 = bound(k1_flops(B, S, ca), k1_bytes(B, S, 2))
+            per_geom['k1'][name] = dict(
+                B=B, S=S, ca=ca,
+                ms=cuda_ms(lambda: fa.fused_attention_fwd(x, *w, HEADS, ca), iters=10),
+                plain_ms=cuda_ms(lambda: fa.attention_ref(x, *w, HEADS, ca), iters=10),
+                library_ms=cuda_ms(lambda: library_attention(x, w16, ca), iters=10),
+                bound_ms=b1[0], bound_by=b1[1])
+        per_geom['k4'][name]['library_ms'] = cuda_ms(library_attention_bwd(x, w16, ca, g),
+                                                     iters=10)
+    state, train_step, batch = train['state'], train['train_step'], train['batch']
+    runs = []
+    for plain in (True, False, False, True):
+        state, _, ms, _ = timed_step(train_step, state, batch, plain=plain)
+        runs.append(('plain' if plain else 'kernel', ms))
+    emit({'phase': 'train_times', 'per_call': per_geom, 'step_ms_alternated': runs})
+    return per_geom
+
+
+def kernel_entry(name, source, replaces, launches, errs, per_geom):
+    '''One item of the `kernels` line: means over the geometries of the main path (each
+    is called once per block).'''
+    mean = lambda key: sum(g[key] for g in per_geom.values()) / len(per_geom)
+    bf16 = [e for e in errs.values() if e['dtype'] == 'bfloat16']
+    return {'name': name, 'route': 'cuda', 'source': source, 'replaces': replaces,
+            'launches': sum(launches.values()), 'launches_by_path': launches,
+            'max_abs_err': max(e['max_abs_err'] for e in bf16),
+            'ms': mean('ms'), 'plain_ms': mean('plain_ms'), 'bound_ms': mean('bound_ms'),
+            'bound_by': ('operations' if all(g['bound_by'] == 'operations'
+                                             for g in per_geom.values()) else 'bytes'),
+            'library_ms': mean('library_ms'), 'per_geometry': per_geom}
 
 
 def main():
@@ -336,28 +643,26 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     smi = phase_device()
     errs = phase_kernel_vs_plain()
+    k4_errs = phase_k4_vs_plain()
     ckpt_dir = _build.BUILD_DIR / 'chip_smoke_ckpt'
     try:
-        params, cfg, launches, inputs = phase_slice(ckpt_dir)
+        params, cfg, inference_launches, inputs = phase_slice(ckpt_dir)
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     per_geom = phase_times(params, cfg, inputs)
+    train = phase_train()
+    phase_train_parity(train['init_state'], train['batch'])
+    train_geom = phase_train_times(train)
 
-    # The main path calls each geometry once per block: report the mean per call.
-    mean = lambda key: sum(g[key] for g in per_geom.values()) / len(per_geom)
-    bf16_cases = [e for e in errs.values() if e['dtype'] == 'bfloat16']
-    max_abs = max(e['max_abs_err'] for e in bf16_cases)
-    emit({'kernels': [{
-        'name': 'fused_attention', 'route': 'cuda',
-        'source': 'tcow_tpu_torch/ops/csrc/fused_attention.cu',
-        'replaces': 'tcow_tpu/ops/pallas_attention.py:87',
-        'launches': launches, 'max_abs_err': max_abs,
-        'rel_l2_err': max(e['rel_l2_err'] for e in bf16_cases),
-        'ms': mean('ms'), 'plain_ms': mean('plain_ms'),
-        'bound_ms': mean('bound_ms'),
-        'bound_by': ('operations' if all(g['bound_by'] == 'operations'
-                                         for g in per_geom.values()) else 'bytes'),
-        'library_ms': mean('library_ms'), 'per_geometry': per_geom}]})
+    k1 = kernel_entry('fused_attention', 'tcow_tpu_torch/ops/csrc/fused_attention.cu',
+                      'tcow_tpu/ops/pallas_attention.py:87',
+                      {'inference': inference_launches, 'train': train['launches']['k1']},
+                      errs, per_geom)
+    k1['per_geometry_train'] = train_geom['k1']
+    k4 = kernel_entry('fused_attention_bwd', 'tcow_tpu_torch/ops/csrc/fused_attention.cu',
+                      'tcow_tpu/ops/pallas_attention.py:548',
+                      {'train': train['launches']['k4']}, k4_errs, train_geom['k4'])
+    emit({'kernels': [k1, k4]})
     print(smi)
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
                                  'count': torch.cuda.device_count()}})

@@ -1,8 +1,8 @@
 '''
-Query-conditioned mask tracker (the "seeker") in PyTorch, inference only: the port of
+Query-conditioned mask tracker (the "seeker") in PyTorch: the port of
 tcow_tpu/models/mask_tracker.py.
 
-forward(input_frames (B,3,T,H,W), query_mask (B,1,T,H,W))
+forward(input_frames (B,3,T,H,W), query_mask (B,1,T,H,W), train=False, generator=None)
     -> (mask_logits (B,3,T,H,W) f32, flags (B,T,F) f32 or None).
 '''
 
@@ -25,6 +25,7 @@ class SeekerConfig:
     attention_type: str = 'divided_space_time'
     causal_attention: int = 1
     norm_embeddings: bool = False
+    drop_path_rate: float = 0.1
     network_depth: int = 12
     track_map_stride: int = 4
     track_map_resize: str = 'bilinear'  # or 'nearest'
@@ -33,6 +34,7 @@ class SeekerConfig:
     flag_channels: int = 3
     pretrained: bool = False  # controls input RGB normalization
     compute_dtype: torch.dtype = torch.float32
+    remat: bool = False  # per-block rematerialization in the backbone
     temporal_rope: bool = False
 
     def __post_init__(self):
@@ -50,8 +52,9 @@ class SeekerConfig:
             num_frames=self.num_total_frames, depth=self.network_depth,
             embed_dim=embed_dim, num_heads=num_heads,
             attention_type=self.attention_type, causal_attention=self.causal_attention,
-            norm_embeddings=self.norm_embeddings, normalize_inputs=self.pretrained,
-            compute_dtype=self.compute_dtype, temporal_rope=self.temporal_rope)
+            norm_embeddings=self.norm_embeddings, drop_path_rate=self.drop_path_rate,
+            normalize_inputs=self.pretrained, compute_dtype=self.compute_dtype,
+            remat=self.remat, temporal_rope=self.temporal_rope)
 
 
 def seeker_config_from_args(seeker_args: Dict[str, Any], **overrides) -> SeekerConfig:
@@ -71,6 +74,7 @@ def seeker_config_from_args(seeker_args: Dict[str, Any], **overrides) -> SeekerC
         attention_type=seeker_args.get('attention_type', 'divided_space_time'),
         causal_attention=int(seeker_args.get('causal_attention', 0)),
         norm_embeddings=bool(seeker_args.get('norm_embeddings', False)),
+        drop_path_rate=float(seeker_args.get('drop_path_rate', 0.1)),
         network_depth=int(seeker_args.get('network_depth', 12)),
         track_map_stride=int(seeker_args.get('track_map_stride', 4)),
         track_map_resize=seeker_args.get('track_map_resize', 'bilinear'),
@@ -136,12 +140,14 @@ class MaskTracker(nn.Module):
                 with torch.no_grad():
                     head.b.zero_()
 
-    def forward(self, input_frames: torch.Tensor, query_mask: torch.Tensor
+    def forward(self, input_frames: torch.Tensor, query_mask: torch.Tensor,
+                train: bool = False, generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        '''train=True with a generator applies stochastic depth drawn from it.'''
         cfg = self.cfg
         B, _, T, _, _ = input_frames.shape
         x = torch.cat([input_frames.float(), query_mask.float()], dim=1)
-        feats, _ = self.backbone(x)
+        feats, _ = self.backbone(x, train=train, generator=generator)
         feats = feats.permute(0, 2, 3, 4, 1)                  # (B, T, H', W', D)
         Ho, Wo = feats.shape[2], feats.shape[3]
         p, C = cfg.patch_size, cfg.output_channels

@@ -1,6 +1,7 @@
 '''
-Divided space-time TimeSformer backbone in PyTorch, inference only: the port of
-tcow_tpu/models/timesformer.py (forward :713-862, _divided_block :388-450).
+Divided space-time TimeSformer backbone in PyTorch: the port of
+tcow_tpu/models/timesformer.py (forward :713-862, _divided_block :388-450), with
+stochastic depth (drop_path :325-337) and per-block rematerialization for training.
 
 Parameters keep the JAX layout and names (linear `w` is (din, dout), LayerNorm `g`/`b`),
 with the stacked block axis unrolled into a ModuleList; weights.py converts between the
@@ -14,6 +15,7 @@ from typing import Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from tcow_tpu_torch.ops.fused_attention import fused_attention
@@ -49,9 +51,11 @@ class TimeSformerConfig:
     attention_type: str = 'divided_space_time'
     causal_attention: int = 0  # 0 off; 1/2 tril; >=3 tril(diagonal=ca-2); -1 no-cls variant
     norm_embeddings: bool = False
+    drop_path_rate: float = 0.1   # stochastic depth of the last block; used when training
     normalize_inputs: bool = False  # subtract ImageNet-video mean/std on RGB channels
     ln_eps: float = 1e-6
     compute_dtype: torch.dtype = torch.float32
+    remat: bool = False  # recompute each block in the backward pass (saves memory)
     temporal_rope: bool = False
 
     def __post_init__(self):
@@ -152,8 +156,42 @@ class Mlp(nn.Module):
         return self.fc2(F.gelu(self.fc1(x)))   # exact (erf) GELU
 
 
+def drop_path(x, mask, keep):
+    '''Stochastic depth with a drawn row mask (timesformer.py:325-337): x * mask / keep in
+    x.dtype, where mask (0 or 1) covers the leading axes of x and keep is a scalar tensor.'''
+    mask = mask.reshape(mask.shape + (1,) * (x.dim() - mask.dim())).to(x.dtype)
+    return x * mask / keep.to(x.dtype)
+
+
+@dataclasses.dataclass
+class DropPathMasks:
+    '''One block's drop-path draws for a folded batch of B clips: keep probability (scalar
+    f32 tensor) and masks over (B, N) for temporal attention, (B, T) for spatial attention
+    and (B,) for the MLP, shared by the tokens and the cls token (:412, :425, :445-449).'''
+    keep: torch.Tensor
+    temporal: torch.Tensor
+    spatial: torch.Tensor
+    mlp: torch.Tensor
+
+
+def draw_drop_path_masks(generator: torch.Generator, rate: float, depth: int, B: int, N: int,
+                         T: int, device) -> list:
+    '''Every block's masks for one forward, drawn up front from `generator` (as JAX splits
+    the block keys before the scan, :769-771) and moved to `device` once. Drawing outside
+    the blocks keeps them fixed when a rematerialized block is recomputed in the backward
+    pass. Per-block rates are linspace(0, rate, depth) (:767); a row survives when its
+    uniform draw is below keep = 1 - rate.'''
+    keep = 1.0 - torch.linspace(0.0, rate, depth, dtype=torch.float32)
+    draw = lambda *shape: (torch.rand((depth,) + shape, generator=generator,
+                                      device=generator.device)
+                           < keep.to(generator.device).reshape((depth,) + (1,) * len(shape)))
+    drawn = [keep, draw(B, N), draw(B, T), draw(B)]
+    keep, temporal, spatial, mlp = (t.to(device) for t in drawn)
+    return [DropPathMasks(keep[i], temporal[i], spatial[i], mlp[i]) for i in range(depth)]
+
+
 class DividedBlock(nn.Module):
-    '''One divided space-time block at inference (timesformer.py:388-450).'''
+    '''One divided space-time block (timesformer.py:388-450).'''
 
     def __init__(self, cfg: TimeSformerConfig, device=None):
         super().__init__()
@@ -167,32 +205,37 @@ class DividedBlock(nn.Module):
         self.temporal_attn = Attention(D, cfg.num_heads, device)
         self.temporal_fc = Dense(D, D, device)
 
-    def forward(self, xs, cls):
-        '''xs (B, N, T, D) patch tokens, cls (B, D) -> updated (xs, cls).'''
+    def forward(self, xs, cls, masks: DropPathMasks = None):
+        '''xs (B, N, T, D) patch tokens, cls (B, D), drop-path masks or None -> updated
+        (xs, cls).'''
         B, N, T, D = xs.shape
         ca = self.cfg.causal_attention
 
-        # Temporal attention over T per patch location.
-        res_t = self.temporal_attn(self.temporal_norm1(xs), ca)
+        def dp(x, which):
+            return x if masks is None else drop_path(x, getattr(masks, which), masks.keep)
+
+        # Temporal attention over T per patch location; drop-path mask per (b, n).
+        res_t = dp(self.temporal_attn(self.temporal_norm1(xs), ca), 'temporal')
         xt = xs + self.temporal_fc(res_t)
 
         # Spatial attention over patches per frame, with the three cls behaviours.
         xsp = xt.transpose(1, 2)                                   # (B, T, N, D)
         if ca in (0, 1):
             seq = torch.cat([cls[:, None, None, :].expand(B, T, 1, D), xsp], dim=2)
-            res_sp = self.attn(self.norm1(seq), 0)                 # (B, T, N+1, D)
+            res_sp = dp(self.attn(self.norm1(seq), 0), 'spatial')  # (B, T, N+1, D), per (b, t)
             cls_out = res_sp[:, :, 0, :]
             # ca 0: mean over frames; ca 1: frame-0 copy.
             cls_new = cls_out.mean(dim=1) if ca == 0 else cls_out[:, 0, :]
             res_sp = res_sp[:, :, 1:, :].transpose(1, 2)
         else:  # ca >= 2 or ca == -1: no cls token in spatial attention.
-            res_sp = self.attn(self.norm1(xsp), 0).transpose(1, 2)
+            res_sp = dp(self.attn(self.norm1(xsp), 0), 'spatial').transpose(1, 2)
             cls_new = torch.zeros_like(cls)
 
         tokens = xt + res_sp
         cls2 = cls + cls_new
-        tokens = tokens + self.mlp(self.norm2(tokens))
-        cls2 = cls2 + self.mlp(self.norm2(cls2))
+        # MLP over the tokens and the cls token, one drop-path mask per clip for both.
+        tokens = tokens + dp(self.mlp(self.norm2(tokens)), 'mlp')
+        cls2 = cls2 + dp(self.mlp(self.norm2(cls2)), 'mlp')
         return tokens, cls2
 
 
@@ -248,7 +291,11 @@ class TimeSformer(nn.Module):
             for blk in self.blocks[1:]:
                 blk.temporal_fc.w.zero_()
 
-    def forward(self, pixels: torch.Tensor):
+    def forward(self, pixels: torch.Tensor, train: bool = False,
+                generator: torch.Generator = None):
+        '''train with a generator and drop_path_rate > 0 draws drop-path masks from the
+        generator; with cfg.remat and gradients on, each block is recomputed in the
+        backward pass (torch.utils.checkpoint), which re-runs its attention forward.'''
         cfg = self.cfg
         B, C, T, H, W = pixels.shape
         p, D = cfg.patch_size, cfg.embed_dim
@@ -274,8 +321,18 @@ class TimeSformer(nn.Module):
         x = x + time[None, :, None, :]
 
         xs = x.transpose(1, 2).contiguous()   # (B, N, T, D)
-        for blk in self.blocks:
-            xs, cls = blk(xs, cls)
+        masks = [None] * cfg.depth
+        if train and cfg.drop_path_rate > 0.0 and generator is not None:
+            masks = draw_drop_path_masks(generator, cfg.drop_path_rate, cfg.depth, B, N, T,
+                                         x.device)
+        remat = cfg.remat and torch.is_grad_enabled()
+        for blk, m in zip(self.blocks, masks):
+            if remat:
+                # The block draws nothing at random, so no RNG state needs restoring.
+                xs, cls = torch.utils.checkpoint.checkpoint(
+                    blk, xs, cls, m, use_reentrant=False, preserve_rng_state=False)
+            else:
+                xs, cls = blk(xs, cls, m)
 
         if cfg.norm_embeddings:
             xs = self.norm(xs)

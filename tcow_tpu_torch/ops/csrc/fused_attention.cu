@@ -1,4 +1,7 @@
-// Fused multi-head self-attention forward for Hopper (sm_90a), bound through ctypes.
+// Fused multi-head self-attention for Hopper (sm_90a), forward (K1) and backward (K4),
+// bound through ctypes.
+//
+// ---- K1, the forward ----
 //
 // Replaces: tcow_tpu/ops/pallas_attention.py:_kernel (:87-155), the Pallas TPU kernel
 // behind fused_attention (:171) with rope off and no residual outputs. It computes
@@ -25,12 +28,56 @@
 // forms p = exp(l - m) / s, rounds p to the compute dtype and accumulates p.v in f32. An
 // online softmax would rescale partial outputs and round elsewhere. Shared memory is
 // bounded for any S: one query tile, one key tile and one value tile at a time.
+//
+// ---- K4, the backward ----
+//
+// Replaces: tcow_tpu/ops/pallas_attention.py:_bwd_kernel (:548-637) as launched by
+// _fused_attention_bwd_impl(qkv=None, inkernel_wgrads=False) (`pallas_call` :755), the
+// backward of the 'kernel_x' mode with rope off. From x, the incoming gradient g and the
+// weights it computes
+//   qkv   = (x . qkv_w + qkv_b) in f32, rounded to the compute dtype        (:573-575)
+//   dattn = (g . proj_w^T) in f32, rounded                                  (:587-590)
+//   per head, with pf = softmax_mask(q k^T * scale) in f32 and p_c = pf rounded:
+//     attn = p_c . v          dv = p_c^T . dA            (rounded)          (:611-617)
+//     dp   = dA . v^T (f32)   dlog = (pf * (dp - rowsum(dp * pf)) * scale) rounded
+//     dq   = dlog . k         dk = dlog^T . q            (rounded)          (:618-625)
+// and writes dqkv = [dq | dk | dv] (R, S, 3D) and attn (R, S, D). The weight, bias and
+// input gradients are products outside the kernel (:765-778), in the Python wrapper.
+//
+// Launches: gemm_bias (qkv) -> gemm_bias with W^T and no bias (dattn) -> attn_bwd_q ->
+// attn_bwd_kv. The TPU kernel holds a whole group of sequences in VMEM and sums dk and dv
+// over all queries inside one grid step. On Hopper the query tiles of one sequence sit in
+// different blocks, so the sum over queries would cross blocks. The design keeps it
+// inside a block and needs no atomics, so the result is deterministic:
+//   attn_bwd_q:  one block per (sequence, query tile, head). Pass 1 over the key tiles
+//                finds each row's max m and sum s (as the forward's attn_core); pass 2
+//                forms pf and p_c, accumulates attn = p_c . v and delta = rowsum(dp * pf);
+//                pass 3 forms dlog and accumulates dq = dlog . k. It writes attn, dq and
+//                the f32 row statistics (m, s, delta) to a (3, R, H, S) buffer.
+//   attn_bwd_kv: one block per (sequence, key tile, head). For every query tile that can
+//                see its keys (under the causal mask the earlier ones are skipped) it
+//                recomputes pf and dlog from the saved statistics and accumulates
+//                dv = p_c^T . dA and dk = dlog^T . q in f32.
+// Both kernels compute every logit and every dp with the same tile_dots order, so pf and
+// dlog are bit-identical in the two. Rounding points follow attention_bwd_ref.
+//
+// Bound on the H100 (989 TFLOP/s dense bf16, 3.35 TB/s) at the training step of record
+// (D=768, 12 heads of 64, bf16): the two products inside the kernel are 8 R S D^2
+// operations (2.55e11 temporal, 1800 sequences of 30; 2.56e11 spatial, 180 of 301), the
+// attention 12 D per (query, key) pair the mask keeps (7.7e9 temporal, 1.50e11 spatial),
+// against ~0.5 GB of compulsory traffic: operations-bound, ~0.27 ms temporal and ~0.41 ms
+// spatial. What the design does about that bound: nothing yet. The GEMMs are the
+// forward's wmma tiles without a copy pipeline; the attention core runs on the CUDA cores
+// in f32, computes the logits three times in attn_bwd_q and once more in attn_bwd_kv, and
+// qkv, dattn and the statistics make a round trip through HBM. Tensor cores (mma) in the
+// core and wgmma + TMA in the GEMMs are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <math.h>
 #include <stdint.h>
+#include <type_traits>
 
 using bf16 = __nv_bfloat16;
 
@@ -45,22 +92,26 @@ template <> __device__ __forceinline__ float from_f32<float>(float v) { return v
 template <> __device__ __forceinline__ bf16 from_f32<bf16>(float v) { return __float2bfloat16(v); }
 
 // ---------------------------------------------------------------------------------------
-// gemm_bias: C (M, N) = cast_T(A (M, K) . cast_T(W (K, N) f32) + bias (N) f32), the sum
-// and the bias in f32. Needs K % 8 == 0, N % 4 == 0 and 16-byte aligned pointers.
+// gemm_bias: C (M, N) = cast_T(A (M, K) . cast_T(W) + bias (N) f32), the sum and the bias in
+// f32, rounded once. W is f32, (K, N) row-major, or (N, K) row-major when WT (C = A . W^T).
+// bias may be null (no bias). Needs K % 8 == 0, N % 4 == 0 and 16-byte aligned pointers.
 // ---------------------------------------------------------------------------------------
 
 // bf16: wmma 16x16x16 tensor-core tiles. Block tile 128x128x32, 8 warps as 4 (M) x 2 (N),
 // each warp 32x64 = 2x4 accumulator fragments.
 constexpr int GB_M = 128, GB_N = 128, GB_K = 32, GB_THREADS = 256;
 constexpr int GA_LD = GB_K + 8;    // bf16 elements; rows stay 16-byte aligned
-constexpr int GW_LD = GB_N + 8;
+constexpr int GW_LD = GB_N + 8;    // W tile stored [k][n]
+constexpr int GWT_LD = GB_K + 8;   // W^T tile stored [n][k], read as a column-major B
 
+template <bool WT>
 __global__ void __launch_bounds__(GB_THREADS)
 gemm_bias_bf16(const bf16* __restrict__ A, const float* __restrict__ W,
                const float* __restrict__ bias, bf16* __restrict__ C, int M, int N, int K) {
     using namespace nvcuda;
+    using BLayout = typename std::conditional<WT, wmma::col_major, wmma::row_major>::type;
     __shared__ __align__(128) bf16 As[GB_M * GA_LD];
-    __shared__ __align__(128) bf16 Ws[GB_K * GW_LD];
+    __shared__ __align__(128) bf16 Ws[WT ? GB_N * GWT_LD : GB_K * GW_LD];
     __shared__ __align__(128) float Cs[GB_THREADS / 32][16 * 16];
 
     const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -82,27 +133,44 @@ gemm_bias_bf16(const bf16* __restrict__ A, const float* __restrict__ W,
             if (gr < M && gc < K) v = *reinterpret_cast<const uint4*>(A + (size_t)gr * K + gc);
             *reinterpret_cast<uint4*>(As + r * GA_LD + c) = v;
         }
-        // W tile: 32 rows x 128 f32, read as float4 and rounded to bf16.
-        for (int i = tid; i < GB_K * (GB_N / 4); i += GB_THREADS) {
-            const int r = i / (GB_N / 4), c = (i % (GB_N / 4)) * 4;
-            const int gr = k0 + r, gc = n0 + c;
-            float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-            if (gr < K && gc < N) v = *reinterpret_cast<const float4*>(W + (size_t)gr * N + gc);
-            __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(Ws + r * GW_LD + c);
-            dst[0] = __floats2bfloat162_rn(v.x, v.y);
-            dst[1] = __floats2bfloat162_rn(v.z, v.w);
+        if (WT) {
+            // W^T tile: 128 rows (n) x 32 f32 (k), read as float4 along k, rounded to bf16.
+            for (int i = tid; i < GB_N * (GB_K / 4); i += GB_THREADS) {
+                const int r = i / (GB_K / 4), c = (i % (GB_K / 4)) * 4;
+                const int gn = n0 + r, gk = k0 + c;
+                float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+                if (gn < N && gk < K) v = *reinterpret_cast<const float4*>(W + (size_t)gn * K + gk);
+                __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(Ws + r * GWT_LD + c);
+                dst[0] = __floats2bfloat162_rn(v.x, v.y);
+                dst[1] = __floats2bfloat162_rn(v.z, v.w);
+            }
+        } else {
+            // W tile: 32 rows (k) x 128 f32 (n), read as float4 along n, rounded to bf16.
+            for (int i = tid; i < GB_K * (GB_N / 4); i += GB_THREADS) {
+                const int r = i / (GB_N / 4), c = (i % (GB_N / 4)) * 4;
+                const int gr = k0 + r, gc = n0 + c;
+                float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+                if (gr < K && gc < N) v = *reinterpret_cast<const float4*>(W + (size_t)gr * N + gc);
+                __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(Ws + r * GW_LD + c);
+                dst[0] = __floats2bfloat162_rn(v.x, v.y);
+                dst[1] = __floats2bfloat162_rn(v.z, v.w);
+            }
         }
         __syncthreads();
 #pragma unroll
         for (int kk = 0; kk < GB_K; kk += 16) {
             wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[4];
+            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> b[4];
 #pragma unroll
             for (int i = 0; i < 2; ++i)
                 wmma::load_matrix_sync(a[i], As + (wm * 32 + i * 16) * GA_LD + kk, GA_LD);
 #pragma unroll
-            for (int j = 0; j < 4; ++j)
-                wmma::load_matrix_sync(b[j], Ws + kk * GW_LD + wn * 64 + j * 16, GW_LD);
+            for (int j = 0; j < 4; ++j) {
+                if (WT)
+                    wmma::load_matrix_sync(b[j], Ws + (wn * 64 + j * 16) * GWT_LD + kk, GWT_LD);
+                else
+                    wmma::load_matrix_sync(b[j], Ws + kk * GW_LD + wn * 64 + j * 16, GW_LD);
+            }
 #pragma unroll
             for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -123,7 +191,8 @@ gemm_bias_bf16(const bf16* __restrict__ A, const float* __restrict__ W,
             const int rb = m0 + wm * 32 + i * 16, cb = n0 + wn * 64 + j * 16;
             for (int e = lane; e < 256; e += 32) {
                 const int gr = rb + e / 16, gc = cb + e % 16;
-                if (gr < M && gc < N) C[(size_t)gr * N + gc] = __float2bfloat16(cs[e] + bias[gc]);
+                if (gr < M && gc < N)
+                    C[(size_t)gr * N + gc] = __float2bfloat16(cs[e] + (bias ? bias[gc] : 0.f));
             }
             __syncwarp();
         }
@@ -134,11 +203,12 @@ gemm_bias_bf16(const bf16* __restrict__ A, const float* __restrict__ W,
 // 4x4 outputs each.
 constexpr int GF_T = 64, GF_K = 16;
 
+template <bool WT>
 __global__ void __launch_bounds__(256)
 gemm_bias_f32(const float* __restrict__ A, const float* __restrict__ W,
               const float* __restrict__ bias, float* __restrict__ C, int M, int N, int K) {
     __shared__ float As[GF_K][GF_T + 4];   // transposed: As[k][m]
-    __shared__ float Ws[GF_K][GF_T + 4];
+    __shared__ float Ws[GF_K][GF_T + 4];   // Ws[k][n]
     const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
     const int m0 = blockIdx.y * GF_T, n0 = blockIdx.x * GF_T;
     float acc[4][4] = {};
@@ -146,8 +216,13 @@ gemm_bias_f32(const float* __restrict__ A, const float* __restrict__ W,
         for (int i = tid; i < GF_T * GF_K; i += 256) {
             const int r = i / GF_K, c = i % GF_K;
             As[c][r] = (m0 + r < M && k0 + c < K) ? A[(size_t)(m0 + r) * K + k0 + c] : 0.f;
-            const int wr = i / GF_T, wc = i % GF_T;
-            Ws[wr][wc] = (k0 + wr < K && n0 + wc < N) ? W[(size_t)(k0 + wr) * N + n0 + wc] : 0.f;
+            if (WT) {
+                Ws[c][r] = (k0 + c < K && n0 + r < N) ? W[(size_t)(n0 + r) * K + k0 + c] : 0.f;
+            } else {
+                const int wr = i / GF_T, wc = i % GF_T;
+                Ws[wr][wc] = (k0 + wr < K && n0 + wc < N) ? W[(size_t)(k0 + wr) * N + n0 + wc]
+                                                          : 0.f;
+            }
         }
         __syncthreads();
 #pragma unroll
@@ -170,36 +245,53 @@ gemm_bias_f32(const float* __restrict__ A, const float* __restrict__ W,
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
             const int gc = n0 + tx * 4 + j;
-            if (gr < M && gc < N) C[(size_t)gr * N + gc] = acc[i][j] + bias[gc];
+            if (gr < M && gc < N) C[(size_t)gr * N + gc] = acc[i][j] + (bias ? bias[gc] : 0.f);
         }
     }
 }
 
+// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the launch.
+template <bool WT>
+cudaError_t launch_gemm_bias(int dtype, const void* A, const void* W, const void* bias, void* C,
+                             int M, int N, int K, cudaStream_t st) {
+    if (M <= 0 || N <= 0 || K <= 0) return cudaErrorInvalidValue;
+    const float* w = static_cast<const float*>(W);
+    const float* b = static_cast<const float*>(bias);
+    if (dtype == 1) {
+        dim3 grid((N + GB_N - 1) / GB_N, (M + GB_M - 1) / GB_M);
+        gemm_bias_bf16<WT><<<grid, GB_THREADS, 0, st>>>(static_cast<const bf16*>(A), w, b,
+                                                        static_cast<bf16*>(C), M, N, K);
+    } else if (dtype == 0) {
+        dim3 grid((N + GF_T - 1) / GF_T, (M + GF_T - 1) / GF_T);
+        gemm_bias_f32<WT><<<grid, 256, 0, st>>>(static_cast<const float*>(A), w, b,
+                                                static_cast<float*>(C), M, N, K);
+    } else {
+        return cudaErrorInvalidValue;
+    }
+    return cudaGetLastError();
+}
+
 // ---------------------------------------------------------------------------------------
-// attn_core: qkv (B, S, 3D) -> attn (B, S, D), heads concatenated (h * dh + d).
-// One block per (sequence, query tile of QT rows, head); 4 warps of RPW query rows each.
-// In the logit loops a lane owns one key of the tile; in P.v a lane owns columns
-// d = lane + 32 c of the head.
+// Attention core pieces. A block of AC_WARPS warps owns QT rows (RPW per warp); in the
+// logit loops a lane owns one row of the other operand's tile of KT rows.
 // ---------------------------------------------------------------------------------------
 constexpr int QT = 32, KT = 32, AC_WARPS = 4, RPW = QT / AC_WARPS;
 
 __host__ __device__ constexpr int ks_ld(int dh) { return dh + 4; }   // conflict-free float4
 
-__host__ __device__ inline size_t attn_smem_floats(int dh) {
-    return (size_t)QT * dh + (size_t)KT * ks_ld(dh) + (size_t)KT * dh + (size_t)QT * KT;
-}
-
-// Logits of this warp's RPW rows against key `lane` of the staged tile, unscaled.
-__device__ __forceinline__ void tile_dots(const float* qs, const float* ks, int warp, int lane,
-                                          int dh, float (&acc)[RPW]) {
+// Dot products of this warp's RPW rows of `own` (row stride dh) with row `lane` of `other`
+// (row stride ks_ld(dh)), summed in order d = 0..dh-1. fmaf is symmetric in its first two
+// arguments, so swapping the roles of the operands gives bit-identical results.
+__device__ __forceinline__ void tile_dots(const float* own, const float* other, int warp,
+                                          int lane, int dh, float (&acc)[RPW]) {
 #pragma unroll
     for (int r = 0; r < RPW; ++r) acc[r] = 0.f;
-    const float* krow = ks + lane * ks_ld(dh);
+    const float* orow = other + lane * ks_ld(dh);
     for (int d = 0; d < dh; d += 4) {
-        const float4 kv = *reinterpret_cast<const float4*>(krow + d);
+        const float4 kv = *reinterpret_cast<const float4*>(orow + d);
 #pragma unroll
         for (int r = 0; r < RPW; ++r) {
-            const float4 qv = *reinterpret_cast<const float4*>(qs + (warp * RPW + r) * dh + d);
+            const float4 qv = *reinterpret_cast<const float4*>(own + (warp * RPW + r) * dh + d);
             acc[r] = fmaf(qv.x, kv.x, acc[r]);
             acc[r] = fmaf(qv.y, kv.y, acc[r]);
             acc[r] = fmaf(qv.z, kv.z, acc[r]);
@@ -230,6 +322,8 @@ __device__ __forceinline__ float warp_sum(float v) {
     return v;
 }
 
+// Copies rows row0 .. row0 + nrows - 1 (dh values each, source row stride row_stride) into
+// dst (row stride ld) as f32; rows past nrows_valid are zero.
 template <typename T>
 __device__ __forceinline__ void stage_rows(float* dst, int ld, const T* src, size_t row_stride,
                                            int row0, int nrows_valid, int nrows, int dh) {
@@ -238,6 +332,16 @@ __device__ __forceinline__ void stage_rows(float* dst, int ld, const T* src, siz
         dst[r * ld + d] = (r < nrows_valid) ? to_f32(src[(size_t)(row0 + r) * row_stride + d])
                                             : 0.f;
     }
+}
+
+// ---------------------------------------------------------------------------------------
+// attn_core: qkv (B, S, 3D) -> attn (B, S, D), heads concatenated (h * dh + d).
+// One block per (sequence, query tile of QT rows, head); 4 warps of RPW query rows each.
+// In the logit loops a lane owns one key of the tile; in P.v a lane owns columns
+// d = lane + 32 c of the head.
+// ---------------------------------------------------------------------------------------
+__host__ __device__ inline size_t attn_smem_floats(int dh) {
+    return (size_t)QT * dh + (size_t)KT * ks_ld(dh) + (size_t)KT * dh + (size_t)QT * KT;
 }
 
 template <typename T, int DC>
@@ -356,28 +460,327 @@ cudaError_t attn_core_dispatch(const void* qkv, void* out, int B, int S, int H, 
     return launch_attn_core<T, 4>(qkv, out, B, S, H, dh, causal, diag, scale, stream);
 }
 
+// attn_bwd_q: shared memory of query rows qs, dattn rows das (QT x dh each), a key and a
+// value tile (KT x ks_ld), and one QT x KT tile of probabilities or dlog.
+__host__ __device__ inline size_t bwd_q_smem_floats(int dh) {
+    return 2 * (size_t)QT * dh + 2 * (size_t)KT * ks_ld(dh) + (size_t)QT * KT;
+}
+
+// attn_bwd_kv: key and value rows (KT x dh each), a query and a dattn tile (QT x ks_ld),
+// and two KT x QT tiles (p_c and dlog).
+__host__ __device__ inline size_t bwd_kv_smem_floats(int dh) {
+    return 2 * (size_t)KT * dh + 2 * (size_t)QT * ks_ld(dh) + 2 * (size_t)KT * QT;
+}
+
+// Row statistics: stats[(which * R * H + b * H + h) * S + i], which 0 = max, 1 = sum of exp,
+// 2 = delta.
+__device__ __forceinline__ size_t stat_at(int which, size_t RHS, int b, int H, int h, int S,
+                                          int i) {
+    return which * RHS + ((size_t)b * H + h) * S + i;
+}
+
+template <typename T, int DC>
+__global__ void __launch_bounds__(AC_WARPS * 32)
+attn_bwd_q(const T* __restrict__ qkv, const T* __restrict__ dattn, T* __restrict__ attn,
+           T* __restrict__ dqkv, float* __restrict__ stats, int S, int H, int dh, int causal,
+           int diag, float scale, int q_tiles, size_t RHS) {
+    extern __shared__ __align__(16) float smem[];
+    float* qs = smem;                       // QT x dh
+    float* das = qs + QT * dh;              // QT x dh
+    float* ks = das + QT * dh;              // KT x ks_ld(dh)
+    float* vs = ks + KT * ks_ld(dh);        // KT x ks_ld(dh)
+    float* ps = vs + KT * ks_ld(dh);        // QT x KT
+
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int b = blockIdx.x / q_tiles, q0 = (blockIdx.x % q_tiles) * QT, h = blockIdx.y;
+    const int D = H * dh;
+    const size_t stride = 3 * (size_t)D;
+    const T* base = qkv + (size_t)b * S * stride;
+    const int q_end = min(S, q0 + QT);
+    // Keys past q_end - 1 + diag are masked for every row of this tile under the causal
+    // mask: their pf is exactly 0, so they are not visited at all.
+    const int kend = causal ? min(S, q_end + diag) : S;
+
+    stage_rows(qs, dh, base + h * dh, stride, q0, q_end - q0, QT, dh);
+    stage_rows(das, dh, dattn + (size_t)b * S * D + h * dh, (size_t)D, q0, q_end - q0, QT, dh);
+
+    float m[RPW], s[RPW], delta[RPW], acc[RPW], dpa[RPW];
+#pragma unroll
+    for (int r = 0; r < RPW; ++r) { m[r] = -INFINITY; s[r] = 0.f; delta[r] = 0.f; }
+
+    // Pass 1: row max and sum of exp over all key tiles.
+    for (int k0 = 0; k0 < kend; k0 += KT) {
+        __syncthreads();
+        stage_rows(ks, ks_ld(dh), base + D + h * dh, stride, k0, min(KT, kend - k0), KT, dh);
+        __syncthreads();
+        tile_dots(qs, ks, warp, lane, dh, acc);
+#pragma unroll
+        for (int r = 0; r < RPW; ++r) {
+            const float l = masked_logit(acc[r], scale, k0 + lane, kend,
+                                         q0 + warp * RPW + r, causal, diag);
+            const float m_new = fmaxf(m[r], warp_max(l));
+            s[r] = s[r] * expf(m[r] - m_new) + warp_sum(expf(l - m_new));
+            m[r] = m_new;
+        }
+    }
+
+    // Pass 2: pf and p_c; attn = p_c . v in f32; delta = rowsum(dp * pf).
+    {
+        float o[RPW][DC];
+#pragma unroll
+        for (int r = 0; r < RPW; ++r)
+#pragma unroll
+            for (int c = 0; c < DC; ++c) o[r][c] = 0.f;
+        for (int k0 = 0; k0 < kend; k0 += KT) {
+            const int nk = min(KT, kend - k0);
+            __syncthreads();
+            stage_rows(ks, ks_ld(dh), base + D + h * dh, stride, k0, nk, KT, dh);
+            stage_rows(vs, ks_ld(dh), base + 2 * D + h * dh, stride, k0, nk, KT, dh);
+            __syncthreads();
+            tile_dots(qs, ks, warp, lane, dh, acc);
+            tile_dots(das, vs, warp, lane, dh, dpa);
+#pragma unroll
+            for (int r = 0; r < RPW; ++r) {
+                const float l = masked_logit(acc[r], scale, k0 + lane, kend,
+                                             q0 + warp * RPW + r, causal, diag);
+                const float pf = expf(l - m[r]) / s[r];
+                delta[r] += warp_sum(dpa[r] * pf);
+                ps[(warp * RPW + r) * KT + lane] = to_f32(from_f32<T>(pf));
+            }
+            __syncwarp();
+            for (int j = 0; j < nk; ++j) {
+                float vv[DC];
+#pragma unroll
+                for (int c = 0; c < DC; ++c) {
+                    const int d = lane + 32 * c;
+                    vv[c] = d < dh ? vs[j * ks_ld(dh) + d] : 0.f;
+                }
+#pragma unroll
+                for (int r = 0; r < RPW; ++r) {
+                    const float p = ps[(warp * RPW + r) * KT + j];
+#pragma unroll
+                    for (int c = 0; c < DC; ++c) o[r][c] = fmaf(p, vv[c], o[r][c]);
+                }
+            }
+            __syncwarp();
+        }
+#pragma unroll
+        for (int r = 0; r < RPW; ++r) {
+            const int qi = q0 + warp * RPW + r;
+            if (qi >= S) continue;
+            T* orow = attn + ((size_t)b * S + qi) * D + h * dh;
+#pragma unroll
+            for (int c = 0; c < DC; ++c) {
+                const int d = lane + 32 * c;
+                if (d < dh) orow[d] = from_f32<T>(o[r][c]);
+            }
+        }
+    }
+
+    // Pass 3: dlog = (pf * (dp - delta)) * scale rounded; dq = dlog . k in f32.
+    float dq[RPW][DC];
+#pragma unroll
+    for (int r = 0; r < RPW; ++r)
+#pragma unroll
+        for (int c = 0; c < DC; ++c) dq[r][c] = 0.f;
+    for (int k0 = 0; k0 < kend; k0 += KT) {
+        const int nk = min(KT, kend - k0);
+        __syncthreads();
+        stage_rows(ks, ks_ld(dh), base + D + h * dh, stride, k0, nk, KT, dh);
+        stage_rows(vs, ks_ld(dh), base + 2 * D + h * dh, stride, k0, nk, KT, dh);
+        __syncthreads();
+        tile_dots(qs, ks, warp, lane, dh, acc);
+        tile_dots(das, vs, warp, lane, dh, dpa);
+#pragma unroll
+        for (int r = 0; r < RPW; ++r) {
+            const float l = masked_logit(acc[r], scale, k0 + lane, kend,
+                                         q0 + warp * RPW + r, causal, diag);
+            const float pf = expf(l - m[r]) / s[r];
+            ps[(warp * RPW + r) * KT + lane] = to_f32(from_f32<T>((pf * (dpa[r] - delta[r])) * scale));
+        }
+        __syncwarp();
+        for (int j = 0; j < nk; ++j) {
+            float kv[DC];
+#pragma unroll
+            for (int c = 0; c < DC; ++c) {
+                const int d = lane + 32 * c;
+                kv[c] = d < dh ? ks[j * ks_ld(dh) + d] : 0.f;
+            }
+#pragma unroll
+            for (int r = 0; r < RPW; ++r) {
+                const float dl = ps[(warp * RPW + r) * KT + j];
+#pragma unroll
+                for (int c = 0; c < DC; ++c) dq[r][c] = fmaf(dl, kv[c], dq[r][c]);
+            }
+        }
+        __syncwarp();
+    }
+
+#pragma unroll
+    for (int r = 0; r < RPW; ++r) {
+        const int qi = q0 + warp * RPW + r;
+        if (qi >= S) continue;
+        T* dqrow = dqkv + ((size_t)b * S + qi) * stride + h * dh;
+#pragma unroll
+        for (int c = 0; c < DC; ++c) {
+            const int d = lane + 32 * c;
+            if (d < dh) dqrow[d] = from_f32<T>(dq[r][c]);
+        }
+        if (lane == 0) {
+            stats[stat_at(0, RHS, b, H, h, S, qi)] = m[r];
+            stats[stat_at(1, RHS, b, H, h, S, qi)] = s[r];
+            stats[stat_at(2, RHS, b, H, h, S, qi)] = delta[r];
+        }
+    }
+}
+
+// attn_bwd_kv: warps own key rows (RPW each), a lane owns one query of the current query
+// tile in the logit loops and columns d = lane + 32 c in the accumulations.
+template <typename T, int DC>
+__global__ void __launch_bounds__(AC_WARPS * 32)
+attn_bwd_kv(const T* __restrict__ qkv, const T* __restrict__ dattn,
+            const float* __restrict__ stats, T* __restrict__ dqkv, int S, int H, int dh,
+            int causal, int diag, float scale, int k_tiles, size_t RHS) {
+    extern __shared__ __align__(16) float smem[];
+    float* kr = smem;                       // KT x dh   keys of this block
+    float* vr = kr + KT * dh;               // KT x dh   values of this block
+    float* qs = vr + KT * dh;               // QT x ks_ld(dh)
+    float* das = qs + QT * ks_ld(dh);       // QT x ks_ld(dh)
+    float* ps = das + QT * ks_ld(dh);       // KT x QT   p_c
+    float* dls = ps + KT * QT;              // KT x QT   dlog
+
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int b = blockIdx.x / k_tiles, k0 = (blockIdx.x % k_tiles) * KT, h = blockIdx.y;
+    const int D = H * dh;
+    const size_t stride = 3 * (size_t)D;
+    const T* base = qkv + (size_t)b * S * stride;
+    const T* dbase = dattn + (size_t)b * S * D + h * dh;
+    const int nk = min(KT, S - k0);
+
+    stage_rows(kr, dh, base + D + h * dh, stride, k0, nk, KT, dh);
+    stage_rows(vr, dh, base + 2 * D + h * dh, stride, k0, nk, KT, dh);
+
+    float dk[RPW][DC], dv[RPW][DC], acc[RPW], dpa[RPW];
+#pragma unroll
+    for (int r = 0; r < RPW; ++r)
+#pragma unroll
+        for (int c = 0; c < DC; ++c) { dk[r][c] = 0.f; dv[r][c] = 0.f; }
+
+    // Under the causal mask query i sees key j only when j <= i + diag: the query tiles
+    // wholly before k0 - diag add exactly 0 and are skipped.
+    const int q_start = causal ? (max(0, k0 - diag) / QT) * QT : 0;
+    for (int q0 = q_start; q0 < S; q0 += QT) {
+        const int nq = min(QT, S - q0);
+        __syncthreads();
+        stage_rows(qs, ks_ld(dh), base + h * dh, stride, q0, nq, QT, dh);
+        stage_rows(das, ks_ld(dh), dbase, (size_t)D, q0, nq, QT, dh);
+        __syncthreads();
+        const int qi = q0 + lane;
+        const bool valid = lane < nq;
+        const float mi = valid ? stats[stat_at(0, RHS, b, H, h, S, qi)] : 0.f;
+        const float si = valid ? stats[stat_at(1, RHS, b, H, h, S, qi)] : 1.f;
+        const float di = valid ? stats[stat_at(2, RHS, b, H, h, S, qi)] : 0.f;
+        tile_dots(kr, qs, warp, lane, dh, acc);
+        tile_dots(vr, das, warp, lane, dh, dpa);
+#pragma unroll
+        for (int r = 0; r < RPW; ++r) {
+            const int key = k0 + warp * RPW + r;
+            const float l = (causal && key > qi + diag) ? -1e10f : acc[r] * scale;
+            const float pf = valid ? expf(l - mi) / si : 0.f;
+            ps[(warp * RPW + r) * QT + lane] = to_f32(from_f32<T>(pf));
+            dls[(warp * RPW + r) * QT + lane] = to_f32(from_f32<T>((pf * (dpa[r] - di)) * scale));
+        }
+        __syncwarp();
+        for (int i = 0; i < nq; ++i) {
+            float qv[DC], dav[DC];
+#pragma unroll
+            for (int c = 0; c < DC; ++c) {
+                const int d = lane + 32 * c;
+                qv[c] = d < dh ? qs[i * ks_ld(dh) + d] : 0.f;
+                dav[c] = d < dh ? das[i * ks_ld(dh) + d] : 0.f;
+            }
+#pragma unroll
+            for (int r = 0; r < RPW; ++r) {
+                const float p = ps[(warp * RPW + r) * QT + i];
+                const float dl = dls[(warp * RPW + r) * QT + i];
+#pragma unroll
+                for (int c = 0; c < DC; ++c) {
+                    dv[r][c] = fmaf(p, dav[c], dv[r][c]);
+                    dk[r][c] = fmaf(dl, qv[c], dk[r][c]);
+                }
+            }
+        }
+        __syncwarp();
+    }
+
+#pragma unroll
+    for (int r = 0; r < RPW; ++r) {
+        const int key = k0 + warp * RPW + r;
+        if (key >= S) continue;
+        T* row = dqkv + ((size_t)b * S + key) * stride + h * dh;
+#pragma unroll
+        for (int c = 0; c < DC; ++c) {
+            const int d = lane + 32 * c;
+            if (d < dh) {
+                row[D + d] = from_f32<T>(dk[r][c]);
+                row[2 * D + d] = from_f32<T>(dv[r][c]);
+            }
+        }
+    }
+}
+
+template <typename T, int DC>
+cudaError_t launch_attn_bwd(const void* qkv, const void* dattn, void* attn, void* dqkv,
+                            void* stats, int B, int S, int H, int dh, int causal, int diag,
+                            float scale, cudaStream_t stream) {
+    const size_t smem_q = bwd_q_smem_floats(dh) * sizeof(float);
+    const size_t smem_kv = bwd_kv_smem_floats(dh) * sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(attn_bwd_q<T, DC>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem_q);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(attn_bwd_kv<T, DC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem_kv);
+    if (err != cudaSuccess) return err;
+    const size_t RHS = (size_t)B * H * S;
+    const int tiles = (S + QT - 1) / QT;   // QT == KT
+    dim3 grid((unsigned)B * tiles, H);
+    attn_bwd_q<T, DC><<<grid, AC_WARPS * 32, smem_q, stream>>>(
+        static_cast<const T*>(qkv), static_cast<const T*>(dattn), static_cast<T*>(attn),
+        static_cast<T*>(dqkv), static_cast<float*>(stats), S, H, dh, causal, diag, scale,
+        tiles, RHS);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    attn_bwd_kv<T, DC><<<grid, AC_WARPS * 32, smem_kv, stream>>>(
+        static_cast<const T*>(qkv), static_cast<const T*>(dattn),
+        static_cast<const float*>(stats), static_cast<T*>(dqkv), S, H, dh, causal, diag, scale,
+        tiles, RHS);
+    return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t attn_bwd_dispatch(const void* qkv, const void* dattn, void* attn, void* dqkv,
+                              void* stats, int B, int S, int H, int dh, int causal, int diag,
+                              float scale, cudaStream_t st) {
+    if (dh <= 32)
+        return launch_attn_bwd<T, 1>(qkv, dattn, attn, dqkv, stats, B, S, H, dh, causal, diag, scale, st);
+    if (dh <= 64)
+        return launch_attn_bwd<T, 2>(qkv, dattn, attn, dqkv, stats, B, S, H, dh, causal, diag, scale, st);
+    return launch_attn_bwd<T, 4>(qkv, dattn, attn, dqkv, stats, B, S, H, dh, causal, diag, scale, st);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Each entry point returns cudaGetLastError() after
-// its launch (0 on success); the caller checks shapes, dtypes and alignment.
+// its launches (0 on success); the caller checks shapes, dtypes and alignment.
+
+// C = A . W + bias (w_transposed 0, W (K, N)) or C = A . W^T + bias (w_transposed 1,
+// W (N, K)); bias may be null.
 extern "C" int tcow_gemm_bias(int dtype, const void* A, const void* W, const void* bias,
-                              void* C, int M, int N, int K, void* stream) {
-    if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
+                              void* C, int M, int N, int K, int w_transposed, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const float* w = static_cast<const float*>(W);
-    const float* b = static_cast<const float*>(bias);
-    if (dtype == 1) {
-        dim3 grid((N + GB_N - 1) / GB_N, (M + GB_M - 1) / GB_M);
-        gemm_bias_bf16<<<grid, GB_THREADS, 0, st>>>(static_cast<const bf16*>(A), w, b,
-                                                    static_cast<bf16*>(C), M, N, K);
-    } else if (dtype == 0) {
-        dim3 grid((N + GF_T - 1) / GF_T, (M + GF_T - 1) / GF_T);
-        gemm_bias_f32<<<grid, 256, 0, st>>>(static_cast<const float*>(A), w, b,
-                                            static_cast<float*>(C), M, N, K);
-    } else {
-        return (int)cudaErrorInvalidValue;
-    }
-    return (int)cudaGetLastError();
+    return w_transposed ? (int)launch_gemm_bias<true>(dtype, A, W, bias, C, M, N, K, st)
+                        : (int)launch_gemm_bias<false>(dtype, A, W, bias, C, M, N, K, st);
 }
 
 extern "C" int tcow_attn_core(int dtype, const void* qkv, void* out, int B, int S, int H,
@@ -388,5 +791,21 @@ extern "C" int tcow_attn_core(int dtype, const void* qkv, void* out, int B, int 
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (dtype == 1) return (int)attn_core_dispatch<bf16>(qkv, out, B, S, H, dh, causal, diag, scale, st);
     if (dtype == 0) return (int)attn_core_dispatch<float>(qkv, out, B, S, H, dh, causal, diag, scale, st);
+    return (int)cudaErrorInvalidValue;
+}
+
+// qkv (B, S, 3D) and dattn (B, S, D) -> attn (B, S, D), dqkv (B, S, 3D); stats is f32
+// scratch of 3 * B * H * S values.
+extern "C" int tcow_attn_bwd(int dtype, const void* qkv, const void* dattn, void* attn,
+                             void* dqkv, void* stats, int B, int S, int H, int dh, int causal,
+                             int diag, float scale, void* stream) {
+    if (B <= 0 || S <= 0 || H <= 0 || dh <= 0 || dh > 128 || dh % 4) {
+        return (int)cudaErrorInvalidValue;
+    }
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (dtype == 1)
+        return (int)attn_bwd_dispatch<bf16>(qkv, dattn, attn, dqkv, stats, B, S, H, dh, causal, diag, scale, st);
+    if (dtype == 0)
+        return (int)attn_bwd_dispatch<float>(qkv, dattn, attn, dqkv, stats, B, S, H, dh, causal, diag, scale, st);
     return (int)cudaErrorInvalidValue;
 }

@@ -1,8 +1,9 @@
 '''
 The CUDA kernels of tcow_tpu_torch against their plain versions, on the GPU only: edge
 geometries that the full-width run in chip_smoke.py does not reach (S=1, ragged row,
-column and depth tiles, head sizes 32, 40 and 128, every causal mode), and the launch
-count of the seeker's entry points on the card. Every test carries
+column and depth tiles, head sizes 32, 40 and 128, every causal mode) for K1 (forward)
+and K4 (backward), the gradients of the differentiable fused_attention on the card, and
+the launch counts of the seeker's entry points and of one train step. Every test carries
 the `cuda` marker and skips without CUDA. The file imports neither JAX nor the tests'
 conftest, so on a GPU machine without JAX it runs as:
 
@@ -13,10 +14,15 @@ import numpy as np
 import pytest
 import torch
 
+from tcow_tpu_torch.data.synthetic import synthetic_device_batch
 from tcow_tpu_torch.evaluation.inference import InferenceEngine
-from tcow_tpu_torch.models.mask_tracker import MaskTracker, seeker_config_from_args
+from tcow_tpu_torch.models import timesformer as tsf
+from tcow_tpu_torch.models.mask_tracker import MaskTracker, SeekerConfig, seeker_config_from_args
 from tcow_tpu_torch.models.seeker import Seeker
+from tcow_tpu_torch.objectives.losses import LossConfig
 from tcow_tpu_torch.ops import fused_attention as fa
+from tcow_tpu_torch.train import optim
+from tcow_tpu_torch.train import step as step_lib
 from tcow_tpu_torch.train.checkpoint import save_checkpoint
 from tcow_tpu_torch.weights import params_to_jax
 
@@ -26,6 +32,21 @@ pytestmark = pytest.mark.cuda
 # chip_smoke.py): bf16 rounds qkv, p and attn (8 mantissa bits); float32 differs only
 # in the order of sums (TF32 off).
 TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+# K4 and the gradients of the Function: bf16 also rounds dattn, dlog, dq, dk and dv.
+TOL_BWD = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+GEOMETRIES = [
+    (3, 1, 64, 2, 1, torch.bfloat16),      # one row per sequence, head 32
+    (5, 33, 128, 4, 3, torch.bfloat16),    # two query and key tiles, diag 1
+    (7, 45, 256, 2, 0, torch.bfloat16),    # head 128: >48 KB dynamic shared memory
+    (2, 70, 200, 5, 2, torch.float32),     # head 40, K and N not tile multiples
+    (4, 30, 768, 12, 1, torch.float32),    # temporal geometry in float32
+    (2, 301, 96, 3, -1, torch.bfloat16),   # spatial length, ca -1 is not causal
+    (3, 40, 128, 2, 4, torch.bfloat16),    # diag 2 across the second key tile
+]
+
+
+def rel_l2(got, want):
+    return float((got.double() - want.double()).norm() / want.double().norm())
 
 
 @pytest.fixture
@@ -47,14 +68,7 @@ def inputs(B, S, D, dtype, device, seed=0):
     return x, w
 
 
-@pytest.mark.parametrize('B,S,D,H,ca,dtype', [
-    (3, 1, 64, 2, 1, torch.bfloat16),      # one row per sequence, head 32
-    (5, 33, 128, 4, 3, torch.bfloat16),    # two query and key tiles, diag 1
-    (7, 45, 256, 2, 0, torch.bfloat16),    # head 128: >48 KB dynamic shared memory
-    (2, 70, 200, 5, 2, torch.float32),     # head 40, K and N not tile multiples
-    (4, 30, 768, 12, 1, torch.float32),    # temporal geometry in float32
-    (2, 301, 96, 3, -1, torch.bfloat16),   # spatial length, ca -1 is not causal
-])
+@pytest.mark.parametrize('B,S,D,H,ca,dtype', GEOMETRIES)
 def test_kernel_matches_plain(cuda, B, S, D, H, ca, dtype):
     x, w = inputs(B, S, D, dtype, cuda)
     before = fa.fused_attention.launches
@@ -63,8 +77,68 @@ def test_kernel_matches_plain(cuda, B, S, D, H, ca, dtype):
     assert fa.fused_attention.launches == before + 1
     assert got.shape == x.shape and got.dtype == dtype
     want = fa.attention_ref(x.float(), *w, H, ca)
-    err = float((got.double() - want.double()).norm() / want.double().norm())
+    err = rel_l2(got, want)
     assert err <= TOL[dtype], err
+
+
+@pytest.mark.parametrize('B,S,D,H,ca,dtype', GEOMETRIES)
+def test_bwd_kernel_matches_plain(cuda, B, S, D, H, ca, dtype):
+    x, w = inputs(B, S, D, dtype, cuda, seed=1)
+    g = torch.from_numpy(np.random.RandomState(2).randn(B, S, D).astype(np.float32)).to(
+        cuda, dtype)
+    before = fa.fused_attention_bwd.launches
+    dqkv, attn = fa.fused_attention_bwd(x, g, *w[:3], H, ca)
+    torch.cuda.synchronize()
+    assert fa.fused_attention_bwd.launches == before + 1
+    assert dqkv.shape == (B, S, 3 * D) and attn.shape == x.shape and dqkv.dtype == dtype
+    want_dqkv, want_attn = fa.attention_bwd_ref(x.float(), g.float(), *w[:3], H, ca)
+    for got, want in ((dqkv, want_dqkv), (attn, want_attn)):
+        err = rel_l2(got, want)
+        assert err <= TOL_BWD[dtype], err
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_fused_attention_is_differentiable_on_the_card(cuda, dtype):
+    '''The forward's output carries a grad_fn, and its backward (K4) gives the gradients
+    of x and the four weights that autograd gives through the plain version in f32.'''
+    x, w = inputs(4, 30, 256, dtype, cuda, seed=3)
+    g = torch.from_numpy(np.random.RandomState(4).randn(4, 30, 256).astype(np.float32)).to(
+        cuda, dtype)
+    leaves = [x.clone().requires_grad_()] + [a.clone().requires_grad_() for a in w]
+    out = fa.fused_attention(*leaves, 4, 1)
+    assert out.grad_fn is not None
+    before = fa.fused_attention_bwd.launches
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert fa.fused_attention_bwd.launches == before + 1
+    ref = [x.float().requires_grad_()] + [a.clone().requires_grad_() for a in w]
+    fa.attention_ref(*ref, 4, 1).backward(g.float())
+    for a, b in zip(leaves, ref):
+        assert a.grad is not None and a.grad.dtype == a.dtype
+        err = rel_l2(a.grad, b.grad)
+        assert err <= TOL_BWD[dtype], err
+
+
+@pytest.mark.parametrize('remat', [False, True])
+def test_train_step_launches_the_kernels(cuda, monkeypatch, remat):
+    '''One train step at a tiny width through make_train_step: K1 once per attention call
+    and once more per recomputed block under remat, K4 once per attention call.'''
+    monkeypatch.setitem(tsf.DEPTH_PRESETS, 2, (64, 4))
+    seeker = SeekerConfig(num_total_frames=4, frame_height=32, frame_width=48,
+                          causal_attention=1, network_depth=2, drop_path_rate=0.1,
+                          compute_dtype=torch.bfloat16, remat=remat)
+    cfg = step_lib.StepConfig(seeker=seeker, loss=LossConfig(), num_queries=2)
+    state = step_lib.init_train_state(0, cfg, optim.make_optimizer(), device='cuda')
+    batch = synthetic_device_batch(0, B=2, Q=2, T=4, H=32, W=48, M=8, K=4)
+    before = {k: v.clone() for k, v in state.model.state_dict().items()}
+    k1, k4 = fa.fused_attention.launches, fa.fused_attention_bwd.launches
+    state, aux = step_lib.make_train_step(cfg)(state, batch, 0.1)
+    torch.cuda.synchronize()
+    assert np.isfinite(float(aux['total_seeker'])) and float(aux['skipped_nonfinite']) == 0
+    assert fa.fused_attention.launches - k1 == (8 if remat else 4)
+    assert fa.fused_attention_bwd.launches - k4 == 4
+    changed = [k for k, v in state.model.state_dict().items() if not torch.equal(v, before[k])]
+    assert 'backbone.blocks.1.attn.qkv.w' in changed
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
@@ -77,6 +151,10 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         fa.fused_attention(x, w[0].to(torch.bfloat16), *w[1:], 2, 0)
     with pytest.raises(ValueError, match='head_dim'):
         fa.fused_attention(x, *w, 32, 0)
+    with pytest.raises(ValueError, match='g must match'):
+        fa.fused_attention_bwd(x, x.float(), *w[:3], 2, 0)
+    with pytest.raises(ValueError, match='qkv_b'):
+        fa.fused_attention_bwd(x, x, w[0], w[1][:-1], w[2], 2, 0)
 
 
 def test_seeker_entry_points_launch_the_kernel(cuda, tmp_path):

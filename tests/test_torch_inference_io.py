@@ -96,8 +96,13 @@ def test_import_without_jax_or_tcow_tpu():
         "import importlib, pkgutil, sys\n"
         "sys.modules['jax'] = None; sys.modules['optax'] = None\n"
         "import tcow_tpu_torch\n"
-        "for m in pkgutil.walk_packages(tcow_tpu_torch.__path__, 'tcow_tpu_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "mods = [m.name for m in\n"
+        "        pkgutil.walk_packages(tcow_tpu_torch.__path__, 'tcow_tpu_torch.')]\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "training = {'tcow_tpu_torch.' + m for m in ('train.step', 'train.optim',\n"
+        "            'objectives.losses', 'objectives.supervision', 'data.synthetic')}\n"
+        "assert training <= set(mods), training - set(mods)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'tcow_tpu' or m.startswith('tcow_tpu.')]\n"
         "assert not bad, bad\n"

@@ -31,9 +31,11 @@ from tcow_tpu_torch.models.mask_tracker import MaskTracker, seeker_config_from_a
 from tcow_tpu_torch.weights import params_to_jax  # noqa: E402
 
 GROUPS = (('attn_core', ('attn_core',)),
-          ('gemm_bias (K1 GEMMs)', ('gemm_bias',)),
+          ('attn_bwd (K4 core)', ('attn_bwd',)),
+          ('gemm_bias (K1/K4 GEMMs)', ('gemm_bias',)),
           ('cuBLAS/cutlass GEMM', ('gemm', 'sm90_', 'cutlass', 'cublas', 'nvjet')),
           ('softmax', ('softmax',)),
+          ('optimizer (foreach)', ('multi_tensor_apply',)),
           ('memcpy', ('memcpy', 'Memcpy')),
           ('elementwise/reduce', ('elementwise', 'reduce', 'vectorized', 'cat', 'Copy')))
 
@@ -45,17 +47,11 @@ def group_of(name):
     return 'other'
 
 
-def profile_request(engine, rgb, query, target, tag, table_dir):
-    with cs.plain_attention() if tag == 'plain' else contextlib.nullcontext():
-        engine.run_plugin(rgb, query, target)              # warm-up
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            engine.run_plugin(rgb, query, target)
-            torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.perf_counter() - t0)
-    # Device-side events (kernels, copies, memsets): time by group, and the union of
-    # their intervals as the device's busy time.
+def summarize(prof, wall_ms, tag, table_dir):
+    '''One JSON-able dict of a profiled window: host wall ms, device busy ms (the union of
+    the intervals of device-side events: kernels, copies, memsets) and its share of the
+    wall time, and device ms per kernel group; the per-kernel table goes to
+    table_dir/torch_profile_<tag>.txt when table_dir is set.'''
     groups = collections.Counter()
     spans = []
     for ev in prof.events():
@@ -71,9 +67,23 @@ def profile_request(engine, rgb, query, target, tag, table_dir):
         os.makedirs(table_dir, exist_ok=True)
         with open(os.path.join(table_dir, f'torch_profile_{tag}.txt'), 'w') as f:
             f.write(prof.key_averages().table(sort_by='self_device_time_total', row_limit=40))
-    print(json.dumps({'path': tag, 'request_wall_ms': wall_ms, 'device_busy_ms': busy_us / 1e3,
-                      'device_busy_share': busy_us / 1e3 / wall_ms,
-                      'device_ms_by_group': dict(groups.most_common())}), flush=True)
+    return {'path': tag, 'wall_ms': wall_ms, 'device_busy_ms': busy_us / 1e3,
+            'device_busy_share': busy_us / 1e3 / wall_ms,
+            'device_ms_by_group': dict(groups.most_common())}
+
+
+def profile_call(fn, tag, plain, table_dir):
+    '''Runs fn once to warm up and once under torch.profiler, the model's attention swapped
+    for the plain version when `plain`; prints the summary of the profiled call.'''
+    with cs.plain_attention() if plain else contextlib.nullcontext():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+    print(json.dumps(summarize(prof, wall_ms, tag, table_dir)), flush=True)
 
 
 def main():
@@ -92,7 +102,8 @@ def main():
     rgb, query, target = cs.plugin_request(cs.SEED)
     engine = InferenceEngine(params, cfg, device='cuda')
     for tag in ('kernel', 'plain'):
-        profile_request(engine, rgb, query, target, tag, args.table_dir)
+        profile_call(lambda: engine.run_plugin(rgb, query, target), tag, tag == 'plain',
+                     args.table_dir)
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True).stdout.strip())

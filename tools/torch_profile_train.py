@@ -1,0 +1,55 @@
+#!/usr/bin/env python3
+'''
+Device-time breakdown of the PyTorch port's training step on one NVIDIA GPU.
+
+Builds the training step of record of chip_smoke.py (2 clips x 3 queries, ViT-B/16,
+depth 12, T=30, 240x320, causal_attention=1, bf16, per-block remat, drop-path 0.1, AdamW)
+and, for the kernel path (K1 forward, K4 backward) and the plain attention path, runs one
+warm-up step and profiles one step with torch.profiler. Prints one JSON line each: host
+wall time of the step, device busy time and its share of the wall time, and device time
+per kernel group. With --table_dir DIR the per-kernel tables go to
+DIR/torch_profile_train_<path>.txt.
+
+Run from the repository root: `python3 tools/torch_profile_train.py [--table_dir DIR]`.
+'''
+
+import argparse
+import os
+import subprocess
+import sys
+
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import chip_smoke as cs  # noqa: E402
+from torch_profile_inference import profile_call  # noqa: E402
+from tcow_tpu_torch.train import optim  # noqa: E402
+from tcow_tpu_torch.train import step as step_lib  # noqa: E402
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.strip().splitlines()[0])
+    ap.add_argument('--table_dir', default=None,
+                    help='write the per-kernel profiler tables into this directory')
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print('needs an NVIDIA GPU', file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = cs.train_config(torch.bfloat16)
+    tx = optim.make_optimizer('adamw', learn_rate=1e-4, num_epochs=70, steps_per_epoch=1000)
+    state = step_lib.init_train_state(cs.SEED, cfg, tx, device='cuda')
+    train_step = step_lib.make_train_step(cfg)
+    batch = cs.train_batch()
+    for tag in ('kernel', 'plain'):
+        profile_call(lambda: train_step(state, batch, cs.TRAIN_PROGRESS), f'train_{tag}',
+                     tag == 'plain', args.table_dir)
+    print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True).stdout.strip())
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())
