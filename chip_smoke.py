@@ -3,11 +3,12 @@
 Drives the PyTorch port (tcow_tpu_torch) on one NVIDIA GPU and checks it:
 
   1. device line: the card's name and power limit, torch / CUDA / nvcc versions, and the
-     time to build tcow_tpu_torch/ops/csrc/fused_attention.cu (K1 and K4) with nvcc;
+     time to build tcow_tpu_torch/ops/csrc/fused_attention.cu (K1 to K6) with nvcc;
   2. each kernel against its plain PyTorch version on the card, at the shapes of the
-     inference and training paths (bf16), plus one float32 case; for K4 also the
+     inference and training paths (bf16), plus float32 cases; for K4 also the
      gradients of the differentiable fused_attention against autograd through the plain
-     forward;
+     forward; for K2, K3, K5 and K6 both training geometries in bf16 and in float32, and
+     K6's weight gradients identical across two runs;
   3. the inference slice at full width: a seeded ViT-B/16 seeker (depth 12, T=30,
      240x320, causal_attention=1, bf16) written to an .npz, loaded back through
      load_networks, and 3 InferenceEngine.run_plugin requests of 2 clips each, with the
@@ -15,14 +16,18 @@ Drives the PyTorch port (tcow_tpu_torch) on one NVIDIA GPU and checks it:
      metric schema, and against the same engine with the plain attention swapped in;
   4. inference times: per request, per forward, and per kernel call beside its plain
      version, one PyTorch library call computing the same function, and its bound;
-  5. the training slice at full width (the step of record: 2 clips, 3 queries, T=30 at
-     240x320, M=36, bf16, per-block remat, drop-path 0.1, AdamW): init_train_state ->
-     make_optimizer -> make_train_step, one warm-up and 3 timed steps, each checked for a
-     finite loss, an applied update, changed parameters and 48 K1 / 24 K4 launches;
-  6. training parity with drop-path off (first-step loss and concatenated gradient: bf16
-     kernel and plain paths against the f32 plain path; f32 kernel vs plain at depth 2);
-  7. training times: K4 and K1 per call at the training shapes beside their plain
-     versions, library yardsticks and bounds, and kernel-path vs plain-path steps.
+  5. the training slice at full width (2 clips, 3 queries, T=30 at 240x320, M=36, bf16,
+     per-block remat, drop-path 0.1, AdamW, clip 0.3) under each pairing of an attention
+     backward mode with its remat policy, the step of record first (attention_bwd
+     'kernel_x', remat_policy 'dots_nb_out', as bench.py:36-41 of the JAX package):
+     init_train_state -> make_optimizer -> make_train_step, one warm-up and 2 timed
+     steps, each checked for a finite loss, an applied update, changed parameters and the
+     launches of every kernel (PAIRINGS);
+  6. training parity with drop-path off, for each mode (first-step loss and concatenated
+     gradient: bf16 kernel path and bf16 plain path against the f32 plain path; f32
+     kernel vs plain at depth 2);
+  7. training times: every kernel per call at the training shapes beside its plain
+     version, a library yardstick and its bound, and kernel-path vs plain-path steps.
 
 Run from the repository root: `python3 chip_smoke.py`. Prints one JSON object per phase,
 then the `{"kernels": [...]}` line, the nvidia-smi line, and last
@@ -79,20 +84,35 @@ TRAIN_B, TRAIN_Q, TRAIN_M, TRAIN_K = 2, 3, 36, 8
 TRAIN_GEOMETRIES = {'temporal': (TRAIN_B * TRAIN_Q * 300, 30, 1),
                     'spatial': (TRAIN_B * TRAIN_Q * 30, 301, 0)}
 TRAIN_PROGRESS = 0.1
-TRAIN_STEPS = 3      # timed, after one warm-up step
+TRAIN_STEPS = 2      # timed, after one warm-up step
+# Each attention-backward mode with the remat policy that keeps what it needs (BASELINE.md
+# of the JAX package), the step of record first; and the launches of one training step
+# per attention call (two per block), by kernel: the forward kernel runs again in the
+# backward only under 'res' / 'dots_nb', whose policy does not keep the residuals.
+PAIRINGS = {
+    ('kernel_x', 'dots_nb_out'): {'K1': 1, 'K4': 1},
+    ('kernel_qkv', 'dots_nb_out_qkv'): {'K2': 1, 'K5': 1},
+    ('res', 'dots_nb'): {'K3': 2},
+    ('kernel_x_wg', 'dots_nb_out'): {'K1': 1, 'K6': 1},
+}
+STEP_OF_RECORD = ('kernel_x', 'dots_nb_out')
+# The wrapper of each kernel, which counts its launches.
+KERNELS = {'K1': fa.fused_attention, 'K2': fa.fused_attention_fwd_qkv,
+           'K3': fa.fused_attention_fwd_res, 'K4': fa.fused_attention_bwd,
+           'K5': fa.fused_attention_bwd_qkv, 'K6': fa.fused_attention_bwd_wg}
 
 # Tolerances, relative L2 error ||kernel - plain|| / ||plain||:
-# bf16 kernel vs the plain version in float32 from the same bf16-rounded inputs: the
+# K1, K2, K3 bf16 vs the plain version in float32 from the same bf16-rounded inputs: the
 # kernel rounds qkv, p and attn to bf16 (8 bits of mantissa, ~4e-3 per rounding).
 TOL_BF16 = 1e-2
-# float32 kernel vs float32 plain (TF32 off): only the order of the sums differs.
+# Every kernel (and the whole differentiable call) in float32 vs its plain version /
+# autograd in float32 (TF32 off): only the order of the sums differs.
 TOL_F32 = 1e-4
-# K4 bf16 vs its plain version in f32 from the same bf16-rounded inputs: the kernel rounds
-# qkv, dattn, p, attn, dlog, dq, dk and dv to bf16, and dlog = pf (dp - delta) cancels.
+# K4, K5, K6 bf16 vs the plain version in f32 from the same bf16-rounded inputs: the
+# kernel rounds qkv, dattn, p, attn, dlog, dq, dk and dv to bf16, and dlog = pf (dp -
+# delta) cancels; K6 also sums its 54,000 rows per weight gradient in other runs and
+# another order than the plain product.
 TOL_K4_BF16 = 2e-2
-# K4 and the whole Function in float32 vs the plain version / autograd in float32: only
-# the order of the sums differs.
-TOL_K4_F32 = 1e-4
 # Full seeker forward, bf16, kernel path vs plain path: both round to bf16 in every one
 # of 12 blocks, at different points (the kernel once per GEMM, the plain path twice).
 TOL_SEEKER_BF16 = 5e-2
@@ -164,6 +184,38 @@ def k4_bytes(B, S, itemsize):
     return 6 * B * S * D * itemsize + (4 * D * D + 3 * D) * 4
 
 
+def k2_bytes(B, S, itemsize):
+    '''K1's bytes and qkv written once.'''
+    return k1_bytes(B, S, itemsize) + 3 * B * S * D * itemsize
+
+
+def k3_bytes(B, S, itemsize):
+    '''K2's bytes, attn and the probabilities (B, H, S, S) written once.'''
+    return k2_bytes(B, S, itemsize) + (B * S * D + B * HEADS * S * S) * itemsize
+
+
+def k5_flops(B, S, ca):
+    '''K4's operations without the qkv recompute: g . proj_w^T and the attention.'''
+    return 2 * B * S * D * D + 12 * D * attended_pairs(S, ca) * B
+
+
+def k5_bytes(B, S, itemsize):
+    '''qkv and g read once, dqkv and attn written once, proj_w (f32) read once.'''
+    return 8 * B * S * D * itemsize + 4 * D * D
+
+
+def k6_flops(B, S, ca):
+    '''K4's operations plus dx (6 B S D^2), dqkv_w (6 B S D^2), dproj_w (2 B S D^2) and
+    the column sums of dqkv and g (4 B S D).'''
+    return k4_flops(B, S, ca) + 14 * B * S * D * D + 4 * B * S * D
+
+
+def k6_bytes(B, S, itemsize):
+    '''x and g read, dx written once; the f32 weights read and the f32 weight and bias
+    gradients written once.'''
+    return 3 * B * S * D * itemsize + (4 * D * D + 3 * D) * 4 + (4 * D * D + 4 * D) * 4
+
+
 def bound(flops, nbytes):
     '''(least ms on the card, what bounds it) for bf16 work.'''
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
@@ -191,11 +243,30 @@ def attn_inputs(B, S, dtype, seed):
     return x, w
 
 
+def grad_input(B, S, dtype, seed):
+    return torch.from_numpy(np.random.RandomState(seed).randn(B, S, D)
+                            .astype(np.float32)).to(DEV, dtype)
+
+
+def reset_launches():
+    for wrapper in KERNELS.values():
+        wrapper.launches = 0
+
+
+def read_launches():
+    return {name: wrapper.launches for name, wrapper in KERNELS.items()}
+
+
+def plain_fused_attention(x, qkv_w, qkv_b, proj_w, proj_b, num_heads, ca, bwd_mode):
+    '''The model's attention call with the plain version, whatever the mode.'''
+    return fa.attention_ref(x, qkv_w, qkv_b, proj_w, proj_b, num_heads, ca)
+
+
 @contextlib.contextmanager
 def plain_attention():
     '''Runs the model's attention through the plain PyTorch version, on the card too, for
     comparisons with the kernel path; restores the kernel on exit.'''
-    tsf.fused_attention = fa.attention_ref
+    tsf.fused_attention = plain_fused_attention
     try:
         yield
     finally:
@@ -203,12 +274,29 @@ def plain_attention():
 
 
 def library_attention(x, w16, ca):
-    '''One PyTorch call chain computing the same function (yardstick only).'''
+    '''One PyTorch call chain computing K1's and K2's function, (out, qkv) (yardstick
+    only).'''
     B, S, _ = x.shape
-    qkv = torch.addmm(w16[1], x.reshape(B * S, D), w16[0]).reshape(B, S, 3, HEADS, D // HEADS)
-    q, k, v = qkv.permute(2, 0, 3, 1, 4)
+    qkv = torch.addmm(w16[1], x.reshape(B * S, D), w16[0])
+    q, k, v = qkv.reshape(B, S, 3, HEADS, D // HEADS).permute(2, 0, 3, 1, 4)
     o = F.scaled_dot_product_attention(q, k, v, is_causal=ca > 0)
-    return torch.addmm(w16[3], o.transpose(1, 2).reshape(B * S, D), w16[2])
+    return torch.addmm(w16[3], o.transpose(1, 2).reshape(B * S, D), w16[2]), qkv
+
+
+def library_attention_probs(x, w16, ca):
+    '''K3's function, (out, qkv, probs, attn), with library calls (yardstick only): no
+    fused library call returns the probabilities, so addmm, matmul, softmax, matmul,
+    addmm.'''
+    B, S, _ = x.shape
+    dh = D // HEADS
+    qkv = torch.addmm(w16[1], x.reshape(B * S, D), w16[0])
+    q, k, v = qkv.reshape(B, S, 3, HEADS, dh).permute(2, 0, 3, 1, 4)
+    logits = torch.matmul(q, k.transpose(-1, -2)) * dh ** -0.5
+    if ca > 0:
+        logits = logits.masked_fill(~fa._causal_keep(S, ca, x.device), -1e10)
+    probs = torch.softmax(logits, dim=-1, dtype=torch.float32).to(x.dtype)
+    attn = torch.matmul(probs, v).transpose(1, 2).reshape(B * S, D)
+    return torch.addmm(w16[3], attn, w16[2]), qkv, probs, attn
 
 
 def phase_device():
@@ -264,18 +352,17 @@ def phase_k4_vs_plain():
     errs = {}
     for i, (name, B, S, ca, dtype) in enumerate(cases):
         x, w = attn_inputs(B, S, dtype, SEED + 10 + i)
-        g = torch.from_numpy(np.random.RandomState(SEED + 20 + i).randn(B, S, D)
-                             .astype(np.float32)).to(DEV, dtype)
+        g = grad_input(B, S, dtype, SEED + 20 + i)
         dqkv, attn = fa.fused_attention_bwd(x, g, *w[:3], HEADS, ca)
         want_dqkv, want_attn = fa.attention_bwd_ref(x.float(), g.float(), *w[:3], HEADS, ca)
         leaves = [x.clone().requires_grad_()] + [a.clone().requires_grad_() for a in w]
-        fa.fused_attention(*leaves, HEADS, ca).backward(g)
+        fa.fused_attention(*leaves, HEADS, ca, 'kernel_x').backward(g)
         ref = [x.float().requires_grad_()] + [a.clone().requires_grad_() for a in w]
         fa.attention_ref(*ref, HEADS, ca).backward(g.float())
         torch.cuda.synchronize()
         if dqkv.shape != (B, S, 3 * D) or attn.shape != x.shape or dqkv.dtype != dtype:
             fail(f'{name}: K4 outputs {tuple(dqkv.shape)} {tuple(attn.shape)} {dqkv.dtype}')
-        tol = TOL_K4_BF16 if dtype == torch.bfloat16 else TOL_K4_F32
+        tol = TOL_K4_BF16 if dtype == torch.bfloat16 else TOL_F32
         e = dict(B=B, S=S, ca=ca, dtype=str(dtype).replace('torch.', ''), tol_rel_l2=tol,
                  max_abs_err=max(float((dqkv.float() - want_dqkv).abs().max()),
                                  float((attn.float() - want_attn).abs().max())),
@@ -290,6 +377,52 @@ def phase_k4_vs_plain():
         if bad:
             fail(f'{name}: K4 vs plain rel L2 above {tol}: {bad}')
     emit({'phase': 'k4_vs_plain', 'cases': errs})
+    return errs
+
+
+def phase_new_kernels_vs_plain():
+    '''K2, K3, K5 and K6 at both training geometries, in bf16 and in float32, against
+    their plain versions in f32 from the same inputs; K6 run twice must give the same
+    bits.'''
+    errs = {'K2': {}, 'K3': {}, 'K5': {}, 'K6': {}}
+    cases = [(f'{name}_{str(dtype)[6:]}', B, S, ca, dtype)
+             for dtype in (torch.bfloat16, torch.float32)
+             for name, (B, S, ca) in TRAIN_GEOMETRIES.items()]
+    for i, (name, B, S, ca, dtype) in enumerate(cases):
+        x, w = attn_inputs(B, S, dtype, SEED + 30 + i)
+        g = grad_input(B, S, dtype, SEED + 40 + i)
+        k2 = fa.fused_attention_fwd_qkv(x, *w, HEADS, ca)
+        k3 = fa.fused_attention_fwd_res(x, *w, HEADS, ca)
+        k5 = fa.fused_attention_bwd_qkv(k2[1], g, w[2], HEADS, ca)
+        k6 = fa.fused_attention_bwd_wg(x, g, *w[:3], HEADS, ca)
+        k6_again = fa.fused_attention_bwd_wg(x, g, *w[:3], HEADS, ca)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(k6, k6_again)):
+            fail(f'{name}: K6 gave other gradients on a second run')
+        del k6_again
+        res = fa.attention_res_ref(x.float(), *w, HEADS, ca)
+        plain = {'K2': (k2, res[:2], ('out', 'qkv')),
+                 'K3': (k3, res, ('out', 'qkv', 'probs', 'attn'))}
+        del res
+        plain['K5'] = (k5, fa.attention_bwd_qkv_ref(k2[1].float(), g.float(), w[2], HEADS, ca),
+                       ('dqkv', 'attn'))
+        plain['K6'] = (k6, fa.attention_bwd_wg_ref(x.float(), g.float(), *w[:3], HEADS, ca),
+                       ('dx', 'dqkv_w', 'dqkv_b', 'dproj_w', 'dproj_b'))
+        for kernel, (got, want, names) in plain.items():
+            if [t.shape for t in got] != [t.shape for t in want]:
+                fail(f'{name}: {kernel} output shapes {[tuple(t.shape) for t in got]}')
+            tol = (TOL_F32 if dtype == torch.float32
+                   else TOL_BF16 if kernel in ('K2', 'K3') else TOL_K4_BF16)
+            e = dict(B=B, S=S, ca=ca, dtype=str(dtype)[6:], tol_rel_l2=tol,
+                     max_abs_err=max(float((a.float() - b).abs().max())
+                                     for a, b in zip(got, want)))
+            e.update({f'rel_l2_{n}': rel_l2(a.float(), b) for n, a, b in zip(names, got, want)})
+            errs[kernel][name] = e
+            bad = {k: v for k, v in e.items() if k.startswith('rel_l2') and not v <= tol}
+            if bad:
+                fail(f'{name}: {kernel} vs plain rel L2 above {tol}: {bad}')
+        del plain, k2, k3, k5, k6
+    emit({'phase': 'k2_k3_k5_k6_vs_plain', 'cases': errs, 'k6_deterministic': True})
     return errs
 
 
@@ -317,10 +450,12 @@ def phase_slice(ckpt_dir):
     del model
     params, cfg, *_ = load_networks(str(ckpt_dir), None, compute_dtype=torch.bfloat16,
                                     device=DEV)
+    # The JAX package's default mode; without gradients every mode runs K1 alone.
+    cfg = dataclasses.replace(cfg, attention_bwd='res', remat_policy='full')
     engine = InferenceEngine(params, cfg, device=DEV)
     rgb, query, target = plugin_request(SEED)
 
-    fa.fused_attention.launches = 0
+    reset_launches()
     req_ms, results = [], None
     for _ in range(REQUESTS):
         before = fa.fused_attention.launches
@@ -333,6 +468,18 @@ def phase_slice(ckpt_dir):
             fail(f'request launched the kernel {fa.fused_attention.launches - before} '
                  f'times, expected {2 * cfg.network_depth}')
     launches = fa.fused_attention.launches
+    others = {k: n for k, n in read_launches().items() if k != 'K1' and n}
+    if others:
+        fail(f'inference ({cfg.attention_bwd!r} mode) launched other kernels: {others}')
+    for mode in fa.BWD_MODES:
+        eng = InferenceEngine(params, dataclasses.replace(cfg, attention_bwd=mode), device=DEV)
+        counts = read_launches()
+        eng.run_plugin(rgb, query, target)
+        torch.cuda.synchronize()
+        got = {k: n - counts[k] for k, n in read_launches().items() if n != counts[k]}
+        if got != {'K1': 2 * cfg.network_depth}:
+            fail(f'inference in the {mode!r} mode launched {got}')
+        del eng
 
     mask = np.concatenate([m['output_mask'] for m, _ in results])
     flags = np.concatenate([m['output_flags'] for m, _ in results])
@@ -426,10 +573,13 @@ def depth_preset(depth, width_heads):
         del tsf.DEPTH_PRESETS[depth]
 
 
-def train_config(dtype, drop_path_rate=0.1, depth=12):
-    '''The step of record: ViT-B/16, T=30 at 240x320, causal 1, per-block remat.'''
+def train_config(dtype, drop_path_rate=0.1, depth=12, pairing=STEP_OF_RECORD):
+    '''ViT-B/16, T=30 at 240x320, causal 1, per-block remat under the pairing's
+    (attention_bwd, remat_policy); the step of record by default.'''
+    mode, policy = pairing
     seeker = seeker_config_from_args(SEEKER_ARGS, drop_path_rate=drop_path_rate,
-                                     compute_dtype=dtype, remat=True, network_depth=depth)
+                                     compute_dtype=dtype, remat=True, network_depth=depth,
+                                     attention_bwd=mode, remat_policy=policy)
     return step_lib.StepConfig(seeker=seeker, loss=LossConfig(), num_queries=TRAIN_Q)
 
 
@@ -439,12 +589,11 @@ def train_batch():
     return {k: torch.as_tensor(v, device=DEV) for k, v in b.items()}
 
 
-def step_flops(cfg, remat_recompute=True):
+def step_flops(cfg):
     '''Matmul operations of one training step over the B*Q folded clips: the forward and a
-    backward of twice the forward (3 forwards), plus the forward's recompute under remat
-    (4 forwards) when remat_recompute. The recompute is a choice of design, not work the
-    step needs.'''
-    return (4 if remat_recompute else 3) * seeker_forward_flops(cfg.seeker, TRAIN_B * TRAIN_Q)
+    backward of twice the forward, 3 forwards. Recomputes under remat are a choice of
+    design, not work the step needs.'''
+    return 3 * seeker_forward_flops(cfg.seeker, TRAIN_B * TRAIN_Q)
 
 
 def timed_step(train_step, state, batch, plain=False):
@@ -460,10 +609,12 @@ def timed_step(train_step, state, batch, plain=False):
     return state, aux, start.elapsed_time(end), 1e3 * (time.perf_counter() - t0)
 
 
-def phase_train():
-    '''The training main path: init_train_state -> make_optimizer -> make_train_step,
-    one warm-up and TRAIN_STEPS timed steps at full width, bf16, remat, drop-path 0.1.'''
-    cfg = train_config(torch.bfloat16)
+def phase_train(pairing):
+    '''The training main path under one (attention_bwd, remat_policy) pairing:
+    init_train_state -> make_optimizer -> make_train_step, one warm-up and TRAIN_STEPS
+    timed steps at full width, bf16, remat, drop-path 0.1. Every kernel's launches are
+    counted from 0 over these steps and checked per step against PAIRINGS.'''
+    cfg = train_config(torch.bfloat16, pairing=pairing)
     tx = optim.make_optimizer('adamw', learn_rate=1e-4, num_epochs=70, steps_per_epoch=1000,
                               gradient_clip=0.3)
     state = step_lib.init_train_state(SEED, cfg, tx, device=DEV)
@@ -473,40 +624,39 @@ def phase_train():
     last = cfg.seeker.network_depth - 1
     watch = ('backbone.blocks.0.attn.qkv.w', f'backbone.blocks.{last}.temporal_attn.proj.w',
              'post_linear.w')
-    per_step_k1, per_step_k4 = 4 * cfg.seeker.network_depth, 2 * cfg.seeker.network_depth
+    calls = 2 * cfg.seeker.network_depth
+    per_step = {k: PAIRINGS[pairing].get(k, 0) * calls for k in KERNELS}
     steps = []
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    fa.fused_attention.launches = fa.fused_attention_bwd.launches = 0
+    reset_launches()
     for i in range(1 + TRAIN_STEPS):
         before = {k: state.model.state_dict()[k].clone() for k in watch}
-        k1, k4 = fa.fused_attention.launches, fa.fused_attention_bwd.launches
+        counts = read_launches()
         state, aux, ms, host_ms = timed_step(train_step, state, batch)
         rec = dict(step=i, step_ms=ms, host_ms=host_ms, loss=float(aux['total_seeker']),
                    grad_norm=float(aux['grad_norm']),
                    skipped_nonfinite=float(aux['skipped_nonfinite']),
-                   k1_launches=fa.fused_attention.launches - k1,
-                   k4_launches=fa.fused_attention_bwd.launches - k4)
+                   launches={k: n - counts[k] for k, n in read_launches().items()})
         steps.append(rec)
         if not np.isfinite(rec['loss']) or rec['skipped_nonfinite'] != 0.0:
-            fail(f'train step {i}: loss {rec["loss"]}, skipped {rec["skipped_nonfinite"]}')
-        if (rec['k1_launches'], rec['k4_launches']) != (per_step_k1, per_step_k4):
-            fail(f'train step {i}: K1 {rec["k1_launches"]} / K4 {rec["k4_launches"]} '
-                 f'launches, expected {per_step_k1} / {per_step_k4}')
+            fail(f'{pairing} step {i}: loss {rec["loss"]}, skipped {rec["skipped_nonfinite"]}')
+        if rec['launches'] != per_step:
+            fail(f'{pairing} step {i}: launches {rec["launches"]}, expected {per_step}')
         unchanged = [k for k in watch if torch.equal(state.model.state_dict()[k], before[k])]
         if unchanged:
-            fail(f'train step {i}: parameters did not change: {unchanged}')
-    launches = {'k1': fa.fused_attention.launches, 'k4': fa.fused_attention_bwd.launches}
+            fail(f'{pairing} step {i}: parameters did not change: {unchanged}')
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
     step_ms = sum(r['step_ms'] for r in steps[1:]) / TRAIN_STEPS
-    flops, flops3 = step_flops(cfg), step_flops(cfg, remat_recompute=False)
-    emit({'phase': 'train', 'clips': TRAIN_B, 'queries': TRAIN_Q, 'steps': steps,
-          'launches': launches, 'step_ms': step_ms, 'clips_per_s': TRAIN_B / (step_ms / 1e3),
-          'max_memory_allocated_bytes': peak, 'step_matmul_flops': flops,
-          'step_bound_ms': 1e3 * flops / PEAK_BF16_FLOPS,
-          'step_matmul_flops_no_recompute': flops3,
-          'step_bound_ms_no_recompute': 1e3 * flops3 / PEAK_BF16_FLOPS})
+    flops = step_flops(cfg)
+    emit({'phase': 'train', 'attention_bwd': pairing[0], 'remat_policy': pairing[1],
+          'clips': TRAIN_B, 'queries': TRAIN_Q, 'steps': steps, 'launches': launches,
+          'launches_per_step': per_step, 'step_ms': step_ms,
+          'clips_per_s': TRAIN_B / (step_ms / 1e3), 'max_memory_allocated_bytes': peak,
+          'step_matmul_flops': flops, 'step_bound_ms': 1e3 * flops / PEAK_BF16_FLOPS})
     return dict(cfg=cfg, state=state, train_step=train_step, batch=batch,
-                init_state=init_state, launches=launches, step_ms=step_ms)
+                init_state=init_state, launches=launches, step_ms=step_ms, peak=peak)
 
 
 def loss_and_flat_grad(model, cfg, batch, plain):
@@ -527,90 +677,145 @@ def model_from(cfg, state_dict):
 
 
 def phase_train_parity(init_state, batch):
-    '''First-step loss and gradient with drop-path off. bf16 kernel path and bf16 plain
-    path, each against the f32 plain path; and f32 kernel vs f32 plain at depth 2.'''
+    '''First-step loss and gradient with drop-path off, for each backward mode under its
+    pairing: the bf16 kernel path against the f32 plain path, whose error may be at most
+    TRAIN_BF16_ERR_RATIO x the bf16 plain path's; and f32 kernel vs f32 plain at depth 2.
+    The plain paths run under full remat (a policy never changes a result).'''
     rel = lambda a, b: abs(a - b) / abs(b)
-    cfg16, cfg32 = train_config(torch.bfloat16, 0.0), train_config(torch.float32, 0.0)
-    model = model_from(cfg16, init_state)
-    loss_k, grad_k = loss_and_flat_grad(model, cfg16, batch, plain=False)
-    loss_p, grad_p = loss_and_flat_grad(model, cfg16, batch, plain=True)
-    del model
+    plain = (STEP_OF_RECORD[0], 'full')
+    cfg16, cfg32 = (train_config(dt, 0.0, pairing=plain)
+                    for dt in (torch.bfloat16, torch.float32))
     model = model_from(cfg32, init_state)
     loss_r, grad_r = loss_and_flat_grad(model, cfg32, batch, plain=True)
     del model
-    errs = {'loss_kernel_bf16': rel(loss_k, loss_r), 'loss_plain_bf16': rel(loss_p, loss_r),
-            'grad_kernel_bf16': rel_l2(grad_k, grad_r), 'grad_plain_bf16': rel_l2(grad_p, grad_r)}
-    del grad_k, grad_p, grad_r
+    model = model_from(cfg16, init_state)
+    loss_p, grad_p = loss_and_flat_grad(model, cfg16, batch, plain=True)
+    del model
+    errs = {'loss_plain_bf16': rel(loss_p, loss_r), 'grad_plain_bf16': rel_l2(grad_p, grad_r)}
+    losses = {'plain_bf16': loss_p, 'plain_f32': loss_r}
+    del grad_p
+    for pairing in PAIRINGS:
+        mode = pairing[0]
+        cfg = train_config(torch.bfloat16, 0.0, pairing=pairing)
+        model = model_from(cfg, init_state)
+        losses[f'kernel_bf16_{mode}'], grad_k = loss_and_flat_grad(model, cfg, batch,
+                                                                   plain=False)
+        del model
+        errs[f'loss_kernel_bf16_{mode}'] = rel(losses[f'kernel_bf16_{mode}'], loss_r)
+        errs[f'grad_kernel_bf16_{mode}'] = rel_l2(grad_k, grad_r)
+        del grad_k
+    del grad_r
     with depth_preset(2, (D, HEADS)):
-        cfg2 = train_config(torch.float32, 0.0, depth=2)
+        cfg2 = train_config(torch.float32, 0.0, depth=2, pairing=plain)
         model = MaskTracker(cfg2.seeker, device=DEV)
         model.init_params_(torch.Generator().manual_seed(SEED))
-        loss_k2, grad_k2 = loss_and_flat_grad(model, cfg2, batch, plain=False)
-        loss_p2, grad_p2 = loss_and_flat_grad(model, cfg2, batch, plain=True)
+        state2 = model.state_dict()
+        losses['plain_f32_depth2'], grad_p2 = loss_and_flat_grad(model, cfg2, batch, plain=True)
         del model
-    errs.update(loss_kernel_vs_plain_f32_depth2=rel(loss_k2, loss_p2),
-                grad_kernel_vs_plain_f32_depth2=rel_l2(grad_k2, grad_p2))
-    for what in ('loss', 'grad'):
-        if not errs[f'{what}_kernel_bf16'] <= TRAIN_BF16_ERR_RATIO * errs[f'{what}_plain_bf16']:
-            fail(f'train parity: bf16 {what} error of the kernel path '
-                 f'{errs[f"{what}_kernel_bf16"]} > {TRAIN_BF16_ERR_RATIO} x the plain '
-                 f'path\'s {errs[f"{what}_plain_bf16"]}')
-        if not errs[f'{what}_kernel_vs_plain_f32_depth2'] <= TOL_TRAIN_F32:
-            fail(f'train parity: f32 {what} kernel vs plain at depth 2 '
-                 f'{errs[f"{what}_kernel_vs_plain_f32_depth2"]} > {TOL_TRAIN_F32}')
-    emit({'phase': 'train_parity', 'losses': {'kernel_bf16': loss_k, 'plain_bf16': loss_p,
-                                              'plain_f32': loss_r, 'kernel_f32_depth2': loss_k2,
-                                              'plain_f32_depth2': loss_p2},
-          'rel_err': errs, 'bf16_err_ratio_limit': TRAIN_BF16_ERR_RATIO,
+        for pairing in PAIRINGS:
+            mode = pairing[0]
+            cfg = train_config(torch.float32, 0.0, depth=2, pairing=pairing)
+            model = model_from(cfg, state2)
+            loss_k2, grad_k2 = loss_and_flat_grad(model, cfg, batch, plain=False)
+            del model
+            losses[f'kernel_f32_depth2_{mode}'] = loss_k2
+            errs[f'loss_kernel_vs_plain_f32_depth2_{mode}'] = rel(loss_k2,
+                                                                  losses['plain_f32_depth2'])
+            errs[f'grad_kernel_vs_plain_f32_depth2_{mode}'] = rel_l2(grad_k2, grad_p2)
+    ratios = {}
+    for mode, _ in PAIRINGS:
+        for what in ('loss', 'grad'):
+            ratios[f'{what}_{mode}'] = (errs[f'{what}_kernel_bf16_{mode}']
+                                        / errs[f'{what}_plain_bf16'])
+            if not errs[f'{what}_kernel_bf16_{mode}'] <= (TRAIN_BF16_ERR_RATIO
+                                                          * errs[f'{what}_plain_bf16']):
+                fail(f'train parity ({mode}): bf16 {what} error of the kernel path '
+                     f'{errs[f"{what}_kernel_bf16_{mode}"]} > {TRAIN_BF16_ERR_RATIO} x the '
+                     f'plain path\'s {errs[f"{what}_plain_bf16"]}')
+            key = f'{what}_kernel_vs_plain_f32_depth2_{mode}'
+            if not errs[key] <= TOL_TRAIN_F32:
+                fail(f'train parity ({mode}): f32 {what} kernel vs plain at depth 2 '
+                     f'{errs[key]} > {TOL_TRAIN_F32}')
+    emit({'phase': 'train_parity', 'losses': losses, 'rel_err': errs,
+          'bf16_err_ratio': ratios, 'bf16_err_ratio_limit': TRAIN_BF16_ERR_RATIO,
           'tol_f32_depth2': TOL_TRAIN_F32})
     return errs
 
 
-def library_attention_bwd(x, w16, ca, g):
+def library_attention_bwd(x, w16, ca, g, qkv=None, wgrads=False):
     '''K4's function, (dqkv, attn) from x and g, with library calls (yardstick only): the
     qkv recompute and g . proj_w^T as addmm / mm, then SDPA's forward for attn and its
-    autograd backward for dq, dk and dv. No weight or input gradients.'''
+    autograd backward for dq, dk and dv. With qkv given, no recompute: K5's function.
+    With wgrads, also the rest of K6's function: dx and the weight gradients as mm, the
+    bias gradients as sums.'''
     B, S, _ = x.shape
     dh = D // HEADS
 
     def run():
-        qkv = torch.addmm(w16[1], x.reshape(B * S, D), w16[0]).reshape(B, S, 3, HEADS, dh)
-        q, k, v = (t.detach().requires_grad_() for t in qkv.permute(2, 0, 3, 1, 4).unbind(0))
-        dattn = torch.mm(g.reshape(B * S, D), w16[2].T).reshape(B, S, HEADS, dh).transpose(1, 2)
+        qkv_ = torch.addmm(w16[1], x.reshape(B * S, D), w16[0]) if qkv is None else qkv
+        q, k, v = (t.detach().requires_grad_()
+                   for t in qkv_.reshape(B, S, 3, HEADS, dh).permute(2, 0, 3, 1, 4).unbind(0))
+        g2 = g.reshape(B * S, D)
+        dattn = torch.mm(g2, w16[2].T).reshape(B, S, HEADS, dh).transpose(1, 2)
         with torch.enable_grad():
             attn = F.scaled_dot_product_attention(q, k, v, is_causal=ca > 0)
-            return attn, torch.autograd.grad(attn, (q, k, v), dattn)
+            grads = torch.autograd.grad(attn, (q, k, v), dattn)
+        if not wgrads:
+            return attn, grads
+        dqkv = torch.stack(grads).permute(1, 3, 0, 2, 4).reshape(B * S, 3 * D)
+        attn2 = attn.detach().transpose(1, 2).reshape(B * S, D)
+        f32 = torch.float32
+        return (torch.mm(dqkv, w16[0].T), torch.mm(x.reshape(B * S, D).T, dqkv, out_dtype=f32),
+                dqkv.sum(dim=0, dtype=f32), torch.mm(attn2.T, g2, out_dtype=f32),
+                g2.sum(dim=0, dtype=f32))
     return run
 
 
 def phase_train_times(train):
-    '''K4 (and K1) per call at the training geometries beside the plain version, the
-    library yardstick and the bound; then a kernel-path step against a plain-path step,
-    alternated in this process: plain, kernel, kernel, plain.'''
-    per_geom = {'k1': {}, 'k4': {}}
+    '''Every kernel per call at the training geometries beside its plain version, its
+    library yardstick and its bound; then a kernel-path step of record against a
+    plain-path step, alternated in this process: plain, kernel, kernel, plain.'''
+    per_geom = {k: {} for k in KERNELS}
     for i, (name, (B, S, ca)) in enumerate(TRAIN_GEOMETRIES.items()):
         x, w = attn_inputs(B, S, torch.bfloat16, SEED + 200 + i)
-        g = torch.from_numpy(np.random.RandomState(SEED + 210 + i).randn(B, S, D)
-                             .astype(np.float32)).to(DEV, torch.bfloat16)
+        g = grad_input(B, S, torch.bfloat16, SEED + 210 + i)
         w16 = [a.to(torch.bfloat16) for a in w]
         with torch.no_grad():
-            b4 = bound(k4_flops(B, S, ca), k4_bytes(B, S, 2))
-            per_geom['k4'][name] = dict(
-                B=B, S=S, ca=ca,
-                ms=cuda_ms(lambda: fa.fused_attention_bwd(x, g, *w[:3], HEADS, ca), iters=10),
-                plain_ms=cuda_ms(lambda: fa.attention_bwd_ref(x, g, *w[:3], HEADS, ca),
-                                 iters=10),
-                bound_ms=b4[0], bound_by=b4[1], flops=k4_flops(B, S, ca),
-                bytes=k4_bytes(B, S, 2))
-            b1 = bound(k1_flops(B, S, ca), k1_bytes(B, S, 2))
-            per_geom['k1'][name] = dict(
-                B=B, S=S, ca=ca,
-                ms=cuda_ms(lambda: fa.fused_attention_fwd(x, *w, HEADS, ca), iters=10),
-                plain_ms=cuda_ms(lambda: fa.attention_ref(x, *w, HEADS, ca), iters=10),
-                library_ms=cuda_ms(lambda: library_attention(x, w16, ca), iters=10),
-                bound_ms=b1[0], bound_by=b1[1])
-        per_geom['k4'][name]['library_ms'] = cuda_ms(library_attention_bwd(x, w16, ca, g),
-                                                     iters=10)
+            qkv = fa.fused_attention_fwd_qkv(x, *w, HEADS, ca)[1]
+        calls = {
+            'K1': (lambda: fa.fused_attention_fwd(x, *w, HEADS, ca),
+                   lambda: fa.attention_ref(x, *w, HEADS, ca),
+                   lambda: library_attention(x, w16, ca),
+                   k1_flops(B, S, ca), k1_bytes(B, S, 2)),
+            'K2': (lambda: fa.fused_attention_fwd_qkv(x, *w, HEADS, ca),
+                   lambda: fa.attention_qkv_ref(x, *w, HEADS, ca),
+                   lambda: library_attention(x, w16, ca),
+                   k1_flops(B, S, ca), k2_bytes(B, S, 2)),
+            'K3': (lambda: fa.fused_attention_fwd_res(x, *w, HEADS, ca),
+                   lambda: fa.attention_res_ref(x, *w, HEADS, ca),
+                   lambda: library_attention_probs(x, w16, ca),
+                   k1_flops(B, S, ca), k3_bytes(B, S, 2)),
+            'K4': (lambda: fa.fused_attention_bwd(x, g, *w[:3], HEADS, ca),
+                   lambda: fa.attention_bwd_ref(x, g, *w[:3], HEADS, ca),
+                   library_attention_bwd(x, w16, ca, g),
+                   k4_flops(B, S, ca), k4_bytes(B, S, 2)),
+            'K5': (lambda: fa.fused_attention_bwd_qkv(qkv, g, w[2], HEADS, ca),
+                   lambda: fa.attention_bwd_qkv_ref(qkv, g, w[2], HEADS, ca),
+                   library_attention_bwd(x, w16, ca, g, qkv=qkv),
+                   k5_flops(B, S, ca), k5_bytes(B, S, 2)),
+            'K6': (lambda: fa.fused_attention_bwd_wg(x, g, *w[:3], HEADS, ca),
+                   lambda: fa.attention_bwd_wg_ref(x, g, *w[:3], HEADS, ca),
+                   library_attention_bwd(x, w16, ca, g, wgrads=True),
+                   k6_flops(B, S, ca), k6_bytes(B, S, 2)),
+        }
+        with torch.no_grad():
+            for kernel, (run, plain, library, flops, nbytes) in calls.items():
+                bound_ms, bound_by = bound(flops, nbytes)
+                per_geom[kernel][name] = dict(
+                    B=B, S=S, ca=ca, ms=cuda_ms(run, iters=10),
+                    plain_ms=cuda_ms(plain, iters=10), library_ms=cuda_ms(library, iters=10),
+                    bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=nbytes)
+        del x, g, qkv, calls
     state, train_step, batch = train['state'], train['train_step'], train['batch']
     runs = []
     for plain in (True, False, False, True):
@@ -650,19 +855,43 @@ def main():
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     per_geom = phase_times(params, cfg, inputs)
-    train = phase_train()
-    phase_train_parity(train['init_state'], train['batch'])
-    train_geom = phase_train_times(train)
+    new_errs = phase_new_kernels_vs_plain()
+    trains = {}
+    for pairing in PAIRINGS:
+        trains[pairing] = phase_train(pairing)
+        if pairing != STEP_OF_RECORD:
+            for key in ('state', 'train_step', 'batch', 'init_state'):
+                del trains[pairing][key]
+            torch.cuda.empty_cache()
+    emit({'phase': 'train_pairings', 'pairings': [
+        {'attention_bwd': m, 'remat_policy': p, 'step_ms': t['step_ms'],
+         'clips_per_s': TRAIN_B / (t['step_ms'] / 1e3), 'max_memory_allocated_bytes': t['peak'],
+         'launches_per_step': {k: n // (1 + TRAIN_STEPS) for k, n in t['launches'].items() if n}}
+        for (m, p), t in trains.items()]})
+    record = trains[STEP_OF_RECORD]
+    phase_train_parity(record['init_state'], record['batch'])
+    train_geom = phase_train_times(record)
 
-    k1 = kernel_entry('fused_attention', 'tcow_tpu_torch/ops/csrc/fused_attention.cu',
-                      'tcow_tpu/ops/pallas_attention.py:87',
-                      {'inference': inference_launches, 'train': train['launches']['k1']},
+    def train_launches(kernel):
+        return {f'train_{m}': t['launches'][kernel] for (m, _), t in trains.items()
+                if t['launches'][kernel]}
+
+    source = 'tcow_tpu_torch/ops/csrc/fused_attention.cu'
+    replaces = 'tcow_tpu/ops/pallas_attention.py:'
+    k1 = kernel_entry('fused_attention', source, replaces + '87',
+                      {'inference': inference_launches, **train_launches('K1')},
                       errs, per_geom)
-    k1['per_geometry_train'] = train_geom['k1']
-    k4 = kernel_entry('fused_attention_bwd', 'tcow_tpu_torch/ops/csrc/fused_attention.cu',
-                      'tcow_tpu/ops/pallas_attention.py:548',
-                      {'train': train['launches']['k4']}, k4_errs, train_geom['k4'])
-    emit({'kernels': [k1, k4]})
+    k1['per_geometry_train'] = train_geom['K1']
+    entries = [k1]
+    for kernel, name, line, kerrs in (
+            ('K2', 'fused_attention_fwd_qkv', '293', new_errs['K2']),
+            ('K3', 'fused_attention_fwd_res', '327', new_errs['K3']),
+            ('K4', 'fused_attention_bwd', '548', k4_errs),
+            ('K5', 'fused_attention_bwd_qkv', '755', new_errs['K5']),
+            ('K6', 'fused_attention_bwd_wg', '735', new_errs['K6'])):
+        entries.append(kernel_entry(name, source, replaces + line, train_launches(kernel),
+                                    kerrs, train_geom[kernel]))
+    emit({'kernels': entries})
     print(smi)
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
                                  'count': torch.cuda.device_count()}})

@@ -35,10 +35,13 @@ class SeekerConfig:
     pretrained: bool = False  # controls input RGB normalization
     compute_dtype: torch.dtype = torch.float32
     remat: bool = False  # per-block rematerialization in the backbone
+    remat_policy: str = 'full'  # what a remat block keeps (timesformer.REMAT_POLICIES)
+    attention_bwd: str = 'res'  # 'res' | 'kernel_qkv' | 'kernel_x' | 'kernel_x_wg'
     temporal_rope: bool = False
 
     def __post_init__(self):
-        tsf.check_ported(self.attention_type, self.temporal_rope)
+        tsf.check_config(self.attention_type, self.temporal_rope, self.remat_policy,
+                         self.attention_bwd)
 
     @property
     def input_channels(self) -> int:
@@ -54,12 +57,14 @@ class SeekerConfig:
             attention_type=self.attention_type, causal_attention=self.causal_attention,
             norm_embeddings=self.norm_embeddings, drop_path_rate=self.drop_path_rate,
             normalize_inputs=self.pretrained, compute_dtype=self.compute_dtype,
-            remat=self.remat, temporal_rope=self.temporal_rope)
+            remat=self.remat, remat_policy=self.remat_policy,
+            attention_bwd=self.attention_bwd, temporal_rope=self.temporal_rope)
 
 
 def seeker_config_from_args(seeker_args: Dict[str, Any], **overrides) -> SeekerConfig:
     '''SeekerConfig from the seeker_args dict that checkpoints embed
-    (tcow_tpu mask_tracker.py:99-127).'''
+    (tcow_tpu mask_tracker.py:99-127); `overrides` set any field, as the JAX package's
+    trainer sets remat, remat_policy and attention_bwd.'''
     tracker_pretrained = seeker_args.get('tracker_pretrained', False)
     if isinstance(tracker_pretrained, str):
         pretrained = tracker_pretrained.lower() in ('1', 'y', 'yes', 't', 'true') \

@@ -1,7 +1,8 @@
 '''
 Divided space-time TimeSformer backbone in PyTorch: the port of
 tcow_tpu/models/timesformer.py (forward :713-862, _divided_block :388-450), with
-stochastic depth (drop_path :325-337) and per-block rematerialization for training.
+stochastic depth (drop_path :325-337) and per-block rematerialization under JAX's remat
+policies (:797-818) for training.
 
 Parameters keep the JAX layout and names (linear `w` is (din, dout), LayerNorm `g`/`b`),
 with the stacked block axis unrolled into a ModuleList; weights.py converts between the
@@ -9,6 +10,7 @@ two. Master weights stay float32 and are cast to the compute dtype at use.
 '''
 
 import dataclasses
+import functools
 import math
 from typing import Tuple
 
@@ -18,7 +20,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from tcow_tpu_torch.ops.fused_attention import fused_attention
+from tcow_tpu_torch.ops.fused_attention import BWD_MODES, FORWARD_OPS, fused_attention
 
 # Input normalization constants for pretrained backbones.
 TIMESFORMER_MEAN = (0.45, 0.45, 0.45)
@@ -27,14 +29,47 @@ TIMESFORMER_STD = (0.225, 0.225, 0.225)
 # network_depth -> (embed_dim, num_heads), as in tcow_tpu timesformer.py:39.
 DEPTH_PRESETS = {12: (768, 12), 18: (896, 14), 24: (1024, 16)}
 
+REMAT_POLICIES = ('full', 'dots', 'dots_nb', 'dots_nb_attn', 'attn_res', 'dots_nb_out',
+                  'dots_nb_out_qkv')
 
-def check_ported(attention_type: str, temporal_rope: bool):
-    '''Raises for the configurations this port does not run yet.'''
+
+def check_config(attention_type: str, temporal_rope: bool, remat_policy: str,
+                 attention_bwd: str):
+    '''Raises ValueError for unknown names and NotImplementedError for the
+    configurations this port does not run yet.'''
+    if remat_policy not in REMAT_POLICIES:
+        raise ValueError(f'unknown remat_policy {remat_policy!r}; one of {REMAT_POLICIES}')
+    if attention_bwd not in BWD_MODES:
+        raise ValueError(f'unknown attention_bwd {attention_bwd!r}; one of {BWD_MODES}')
     if attention_type != 'divided_space_time':
         raise NotImplementedError(f'attention_type={attention_type!r} is not ported yet '
                                   '(only divided_space_time)')
     if temporal_rope:
         raise NotImplementedError('temporal_rope is not ported yet')
+
+
+def remat_saved_ops(policy: str) -> list:
+    '''The operators whose outputs a remat policy keeps across a block's checkpoint; the
+    rest is recomputed in the backward. JAX's policies (timesformer.py:797-818) by what
+    they name: 'dots_nb' the non-batched products (Dense's mm); 'dots' the batched ones
+    too, which a block reaches only through the plain attention; '_out' the attention
+    output ('attn_out'); '_qkv' also qkv ('attn_qkv'); 'attn_res' and 'dots_nb_attn' the
+    residuals of 'res' ('attn_res'). An attention forward is one operator whose outputs
+    are kept together: the output alone for 'kernel_x' / 'kernel_x_wg', with qkv for
+    'kernel_qkv', with qkv, probs and attn for 'res'. 'full' keeps nothing.'''
+    aten = torch.ops.aten
+    ops = []
+    if policy.startswith('dots'):
+        ops.append(aten.mm.default)
+    if policy == 'dots':
+        ops.append(aten.bmm.default)
+    if policy in ('dots_nb_out', 'dots_nb_out_qkv'):
+        ops.append(FORWARD_OPS['kernel_x'])
+    if policy == 'dots_nb_out_qkv':
+        ops.append(FORWARD_OPS['kernel_qkv'])
+    if policy in ('dots_nb_attn', 'attn_res'):
+        ops.append(FORWARD_OPS['res'])
+    return ops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,10 +91,13 @@ class TimeSformerConfig:
     ln_eps: float = 1e-6
     compute_dtype: torch.dtype = torch.float32
     remat: bool = False  # recompute each block in the backward pass (saves memory)
+    remat_policy: str = 'full'  # what a remat block keeps (REMAT_POLICIES)
+    attention_bwd: str = 'res'  # 'res' | 'kernel_qkv' | 'kernel_x' | 'kernel_x_wg'
     temporal_rope: bool = False
 
     def __post_init__(self):
-        check_ported(self.attention_type, self.temporal_rope)
+        check_config(self.attention_type, self.temporal_rope, self.remat_policy,
+                     self.attention_bwd)
 
     @property
     def grid_h(self) -> int:
@@ -131,18 +169,21 @@ class LayerNorm(nn.Module):
 
 class Attention(nn.Module):
     '''Multi-head self-attention over the second-to-last axis (timesformer.py:212-316),
-    always through ops.fused_attention: the plain version on the CPU, the kernel on CUDA.'''
+    always through ops.fused_attention in the backward mode `bwd_mode`: the plain versions
+    on the CPU, the kernels on CUDA.'''
 
-    def __init__(self, dim: int, num_heads: int, device=None):
+    def __init__(self, dim: int, num_heads: int, bwd_mode: str, device=None):
         super().__init__()
         self.num_heads = num_heads
+        self.bwd_mode = bwd_mode
         self.qkv = Dense(dim, 3 * dim, device)
         self.proj = Dense(dim, dim, device)
 
     def forward(self, x, causal_attention: int):
         *lead, S, D = x.shape
         out = fused_attention(x.reshape(-1, S, D).contiguous(), self.qkv.w, self.qkv.b,
-                              self.proj.w, self.proj.b, self.num_heads, causal_attention)
+                              self.proj.w, self.proj.b, self.num_heads, causal_attention,
+                              self.bwd_mode)
         return out.reshape(*lead, S, D)
 
 
@@ -198,11 +239,11 @@ class DividedBlock(nn.Module):
         D = cfg.embed_dim
         self.cfg = cfg
         self.norm1 = LayerNorm(D, cfg.ln_eps, device)
-        self.attn = Attention(D, cfg.num_heads, device)
+        self.attn = Attention(D, cfg.num_heads, cfg.attention_bwd, device)
         self.norm2 = LayerNorm(D, cfg.ln_eps, device)
         self.mlp = Mlp(D, cfg.mlp_dim, device)
         self.temporal_norm1 = LayerNorm(D, cfg.ln_eps, device)
-        self.temporal_attn = Attention(D, cfg.num_heads, device)
+        self.temporal_attn = Attention(D, cfg.num_heads, cfg.attention_bwd, device)
         self.temporal_fc = Dense(D, D, device)
 
     def forward(self, xs, cls, masks: DropPathMasks = None):
@@ -295,7 +336,9 @@ class TimeSformer(nn.Module):
                 generator: torch.Generator = None):
         '''train with a generator and drop_path_rate > 0 draws drop-path masks from the
         generator; with cfg.remat and gradients on, each block is recomputed in the
-        backward pass (torch.utils.checkpoint), which re-runs its attention forward.'''
+        backward pass (torch.utils.checkpoint), except the outputs that cfg.remat_policy
+        keeps (`remat_saved_ops`): under 'full' the attention forwards run again, under
+        the '_out' policies they do not.'''
         cfg = self.cfg
         B, C, T, H, W = pixels.shape
         p, D = cfg.patch_size, cfg.embed_dim
@@ -326,11 +369,16 @@ class TimeSformer(nn.Module):
             masks = draw_drop_path_masks(generator, cfg.drop_path_rate, cfg.depth, B, N, T,
                                          x.device)
         remat = cfg.remat and torch.is_grad_enabled()
+        kw = {}
+        if cfg.remat_policy != 'full':
+            kw['context_fn'] = functools.partial(
+                torch.utils.checkpoint.create_selective_checkpoint_contexts,
+                remat_saved_ops(cfg.remat_policy))
         for blk, m in zip(self.blocks, masks):
             if remat:
                 # The block draws nothing at random, so no RNG state needs restoring.
                 xs, cls = torch.utils.checkpoint.checkpoint(
-                    blk, xs, cls, m, use_reentrant=False, preserve_rng_state=False)
+                    blk, xs, cls, m, use_reentrant=False, preserve_rng_state=False, **kw)
             else:
                 xs, cls = blk(xs, cls, m)
 

@@ -1,5 +1,7 @@
-// Fused multi-head self-attention for Hopper (sm_90a), forward (K1) and backward (K4),
-// bound through ctypes.
+// Fused multi-head self-attention for Hopper (sm_90a), bound through ctypes: the forward
+// (K1) with its residual variants (K2, K3) and the backward (K4) with its variants (K5, K6),
+// one per backward mode of tcow_tpu/ops/pallas_attention.py:fused_attention (:171-199).
+// The wrappers in fused_attention.py chain the entry points below into each kernel.
 //
 // ---- K1, the forward ----
 //
@@ -72,6 +74,40 @@
 // qkv, dattn and the statistics make a round trip through HBM. Tensor cores (mma) in the
 // core and wgmma + TMA in the GEMMs are later work.
 
+// ---- K2, K3: the forward with residuals ----
+//
+// K2 replaces _fused_attention_fwd_impl(want_residuals='qkv') (`pallas_call` :293), the
+// forward of the 'kernel_qkv' mode: K1's chain, which already writes qkv (B, S, 3D) to
+// device memory between its launches; the wrapper returns it. No device code of its own.
+// K3 replaces _fused_attention_fwd_impl(want_residuals=True) (`pallas_call` :327, probs and
+// attn stored at :141-142 and :152-155), the forward of the 'res' mode: K1's chain with
+// attn_core<PROBS = true>, which stores each p_c it forms in pass 2 into probs
+// (B, H, S, S) in the compute dtype, per sequence and not in the TPU's packed
+// (B/pack, H, SP, SP) layout, and zeros for the keys the causal mask drops. attn (B, S, D)
+// is K1's intermediate. Bound at the training step of record (bf16): K1's operations
+// (2.6e11 temporal, 3.1e11 spatial) against K1's bytes plus qkv, attn and the
+// probabilities (0.39 GB spatial, 0.04 GB temporal): operations-bound, ~0.26 / ~0.31 ms.
+// What the design does about it: nothing beyond K1's design.
+//
+// ---- K5, K6: the backward variants ----
+//
+// K5 replaces _fused_attention_bwd_impl(qkv=...) (`pallas_call` :755, qkv_ref :570-571),
+// the backward of 'kernel_qkv': K4 reading the saved qkv, so the chain starts at the
+// g . proj_w^T GEMM (attn_bwd_q / attn_bwd_kv unchanged).
+// K6 replaces _fused_attention_bwd_impl(inkernel_wgrads=True) (`pallas_call` :735, body
+// :640-660), the backward of 'kernel_x_wg', which computes inside the TPU kernel what K4
+// leaves to plain products: K4's chain, then
+//   dx      = dqkv . qkv_w^T rounded to the compute dtype: gemm_bias<WT = true>, no bias
+//   dqkv_w  = x^T . dqkv, dproj_w = attn^T . g in f32: wgrad
+//   dqkv_b, dproj_b = column sums of dqkv and g in f32: colsum
+// The weight gradients sum over all R S rows (54,000 at the step of record), across
+// blocks. The TPU kernel accumulates them in VMEM over its sequential grid; here the rows
+// are cut into runs, one block per (output tile, run) sums its run in row order, and a
+// second pass adds the runs in order: deterministic, no atomics. Bound (bf16, step of
+// record): 22 R S D^2 operations in products plus K4's attention (7.1e11 temporal, 8.5e11
+// spatial, ~0.72 / ~0.86 ms), operations-bound. What the design does about it:
+// nothing yet; wgrad uses the forward's wmma tiles without a copy pipeline.
+//
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -344,10 +380,10 @@ __host__ __device__ inline size_t attn_smem_floats(int dh) {
     return (size_t)QT * dh + (size_t)KT * ks_ld(dh) + (size_t)KT * dh + (size_t)QT * KT;
 }
 
-template <typename T, int DC>
+template <typename T, int DC, bool PROBS>
 __global__ void __launch_bounds__(AC_WARPS * 32)
-attn_core(const T* __restrict__ qkv, T* __restrict__ out, int S, int H, int dh, int causal,
-          int diag, float scale, int q_tiles) {
+attn_core(const T* __restrict__ qkv, T* __restrict__ out, T* __restrict__ probs, int S, int H,
+          int dh, int causal, int diag, float scale, int q_tiles) {
     extern __shared__ __align__(16) float smem[];
     float* qs = smem;                       // QT x dh
     float* ks = qs + QT * dh;               // KT x ks_ld(dh)
@@ -403,8 +439,12 @@ attn_core(const T* __restrict__ qkv, T* __restrict__ out, int S, int H, int dh, 
         for (int r = 0; r < RPW; ++r) {
             const float l = masked_logit(acc[r], scale, k0 + lane, kend,
                                          q0 + warp * RPW + r, causal, diag);
-            const float p = expf(l - m[r]) / s[r];
-            ps[(warp * RPW + r) * KT + lane] = to_f32(from_f32<T>(p));
+            const T pc = from_f32<T>(expf(l - m[r]) / s[r]);
+            ps[(warp * RPW + r) * KT + lane] = to_f32(pc);
+            if (PROBS) {
+                const int qi = q0 + warp * RPW + r, key = k0 + lane;
+                if (qi < S && key < kend) probs[(((size_t)b * H + h) * S + qi) * S + key] = pc;
+            }
         }
         __syncwarp();
         for (int j = 0; j < nk; ++j) {
@@ -433,31 +473,43 @@ attn_core(const T* __restrict__ qkv, T* __restrict__ out, int S, int H, int dh, 
             const int d = lane + 32 * c;
             if (d < dh) orow[d] = from_f32<T>(o[r][c]);
         }
+        // Keys from kend on were not visited: masked for every row of the tile, p = 0.
+        if (PROBS) {
+            T* prow = probs + (((size_t)b * H + h) * S + qi) * S;
+            for (int key = kend + lane; key < S; key += 32) prow[key] = from_f32<T>(0.f);
+        }
     }
 }
 
-template <typename T, int DC>
-cudaError_t launch_attn_core(const void* qkv, void* out, int B, int S, int H, int dh,
-                             int causal, int diag, float scale, cudaStream_t stream) {
+template <typename T, int DC, bool PROBS>
+cudaError_t launch_attn_core(const void* qkv, void* out, void* probs, int B, int S, int H,
+                             int dh, int causal, int diag, float scale, cudaStream_t stream) {
     const size_t smem = attn_smem_floats(dh) * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(attn_core<T, DC>,
+    cudaError_t err = cudaFuncSetAttribute(attn_core<T, DC, PROBS>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return err;
     const int q_tiles = (S + QT - 1) / QT;
     dim3 grid((unsigned)B * q_tiles, H);
-    attn_core<T, DC><<<grid, AC_WARPS * 32, smem, stream>>>(
-        static_cast<const T*>(qkv), static_cast<T*>(out), S, H, dh, causal, diag, scale,
-        q_tiles);
+    attn_core<T, DC, PROBS><<<grid, AC_WARPS * 32, smem, stream>>>(
+        static_cast<const T*>(qkv), static_cast<T*>(out), static_cast<T*>(probs), S, H, dh,
+        causal, diag, scale, q_tiles);
     return cudaGetLastError();
 }
 
+template <typename T, int DC>
+cudaError_t attn_core_probs(const void* qkv, void* out, void* probs, int B, int S, int H,
+                            int dh, int causal, int diag, float scale, cudaStream_t st) {
+    return probs ? launch_attn_core<T, DC, true>(qkv, out, probs, B, S, H, dh, causal, diag, scale, st)
+                 : launch_attn_core<T, DC, false>(qkv, out, probs, B, S, H, dh, causal, diag, scale, st);
+}
+
 template <typename T>
-cudaError_t attn_core_dispatch(const void* qkv, void* out, int B, int S, int H, int dh,
-                               int causal, int diag, float scale, cudaStream_t stream) {
-    if (dh <= 32) return launch_attn_core<T, 1>(qkv, out, B, S, H, dh, causal, diag, scale, stream);
-    if (dh <= 64) return launch_attn_core<T, 2>(qkv, out, B, S, H, dh, causal, diag, scale, stream);
-    return launch_attn_core<T, 4>(qkv, out, B, S, H, dh, causal, diag, scale, stream);
+cudaError_t attn_core_dispatch(const void* qkv, void* out, void* probs, int B, int S, int H,
+                               int dh, int causal, int diag, float scale, cudaStream_t st) {
+    if (dh <= 32) return attn_core_probs<T, 1>(qkv, out, probs, B, S, H, dh, causal, diag, scale, st);
+    if (dh <= 64) return attn_core_probs<T, 2>(qkv, out, probs, B, S, H, dh, causal, diag, scale, st);
+    return attn_core_probs<T, 4>(qkv, out, probs, B, S, H, dh, causal, diag, scale, st);
 }
 
 // attn_bwd_q: shared memory of query rows qs, dattn rows das (QT x dh each), a key and a
@@ -769,6 +821,163 @@ cudaError_t attn_bwd_dispatch(const void* qkv, const void* dattn, void* attn, vo
     return launch_attn_bwd<T, 4>(qkv, dattn, attn, dqkv, stats, B, S, H, dh, causal, diag, scale, st);
 }
 
+
+// ---------------------------------------------------------------------------------------
+// K6's reductions over rows: wgrad C (K, N) f32 = A^T . B and colsum c (N) f32 = sum of the
+// rows of A, over the M rows of A (M, K) and B (M, N), row-major in the compute dtype. The
+// rows are cut into `splits` runs of `rows` rows (a multiple of 32); block z sums run z in
+// row order into part[z], and sum_splits adds the runs in split order. No atomics: the
+// result is the same bit for bit on every run.
+// ---------------------------------------------------------------------------------------
+constexpr int WG_LD = GB_M + 8;   // bf16 elements; [row][k] and [row][n] tiles of GB_K rows
+
+// bf16: wmma tiles as gemm_bias_bf16, the A tile read as a column-major operand (A^T).
+__global__ void __launch_bounds__(GB_THREADS)
+wgrad_bf16(const bf16* __restrict__ A, const bf16* __restrict__ B, float* __restrict__ part,
+           int M, int K, int N, int rows) {
+    using namespace nvcuda;
+    static_assert(GB_M == GB_N, "one load loop stages both tiles");
+    __shared__ __align__(128) bf16 As[GB_K * WG_LD];
+    __shared__ __align__(128) bf16 Bs[GB_K * WG_LD];
+    __shared__ __align__(128) float Cs[GB_THREADS / 32][16 * 16];
+
+    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+    const int wm = warp / 2, wn = warp % 2;
+    const int k0 = blockIdx.y * GB_M, n0 = blockIdx.x * GB_N;
+    const int r_begin = blockIdx.z * rows, r_end = min(M, r_begin + rows);
+
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+
+    for (int r0 = r_begin; r0 < r_end; r0 += GB_K) {
+        // GB_K rows x 128 columns of A and of B, 16 bytes (8 values) per load.
+        for (int i = tid; i < GB_K * (GB_M / 8); i += GB_THREADS) {
+            const int r = i / (GB_M / 8), c = (i % (GB_M / 8)) * 8;
+            const int gr = r0 + r;
+            uint4 va = make_uint4(0, 0, 0, 0), vb = make_uint4(0, 0, 0, 0);
+            if (gr < r_end && k0 + c < K) va = *reinterpret_cast<const uint4*>(A + (size_t)gr * K + k0 + c);
+            if (gr < r_end && n0 + c < N) vb = *reinterpret_cast<const uint4*>(B + (size_t)gr * N + n0 + c);
+            *reinterpret_cast<uint4*>(As + r * WG_LD + c) = va;
+            *reinterpret_cast<uint4*>(Bs + r * WG_LD + c) = vb;
+        }
+        __syncthreads();
+#pragma unroll
+        for (int kk = 0; kk < GB_K; kk += 16) {
+            wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a[2];
+            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[4];
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+                wmma::load_matrix_sync(a[i], As + kk * WG_LD + wm * 32 + i * 16, WG_LD);
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+                wmma::load_matrix_sync(b[j], Bs + kk * WG_LD + wn * 64 + j * 16, WG_LD);
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+#pragma unroll
+                for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+        }
+        __syncthreads();
+    }
+
+    float* cs = Cs[warp];
+    float* out = part + (size_t)blockIdx.z * K * N;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            wmma::store_matrix_sync(cs, acc[i][j], 16, wmma::mem_row_major);
+            __syncwarp();
+            const int rb = k0 + wm * 32 + i * 16, cb = n0 + wn * 64 + j * 16;
+            for (int e = lane; e < 256; e += 32) {
+                const int gk = rb + e / 16, gn = cb + e % 16;
+                if (gk < K && gn < N) out[(size_t)gk * N + gn] = cs[e];
+            }
+            __syncwarp();
+        }
+    }
+}
+
+// f32: CUDA-core FMA, 64x64 output tile, GF_K rows per stage, 4x4 outputs per thread.
+__global__ void __launch_bounds__(256)
+wgrad_f32(const float* __restrict__ A, const float* __restrict__ B, float* __restrict__ part,
+          int M, int K, int N, int rows) {
+    __shared__ float As[GF_K][GF_T + 4];   // As[row][k]
+    __shared__ float Bs[GF_K][GF_T + 4];   // Bs[row][n]
+    const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+    const int k0 = blockIdx.y * GF_T, n0 = blockIdx.x * GF_T;
+    const int r_begin = blockIdx.z * rows, r_end = min(M, r_begin + rows);
+    float acc[4][4] = {};
+    for (int r0 = r_begin; r0 < r_end; r0 += GF_K) {
+        for (int i = tid; i < GF_K * GF_T; i += 256) {
+            const int r = i / GF_T, c = i % GF_T, gr = r0 + r;
+            As[r][c] = (gr < r_end && k0 + c < K) ? A[(size_t)gr * K + k0 + c] : 0.f;
+            Bs[r][c] = (gr < r_end && n0 + c < N) ? B[(size_t)gr * N + n0 + c] : 0.f;
+        }
+        __syncthreads();
+#pragma unroll
+        for (int kk = 0; kk < GF_K; ++kk) {
+            float a[4], b[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx * 4 + j];
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+                for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        }
+        __syncthreads();
+    }
+    float* out = part + (size_t)blockIdx.z * K * N;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const int gk = k0 + ty * 4 + i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const int gn = n0 + tx * 4 + j;
+            if (gk < K && gn < N) out[(size_t)gk * N + gn] = acc[i][j];
+        }
+    }
+}
+
+// One thread per column: the column's sum over run blockIdx.y, in row order.
+template <typename T>
+__global__ void __launch_bounds__(256)
+colsum_part(const T* __restrict__ A, float* __restrict__ part, int M, int N, int rows) {
+    const int n = blockIdx.x * blockDim.x + threadIdx.x;
+    if (n >= N) return;
+    const int r_begin = blockIdx.y * rows, r_end = min(M, r_begin + rows);
+    float acc = 0.f;
+    for (int r = r_begin; r < r_end; ++r) acc += to_f32(A[(size_t)r * N + n]);
+    part[(size_t)blockIdx.y * N + n] = acc;
+}
+
+__global__ void __launch_bounds__(256)
+sum_splits(const float* __restrict__ part, float* __restrict__ out, int splits, size_t count) {
+    for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < count;
+         e += (size_t)gridDim.x * blockDim.x) {
+        float acc = 0.f;
+        for (int z = 0; z < splits; ++z) acc += part[z * count + e];
+        out[e] = acc;
+    }
+}
+
+cudaError_t launch_sum_splits(const float* part, float* out, int splits, size_t count,
+                              cudaStream_t st) {
+    size_t blocks = (count + 255) / 256;
+    if (blocks > 4096) blocks = 4096;
+    sum_splits<<<(unsigned)blocks, 256, 0, st>>>(part, out, splits, count);
+    return cudaGetLastError();
+}
+
+bool bad_split(int M, int splits, int rows) {
+    return M <= 0 || splits <= 0 || rows <= 0 || rows % 32 || (long long)splits * rows < M ||
+           (long long)(splits - 1) * rows >= M;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Each entry point returns cudaGetLastError() after
@@ -783,14 +992,18 @@ extern "C" int tcow_gemm_bias(int dtype, const void* A, const void* W, const voi
                         : (int)launch_gemm_bias<false>(dtype, A, W, bias, C, M, N, K, st);
 }
 
-extern "C" int tcow_attn_core(int dtype, const void* qkv, void* out, int B, int S, int H,
-                              int dh, int causal, int diag, float scale, void* stream) {
+// qkv (B, S, 3D) -> attn (B, S, D); probs, when not null, (B, H, S, S) receives the
+// probabilities in the compute dtype (K3), zero where the causal mask drops a key.
+extern "C" int tcow_attn_core(int dtype, const void* qkv, void* out, void* probs, int B, int S,
+                              int H, int dh, int causal, int diag, float scale, void* stream) {
     if (B <= 0 || S <= 0 || H <= 0 || dh <= 0 || dh > 128 || dh % 4) {
         return (int)cudaErrorInvalidValue;
     }
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (dtype == 1) return (int)attn_core_dispatch<bf16>(qkv, out, B, S, H, dh, causal, diag, scale, st);
-    if (dtype == 0) return (int)attn_core_dispatch<float>(qkv, out, B, S, H, dh, causal, diag, scale, st);
+    if (dtype == 1)
+        return (int)attn_core_dispatch<bf16>(qkv, out, probs, B, S, H, dh, causal, diag, scale, st);
+    if (dtype == 0)
+        return (int)attn_core_dispatch<float>(qkv, out, probs, B, S, H, dh, causal, diag, scale, st);
     return (int)cudaErrorInvalidValue;
 }
 
@@ -808,4 +1021,48 @@ extern "C" int tcow_attn_bwd(int dtype, const void* qkv, const void* dattn, void
     if (dtype == 0)
         return (int)attn_bwd_dispatch<float>(qkv, dattn, attn, dqkv, stats, B, S, H, dh, causal, diag, scale, st);
     return (int)cudaErrorInvalidValue;
+}
+
+// K6's weight gradient: out (K, N) f32 = A^T . B over the M rows of A (M, K) and B (M, N);
+// work holds splits * K * N f32 partial sums. rows is a multiple of 32 and the runs cover
+// M exactly (splits = ceil(M / rows)). bf16 needs K % 8 == 0 and N % 8 == 0.
+extern "C" int tcow_wgrad(int dtype, const void* A, const void* B, void* out, void* work, int M,
+                          int K, int N, int splits, int rows, void* stream) {
+    if (bad_split(M, splits, rows) || K <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    float* part = static_cast<float*>(work);
+    if (dtype == 1) {
+        if (K % 8 || N % 8) return (int)cudaErrorInvalidValue;
+        dim3 grid((N + GB_N - 1) / GB_N, (K + GB_M - 1) / GB_M, splits);
+        wgrad_bf16<<<grid, GB_THREADS, 0, st>>>(static_cast<const bf16*>(A),
+                                                static_cast<const bf16*>(B), part, M, K, N, rows);
+    } else if (dtype == 0) {
+        dim3 grid((N + GF_T - 1) / GF_T, (K + GF_T - 1) / GF_T, splits);
+        wgrad_f32<<<grid, 256, 0, st>>>(static_cast<const float*>(A),
+                                        static_cast<const float*>(B), part, M, K, N, rows);
+    } else {
+        return (int)cudaErrorInvalidValue;
+    }
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    return (int)launch_sum_splits(part, static_cast<float*>(out), splits, (size_t)K * N, st);
+}
+
+// K6's bias gradient: out (N) f32 = the sum of the M rows of A (M, N); work holds
+// splits * N f32 partial sums, runs as for tcow_wgrad.
+extern "C" int tcow_colsum(int dtype, const void* A, void* out, void* work, int M, int N,
+                           int splits, int rows, void* stream) {
+    if (bad_split(M, splits, rows) || N <= 0) return (int)cudaErrorInvalidValue;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    float* part = static_cast<float*>(work);
+    dim3 grid((N + 255) / 256, splits);
+    if (dtype == 1)
+        colsum_part<bf16><<<grid, 256, 0, st>>>(static_cast<const bf16*>(A), part, M, N, rows);
+    else if (dtype == 0)
+        colsum_part<float><<<grid, 256, 0, st>>>(static_cast<const float*>(A), part, M, N, rows);
+    else
+        return (int)cudaErrorInvalidValue;
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    return (int)launch_sum_splits(part, static_cast<float*>(out), splits, (size_t)N, st);
 }

@@ -1,17 +1,30 @@
 '''
 Fused multi-head self-attention, forward and backward: the port of
-tcow_tpu/ops/pallas_attention.py in its 'kernel_x' mode.
+tcow_tpu/ops/pallas_attention.py in its four backward modes.
 
 `fused_attention` keeps the contract of the TPU kernel's differentiable entry point
 (:171-199): out = proj(softmax_mask(q k^T dh^-0.5) v) with qkv = x qkv_w + qkv_b, over
-(B, S, D). It runs through `FusedAttention`, whose forward saves only x and the weights
-(as `_fwd` does for 'kernel_x', :344-351) and whose backward recomputes everything else
-(`_bwd`, :378-393). A CPU tensor goes to the plain PyTorch versions, `attention_ref` and
-`attention_bwd_ref`. A CUDA tensor goes to the hand-written kernels built with nvcc at
-first use from csrc/fused_attention.cu, or the call raises: there is no fallback from the
-card to the plain version.
-  K1 forward:  `fused_attention_fwd`, count on `fused_attention.launches`
-  K4 backward: `fused_attention_bwd`, count on `fused_attention_bwd.launches`
+(B, S, D). A call that needs no gradient runs K1 and keeps nothing (JAX's primal path,
+:197-199). Otherwise `bwd_mode` picks the forward and what it saves for the backward, as
+`_fwd` / `_bwd` do (:344-393):
+  'res'         K3 saves qkv, probs and attn; the backward is torch ops (`attention_bwd_res`)
+  'kernel_qkv'  K2 saves qkv; the backward is K5 plus plain weight products
+  'kernel_x'    K1 saves nothing but x; the backward is K4 plus plain weight products
+  'kernel_x_wg' K1 as 'kernel_x'; the backward is K6, weight gradients included
+Each forward is a custom operator (`torch.ops.tcow_torch.attention{,_qkv,_res}`), so a
+selective remat policy (models/timesformer.py) can keep its outputs across a checkpoint
+and the backward never re-runs it. `fused_attention.calls[mode]` counts the forwards
+computed in each mode on every device; a remat recompute counts again.
+
+A CPU tensor goes to the plain PyTorch versions beside each kernel. A CUDA tensor goes to
+the hand-written kernels built with nvcc at first use from csrc/fused_attention.cu, or the
+call raises: there is no fallback from the card to the plain version. Launch counts:
+  K1 `fused_attention_fwd`        on `fused_attention.launches`
+  K2 `fused_attention_fwd_qkv`    on `fused_attention_fwd_qkv.launches`
+  K3 `fused_attention_fwd_res`    on `fused_attention_fwd_res.launches`
+  K4 `fused_attention_bwd`        on `fused_attention_bwd.launches`
+  K5 `fused_attention_bwd_qkv`    on `fused_attention_bwd_qkv.launches`
+  K6 `fused_attention_bwd_wg`     on `fused_attention_bwd_wg.launches`
 '''
 
 import ctypes
@@ -22,6 +35,7 @@ import torch
 from tcow_tpu_torch.ops import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+BWD_MODES = ('res', 'kernel_qkv', 'kernel_x', 'kernel_x_wg')
 
 
 def _mask_diag(causal_attention: int) -> int:
@@ -32,11 +46,16 @@ def _causal_keep(S: int, causal_attention: int, device) -> torch.Tensor:
     return torch.ones(S, S, dtype=torch.bool, device=device).tril(_mask_diag(causal_attention))
 
 
-def attention_ref(x, qkv_w, qkv_b, proj_w, proj_b, num_heads: int, causal_attention: int):
-    '''Plain PyTorch version over (B, S, D), the counterpart of pallas_attention.py:54-84
-    and of the model's non-kernel attention (timesformer.py:281-316): logits in f32, fill
-    -1e10 where key > query + diag (diag 0 for ca 1 and 2, ca - 2 for ca >= 3), f32
-    softmax, probs cast to the compute dtype before PV.'''
+# ---------------------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------------------
+
+def attention_res_ref(x, qkv_w, qkv_b, proj_w, proj_b, num_heads: int, causal_attention: int):
+    '''Plain version of K3 over (B, S, D) -> (out, qkv (B, S, 3D), probs (B, H, S, S),
+    attn (B, S, D)) in x.dtype, the counterpart of pallas_attention.py:54-84 and of the
+    model's non-kernel attention (timesformer.py:281-316): logits in f32, fill -1e10 where
+    key > query + diag (diag 0 for ca 1 and 2, ca - 2 for ca >= 3), f32 softmax, probs
+    cast to the compute dtype before PV.'''
     B, S, D = x.shape
     dh = D // num_heads
     scale = dh ** -0.5
@@ -46,28 +65,42 @@ def attention_ref(x, qkv_w, qkv_b, proj_w, proj_b, num_heads: int, causal_attent
     if causal_attention > 0:
         logits = logits.masked_fill(~_causal_keep(S, causal_attention, x.device), -1e10)
     probs = torch.softmax(logits, dim=-1).to(x.dtype)
-    out = torch.matmul(probs, v).transpose(1, 2).reshape(B, S, D)
-    return torch.matmul(out, proj_w.to(x.dtype)) + proj_b.to(x.dtype)
+    attn = torch.matmul(probs, v).transpose(1, 2).reshape(B, S, D)
+    out = torch.matmul(attn, proj_w.to(x.dtype)) + proj_b.to(x.dtype)
+    return out, qkv, probs, attn
 
 
-def attention_bwd_ref(x, g, qkv_w, qkv_b, proj_w, num_heads: int, causal_attention: int):
-    '''Plain PyTorch version of K4 over (B, S, D) -> (dqkv (B, S, 3D), attn (B, S, D)) in
-    x.dtype. Mirrors _bwd_kernel (:568-637) rounding point for rounding point: every
-    product runs in f32 on operands rounded to x.dtype, and the result is rounded where
-    the TPU kernel rounds it (qkv after the bias, dattn, p_c, attn, dv, dlog, dq, dk).'''
-    B, S, D = x.shape
+def attention_ref(x, qkv_w, qkv_b, proj_w, proj_b, num_heads: int, causal_attention: int):
+    '''Plain version of K1: the output of `attention_res_ref`.'''
+    return attention_res_ref(x, qkv_w, qkv_b, proj_w, proj_b, num_heads, causal_attention)[0]
+
+
+def attention_qkv_ref(x, qkv_w, qkv_b, proj_w, proj_b, num_heads: int, causal_attention: int):
+    '''Plain version of K2: (out, qkv) of `attention_res_ref`.'''
+    out, qkv, _, _ = attention_res_ref(x, qkv_w, qkv_b, proj_w, proj_b, num_heads,
+                                       causal_attention)
+    return out, qkv
+
+
+def attention_bwd_qkv_ref(qkv, g, proj_w, num_heads: int, causal_attention: int):
+    '''Plain version of K5 over qkv (B, S, 3D) and g (B, S, D) in one dtype; proj_w (D, D)
+    f32 -> (dqkv (B, S, 3D), attn (B, S, D)) in that dtype. Mirrors _bwd_kernel (:568-637)
+    rounding point for rounding point: every product runs in f32 on operands rounded to
+    the compute dtype, and the result is rounded where the TPU kernel rounds it (dattn,
+    p_c, attn, dv, dlog, dq, dk).'''
+    B, S, D3 = qkv.shape
+    D = D3 // 3
     H = num_heads
     dh = D // H
     scale = dh ** -0.5
-    cdt = x.dtype
+    cdt = qkv.dtype
     f = lambda t: t.to(cdt).float()                    # round to the compute dtype, then f32
-    qkv = f(torch.matmul(x.float(), f(qkv_w)) + qkv_b.float())                  # :573-575
     dattn = f(torch.matmul(f(g), f(proj_w).T))                                   # :587-590
-    q, k, v = qkv.reshape(B, S, 3, H, dh).permute(2, 0, 3, 1, 4)                 # (B, H, S, dh)
+    q, k, v = qkv.float().reshape(B, S, 3, H, dh).permute(2, 0, 3, 1, 4)         # (B, H, S, dh)
     da = dattn.reshape(B, S, H, dh).transpose(1, 2)
     logits = torch.matmul(q, k.transpose(-1, -2)) * scale
     if causal_attention > 0:
-        logits = logits.masked_fill(~_causal_keep(S, causal_attention, x.device), -1e10)
+        logits = logits.masked_fill(~_causal_keep(S, causal_attention, qkv.device), -1e10)
     pf = torch.softmax(logits, dim=-1)
     p_c = f(pf)
     attn = torch.matmul(p_c, v)
@@ -80,15 +113,90 @@ def attention_bwd_ref(x, g, qkv_w, qkv_b, proj_w, num_heads: int, causal_attenti
     return torch.cat([merge(dq), merge(dk), merge(dv)], dim=-1), merge(attn)
 
 
+def attention_bwd_ref(x, g, qkv_w, qkv_b, proj_w, num_heads: int, causal_attention: int):
+    '''Plain version of K4 over x, g (B, S, D) -> (dqkv (B, S, 3D), attn (B, S, D)) in
+    x.dtype: qkv recomputed from x in f32 and rounded after the bias (:573-575), then
+    `attention_bwd_qkv_ref`.'''
+    cdt = x.dtype
+    qkv = (torch.matmul(x.float(), qkv_w.to(cdt).float()) + qkv_b.float()).to(cdt)
+    return attention_bwd_qkv_ref(qkv, g, proj_w, num_heads, causal_attention)
+
+
+def attention_bwd_wg_ref(x, g, qkv_w, qkv_b, proj_w, num_heads: int, causal_attention: int):
+    '''Plain version of K6 -> (dx (B, S, D) in x.dtype, dqkv_w (D, 3D), dqkv_b (3D,),
+    dproj_w (D, D), dproj_b (D,) in f32): `attention_bwd_ref`, then the five products of
+    :643-660 in f32 on its rounded outputs, dx rounded to x.dtype.'''
+    dqkv, attn = attention_bwd_ref(x, g, qkv_w, qkv_b, proj_w, num_heads, causal_attention)
+    D = x.shape[-1]
+    x2, g2 = x.reshape(-1, D).float(), g.reshape(-1, D).float()
+    dqkv2, attn2 = dqkv.reshape(-1, 3 * D).float(), attn.reshape(-1, D).float()
+    dx = torch.matmul(dqkv2, qkv_w.to(x.dtype).float().T).to(x.dtype).reshape(x.shape)
+    return dx, x2.T @ dqkv2, dqkv2.sum(dim=0), attn2.T @ g2, g2.sum(dim=0)
+
+
+def _mm_f32(a, b):
+    '''a . b accumulated and returned in f32, as dot_general with preferred_element_type
+    f32. On the card a bf16 product keeps bf16 operands and writes f32 (cuBLAS); on the
+    CPU the operands are widened, which is exact.'''
+    if a.dtype == torch.float32:
+        return torch.mm(a, b)
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.float(), b.float())
+
+
+def _weight_grads(x, g, dqkv, attn, qkv_w):
+    '''(dx, dqkv_w, dqkv_b, dproj_w, dproj_b) from dqkv and attn as plain products, as the
+    JAX package leaves them to XLA (:765-778 and _bwd_res :413-462): the weight
+    gradients accumulated in f32, dx in x.dtype.'''
+    D = x.shape[-1]
+    g2, x2 = g.reshape(-1, D), x.reshape(-1, D)
+    attn2, dqkv2 = attn.reshape(-1, D), dqkv.reshape(-1, 3 * D)
+    dx = torch.matmul(dqkv2, qkv_w.to(x.dtype).T).reshape(x.shape)
+    return (dx, _mm_f32(x2.T, dqkv2), dqkv2.sum(dim=0, dtype=torch.float32),
+            _mm_f32(attn2.T, g2), g2.sum(dim=0, dtype=torch.float32))
+
+
+def attention_bwd_res(x, g, qkv, probs, attn, qkv_w, proj_w, num_heads: int):
+    '''The 'res' backward (_bwd_res, :396-463), XLA math in JAX and torch ops here on both
+    devices: from the saved qkv (B, S, 3D), probs (B, H, S, S) and attn, with no
+    recompute and JAX's rounding points (dattn, dv, dlog, dq and dk in x.dtype; dp and
+    its row sums in f32). Returns the five gradients of `_weight_grads`.'''
+    B, S, D = x.shape
+    H = num_heads
+    dh = D // H
+    scale = dh ** -0.5
+    cdt = x.dtype
+    g = g.to(cdt)
+    dattn = torch.matmul(g, proj_w.to(cdt).T).reshape(B, S, H, dh).transpose(1, 2)
+    q, k, v = qkv.reshape(B, S, 3, H, dh).permute(2, 0, 3, 1, 4)
+    dv = torch.matmul(probs.transpose(-1, -2), dattn)
+    pf = probs.float()
+    dp = torch.matmul(dattn.float(), v.float().transpose(-1, -2))
+    dlog = ((pf * (dp - torch.sum(dp * pf, dim=-1, keepdim=True))) * scale).to(cdt)
+    dq = torch.matmul(dlog, k)
+    dk = torch.matmul(dlog.transpose(-1, -2), q)
+    merge = lambda t: t.transpose(1, 2).reshape(B, S, D)
+    dqkv = torch.cat([merge(dq), merge(dk), merge(dv)], dim=-1)
+    return _weight_grads(x, g, dqkv, attn, qkv_w)
+
+
+# ---------------------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------------------
+
 @functools.cache
 def _lib():
     lib = _build.load('fused_attention')
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.tcow_gemm_bias.argtypes = [i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
-    lib.tcow_attn_core.argtypes = [i32, ptr, ptr, i32, i32, i32, i32, i32, i32, f32, ptr]
+    lib.tcow_attn_core.argtypes = [i32, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, f32, ptr]
     lib.tcow_attn_bwd.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
                                   f32, ptr]
-    for fn in (lib.tcow_gemm_bias, lib.tcow_attn_core, lib.tcow_attn_bwd):
+    lib.tcow_wgrad.argtypes = [i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
+    lib.tcow_colsum.argtypes = [i32, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+    for fn in (lib.tcow_gemm_bias, lib.tcow_attn_core, lib.tcow_attn_bwd, lib.tcow_wgrad,
+               lib.tcow_colsum):
         fn.restype = i32
     return lib
 
@@ -99,10 +207,8 @@ def _check(rc: int, what: str):
 
 
 def _check_kernel_inputs(x, weights, num_heads: int, what: str):
-    '''Raises for what the kernels do not take; returns (B, S, D, head_dim). `weights` is a
-    sequence of (name, tensor, shape) of float32 operands.'''
-    if x.device.type != 'cuda':
-        raise ValueError(f'{what} runs on cpu or cuda, not {x.device}')
+    '''Raises for what the kernels do not take in a CUDA tensor x; returns (B, S, D,
+    head_dim). `weights` is a sequence of (name, tensor, shape) of float32 operands.'''
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f'{what} kernel takes float32 or bfloat16, not {x.dtype}')
     if x.dim() != 3:
@@ -125,35 +231,131 @@ def _check_kernel_inputs(x, weights, num_heads: int, what: str):
     return B, S, D, dh
 
 
+def _check_like(name, t, x, shape):
+    '''Raises unless t is contiguous, 16-byte aligned, of x's dtype and device, and of
+    `shape`.'''
+    if t.dtype != x.dtype or tuple(t.shape) != shape or t.device != x.device:
+        raise ValueError(f'{name} must match x ({x.dtype} {shape} on {x.device}), got '
+                         f'{t.dtype} {tuple(t.shape)} on {t.device}')
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f'{name} must be contiguous and 16-byte aligned')
+
+
+def _on_cpu(x, what: str) -> bool:
+    '''True for a CPU tensor (the plain version runs); raises for devices other than
+    cpu and cuda.'''
+    if x.device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'{what} runs on cpu or cuda, not {x.device}')
+    return x.device.type == 'cpu'
+
+
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _launch_forward(x, qkv_w, qkv_b, proj_w, proj_b, num_heads, causal_attention, probs,
+                    what):
+    '''K1's chain on the card: gemm_bias (qkv) -> attn_core -> gemm_bias (proj); with
+    probs, attn_core also stores the probabilities. Returns (out, qkv, probs or None,
+    attn).'''
+    D = x.shape[-1]
+    B, S, D, dh = _check_kernel_inputs(
+        x, (('qkv_w', qkv_w, (D, 3 * D)), ('qkv_b', qkv_b, (3 * D,)),
+            ('proj_w', proj_w, (D, D)), ('proj_b', proj_b, (D,))),
+        num_heads, what)
+    lib = _lib()
+    code = _DTYPE_CODES[x.dtype]
+    with torch.cuda.device(x.device):
+        stream = _stream(x)
+        qkv = torch.empty((B, S, 3 * D), dtype=x.dtype, device=x.device)
+        attn = torch.empty_like(x)
+        out = torch.empty_like(x)
+        p = (torch.empty((B, num_heads, S, S), dtype=x.dtype, device=x.device) if probs
+             else None)
+        _check(lib.tcow_gemm_bias(code, x.data_ptr(), qkv_w.data_ptr(), qkv_b.data_ptr(),
+                                  qkv.data_ptr(), B * S, 3 * D, D, 0, stream), 'gemm_bias(qkv)')
+        _check(lib.tcow_attn_core(code, qkv.data_ptr(), attn.data_ptr(),
+                                  None if p is None else p.data_ptr(), B, S, num_heads, dh,
+                                  int(causal_attention > 0), _mask_diag(causal_attention),
+                                  dh ** -0.5, stream), 'attn_core')
+        _check(lib.tcow_gemm_bias(code, attn.data_ptr(), proj_w.data_ptr(), proj_b.data_ptr(),
+                                  out.data_ptr(), B * S, D, D, 0, stream), 'gemm_bias(proj)')
+    return out, qkv, p, attn
+
+
 def fused_attention_fwd(x, qkv_w, qkv_b, proj_w, proj_b, num_heads: int,
                         causal_attention: int):
     '''K1: attention forward over x (B, S, D); weights (D, 3D), (3D,), (D, D), (D,) f32.
     CPU tensors run `attention_ref`; CUDA tensors launch the kernel chain gemm_bias ->
     attn_core -> gemm_bias on the current stream and add one to
     `fused_attention.launches`.'''
-    if x.device.type == 'cpu':
+    if _on_cpu(x, 'fused_attention'):
         return attention_ref(x, qkv_w, qkv_b, proj_w, proj_b, num_heads, causal_attention)
+    out = _launch_forward(x, qkv_w, qkv_b, proj_w, proj_b, num_heads, causal_attention,
+                          False, 'fused_attention')[0]
+    fused_attention.launches += 1
+    return out
+
+
+def fused_attention_fwd_qkv(x, qkv_w, qkv_b, proj_w, proj_b, num_heads: int,
+                            causal_attention: int):
+    '''K2: K1 that also returns qkv (B, S, 3D) in x.dtype -> (out, qkv). CPU tensors run
+    `attention_qkv_ref`; CUDA tensors launch K1's chain and add one to
+    `fused_attention_fwd_qkv.launches`.'''
+    if _on_cpu(x, 'fused_attention_fwd_qkv'):
+        return attention_qkv_ref(x, qkv_w, qkv_b, proj_w, proj_b, num_heads, causal_attention)
+    out, qkv, _, _ = _launch_forward(x, qkv_w, qkv_b, proj_w, proj_b, num_heads,
+                                     causal_attention, False, 'fused_attention_fwd_qkv')
+    fused_attention_fwd_qkv.launches += 1
+    return out, qkv
+
+
+def fused_attention_fwd_res(x, qkv_w, qkv_b, proj_w, proj_b, num_heads: int,
+                            causal_attention: int):
+    '''K3: K1 that also returns qkv, the probabilities (B, H, S, S) and attn (B, S, D), all
+    in x.dtype -> (out, qkv, probs, attn). CPU tensors run `attention_res_ref`; CUDA
+    tensors launch K1's chain with attn_core storing the probabilities and add one to
+    `fused_attention_fwd_res.launches`.'''
+    if _on_cpu(x, 'fused_attention_fwd_res'):
+        return attention_res_ref(x, qkv_w, qkv_b, proj_w, proj_b, num_heads, causal_attention)
+    res = _launch_forward(x, qkv_w, qkv_b, proj_w, proj_b, num_heads, causal_attention,
+                          True, 'fused_attention_fwd_res')
+    fused_attention_fwd_res.launches += 1
+    return res
+
+
+def _launch_backward(x, g, qkv_w, qkv_b, proj_w, qkv, num_heads, causal_attention, what):
+    '''K4's chain on the card: gemm_bias (qkv from x; skipped when qkv is given, K5) ->
+    gemm_bias (g . proj_w^T) -> attn_bwd_q -> attn_bwd_kv. With qkv given, x is only
+    checked for shape. Returns (qkv, dqkv, attn).'''
     D = x.shape[-1]
-    B, S, D, dh = _check_kernel_inputs(
-        x, (('qkv_w', qkv_w, (D, 3 * D)), ('qkv_b', qkv_b, (3 * D,)),
-            ('proj_w', proj_w, (D, D)), ('proj_b', proj_b, (D,))),
-        num_heads, 'fused_attention')
+    weights = [('proj_w', proj_w, (D, D))]
+    if qkv is None:
+        weights += [('qkv_w', qkv_w, (D, 3 * D)), ('qkv_b', qkv_b, (3 * D,))]
+    B, S, D, dh = _check_kernel_inputs(x, weights, num_heads, what)
+    _check_like('g', g, x, (B, S, D))
+    if qkv is not None:
+        _check_like('qkv', qkv, x, (B, S, 3 * D))
     lib = _lib()
     code = _DTYPE_CODES[x.dtype]
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        qkv = torch.empty((B, S, 3 * D), dtype=x.dtype, device=x.device)
+        stream = _stream(x)
+        dattn = torch.empty_like(x)
         attn = torch.empty_like(x)
-        out = torch.empty_like(x)
-        _check(lib.tcow_gemm_bias(code, x.data_ptr(), qkv_w.data_ptr(), qkv_b.data_ptr(),
-                                  qkv.data_ptr(), B * S, 3 * D, D, 0, stream), 'gemm_bias(qkv)')
-        _check(lib.tcow_attn_core(code, qkv.data_ptr(), attn.data_ptr(), B, S, num_heads,
-                                  dh, int(causal_attention > 0), _mask_diag(causal_attention),
-                                  dh ** -0.5, stream), 'attn_core')
-        _check(lib.tcow_gemm_bias(code, attn.data_ptr(), proj_w.data_ptr(), proj_b.data_ptr(),
-                                  out.data_ptr(), B * S, D, D, 0, stream), 'gemm_bias(proj)')
-    fused_attention.launches += 1
-    return out
+        dqkv = torch.empty((B, S, 3 * D), dtype=x.dtype, device=x.device)
+        stats = torch.empty((3, B, num_heads, S), dtype=torch.float32, device=x.device)
+        if qkv is None:
+            qkv = torch.empty((B, S, 3 * D), dtype=x.dtype, device=x.device)
+            _check(lib.tcow_gemm_bias(code, x.data_ptr(), qkv_w.data_ptr(), qkv_b.data_ptr(),
+                                      qkv.data_ptr(), B * S, 3 * D, D, 0, stream),
+                   'gemm_bias(qkv)')
+        _check(lib.tcow_gemm_bias(code, g.data_ptr(), proj_w.data_ptr(), None,
+                                  dattn.data_ptr(), B * S, D, D, 1, stream), 'gemm(g proj_w^T)')
+        _check(lib.tcow_attn_bwd(code, qkv.data_ptr(), dattn.data_ptr(), attn.data_ptr(),
+                                 dqkv.data_ptr(), stats.data_ptr(), B, S, num_heads, dh,
+                                 int(causal_attention > 0), _mask_diag(causal_attention),
+                                 dh ** -0.5, stream), 'attn_bwd')
+    return qkv, dqkv, attn
 
 
 def fused_attention_bwd(x, g, qkv_w, qkv_b, proj_w, num_heads: int, causal_attention: int):
@@ -162,84 +364,212 @@ def fused_attention_bwd(x, g, qkv_w, qkv_b, proj_w, num_heads: int, causal_atten
     CPU tensors run `attention_bwd_ref`; CUDA tensors launch gemm_bias (qkv) -> gemm_bias
     (g . proj_w^T) -> attn_bwd_q -> attn_bwd_kv on the current stream and add one to
     `fused_attention_bwd.launches`.'''
-    if x.device.type == 'cpu':
+    if _on_cpu(x, 'fused_attention_bwd'):
         return attention_bwd_ref(x, g, qkv_w, qkv_b, proj_w, num_heads, causal_attention)
-    D = x.shape[-1]
-    B, S, D, dh = _check_kernel_inputs(
-        x, (('qkv_w', qkv_w, (D, 3 * D)), ('qkv_b', qkv_b, (3 * D,)),
-            ('proj_w', proj_w, (D, D))),
-        num_heads, 'fused_attention_bwd')
-    if g.dtype != x.dtype or g.shape != x.shape or g.device != x.device:
-        raise ValueError(f'g must match x ({x.dtype} {tuple(x.shape)} on {x.device}), got '
-                         f'{g.dtype} {tuple(g.shape)} on {g.device}')
-    if not g.is_contiguous() or g.data_ptr() % 16:
-        raise ValueError('g must be contiguous and 16-byte aligned')
-    lib = _lib()
-    code = _DTYPE_CODES[x.dtype]
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        qkv = torch.empty((B, S, 3 * D), dtype=x.dtype, device=x.device)
-        dattn = torch.empty_like(x)
-        attn = torch.empty_like(x)
-        dqkv = torch.empty((B, S, 3 * D), dtype=x.dtype, device=x.device)
-        stats = torch.empty((3, B, num_heads, S), dtype=torch.float32, device=x.device)
-        _check(lib.tcow_gemm_bias(code, x.data_ptr(), qkv_w.data_ptr(), qkv_b.data_ptr(),
-                                  qkv.data_ptr(), B * S, 3 * D, D, 0, stream), 'gemm_bias(qkv)')
-        _check(lib.tcow_gemm_bias(code, g.data_ptr(), proj_w.data_ptr(), None,
-                                  dattn.data_ptr(), B * S, D, D, 1, stream), 'gemm(g proj_w^T)')
-        _check(lib.tcow_attn_bwd(code, qkv.data_ptr(), dattn.data_ptr(), attn.data_ptr(),
-                                 dqkv.data_ptr(), stats.data_ptr(), B, S, num_heads, dh,
-                                 int(causal_attention > 0), _mask_diag(causal_attention),
-                                 dh ** -0.5, stream), 'attn_bwd')
+    _, dqkv, attn = _launch_backward(x, g, qkv_w, qkv_b, proj_w, None, num_heads,
+                                     causal_attention, 'fused_attention_bwd')
     fused_attention_bwd.launches += 1
     return dqkv, attn
 
 
-def _mm_f32(a, b):
-    '''a . b accumulated and returned in f32, as dot_general with preferred_element_type
-    f32. On the card a bf16 product keeps bf16 operands and writes f32 (cuBLAS); on the
-    CPU the operands are widened, which is exact.'''
-    if a.dtype == torch.float32:
-        return torch.mm(a, b)
-    if a.is_cuda:
-        return torch.mm(a, b, out_dtype=torch.float32)
-    return torch.mm(a.float(), b.float())
+def fused_attention_bwd_qkv(qkv, g, proj_w, num_heads: int, causal_attention: int):
+    '''K5: K4 from the saved qkv (B, S, 3D) instead of x; g (B, S, D) in qkv's dtype,
+    proj_w (D, D) f32 -> (dqkv, attn). CPU tensors run `attention_bwd_qkv_ref`; CUDA
+    tensors launch gemm_bias (g . proj_w^T) -> attn_bwd_q -> attn_bwd_kv and add one to
+    `fused_attention_bwd_qkv.launches`.'''
+    if _on_cpu(qkv, 'fused_attention_bwd_qkv'):
+        return attention_bwd_qkv_ref(qkv, g, proj_w, num_heads, causal_attention)
+    _, dqkv, attn = _launch_backward(g, g, None, None, proj_w, qkv, num_heads,
+                                     causal_attention, 'fused_attention_bwd_qkv')
+    fused_attention_bwd_qkv.launches += 1
+    return dqkv, attn
 
 
-class FusedAttention(torch.autograd.Function):
-    '''The custom VJP of pallas_attention.fused_attention in 'kernel_x' mode.'''
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
-    @staticmethod
-    def forward(ctx, x, qkv_w, qkv_b, proj_w, proj_b, num_heads: int, causal_attention: int):
-        ctx.save_for_backward(x, qkv_w, qkv_b, proj_w)
-        ctx.num_heads, ctx.causal_attention = num_heads, causal_attention
-        return fused_attention_fwd(x, qkv_w, qkv_b, proj_w, proj_b, num_heads,
+
+def _row_splits(M: int, blocks_per_split: int):
+    '''(splits, rows) of K6's row reductions: about two waves of 132 SMs, runs of a
+    multiple of 32 rows that cover M exactly. A function of the shapes alone, so the
+    order of every sum is fixed.'''
+    want = max(1, min(_cdiv(264, blocks_per_split), _cdiv(M, 256)))
+    rows = _cdiv(_cdiv(M, want), 32) * 32
+    return _cdiv(M, rows), rows
+
+
+def _launch_wgrad(lib, code, a, b, stream):
+    '''f32 (K, N) = a^T . b over the rows of a (M, K) and b (M, N): tcow_wgrad.'''
+    M, K = a.shape
+    N = b.shape[1]
+    tile = 128 if code == 1 else 64
+    splits, rows = _row_splits(M, _cdiv(K, tile) * _cdiv(N, tile))
+    out = torch.empty((K, N), dtype=torch.float32, device=a.device)
+    work = torch.empty((splits, K, N), dtype=torch.float32, device=a.device)
+    _check(lib.tcow_wgrad(code, a.data_ptr(), b.data_ptr(), out.data_ptr(), work.data_ptr(),
+                          M, K, N, splits, rows, stream), 'wgrad')
+    return out
+
+
+def _launch_colsum(lib, code, a, stream):
+    '''f32 (N,) = the sum of the rows of a (M, N): tcow_colsum.'''
+    M, N = a.shape
+    splits, rows = _row_splits(M, _cdiv(N, 256))
+    out = torch.empty((N,), dtype=torch.float32, device=a.device)
+    work = torch.empty((splits, N), dtype=torch.float32, device=a.device)
+    _check(lib.tcow_colsum(code, a.data_ptr(), out.data_ptr(), work.data_ptr(), M, N, splits,
+                           rows, stream), 'colsum')
+    return out
+
+
+def fused_attention_bwd_wg(x, g, qkv_w, qkv_b, proj_w, num_heads: int, causal_attention: int):
+    '''K6: K4 plus dx and the weight and bias gradients -> (dx (B, S, D) in x.dtype,
+    dqkv_w (D, 3D), dqkv_b (3D,), dproj_w (D, D), dproj_b (D,) in f32). CPU tensors run
+    `attention_bwd_wg_ref`; CUDA tensors launch K4's chain, gemm_bias (dqkv . qkv_w^T),
+    wgrad (x^T . dqkv, attn^T . g) and colsum (dqkv, g), and add one to
+    `fused_attention_bwd_wg.launches`. The reductions over rows are deterministic.'''
+    if _on_cpu(x, 'fused_attention_bwd_wg'):
+        return attention_bwd_wg_ref(x, g, qkv_w, qkv_b, proj_w, num_heads, causal_attention)
+    _, dqkv, attn = _launch_backward(x, g, qkv_w, qkv_b, proj_w, None, num_heads,
+                                     causal_attention, 'fused_attention_bwd_wg')
+    B, S, D = x.shape
+    lib = _lib()
+    code = _DTYPE_CODES[x.dtype]
+    with torch.cuda.device(x.device):
+        stream = _stream(x)
+        dx = torch.empty_like(x)
+        _check(lib.tcow_gemm_bias(code, dqkv.data_ptr(), qkv_w.data_ptr(), None, dx.data_ptr(),
+                                  B * S, D, 3 * D, 1, stream), 'gemm(dqkv qkv_w^T)')
+        x2, g2 = x.view(B * S, D), g.view(B * S, D)
+        dqkv2, attn2 = dqkv.view(B * S, 3 * D), attn.view(B * S, D)
+        grads = (dx, _launch_wgrad(lib, code, x2, dqkv2, stream),
+                 _launch_colsum(lib, code, dqkv2, stream),
+                 _launch_wgrad(lib, code, attn2, g2, stream),
+                 _launch_colsum(lib, code, g2, stream))
+    fused_attention_bwd_wg.launches += 1
+    return grads
+
+
+# ---------------------------------------------------------------------------------------
+# The differentiable entry point: one custom operator per forward
+# ---------------------------------------------------------------------------------------
+
+def _count_call(bwd_mode: str):
+    fused_attention.calls[bwd_mode] += 1
+
+
+@torch.library.custom_op('tcow_torch::attention', mutates_args=())
+def _attention_op(x: torch.Tensor, qkv_w: torch.Tensor, qkv_b: torch.Tensor,
+                  proj_w: torch.Tensor, proj_b: torch.Tensor, num_heads: int,
+                  causal_attention: int, bwd_mode: str) -> torch.Tensor:
+    '''The forward of 'kernel_x' and 'kernel_x_wg': K1, saving x (:344-351).'''
+    _count_call(bwd_mode)
+    return fused_attention_fwd(x, qkv_w, qkv_b, proj_w, proj_b, num_heads, causal_attention)
+
+
+def _setup_x(ctx, inputs, output):
+    x, qkv_w, qkv_b, proj_w, _, ctx.num_heads, ctx.ca, ctx.bwd_mode = inputs
+    ctx.save_for_backward(x, qkv_w, qkv_b, proj_w)
+
+
+def _backward_x(ctx, g):
+    x, qkv_w, qkv_b, proj_w = ctx.saved_tensors
+    g = g.to(x.dtype).contiguous()                                           # :687
+    if ctx.bwd_mode == 'kernel_x_wg':
+        grads = fused_attention_bwd_wg(x, g, qkv_w, qkv_b, proj_w, ctx.num_heads, ctx.ca)
+    else:
+        dqkv, attn = fused_attention_bwd(x, g, qkv_w, qkv_b, proj_w, ctx.num_heads, ctx.ca)
+        grads = _weight_grads(x, g, dqkv, attn, qkv_w)
+    return (*grads, None, None, None)
+
+
+@torch.library.custom_op('tcow_torch::attention_qkv', mutates_args=())
+def _attention_qkv_op(x: torch.Tensor, qkv_w: torch.Tensor, qkv_b: torch.Tensor,
+                      proj_w: torch.Tensor, proj_b: torch.Tensor, num_heads: int,
+                      causal_attention: int) -> tuple[torch.Tensor, torch.Tensor]:
+    '''The forward of 'kernel_qkv': K2, saving x and qkv, JAX's `attn_qkv` (:352-360).'''
+    _count_call('kernel_qkv')
+    return fused_attention_fwd_qkv(x, qkv_w, qkv_b, proj_w, proj_b, num_heads,
                                    causal_attention)
 
-    @staticmethod
-    def backward(ctx, g):
-        x, qkv_w, qkv_b, proj_w = ctx.saved_tensors
-        g = g.to(x.dtype).contiguous()                                           # :687
-        dqkv, attn = fused_attention_bwd(x, g, qkv_w, qkv_b, proj_w, ctx.num_heads,
-                                         ctx.causal_attention)
-        # Weight, bias and input gradients as plain products (:768-778).
-        D = x.shape[-1]
-        g2, x2 = g.reshape(-1, D), x.reshape(-1, D)
-        attn2, dqkv2 = attn.reshape(-1, D), dqkv.reshape(-1, 3 * D)
-        dproj_w = _mm_f32(attn2.T, g2)
-        dproj_b = g2.sum(dim=0, dtype=torch.float32)
-        dqkv_w = _mm_f32(x2.T, dqkv2)
-        dqkv_b = dqkv2.sum(dim=0, dtype=torch.float32)
-        dx = torch.matmul(dqkv2, qkv_w.to(x.dtype).T).reshape(x.shape)
-        return dx, dqkv_w, dqkv_b, dproj_w, dproj_b, None, None
+
+def _setup_qkv(ctx, inputs, output):
+    x, qkv_w, _, proj_w, _, ctx.num_heads, ctx.ca = inputs
+    ctx.mark_non_differentiable(output[1])
+    ctx.set_materialize_grads(False)
+    ctx.save_for_backward(x, output[1], qkv_w, proj_w)
 
 
-def fused_attention(x, qkv_w, qkv_b, proj_w, proj_b, num_heads: int, causal_attention: int):
+def _backward_qkv(ctx, g, _):
+    x, qkv, qkv_w, proj_w = ctx.saved_tensors
+    g = g.to(x.dtype).contiguous()
+    dqkv, attn = fused_attention_bwd_qkv(qkv, g, proj_w, ctx.num_heads, ctx.ca)
+    return (*_weight_grads(x, g, dqkv, attn, qkv_w), None, None)
+
+
+@torch.library.custom_op('tcow_torch::attention_res', mutates_args=())
+def _attention_res_op(x: torch.Tensor, qkv_w: torch.Tensor, qkv_b: torch.Tensor,
+                      proj_w: torch.Tensor, proj_b: torch.Tensor, num_heads: int,
+                      causal_attention: int
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    '''The forward of 'res': K3, saving x, qkv, probs and attn, JAX's `attn_res`
+    (:361-370).'''
+    _count_call('res')
+    return fused_attention_fwd_res(x, qkv_w, qkv_b, proj_w, proj_b, num_heads,
+                                   causal_attention)
+
+
+def _setup_res(ctx, inputs, output):
+    x, qkv_w, _, proj_w, _, ctx.num_heads, _ = inputs
+    _, qkv, probs, attn = output
+    ctx.mark_non_differentiable(qkv, probs, attn)
+    ctx.set_materialize_grads(False)
+    ctx.save_for_backward(x, qkv, probs, attn, qkv_w, proj_w)
+
+
+def _backward_res(ctx, g, *_):
+    x, qkv, probs, attn, qkv_w, proj_w = ctx.saved_tensors
+    return (*attention_bwd_res(x, g, qkv, probs, attn, qkv_w, proj_w, ctx.num_heads),
+            None, None)
+
+
+torch.library.register_autograd('tcow_torch::attention', _backward_x, setup_context=_setup_x)
+torch.library.register_autograd('tcow_torch::attention_qkv', _backward_qkv,
+                                setup_context=_setup_qkv)
+torch.library.register_autograd('tcow_torch::attention_res', _backward_res,
+                                setup_context=_setup_res)
+
+# The custom operator of each mode's forward, for remat policies.
+FORWARD_OPS = {'res': torch.ops.tcow_torch.attention_res.default,
+               'kernel_qkv': torch.ops.tcow_torch.attention_qkv.default,
+               'kernel_x': torch.ops.tcow_torch.attention.default,
+               'kernel_x_wg': torch.ops.tcow_torch.attention.default}
+
+
+def fused_attention(x, qkv_w, qkv_b, proj_w, proj_b, num_heads: int, causal_attention: int,
+                    bwd_mode: str = 'res'):
     '''Differentiable fused attention over x (B, S, D); weights (D, 3D), (3D,), (D, D),
-    (D,) f32. The forward is K1 and the backward K4 on CUDA tensors, the plain versions on
-    CPU tensors; every other device raises.'''
-    return FusedAttention.apply(x, qkv_w, qkv_b, proj_w, proj_b, num_heads, causal_attention)
+    (D,) f32. Without gradients it runs K1 and saves nothing; with them the forward and
+    backward of `bwd_mode` (module docstring). Kernels on CUDA tensors, the plain
+    versions on CPU tensors; every other device raises.'''
+    if bwd_mode not in BWD_MODES:
+        raise ValueError(f'unknown bwd_mode {bwd_mode!r}; one of {BWD_MODES}')
+    _on_cpu(x, 'fused_attention')
+    args = (x, qkv_w, qkv_b, proj_w, proj_b, num_heads, causal_attention)
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in args[:5])):
+        _count_call(bwd_mode)
+        return fused_attention_fwd(*args)
+    if bwd_mode == 'res':
+        return _attention_res_op(*args)[0]
+    if bwd_mode == 'kernel_qkv':
+        return _attention_qkv_op(*args)[0]
+    return _attention_op(*args, bwd_mode)
 
 
 fused_attention.launches = 0
+fused_attention.calls = dict.fromkeys(BWD_MODES, 0)
+fused_attention_fwd_qkv.launches = 0
+fused_attention_fwd_res.launches = 0
 fused_attention_bwd.launches = 0
+fused_attention_bwd_qkv.launches = 0
+fused_attention_bwd_wg.launches = 0

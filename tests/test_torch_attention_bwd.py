@@ -1,8 +1,8 @@
 '''
 The port's attention backward (K4's plain version `attention_bwd_ref` and the
-`FusedAttention` autograd Function) against the JAX reference on the CPU in float32: the
-Pallas backward kernel in interpret mode (_fused_attention_bwd_impl with qkv=None, the
-'kernel_x' mode) and jax.grad of the plain XLA attention.
+differentiable `fused_attention` in its 'kernel_x' mode) against the JAX reference on the
+CPU in float32: the Pallas backward kernel in interpret mode (_fused_attention_bwd_impl
+with qkv=None, the 'kernel_x' mode) and jax.grad of the plain XLA attention.
 '''
 
 import jax
@@ -32,9 +32,10 @@ def make_inputs(B=5, S=13, D=64, seed=0):
 
 
 def port_grads(x, qkv_w, qkv_b, proj_w, proj_b, g, ca):
-    '''(out, grads of x and the four weights) of the port's Function for cotangent g.'''
+    '''(out, grads of x and the four weights) of the port's 'kernel_x' mode for
+    cotangent g.'''
     leaves = [torch.from_numpy(a).requires_grad_() for a in (x, qkv_w, qkv_b, proj_w, proj_b)]
-    out = fa.fused_attention(*leaves, HEADS, ca)
+    out = fa.fused_attention(*leaves, HEADS, ca, 'kernel_x')
     out.backward(torch.from_numpy(g))
     return out.detach().numpy(), [t.grad.numpy() for t in leaves]
 

@@ -1,10 +1,12 @@
 '''
 The CUDA kernels of tcow_tpu_torch against their plain versions, on the GPU only: edge
 geometries that the full-width run in chip_smoke.py does not reach (S=1, ragged row,
-column and depth tiles, head sizes 32, 40 and 128, every causal mode) for K1 (forward)
-and K4 (backward), the gradients of the differentiable fused_attention on the card, and
-the launch counts of the seeker's entry points and of one train step. Every test carries
-the `cuda` marker and skips without CUDA. The file imports neither JAX nor the tests'
+column and depth tiles, head sizes 32, 40, 64 and 128, every causal mode) for the
+forwards K1, K2 and K3 and the backwards K4, K5 and K6, K6's weight gradients identical
+across runs, the gradients of the differentiable fused_attention on the card, and the
+launch counts of the seeker's entry points and of one train step under each pairing of a
+backward mode with its remat policy. Every test carries the `cuda` marker and skips
+without CUDA. The file imports neither JAX nor the tests'
 conftest, so on a GPU machine without JAX it runs as:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
@@ -32,8 +34,17 @@ pytestmark = pytest.mark.cuda
 # chip_smoke.py): bf16 rounds qkv, p and attn (8 mantissa bits); float32 differs only
 # in the order of sums (TF32 off).
 TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
-# K4 and the gradients of the Function: bf16 also rounds dattn, dlog, dq, dk and dv.
+# K4, K5, K6 and the gradients of the Function: bf16 also rounds dattn, dlog, dq, dk and
+# dv; K6 sums its weight gradients in another order than the plain version.
 TOL_BWD = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# Launches of one train step per attention call (two per block), by counter, for each
+# pairing of a backward mode with its remat policy.
+PAIRINGS = {
+    ('kernel_x', 'dots_nb_out'): {'k1': 1, 'k4': 1},
+    ('kernel_qkv', 'dots_nb_out_qkv'): {'k2': 1, 'k5': 1},
+    ('res', 'dots_nb'): {'k3': 2},
+    ('kernel_x_wg', 'dots_nb_out'): {'k1': 1, 'k6': 1},
+}
 GEOMETRIES = [
     (3, 1, 64, 2, 1, torch.bfloat16),      # one row per sequence, head 32
     (5, 33, 128, 4, 3, torch.bfloat16),    # two query and key tiles, diag 1
@@ -57,6 +68,21 @@ def cuda():
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     yield torch.device('cuda')
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
+
+
+def launches():
+    return {'k1': fa.fused_attention.launches, 'k2': fa.fused_attention_fwd_qkv.launches,
+            'k3': fa.fused_attention_fwd_res.launches, 'k4': fa.fused_attention_bwd.launches,
+            'k5': fa.fused_attention_bwd_qkv.launches, 'k6': fa.fused_attention_bwd_wg.launches}
+
+
+def since(before):
+    return {k: v - before[k] for k, v in launches().items() if v != before[k]}
+
+
+def grad_input(B, S, D, dtype, device, seed=2):
+    return torch.from_numpy(np.random.RandomState(seed).randn(B, S, D).astype(np.float32)).to(
+        device, dtype)
 
 
 def inputs(B, S, D, dtype, device, seed=0):
@@ -97,20 +123,73 @@ def test_bwd_kernel_matches_plain(cuda, B, S, D, H, ca, dtype):
         assert err <= TOL_BWD[dtype], err
 
 
+@pytest.mark.parametrize('B,S,D,H,ca,dtype', GEOMETRIES)
+def test_k2_and_k3_match_plain(cuda, B, S, D, H, ca, dtype):
+    '''K2 (out, qkv) and K3 (out, qkv, probs (B, H, S, S), attn) against
+    attention_res_ref in f32 from the same inputs.'''
+    x, w = inputs(B, S, D, dtype, cuda, seed=5)
+    before = launches()
+    k2 = fa.fused_attention_fwd_qkv(x, *w, H, ca)
+    k3 = fa.fused_attention_fwd_res(x, *w, H, ca)
+    torch.cuda.synchronize()
+    assert since(before) == {'k2': 1, 'k3': 1}
+    want = fa.attention_res_ref(x.float(), *w, H, ca)
+    assert k3[2].shape == (B, H, S, S) and all(t.dtype == dtype for t in k2 + k3)
+    for got, ref in zip(k2 + k3, want[:2] + want):
+        err = rel_l2(got, ref)
+        assert err <= TOL[dtype], err
+
+
+@pytest.mark.parametrize('B,S,D,H,ca,dtype', GEOMETRIES)
+def test_k5_and_k6_match_plain(cuda, B, S, D, H, ca, dtype):
+    '''K5 (dqkv, attn from a saved qkv) and K6 (dx and the f32 weight and bias
+    gradients) against their plain versions in f32 from the same inputs.'''
+    x, w = inputs(B, S, D, dtype, cuda, seed=6)
+    g = grad_input(B, S, D, dtype, cuda, seed=7)
+    _, qkv = fa.fused_attention_fwd_qkv(x, *w, H, ca)
+    before = launches()
+    k5 = fa.fused_attention_bwd_qkv(qkv, g, w[2], H, ca)
+    k6 = fa.fused_attention_bwd_wg(x, g, *w[:3], H, ca)
+    torch.cuda.synchronize()
+    assert since(before) == {'k5': 1, 'k6': 1}
+    want5 = fa.attention_bwd_qkv_ref(qkv.float(), g.float(), w[2], H, ca)
+    want6 = fa.attention_bwd_wg_ref(x.float(), g.float(), *w[:3], H, ca)
+    assert [t.dtype for t in k6] == [dtype] + [torch.float32] * 4
+    assert [t.shape for t in k6] == [t.shape for t in want6]
+    for got, ref in zip(k5 + k6, want5 + want6):
+        err = rel_l2(got, ref)
+        assert err <= TOL_BWD[dtype], err
+
+
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
-def test_fused_attention_is_differentiable_on_the_card(cuda, dtype):
-    '''The forward's output carries a grad_fn, and its backward (K4) gives the gradients
-    of x and the four weights that autograd gives through the plain version in f32.'''
+def test_k6_weight_gradients_are_deterministic(cuda, dtype):
+    '''The row reductions of K6 have a fixed order: two runs give the same bits.'''
+    x, w = inputs(64, 301, 256, dtype, cuda, seed=8)
+    g = grad_input(64, 301, 256, dtype, cuda, seed=9)
+    first = fa.fused_attention_bwd_wg(x, g, *w[:3], 4, 0)
+    second = fa.fused_attention_bwd_wg(x, g, *w[:3], 4, 0)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('mode', fa.BWD_MODES)
+def test_fused_attention_is_differentiable_on_the_card(cuda, dtype, mode):
+    '''In each backward mode, the forward's output carries a grad_fn, and its backward
+    gives the gradients of x and the four weights that autograd gives through the plain
+    version in f32.'''
     x, w = inputs(4, 30, 256, dtype, cuda, seed=3)
-    g = torch.from_numpy(np.random.RandomState(4).randn(4, 30, 256).astype(np.float32)).to(
-        cuda, dtype)
+    g = grad_input(4, 30, 256, dtype, cuda, seed=4)
     leaves = [x.clone().requires_grad_()] + [a.clone().requires_grad_() for a in w]
-    out = fa.fused_attention(*leaves, 4, 1)
+    before = launches()
+    out = fa.fused_attention(*leaves, 4, 1, mode)
     assert out.grad_fn is not None
-    before = fa.fused_attention_bwd.launches
     out.backward(g)
     torch.cuda.synchronize()
-    assert fa.fused_attention_bwd.launches == before + 1
+    assert since(before) == {'res': {'k3': 1}, 'kernel_qkv': {'k2': 1, 'k5': 1},
+                             'kernel_x': {'k1': 1, 'k4': 1},
+                             'kernel_x_wg': {'k1': 1, 'k6': 1}}[mode]
     ref = [x.float().requires_grad_()] + [a.clone().requires_grad_() for a in w]
     fa.attention_ref(*ref, 4, 1).backward(g.float())
     for a, b in zip(leaves, ref):
@@ -119,26 +198,41 @@ def test_fused_attention_is_differentiable_on_the_card(cuda, dtype):
         assert err <= TOL_BWD[dtype], err
 
 
-@pytest.mark.parametrize('remat', [False, True])
-def test_train_step_launches_the_kernels(cuda, monkeypatch, remat):
-    '''One train step at a tiny width through make_train_step: K1 once per attention call
-    and once more per recomputed block under remat, K4 once per attention call.'''
+def tiny_train_step(monkeypatch, **seeker_kw):
+    '''Launches and changed parameters of one train step at width 64, depth 2.'''
     monkeypatch.setitem(tsf.DEPTH_PRESETS, 2, (64, 4))
     seeker = SeekerConfig(num_total_frames=4, frame_height=32, frame_width=48,
                           causal_attention=1, network_depth=2, drop_path_rate=0.1,
-                          compute_dtype=torch.bfloat16, remat=remat)
+                          compute_dtype=torch.bfloat16, **seeker_kw)
     cfg = step_lib.StepConfig(seeker=seeker, loss=LossConfig(), num_queries=2)
     state = step_lib.init_train_state(0, cfg, optim.make_optimizer(), device='cuda')
     batch = synthetic_device_batch(0, B=2, Q=2, T=4, H=32, W=48, M=8, K=4)
     before = {k: v.clone() for k, v in state.model.state_dict().items()}
-    k1, k4 = fa.fused_attention.launches, fa.fused_attention_bwd.launches
+    counts = launches()
     state, aux = step_lib.make_train_step(cfg)(state, batch, 0.1)
     torch.cuda.synchronize()
     assert np.isfinite(float(aux['total_seeker'])) and float(aux['skipped_nonfinite']) == 0
-    assert fa.fused_attention.launches - k1 == (8 if remat else 4)
-    assert fa.fused_attention_bwd.launches - k4 == 4
     changed = [k for k, v in state.model.state_dict().items() if not torch.equal(v, before[k])]
     assert 'backbone.blocks.1.attn.qkv.w' in changed
+    return since(counts)
+
+
+@pytest.mark.parametrize('remat', [False, True])
+def test_train_step_launches_the_kernels(cuda, monkeypatch, remat):
+    '''One train step at a tiny width through make_train_step in the 'kernel_x' mode
+    under full remat: K1 once per attention call and once more per recomputed block
+    under remat, K4 once per attention call.'''
+    got = tiny_train_step(monkeypatch, remat=remat, remat_policy='full',
+                          attention_bwd='kernel_x')
+    assert got == {'k1': 8 if remat else 4, 'k4': 4}
+
+
+@pytest.mark.parametrize('mode,policy', list(PAIRINGS))
+def test_train_step_pairing_launches(cuda, monkeypatch, mode, policy):
+    '''Each pairing of a mode with its remat policy: four attention calls per step, the
+    forward kernel re-run in the backward only under 'res' / 'dots_nb'.'''
+    got = tiny_train_step(monkeypatch, remat=True, remat_policy=policy, attention_bwd=mode)
+    assert got == {k: 4 * n for k, n in PAIRINGS[mode, policy].items()}
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
@@ -155,6 +249,25 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         fa.fused_attention_bwd(x, x.float(), *w[:3], 2, 0)
     with pytest.raises(ValueError, match='qkv_b'):
         fa.fused_attention_bwd(x, x, w[0], w[1][:-1], w[2], 2, 0)
+
+
+@pytest.mark.parametrize('mode', fa.BWD_MODES)
+def test_inference_launches_k1_alone_in_every_mode(cuda, mode):
+    '''Without gradients every backward mode runs K1 and no other kernel: 24 launches
+    per forward of ViT-B/16.'''
+    args = dict(num_total_frames=4, frame_height=32, frame_width=48, network_depth=12,
+                causal_attention=1)
+    model = MaskTracker(seeker_config_from_args(args))
+    model.init_params_(torch.Generator().manual_seed(0))
+    engine = InferenceEngine(params_to_jax(model.state_dict()),
+                             seeker_config_from_args(args, attention_bwd=mode), device='cuda')
+    rng = np.random.RandomState(0)
+    before = launches()
+    engine.run_plugin(rng.rand(1, 3, 4, 32, 48).astype(np.float32),
+                      (rng.rand(1, 1, 4, 32, 48) > 0.5).astype(np.float32),
+                      np.zeros((1, 3, 4, 32, 48), np.float32))
+    torch.cuda.synchronize()
+    assert since(before) == {'k1': 24}
 
 
 def test_seeker_entry_points_launch_the_kernel(cuda, tmp_path):

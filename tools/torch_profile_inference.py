@@ -32,7 +32,8 @@ from tcow_tpu_torch.weights import params_to_jax  # noqa: E402
 
 GROUPS = (('attn_core', ('attn_core',)),
           ('attn_bwd (K4 core)', ('attn_bwd',)),
-          ('gemm_bias (K1/K4 GEMMs)', ('gemm_bias',)),
+          ('gemm_bias (K1-K6 GEMMs)', ('gemm_bias',)),
+          ('wgrad / colsum (K6 reductions)', ('wgrad', 'colsum', 'sum_splits')),
           ('cuBLAS/cutlass GEMM', ('gemm', 'sm90_', 'cutlass', 'cublas', 'nvjet')),
           ('softmax', ('softmax',)),
           ('optimizer (foreach)', ('multi_tensor_apply',)),

@@ -2,15 +2,18 @@
 '''
 Device-time breakdown of the PyTorch port's training step on one NVIDIA GPU.
 
-Builds the training step of record of chip_smoke.py (2 clips x 3 queries, ViT-B/16,
-depth 12, T=30, 240x320, causal_attention=1, bf16, per-block remat, drop-path 0.1, AdamW)
-and, for the kernel path (K1 forward, K4 backward) and the plain attention path, runs one
-warm-up step and profiles one step with torch.profiler. Prints one JSON line each: host
-wall time of the step, device busy time and its share of the wall time, and device time
-per kernel group. With --table_dir DIR the per-kernel tables go to
-DIR/torch_profile_train_<path>.txt.
+Builds the training step of chip_smoke.py (2 clips x 3 queries, ViT-B/16, depth 12, T=30,
+240x320, causal_attention=1, bf16, per-block remat, drop-path 0.1, AdamW) under an
+attention-backward mode and a remat policy, by default the step of record (kernel_x with
+dots_nb_out: K1 forward, K4 backward), and, for the kernel path and the plain attention
+path, runs one warm-up step and profiles one step with torch.profiler. Prints one JSON
+line each: host wall time of the step, device busy time and its share of the wall time,
+and device time per kernel group. With --table_dir DIR the per-kernel tables go to
+DIR/torch_profile_train_<mode>_<policy>_<path>.txt.
 
-Run from the repository root: `python3 tools/torch_profile_train.py [--table_dir DIR]`.
+Run from the repository root:
+`python3 tools/torch_profile_train.py [--attention_bwd MODE] [--remat_policy POLICY]
+[--table_dir DIR]`.
 '''
 
 import argparse
@@ -23,12 +26,18 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke as cs  # noqa: E402
 from torch_profile_inference import profile_call  # noqa: E402
+from tcow_tpu_torch.models.timesformer import REMAT_POLICIES  # noqa: E402
+from tcow_tpu_torch.ops.fused_attention import BWD_MODES  # noqa: E402
 from tcow_tpu_torch.train import optim  # noqa: E402
 from tcow_tpu_torch.train import step as step_lib  # noqa: E402
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.strip().splitlines()[0])
+    ap.add_argument('--attention_bwd', default=cs.STEP_OF_RECORD[0], choices=BWD_MODES,
+                    help='attention backward mode (default: the step of record\'s)')
+    ap.add_argument('--remat_policy', default=cs.STEP_OF_RECORD[1], choices=REMAT_POLICIES,
+                    help='per-block remat policy (default: the step of record\'s)')
     ap.add_argument('--table_dir', default=None,
                     help='write the per-kernel profiler tables into this directory')
     args = ap.parse_args()
@@ -37,14 +46,15 @@ def main():
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = cs.train_config(torch.bfloat16)
+    cfg = cs.train_config(torch.bfloat16, pairing=(args.attention_bwd, args.remat_policy))
     tx = optim.make_optimizer('adamw', learn_rate=1e-4, num_epochs=70, steps_per_epoch=1000)
     state = step_lib.init_train_state(cs.SEED, cfg, tx, device='cuda')
     train_step = step_lib.make_train_step(cfg)
     batch = cs.train_batch()
     for tag in ('kernel', 'plain'):
-        profile_call(lambda: train_step(state, batch, cs.TRAIN_PROGRESS), f'train_{tag}',
-                     tag == 'plain', args.table_dir)
+        profile_call(lambda: train_step(state, batch, cs.TRAIN_PROGRESS),
+                     f'train_{args.attention_bwd}_{args.remat_policy}_{tag}', tag == 'plain',
+                     args.table_dir)
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True).stdout.strip())
