@@ -27,7 +27,19 @@ Drives the PyTorch port (tcow_tpu_torch) on one NVIDIA GPU and checks it:
      gradient: bf16 kernel path and bf16 plain path against the f32 plain path; f32
      kernel vs plain at depth 2);
   7. training times: every kernel per call at the training shapes beside its plain
-     version, a library yardstick and its bound, and kernel-path vs plain-path steps.
+     version, a library yardstick and its bound, and kernel-path vs plain-path steps;
+  8. the time-calibrated rope path (the rope256 configuration: temporal_rope=1,
+     rope_time_coords=1, otherwise the configuration of record), whose temporal calls run
+     the rope kernels K1r ... K6r: each against its plain version at the temporal
+     inference and training shapes (bf16 and float32, row positions and per-row frame
+     times drawn as the JAX package's augmentations draw them), K6r twice, bit-equal, and
+     the gradients of the differentiable call per mode (phase rope_kernels_vs_plain);
+     inference through load_networks -> run_plugin with frame_times, 12 K1r + 12 K1 per
+     request and no other kernel, against the plain path, stride-2 times changing the
+     output and time_embed not (rope_slice); the training step under each pairing, per
+     step 12 rope + 12 plain launches of each kernel of the pairing (rope_train), its
+     parity (rope_train_parity); and every rope kernel timed beside its plain version,
+     its library yardstick, its bound and the kernel without rope (rope_times).
 
 Run from the repository root: `python3 chip_smoke.py`. Prints one JSON object per phase,
 then the `{"kernels": [...]}` line, the nvidia-smi line, and last
@@ -47,7 +59,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tcow_tpu_torch.data.synthetic import synthetic_device_batch
+from tcow_tpu_torch.data.synthetic import synthetic_device_batch, synthetic_frame_times
 from tcow_tpu_torch.evaluation.inference import InferenceEngine, load_networks
 from tcow_tpu_torch.models import timesformer as tsf
 from tcow_tpu_torch.models.mask_tracker import MaskTracker, seeker_config_from_args
@@ -55,6 +67,7 @@ from tcow_tpu_torch.objectives.losses import LossConfig
 from tcow_tpu_torch.objectives.metrics import METRIC_KEYS
 from tcow_tpu_torch.ops import _build
 from tcow_tpu_torch.ops import fused_attention as fa
+from tcow_tpu_torch.ops import rope as rope_lib
 from tcow_tpu_torch.train import optim
 from tcow_tpu_torch.train import step as step_lib
 from tcow_tpu_torch.train.checkpoint import save_checkpoint
@@ -96,10 +109,20 @@ PAIRINGS = {
     ('kernel_x_wg', 'dots_nb_out'): {'K1': 1, 'K6': 1},
 }
 STEP_OF_RECORD = ('kernel_x', 'dots_nb_out')
-# The wrapper of each kernel, which counts its launches.
+# The wrapper of each kernel, which counts its launches: `launches` without rope (K1 ...
+# K6), `launches_rope` with it (K1r ... K6r).
 KERNELS = {'K1': fa.fused_attention, 'K2': fa.fused_attention_fwd_qkv,
            'K3': fa.fused_attention_fwd_res, 'K4': fa.fused_attention_bwd,
            'K5': fa.fused_attention_bwd_qkv, 'K6': fa.fused_attention_bwd_wg}
+# The time-calibrated rope configuration the JAX package trained for 36 epochs
+# (docs/campaign_r4/rope256/args_train.txt: temporal_rope 1, rope_time_coords 1, rope time
+# stretch 4). Its frame times are drawn per clip as the augmentations draw them, here at
+# frame stride 2 so that they reach ~230.
+ROPE_ARGS = dict(SEEKER_ARGS, temporal_rope=1, rope_time_coords=1)
+ROPE_FRAME_STRIDE = 2
+# The temporal attention shapes of the rope path: inference (B clips) and training.
+ROPE_GEOMETRIES = {'temporal': GEOMETRIES['temporal'],
+                   'train_temporal': TRAIN_GEOMETRIES['temporal']}
 
 # Tolerances, relative L2 error ||kernel - plain|| / ||plain||:
 # K1, K2, K3 bf16 vs the plain version in float32 from the same bf16-rounded inputs: the
@@ -251,15 +274,24 @@ def grad_input(B, S, dtype, seed):
 def reset_launches():
     for wrapper in KERNELS.values():
         wrapper.launches = 0
+        wrapper.launches_rope = 0
 
 
 def read_launches():
-    return {name: wrapper.launches for name, wrapper in KERNELS.items()}
+    '''Every counter: K1 ... K6, then K1r ... K6r.'''
+    out = {name: wrapper.launches for name, wrapper in KERNELS.items()}
+    out.update({f'{name}r': wrapper.launches_rope for name, wrapper in KERNELS.items()})
+    return out
 
 
-def plain_fused_attention(x, qkv_w, qkv_b, proj_w, proj_b, num_heads, ca, bwd_mode):
+def launches_since(counts):
+    return {k: n - counts[k] for k, n in read_launches().items() if n != counts[k]}
+
+
+def plain_fused_attention(x, qkv_w, qkv_b, proj_w, proj_b, num_heads, ca, bwd_mode,
+                          rope=False, pos=None):
     '''The model's attention call with the plain version, whatever the mode.'''
-    return fa.attention_ref(x, qkv_w, qkv_b, proj_w, proj_b, num_heads, ca)
+    return fa.attention_ref(x, qkv_w, qkv_b, proj_w, proj_b, num_heads, ca, rope, pos)
 
 
 @contextlib.contextmanager
@@ -273,24 +305,39 @@ def plain_attention():
         tsf.fused_attention = fa.fused_attention
 
 
-def library_attention(x, w16, ca):
+def rotate(q, k, cs):
+    '''q and k rotated by the head-broadcast rope tables cs (None: unchanged).'''
+    if cs is None:
+        return q, k
+    return rope_lib.apply_rope(q, *cs), rope_lib.apply_rope(k, *cs)
+
+
+def head_tables(S, pos):
+    '''(cos, sin) broadcastable over (B, H, S, dh/2) for per-row positions pos (B, S).'''
+    cos, sin = fa.rope_tables_for(S, D // HEADS, pos, pos.device)
+    return cos[:, None], sin[:, None]
+
+
+def library_attention(x, w16, ca, cs=None):
     '''One PyTorch call chain computing K1's and K2's function, (out, qkv) (yardstick
-    only).'''
+    only); with rope tables cs, q and k rotated by apply_rope before SDPA.'''
     B, S, _ = x.shape
     qkv = torch.addmm(w16[1], x.reshape(B * S, D), w16[0])
     q, k, v = qkv.reshape(B, S, 3, HEADS, D // HEADS).permute(2, 0, 3, 1, 4)
+    q, k = rotate(q, k, cs)
     o = F.scaled_dot_product_attention(q, k, v, is_causal=ca > 0)
     return torch.addmm(w16[3], o.transpose(1, 2).reshape(B * S, D), w16[2]), qkv
 
 
-def library_attention_probs(x, w16, ca):
+def library_attention_probs(x, w16, ca, cs=None):
     '''K3's function, (out, qkv, probs, attn), with library calls (yardstick only): no
     fused library call returns the probabilities, so addmm, matmul, softmax, matmul,
-    addmm.'''
+    addmm; with rope tables cs, q and k rotated by apply_rope first.'''
     B, S, _ = x.shape
     dh = D // HEADS
     qkv = torch.addmm(w16[1], x.reshape(B * S, D), w16[0])
     q, k, v = qkv.reshape(B, S, 3, HEADS, dh).permute(2, 0, 3, 1, 4)
+    q, k = rotate(q, k, cs)
     logits = torch.matmul(q, k.transpose(-1, -2)) * dh ** -0.5
     if ca > 0:
         logits = logits.masked_fill(~fa._causal_keep(S, ca, x.device), -1e10)
@@ -573,19 +620,24 @@ def depth_preset(depth, width_heads):
         del tsf.DEPTH_PRESETS[depth]
 
 
-def train_config(dtype, drop_path_rate=0.1, depth=12, pairing=STEP_OF_RECORD):
+def train_config(dtype, drop_path_rate=0.1, depth=12, pairing=STEP_OF_RECORD, rope=False):
     '''ViT-B/16, T=30 at 240x320, causal 1, per-block remat under the pairing's
-    (attention_bwd, remat_policy); the step of record by default.'''
+    (attention_bwd, remat_policy); the step of record by default; with rope the rope256
+    configuration.'''
     mode, policy = pairing
-    seeker = seeker_config_from_args(SEEKER_ARGS, drop_path_rate=drop_path_rate,
+    seeker = seeker_config_from_args(ROPE_ARGS if rope else SEEKER_ARGS,
+                                     drop_path_rate=drop_path_rate,
                                      compute_dtype=dtype, remat=True, network_depth=depth,
                                      attention_bwd=mode, remat_policy=policy)
     return step_lib.StepConfig(seeker=seeker, loss=LossConfig(), num_queries=TRAIN_Q)
 
 
-def train_batch():
+def train_batch(rope=False):
+    '''The synthetic batch of record; with rope also its seeded frame times (B, T).'''
     T, H, W = (SEEKER_ARGS[k] for k in ('num_total_frames', 'frame_height', 'frame_width'))
     b = synthetic_device_batch(0, B=TRAIN_B, Q=TRAIN_Q, T=T, H=H, W=W, M=TRAIN_M, K=TRAIN_K)
+    if rope:
+        b['frame_times'] = synthetic_frame_times(SEED, TRAIN_B, T, ROPE_FRAME_STRIDE)
     return {k: torch.as_tensor(v, device=DEV) for k, v in b.items()}
 
 
@@ -609,23 +661,31 @@ def timed_step(train_step, state, batch, plain=False):
     return state, aux, start.elapsed_time(end), 1e3 * (time.perf_counter() - t0)
 
 
-def phase_train(pairing):
+def phase_train(pairing, rope=False):
     '''The training main path under one (attention_bwd, remat_policy) pairing:
     init_train_state -> make_optimizer -> make_train_step, one warm-up and TRAIN_STEPS
     timed steps at full width, bf16, remat, drop-path 0.1. Every kernel's launches are
-    counted from 0 over these steps and checked per step against PAIRINGS.'''
-    cfg = train_config(torch.bfloat16, pairing=pairing)
+    counted from 0 over these steps and checked per step against PAIRINGS; with rope (the
+    rope256 step, frame times in the batch) the temporal call of each block launches the
+    rope variant and the spatial call the plain kernel.'''
+    cfg = train_config(torch.bfloat16, pairing=pairing, rope=rope)
     tx = optim.make_optimizer('adamw', learn_rate=1e-4, num_epochs=70, steps_per_epoch=1000,
                               gradient_clip=0.3)
     state = step_lib.init_train_state(SEED, cfg, tx, device=DEV)
     init_state = {k: v.clone() for k, v in state.model.state_dict().items()}
     train_step = step_lib.make_train_step(cfg)
-    batch = train_batch()
+    batch = train_batch(rope)
     last = cfg.seeker.network_depth - 1
     watch = ('backbone.blocks.0.attn.qkv.w', f'backbone.blocks.{last}.temporal_attn.proj.w',
              'post_linear.w')
-    calls = 2 * cfg.seeker.network_depth
-    per_step = {k: PAIRINGS[pairing].get(k, 0) * calls for k in KERNELS}
+    depth = cfg.seeker.network_depth
+    want = {}
+    for k, n in PAIRINGS[pairing].items():
+        if rope:
+            want[k] = want[f'{k}r'] = n * depth
+        else:
+            want[k] = n * 2 * depth
+    per_step = {k: want.get(k, 0) for k in read_launches()}
     steps = []
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -650,7 +710,8 @@ def phase_train(pairing):
     peak = torch.cuda.max_memory_allocated()
     step_ms = sum(r['step_ms'] for r in steps[1:]) / TRAIN_STEPS
     flops = step_flops(cfg)
-    emit({'phase': 'train', 'attention_bwd': pairing[0], 'remat_policy': pairing[1],
+    emit({'phase': 'rope_train' if rope else 'train', 'attention_bwd': pairing[0],
+          'remat_policy': pairing[1],
           'clips': TRAIN_B, 'queries': TRAIN_Q, 'steps': steps, 'launches': launches,
           'launches_per_step': per_step, 'step_ms': step_ms,
           'clips_per_s': TRAIN_B / (step_ms / 1e3), 'max_memory_allocated_bytes': peak,
@@ -676,14 +737,15 @@ def model_from(cfg, state_dict):
     return model
 
 
-def phase_train_parity(init_state, batch):
+def phase_train_parity(init_state, batch, rope=False):
     '''First-step loss and gradient with drop-path off, for each backward mode under its
     pairing: the bf16 kernel path against the f32 plain path, whose error may be at most
     TRAIN_BF16_ERR_RATIO x the bf16 plain path's; and f32 kernel vs f32 plain at depth 2.
-    The plain paths run under full remat (a policy never changes a result).'''
+    The plain paths run under full remat (a policy never changes a result). With rope the
+    rope256 step on the batch with frame times.'''
     rel = lambda a, b: abs(a - b) / abs(b)
     plain = (STEP_OF_RECORD[0], 'full')
-    cfg16, cfg32 = (train_config(dt, 0.0, pairing=plain)
+    cfg16, cfg32 = (train_config(dt, 0.0, pairing=plain, rope=rope)
                     for dt in (torch.bfloat16, torch.float32))
     model = model_from(cfg32, init_state)
     loss_r, grad_r = loss_and_flat_grad(model, cfg32, batch, plain=True)
@@ -696,7 +758,7 @@ def phase_train_parity(init_state, batch):
     del grad_p
     for pairing in PAIRINGS:
         mode = pairing[0]
-        cfg = train_config(torch.bfloat16, 0.0, pairing=pairing)
+        cfg = train_config(torch.bfloat16, 0.0, pairing=pairing, rope=rope)
         model = model_from(cfg, init_state)
         losses[f'kernel_bf16_{mode}'], grad_k = loss_and_flat_grad(model, cfg, batch,
                                                                    plain=False)
@@ -706,7 +768,7 @@ def phase_train_parity(init_state, batch):
         del grad_k
     del grad_r
     with depth_preset(2, (D, HEADS)):
-        cfg2 = train_config(torch.float32, 0.0, depth=2, pairing=plain)
+        cfg2 = train_config(torch.float32, 0.0, depth=2, pairing=plain, rope=rope)
         model = MaskTracker(cfg2.seeker, device=DEV)
         model.init_params_(torch.Generator().manual_seed(SEED))
         state2 = model.state_dict()
@@ -714,7 +776,7 @@ def phase_train_parity(init_state, batch):
         del model
         for pairing in PAIRINGS:
             mode = pairing[0]
-            cfg = train_config(torch.float32, 0.0, depth=2, pairing=pairing)
+            cfg = train_config(torch.float32, 0.0, depth=2, pairing=pairing, rope=rope)
             model = model_from(cfg, state2)
             loss_k2, grad_k2 = loss_and_flat_grad(model, cfg, batch, plain=False)
             del model
@@ -736,18 +798,20 @@ def phase_train_parity(init_state, batch):
             if not errs[key] <= TOL_TRAIN_F32:
                 fail(f'train parity ({mode}): f32 {what} kernel vs plain at depth 2 '
                      f'{errs[key]} > {TOL_TRAIN_F32}')
-    emit({'phase': 'train_parity', 'losses': losses, 'rel_err': errs,
+    emit({'phase': 'rope_train_parity' if rope else 'train_parity', 'losses': losses,
+          'rel_err': errs,
           'bf16_err_ratio': ratios, 'bf16_err_ratio_limit': TRAIN_BF16_ERR_RATIO,
           'tol_f32_depth2': TOL_TRAIN_F32})
     return errs
 
 
-def library_attention_bwd(x, w16, ca, g, qkv=None, wgrads=False):
+def library_attention_bwd(x, w16, ca, g, qkv=None, wgrads=False, cs=None):
     '''K4's function, (dqkv, attn) from x and g, with library calls (yardstick only): the
     qkv recompute and g . proj_w^T as addmm / mm, then SDPA's forward for attn and its
     autograd backward for dq, dk and dv. With qkv given, no recompute: K5's function.
     With wgrads, also the rest of K6's function: dx and the weight gradients as mm, the
-    bias gradients as sums.'''
+    bias gradients as sums. With rope tables cs, q and k go through apply_rope inside
+    the autograd graph, so dq and dk come back un-rotated.'''
     B, S, _ = x.shape
     dh = D // HEADS
 
@@ -758,7 +822,7 @@ def library_attention_bwd(x, w16, ca, g, qkv=None, wgrads=False):
         g2 = g.reshape(B * S, D)
         dattn = torch.mm(g2, w16[2].T).reshape(B, S, HEADS, dh).transpose(1, 2)
         with torch.enable_grad():
-            attn = F.scaled_dot_product_attention(q, k, v, is_causal=ca > 0)
+            attn = F.scaled_dot_product_attention(*rotate(q, k, cs), v, is_causal=ca > 0)
             grads = torch.autograd.grad(attn, (q, k, v), dattn)
         if not wgrads:
             return attn, grads
@@ -825,6 +889,250 @@ def phase_train_times(train):
     return per_geom
 
 
+# ---------------------------------------------------------------------------------------
+# The time-calibrated rope path: K1r ... K6r
+# ---------------------------------------------------------------------------------------
+
+def rope_positions(B, S, seed):
+    '''Per-row frame times (B, S) f32 on the card, drawn as the augmentations draw them.'''
+    return torch.from_numpy(synthetic_frame_times(seed, B, S, ROPE_FRAME_STRIDE)).to(DEV)
+
+
+def rope_flops(B, S):
+    '''The rotation's operations on top of a kernel's: 6 per rotated element pair of q and
+    k (4 products, 2 sums), B S D / 2 pairs each.'''
+    return 6 * B * S * D
+
+
+def table_bytes(B, S):
+    '''The per-row cos and sin tables (B, S, dh/2) f32, read once.'''
+    return 2 * B * S * (D // HEADS // 2) * 4
+
+
+def phase_rope_kernels_vs_plain():
+    '''K1r ... K6r at the temporal inference and training shapes, bf16 and float32, with
+    row positions and with per-row frame times, against their plain versions in f32 from
+    the same inputs and positions; K6r twice, bit-equal; and at the training shape in bf16
+    with frame times the five gradients of the differentiable call in each mode against
+    autograd through the plain forward in f32.'''
+    errs = {f'K{i}r': {} for i in range(1, 7)}
+    grads = {}
+    cases = [(f'{name}_{str(dtype)[6:]}_{"times" if times else "rows"}', B, S, ca, dtype, times)
+             for name, (B, S, ca) in ROPE_GEOMETRIES.items()
+             for dtype in (torch.bfloat16, torch.float32) for times in (False, True)]
+    for i, (name, B, S, ca, dtype, times) in enumerate(cases):
+        x, w = attn_inputs(B, S, dtype, SEED + 300 + i)
+        g = grad_input(B, S, dtype, SEED + 320 + i)
+        pos = rope_positions(B, S, SEED + 340 + i) if times else None
+        k1 = fa.fused_attention_fwd(x, *w, HEADS, ca, True, pos)
+        k2 = fa.fused_attention_fwd_qkv(x, *w, HEADS, ca, True, pos)
+        k3 = fa.fused_attention_fwd_res(x, *w, HEADS, ca, True, pos)
+        k4 = fa.fused_attention_bwd(x, g, *w[:3], HEADS, ca, True, pos)
+        k5 = fa.fused_attention_bwd_qkv(k2[1], g, w[2], HEADS, ca, True, pos)
+        k6 = fa.fused_attention_bwd_wg(x, g, *w[:3], HEADS, ca, True, pos)
+        k6_again = fa.fused_attention_bwd_wg(x, g, *w[:3], HEADS, ca, True, pos)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(k6, k6_again)):
+            fail(f'{name}: K6r gave other gradients on a second run')
+        del k6_again
+        res = fa.attention_res_ref(x.float(), *w, HEADS, ca, True, pos)
+        plain = {'K1r': ((k1,), res[:1], ('out',)),
+                 'K2r': (k2, res[:2], ('out', 'qkv')),
+                 'K3r': (k3, res, ('out', 'qkv', 'probs', 'attn')),
+                 'K4r': (k4, fa.attention_bwd_ref(x.float(), g.float(), *w[:3], HEADS, ca,
+                                                  True, pos), ('dqkv', 'attn')),
+                 'K5r': (k5, fa.attention_bwd_qkv_ref(k2[1].float(), g.float(), w[2], HEADS,
+                                                      ca, True, pos), ('dqkv', 'attn')),
+                 'K6r': (k6, fa.attention_bwd_wg_ref(x.float(), g.float(), *w[:3], HEADS,
+                                                     ca, True, pos),
+                         ('dx', 'dqkv_w', 'dqkv_b', 'dproj_w', 'dproj_b'))}
+        del res
+        for kernel, (got, want, names) in plain.items():
+            if [t.shape for t in got] != [t.shape for t in want]:
+                fail(f'{name}: {kernel} output shapes {[tuple(t.shape) for t in got]}')
+            tol = (TOL_F32 if dtype == torch.float32
+                   else TOL_BF16 if kernel in ('K1r', 'K2r', 'K3r') else TOL_K4_BF16)
+            e = dict(B=B, S=S, ca=ca, dtype=str(dtype)[6:], positions=(
+                'frame_times' if times else 'rows'), tol_rel_l2=tol,
+                max_abs_err=max(float((a.float() - b).abs().max()) for a, b in zip(got, want)))
+            e.update({f'rel_l2_{n}': rel_l2(a.float(), b) for n, a, b in zip(names, got, want)})
+            errs[kernel][name] = e
+            bad = {k: v for k, v in e.items() if k.startswith('rel_l2') and not v <= tol}
+            if bad:
+                fail(f'{name}: {kernel} vs plain rel L2 above {tol}: {bad}')
+        del plain, k1, k2, k3, k4, k5, k6
+        if name == 'train_temporal_bfloat16_times':
+            for mode in fa.BWD_MODES:
+                leaves = [x.clone().requires_grad_()] + [a.clone().requires_grad_() for a in w]
+                fa.fused_attention(*leaves, HEADS, ca, mode, True, pos).backward(g)
+                ref = [x.float().requires_grad_()] + [a.clone().requires_grad_() for a in w]
+                fa.attention_ref(*ref, HEADS, ca, True, pos).backward(g.float())
+                grads[mode] = {f'rel_l2_{n}': rel_l2(a.grad.float(), b.grad) for n, a, b in zip(
+                    ('dx', 'dqkv_w', 'dqkv_b', 'dproj_w', 'dproj_b'), leaves, ref)}
+                bad = {k: v for k, v in grads[mode].items() if not v <= TOL_K4_BF16}
+                if bad:
+                    fail(f'{name}: gradients of the rope call ({mode}) above {TOL_K4_BF16}: {bad}')
+    emit({'phase': 'rope_kernels_vs_plain', 'cases': errs, 'k6r_deterministic': True,
+          'grads_train_temporal_bf16_times': grads, 'tol_grads': TOL_K4_BF16})
+    return errs
+
+
+def rope_outputs(engine, rgb, query, target, frame_times, plain=False):
+    with plain_attention() if plain else contextlib.nullcontext():
+        res = engine.run_plugin(rgb, query, target, frame_times=frame_times)
+    return (np.concatenate([m['output_mask'] for m, _ in res]),
+            np.concatenate([m['output_flags'] for m, _ in res]))
+
+
+def phase_rope_slice(ckpt_dir):
+    '''The rope256 seeker: checkpoint -> load_networks -> InferenceEngine -> 3 requests of
+    B clips with their frame times. Per request 12 K1r (temporal) + 12 K1 (spatial) and
+    no other launch; masks and flags against the plain path; stride-2 times change the
+    output, row times 0..T-1 equal no times, and time_embed changes nothing.'''
+    cfg0 = seeker_config_from_args(ROPE_ARGS)
+    model = MaskTracker(cfg0)
+    model.init_params_(torch.Generator().manual_seed(SEED))
+    save_checkpoint(str(ckpt_dir), 0, 'chip_smoke_rope', params_to_jax(model.state_dict()),
+                    seeker_args=ROPE_ARGS)
+    del model
+    params, cfg, *_ = load_networks(str(ckpt_dir), None, compute_dtype=torch.bfloat16,
+                                    device=DEV)
+    if not (cfg.temporal_rope and cfg.rope_time_coords):
+        fail(f'load_networks lost the rope keys: {cfg}')
+    engine = InferenceEngine(params, cfg, device=DEV)
+    rgb, query, target = plugin_request(SEED + 1)
+    T = rgb.shape[2]
+    times = synthetic_frame_times(SEED, BATCH, T, ROPE_FRAME_STRIDE)
+    depth = cfg.network_depth
+    reset_launches()
+    req_ms, results = [], None
+    for _ in range(REQUESTS):
+        counts = read_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = engine.run_plugin(rgb, query, target, frame_times=times)
+        torch.cuda.synchronize()
+        req_ms.append(1e3 * (time.perf_counter() - t0))
+        got = launches_since(counts)
+        if got != {'K1': depth, 'K1r': depth}:
+            fail(f'rope request launched {got}, expected {depth} K1r + {depth} K1')
+    launches = read_launches()
+    mask = np.concatenate([m['output_mask'] for m, _ in results])
+    flags = np.concatenate([m['output_flags'] for m, _ in results])
+    if mask.shape != (BATCH, 3) + rgb.shape[2:] or flags.shape != (BATCH, T, 3):
+        fail(f'rope output shapes {mask.shape} {flags.shape}')
+    if not (np.isfinite(mask).all() and np.isfinite(flags).all()):
+        fail('rope: non-finite outputs')
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    eng32 = InferenceEngine(params, cfg32, device=DEV)
+    plain = rope_outputs(engine, rgb, query, target, times, plain=True)
+    f32_plain = rope_outputs(eng32, rgb, query, target, times, plain=True)
+    f32_kernel = rope_outputs(eng32, rgb, query, target, times)
+    rows = np.tile(np.arange(T, dtype=np.float32), (BATCH, 1))
+    f32_rows = rope_outputs(eng32, rgb, query, target, rows)
+    f32_none = rope_outputs(eng32, rgb, query, target, None)
+    f32_stride2 = rope_outputs(eng32, rgb, query, target, rows * 2.0)
+    other = {**params, 'backbone': {**params['backbone'], 'time_embed': np.random.RandomState(
+        SEED).randn(*params['backbone']['time_embed'].shape).astype(np.float32)}}
+    other_time = rope_outputs(InferenceEngine(other, cfg32, device=DEV), rgb, query, target,
+                              times)
+    t = torch.from_numpy
+    errs = {
+        'mask_kernel_vs_plain_bf16': rel_l2(t(mask), t(plain[0])),
+        'flags_kernel_vs_plain_bf16': rel_l2(t(flags), t(plain[1])),
+        'mask_kernel_bf16_vs_plain_f32': rel_l2(t(mask), t(f32_plain[0])),
+        'mask_plain_bf16_vs_plain_f32': rel_l2(t(plain[0]), t(f32_plain[0])),
+        'mask_kernel_vs_plain_f32': rel_l2(t(f32_kernel[0]), t(f32_plain[0])),
+        'flags_kernel_vs_plain_f32': rel_l2(t(f32_kernel[1]), t(f32_plain[1])),
+        'mask_row_times_vs_no_times_f32': rel_l2(t(f32_rows[0]), t(f32_none[0])),
+        'mask_stride2_vs_row_times_f32': rel_l2(t(f32_stride2[0]), t(f32_rows[0])),
+    }
+    for key, tol in (('mask_kernel_vs_plain_bf16', TOL_SEEKER_BF16),
+                     ('flags_kernel_vs_plain_bf16', TOL_SEEKER_BF16),
+                     ('mask_kernel_vs_plain_f32', TOL_SEEKER_F32),
+                     ('flags_kernel_vs_plain_f32', TOL_SEEKER_F32),
+                     ('mask_row_times_vs_no_times_f32', TOL_F32)):
+        if not errs[key] <= tol:
+            fail(f'rope {key}: rel L2 {errs[key]} > {tol}')
+    if not errs['mask_stride2_vs_row_times_f32'] > 0:
+        fail('rope: stride-2 frame times did not change the output')
+    if not all(np.array_equal(a, b) for a, b in zip(other_time, f32_kernel)):
+        fail('rope: time_embed changed the output')
+    if launches['K1r'] != REQUESTS * depth or launches['K1'] != REQUESTS * depth:
+        fail(f'rope main path launches {launches}')
+    steady = sorted(req_ms[1:])[len(req_ms[1:]) // 2]
+    emit({'phase': 'rope_slice', 'requests': REQUESTS, 'clips_per_request': BATCH,
+          'frame_times_example0': times[0].tolist(), 'launches': launches,
+          'request_ms': req_ms, 'request_ms_steady': steady,
+          'clips_per_s': BATCH / (steady / 1e3), 'rel_l2': errs,
+          'time_embed_changes_output': False,
+          'tol_rel_l2': {'bf16': TOL_SEEKER_BF16, 'f32': TOL_SEEKER_F32},
+          'metrics_example0': results[0][1]['metrics']})
+    return launches['K1r']
+
+
+def phase_rope_times():
+    '''K1r ... K6r per call at the temporal inference and training shapes (bf16, per-row
+    frame times), beside their plain versions, the library yardstick with q and k rotated
+    by apply_rope, their bound and the same kernel without rope.'''
+    per_geom = {f'K{i}r': {} for i in range(1, 7)}
+    for i, (name, (B, S, ca)) in enumerate(ROPE_GEOMETRIES.items()):
+        x, w = attn_inputs(B, S, torch.bfloat16, SEED + 400 + i)
+        g = grad_input(B, S, torch.bfloat16, SEED + 410 + i)
+        pos = rope_positions(B, S, SEED + 420 + i)
+        cs = head_tables(S, pos)
+        w16 = [a.to(torch.bfloat16) for a in w]
+        with torch.no_grad():
+            qkv = fa.fused_attention_fwd_qkv(x, *w, HEADS, ca, True, pos)[1]
+        rf, tb = rope_flops(B, S), table_bytes(B, S)
+        calls = {
+            'K1r': (lambda: fa.fused_attention_fwd(x, *w, HEADS, ca, True, pos),
+                    lambda: fa.fused_attention_fwd(x, *w, HEADS, ca),
+                    lambda: fa.attention_ref(x, *w, HEADS, ca, True, pos),
+                    lambda: library_attention(x, w16, ca, cs),
+                    k1_flops(B, S, ca) + rf, k1_bytes(B, S, 2) + tb),
+            'K2r': (lambda: fa.fused_attention_fwd_qkv(x, *w, HEADS, ca, True, pos),
+                    lambda: fa.fused_attention_fwd_qkv(x, *w, HEADS, ca),
+                    lambda: fa.attention_qkv_ref(x, *w, HEADS, ca, True, pos),
+                    lambda: library_attention(x, w16, ca, cs),
+                    k1_flops(B, S, ca) + rf, k2_bytes(B, S, 2) + tb),
+            'K3r': (lambda: fa.fused_attention_fwd_res(x, *w, HEADS, ca, True, pos),
+                    lambda: fa.fused_attention_fwd_res(x, *w, HEADS, ca),
+                    lambda: fa.attention_res_ref(x, *w, HEADS, ca, True, pos),
+                    lambda: library_attention_probs(x, w16, ca, cs),
+                    k1_flops(B, S, ca) + rf, k3_bytes(B, S, 2) + tb),
+            'K4r': (lambda: fa.fused_attention_bwd(x, g, *w[:3], HEADS, ca, True, pos),
+                    lambda: fa.fused_attention_bwd(x, g, *w[:3], HEADS, ca),
+                    lambda: fa.attention_bwd_ref(x, g, *w[:3], HEADS, ca, True, pos),
+                    library_attention_bwd(x, w16, ca, g, cs=cs),
+                    k4_flops(B, S, ca) + 2 * rf, k4_bytes(B, S, 2) + tb),
+            'K5r': (lambda: fa.fused_attention_bwd_qkv(qkv, g, w[2], HEADS, ca, True, pos),
+                    lambda: fa.fused_attention_bwd_qkv(qkv, g, w[2], HEADS, ca),
+                    lambda: fa.attention_bwd_qkv_ref(qkv, g, w[2], HEADS, ca, True, pos),
+                    library_attention_bwd(x, w16, ca, g, qkv=qkv, cs=cs),
+                    k5_flops(B, S, ca) + 2 * rf, k5_bytes(B, S, 2) + tb),
+            'K6r': (lambda: fa.fused_attention_bwd_wg(x, g, *w[:3], HEADS, ca, True, pos),
+                    lambda: fa.fused_attention_bwd_wg(x, g, *w[:3], HEADS, ca),
+                    lambda: fa.attention_bwd_wg_ref(x, g, *w[:3], HEADS, ca, True, pos),
+                    library_attention_bwd(x, w16, ca, g, wgrads=True, cs=cs),
+                    k6_flops(B, S, ca) + 2 * rf, k6_bytes(B, S, 2) + tb),
+        }
+        if name == 'temporal':   # inference: only K1r runs there
+            calls = {'K1r': calls['K1r']}
+        with torch.no_grad():
+            for kernel, (run, off, plain, library, flops, nbytes) in calls.items():
+                bound_ms, bound_by = bound(flops, nbytes)
+                per_geom[kernel][name] = dict(
+                    B=B, S=S, ca=ca, ms=cuda_ms(run, iters=10),
+                    rope_off_ms=cuda_ms(off, iters=10), plain_ms=cuda_ms(plain, iters=10),
+                    library_ms=cuda_ms(library, iters=10), bound_ms=bound_ms,
+                    bound_by=bound_by, flops=flops, bytes=nbytes)
+        del x, g, qkv, calls, pos, cs
+    emit({'phase': 'rope_times', 'per_call': per_geom})
+    return per_geom
+
+
 def kernel_entry(name, source, replaces, launches, errs, per_geom):
     '''One item of the `kernels` line: means over the geometries of the main path (each
     is called once per block).'''
@@ -871,9 +1179,31 @@ def main():
     record = trains[STEP_OF_RECORD]
     phase_train_parity(record['init_state'], record['batch'])
     train_geom = phase_train_times(record)
+    for key in ('state', 'train_step', 'batch', 'init_state'):
+        del record[key]
+    torch.cuda.empty_cache()
 
-    def train_launches(kernel):
-        return {f'train_{m}': t['launches'][kernel] for (m, _), t in trains.items()
+    rope_errs = phase_rope_kernels_vs_plain()
+    try:
+        rope_inference_launches = phase_rope_slice(ckpt_dir)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    rope_trains = {}
+    for pairing in PAIRINGS:
+        rope_trains[pairing] = phase_train(pairing, rope=True)
+        if pairing != STEP_OF_RECORD:
+            for key in ('state', 'train_step', 'batch', 'init_state'):
+                del rope_trains[pairing][key]
+            torch.cuda.empty_cache()
+    rope_record = rope_trains[STEP_OF_RECORD]
+    phase_train_parity(rope_record['init_state'], rope_record['batch'], rope=True)
+    for key in ('state', 'train_step', 'batch', 'init_state'):
+        del rope_record[key]
+    torch.cuda.empty_cache()
+    rope_geom = phase_rope_times()
+
+    def train_launches(kernel, runs=trains, prefix='train'):
+        return {f'{prefix}_{m}': t['launches'][kernel] for (m, _), t in runs.items()
                 if t['launches'][kernel]}
 
     source = 'tcow_tpu_torch/ops/csrc/fused_attention.cu'
@@ -891,6 +1221,19 @@ def main():
             ('K6', 'fused_attention_bwd_wg', '735', new_errs['K6'])):
         entries.append(kernel_entry(name, source, replaces + line, train_launches(kernel),
                                     kerrs, train_geom[kernel]))
+    # The rope variants: the rotation in _kernel (:120-136) for the forwards, in
+    # _bwd_kernel (:592-605, un-rotation :626-628) for the backwards.
+    for kernel, name, line in (('K1r', 'fused_attention_rope', '120'),
+                               ('K2r', 'fused_attention_fwd_qkv_rope', '120'),
+                               ('K3r', 'fused_attention_fwd_res_rope', '120'),
+                               ('K4r', 'fused_attention_bwd_rope', '592'),
+                               ('K5r', 'fused_attention_bwd_qkv_rope', '592'),
+                               ('K6r', 'fused_attention_bwd_wg_rope', '592')):
+        launches = train_launches(kernel, rope_trains, 'rope_train')
+        if kernel == 'K1r':
+            launches = {'rope_inference': rope_inference_launches, **launches}
+        entries.append(kernel_entry(name, source, replaces + line, launches,
+                                    rope_errs[kernel], rope_geom[kernel]))
     emit({'kernels': entries})
     print(smi)
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -100,3 +100,30 @@ def synthetic_device_batch(seed: int, B: int = 2, Q: int = 2, T: int = 8, H: int
         vis = np.array([(scene['segm'][query_time] == k + 1).sum() for k in range(K)])
         batch['query_inds'][b] = np.argsort(vis)[::-1][:Q].astype(np.int32)
     return batch
+
+
+def synthetic_frame_times(seed: int, B: int, T: int, frame_stride: int = 1,
+                          time_stretch_max: float = 4.0) -> np.ndarray:
+    '''(B, T) float32 true source timestamps for time-calibrated rope, drawn per clip as
+    tcow_tpu/data/augs.py draws its temporal augmentations (:183-204, :231-238, every one
+    on): load indices at `frame_stride`, a palindrome (then reversed with p 0.35 and at
+    doubled stride with p 0.35) or a reversal with p 0.5, a random offset, and a stretch
+    exp(U(0, log time_stretch_max)). So times are non-integer and may fall, repeat or
+    jump.'''
+    rng = np.random.RandomState(seed)
+    out = np.zeros((B, T), np.float32)
+    for b in range(B):
+        load = np.arange(2 * T, dtype=np.float32) * frame_stride
+        clip = list(range(T))
+        if rng.rand() < 0.5:
+            clip = clip + clip[::-1][1:]
+            if rng.rand() < 0.35:
+                clip = clip[::-1]
+            if rng.rand() < 0.35:
+                clip = clip[::2]
+        elif rng.rand() < 0.5:
+            clip = clip[::-1]
+        offset = rng.randint(0, len(clip) - T + 1)
+        stretch = np.float32(np.exp(rng.uniform(0.0, np.log(time_stretch_max))))
+        out[b] = load[np.asarray(clip[offset:offset + T])] * stretch
+    return out

@@ -5,7 +5,7 @@ tcow_tpu/evaluation/inference.py (:25-81, :184-213).
 '''
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,12 +50,19 @@ class InferenceEngine:
         self.model.load_state_dict(params_from_jax(params))
         self.model.eval()
 
-    def run_plugin(self, rgb: np.ndarray, query: np.ndarray, target: np.ndarray):
+    def run_plugin(self, rgb: np.ndarray, query: np.ndarray, target: np.ndarray,
+                   frame_times: Optional[np.ndarray] = None):
         '''Batched usage modes (B, 3|1|3, T, H, W) -> per-example (model_retval,
-        loss_retval) lists in the schema of tcow_tpu InferenceEngine.run_plugin.'''
+        loss_retval) lists in the schema of tcow_tpu InferenceEngine.run_plugin.
+        frame_times (B, T): each clip's true source-frame indices, read only by a
+        time-calibrated rope checkpoint (cfg.rope_time_coords, :184-196).'''
+        ft = None
+        if self.cfg.rope_time_coords and frame_times is not None:
+            ft = torch.as_tensor(np.asarray(frame_times, np.float32), device=self.device)
         with torch.inference_mode():
             out_mask, out_flags = self.model(torch.as_tensor(rgb, device=self.device),
-                                             torch.as_tensor(query, device=self.device))
+                                             torch.as_tensor(query, device=self.device),
+                                             frame_times=ft)
             tgt = torch.as_tensor(target, device=self.device)
             per_ex = [metrics_lib.mask_track_metric_sums(out_mask[b][None, None],
                                                          tgt[b][None, None])

@@ -2,8 +2,8 @@
 Query-conditioned mask tracker (the "seeker") in PyTorch: the port of
 tcow_tpu/models/mask_tracker.py.
 
-forward(input_frames (B,3,T,H,W), query_mask (B,1,T,H,W), train=False, generator=None)
-    -> (mask_logits (B,3,T,H,W) f32, flags (B,T,F) f32 or None).
+forward(input_frames (B,3,T,H,W), query_mask (B,1,T,H,W), train=False, generator=None,
+        frame_times=None) -> (mask_logits (B,3,T,H,W) f32, flags (B,T,F) f32 or None).
 '''
 
 import dataclasses
@@ -37,11 +37,19 @@ class SeekerConfig:
     remat: bool = False  # per-block rematerialization in the backbone
     remat_policy: str = 'full'  # what a remat block keeps (timesformer.REMAT_POLICIES)
     attention_bwd: str = 'res'  # 'res' | 'kernel_qkv' | 'kernel_x' | 'kernel_x_wg'
-    temporal_rope: bool = False
+    temporal_rope: bool = False  # rotary (relative) time encoding on temporal attention
+    rope_time_coords: bool = False  # feed true source-frame times into the rope tables
 
     def __post_init__(self):
-        tsf.check_config(self.attention_type, self.temporal_rope, self.remat_policy,
-                         self.attention_bwd)
+        '''Raises as the JAX config does (mask_tracker.py:74-79), then as the port does
+        for what it does not run yet (timesformer.check_config).'''
+        if self.temporal_rope and self.attention_type != 'divided_space_time':
+            raise ValueError('temporal_rope requires attention_type=divided_space_time '
+                             '(joint attention has no separate temporal axis to rotate)')
+        if self.rope_time_coords and not self.temporal_rope:
+            raise ValueError('rope_time_coords requires temporal_rope=1 (only the rotary '
+                             'encoding consumes per-frame time coordinates)')
+        tsf.check_config(self.attention_type, self.remat_policy, self.attention_bwd)
 
     @property
     def input_channels(self) -> int:
@@ -86,8 +94,8 @@ def seeker_config_from_args(seeker_args: Dict[str, Any], **overrides) -> SeekerC
         query_channels=int(seeker_args.get('query_channels', 1)),
         output_channels=int(seeker_args.get('output_channels', 3)),
         flag_channels=int(seeker_args.get('flag_channels', 3)),
-        temporal_rope=bool(int(seeker_args.get('temporal_rope', 0))
-                           or int(seeker_args.get('rope_time_coords', 0))),
+        temporal_rope=bool(int(seeker_args.get('temporal_rope', 0))),
+        rope_time_coords=bool(int(seeker_args.get('rope_time_coords', 0))),
         pretrained=pretrained)
     kw.update(overrides)
     return SeekerConfig(**kw)
@@ -146,13 +154,16 @@ class MaskTracker(nn.Module):
                     head.b.zero_()
 
     def forward(self, input_frames: torch.Tensor, query_mask: torch.Tensor,
-                train: bool = False, generator: Optional[torch.Generator] = None
+                train: bool = False, generator: Optional[torch.Generator] = None,
+                frame_times: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        '''train=True with a generator applies stochastic depth drawn from it.'''
+        '''train=True with a generator applies stochastic depth drawn from it.
+        frame_times (B, T): true source timestamps for time-calibrated rope, read only
+        under cfg.temporal_rope (mask_tracker.py:185-201).'''
         cfg = self.cfg
         B, _, T, _, _ = input_frames.shape
         x = torch.cat([input_frames.float(), query_mask.float()], dim=1)
-        feats, _ = self.backbone(x, train=train, generator=generator)
+        feats, _ = self.backbone(x, train=train, generator=generator, frame_times=frame_times)
         feats = feats.permute(0, 2, 3, 4, 1)                  # (B, T, H', W', D)
         Ho, Wo = feats.shape[2], feats.shape[3]
         p, C = cfg.patch_size, cfg.output_channels

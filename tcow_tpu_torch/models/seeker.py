@@ -40,8 +40,12 @@ class Seeker:
         return cls(seeker_config_from_args(state['seeker_args']), state['params'],
                    device=device)
 
-    def __call__(self, input_frames, query_mask):
-        '''(B,3,T,H,W), (B,1,T,H,W) -> (mask_logits (B,3,T,H,W), flags (B,T,F)).'''
+    def __call__(self, input_frames, query_mask, frame_times=None):
+        '''(B,3,T,H,W), (B,1,T,H,W) -> (mask_logits (B,3,T,H,W), flags (B,T,F)).
+        frame_times (B, T): true source timestamps, read under temporal_rope.'''
         with torch.inference_mode():
+            ft = None if frame_times is None else torch.as_tensor(frame_times,
+                                                                  device=self.device)
             return self.model(torch.as_tensor(input_frames, device=self.device),
-                              torch.as_tensor(query_mask, device=self.device))
+                              torch.as_tensor(query_mask, device=self.device),
+                              frame_times=ft)

@@ -4,6 +4,10 @@ tcow_tpu/models/timesformer.py (forward :713-862, _divided_block :388-450), with
 stochastic depth (drop_path :325-337) and per-block rematerialization under JAX's remat
 policies (:797-818) for training.
 
+Under temporal_rope the temporal attention rotates q and k by each frame's position
+(time-calibrated with `frame_times`, :406-411) and the absolute time embedding is skipped
+(:751-757).
+
 Parameters keep the JAX layout and names (linear `w` is (din, dout), LayerNorm `g`/`b`),
 with the stacked block axis unrolled into a ModuleList; weights.py converts between the
 two. Master weights stay float32 and are cast to the compute dtype at use.
@@ -33,8 +37,7 @@ REMAT_POLICIES = ('full', 'dots', 'dots_nb', 'dots_nb_attn', 'attn_res', 'dots_n
                   'dots_nb_out_qkv')
 
 
-def check_config(attention_type: str, temporal_rope: bool, remat_policy: str,
-                 attention_bwd: str):
+def check_config(attention_type: str, remat_policy: str, attention_bwd: str):
     '''Raises ValueError for unknown names and NotImplementedError for the
     configurations this port does not run yet.'''
     if remat_policy not in REMAT_POLICIES:
@@ -44,8 +47,6 @@ def check_config(attention_type: str, temporal_rope: bool, remat_policy: str,
     if attention_type != 'divided_space_time':
         raise NotImplementedError(f'attention_type={attention_type!r} is not ported yet '
                                   '(only divided_space_time)')
-    if temporal_rope:
-        raise NotImplementedError('temporal_rope is not ported yet')
 
 
 def remat_saved_ops(policy: str) -> list:
@@ -93,11 +94,10 @@ class TimeSformerConfig:
     remat: bool = False  # recompute each block in the backward pass (saves memory)
     remat_policy: str = 'full'  # what a remat block keeps (REMAT_POLICIES)
     attention_bwd: str = 'res'  # 'res' | 'kernel_qkv' | 'kernel_x' | 'kernel_x_wg'
-    temporal_rope: bool = False
+    temporal_rope: bool = False  # rope on temporal attention, no absolute time embedding
 
     def __post_init__(self):
-        check_config(self.attention_type, self.temporal_rope, self.remat_policy,
-                     self.attention_bwd)
+        check_config(self.attention_type, self.remat_policy, self.attention_bwd)
 
     @property
     def grid_h(self) -> int:
@@ -179,11 +179,14 @@ class Attention(nn.Module):
         self.qkv = Dense(dim, 3 * dim, device)
         self.proj = Dense(dim, dim, device)
 
-    def forward(self, x, causal_attention: int):
+    def forward(self, x, causal_attention: int, rope: bool = False, pos=None):
+        '''x (..., S, D); with rope, q and k rotated by positions pos (..., S) f32, or by
+        0..S-1 when pos is None (:243).'''
         *lead, S, D = x.shape
+        flat_pos = None if pos is None else pos.reshape(-1, S).contiguous()
         out = fused_attention(x.reshape(-1, S, D).contiguous(), self.qkv.w, self.qkv.b,
                               self.proj.w, self.proj.b, self.num_heads, causal_attention,
-                              self.bwd_mode)
+                              self.bwd_mode, rope, flat_pos)
         return out.reshape(*lead, S, D)
 
 
@@ -246,17 +249,20 @@ class DividedBlock(nn.Module):
         self.temporal_attn = Attention(D, cfg.num_heads, cfg.attention_bwd, device)
         self.temporal_fc = Dense(D, D, device)
 
-    def forward(self, xs, cls, masks: DropPathMasks = None):
-        '''xs (B, N, T, D) patch tokens, cls (B, D), drop-path masks or None -> updated
-        (xs, cls).'''
+    def forward(self, xs, cls, masks: DropPathMasks = None, frame_times=None):
+        '''xs (B, N, T, D) patch tokens, cls (B, D), drop-path masks or None, frame_times
+        (B, T) f32 or None -> updated (xs, cls).'''
         B, N, T, D = xs.shape
         ca = self.cfg.causal_attention
 
         def dp(x, which):
             return x if masks is None else drop_path(x, getattr(masks, which), masks.keep)
 
-        # Temporal attention over T per patch location; drop-path mask per (b, n).
-        res_t = dp(self.temporal_attn(self.temporal_norm1(xs), ca), 'temporal')
+        # Temporal attention over T per patch location, rotated under temporal_rope by the
+        # clip's frame times (every patch shares them); drop-path mask per (b, n).
+        pos = None if frame_times is None else frame_times[:, None, :].expand(B, N, T)
+        res_t = dp(self.temporal_attn(self.temporal_norm1(xs), ca, self.cfg.temporal_rope, pos),
+                   'temporal')
         xt = xs + self.temporal_fc(res_t)
 
         # Spatial attention over patches per frame, with the three cls behaviours.
@@ -333,12 +339,13 @@ class TimeSformer(nn.Module):
                 blk.temporal_fc.w.zero_()
 
     def forward(self, pixels: torch.Tensor, train: bool = False,
-                generator: torch.Generator = None):
+                generator: torch.Generator = None, frame_times: torch.Tensor = None):
         '''train with a generator and drop_path_rate > 0 draws drop-path masks from the
         generator; with cfg.remat and gradients on, each block is recomputed in the
         backward pass (torch.utils.checkpoint), except the outputs that cfg.remat_policy
         keeps (`remat_saved_ops`): under 'full' the attention forwards run again, under
-        the '_out' policies they do not.'''
+        the '_out' policies they do not. frame_times (B, T): the clip's true source
+        timestamps, read only under cfg.temporal_rope (None means 0..T-1).'''
         cfg = self.cfg
         B, C, T, H, W = pixels.shape
         p, D = cfg.patch_size, cfg.embed_dim
@@ -360,8 +367,13 @@ class TimeSformer(nn.Module):
         pos = resize_pos_embed(self.pos_embed, (cfg.grid_h, cfg.grid_w), (gh, gw)).to(x.dtype)
         x = x + pos[None, None, 1:, :]
         cls = (self.cls_token.to(x.dtype) + pos[0])[None, :].expand(B, D)
-        time = nearest_resize_1d(self.time_embed, T, dim=0).to(x.dtype)
-        x = x + time[None, :, None, :]
+        if not cfg.temporal_rope:
+            time = nearest_resize_1d(self.time_embed, T, dim=0).to(x.dtype)
+            x = x + time[None, :, None, :]
+        # Under temporal_rope the rotation is the only time signal: time_embed stays a
+        # parameter and gets no gradient (AdamW still decays it, as JAX's zero gradient).
+        frame_times = (frame_times.to(torch.float32) if cfg.temporal_rope
+                       and frame_times is not None else None)
 
         xs = x.transpose(1, 2).contiguous()   # (B, N, T, D)
         masks = [None] * cfg.depth
@@ -376,11 +388,13 @@ class TimeSformer(nn.Module):
                 remat_saved_ops(cfg.remat_policy))
         for blk, m in zip(self.blocks, masks):
             if remat:
-                # The block draws nothing at random, so no RNG state needs restoring.
+                # The block draws nothing at random, so no RNG state needs restoring. The
+                # frame times go in as an input, so a recompute sees them (:841).
                 xs, cls = torch.utils.checkpoint.checkpoint(
-                    blk, xs, cls, m, use_reentrant=False, preserve_rng_state=False, **kw)
+                    blk, xs, cls, m, frame_times, use_reentrant=False,
+                    preserve_rng_state=False, **kw)
             else:
-                xs, cls = blk(xs, cls, m)
+                xs, cls = blk(xs, cls, m, frame_times)
 
         if cfg.norm_embeddings:
             xs = self.norm(xs)

@@ -108,6 +108,28 @@
 // spatial, ~0.72 / ~0.86 ms), operations-bound. What the design does about it:
 // nothing yet; wgrad uses the forward's wmma tiles without a copy pipeline.
 //
+// ---- K1r ... K6r: the same kernels with rope ----
+//
+// Replace: the six launches above with rope=True (temporal attention under temporal_rope):
+// the rotation of q and k in _kernel (:120-136) and _bwd_kernel (:592-605), the
+// un-rotation of dq and dk (:626-628), and the per-row tables (_pos_tables :242-249) or
+// row positions (packed_tables, rope.py:49-60). ROPE is a compile-time flag of attn_core,
+// attn_bwd_q and attn_bwd_kv; the GEMMs, wgrad and colsum do not change, since qkv and
+// dqkv stay un-rotated in device memory. The wrapper builds f32 cos / sin tables with the
+// port's rope.py (one (S, dh/2) table, or one per sequence from its positions), and the
+// plain version rotates by the same tables, so no cosf of a ~230 rad angle differs by
+// ulps between the two. Where they round (apply_rope's .astype):
+//   staging q and k rows: rotate in f32 from the rounded qkv -> round to T -> f32, in every
+//   launch that reads them (attn_core, attn_bwd_q, attn_bwd_kv, identically, so pf and dlog
+//   stay bit-identical between the two backward launches); v is never rotated;
+//   dq, dk: accumulate in f32 -> round to T -> un-rotate in f32 -> round to T, one rounding
+//   more than K4. A lane owns d = lane + 32 c and element d pairs with d +- dh/2, which
+//   another lane owns when dh <= 32, so the rounded rows go through shared memory.
+// Bound: K1's (K4's ...) operations plus 6 per rotated element pair of q and k (and dq,
+// dk), against K1's bytes plus the tables: operations-bound, as the kernel without rope.
+// What the design does about it: nothing beyond the kernels' own design; the tables are
+// read from device memory (L2) at every staging.
+//
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -370,6 +392,92 @@ __device__ __forceinline__ void stage_rows(float* dst, int ld, const T* src, siz
     }
 }
 
+// ---- rope (K1r ... K6r) ----
+// Half-split rotation of one element of a head row x = [x1, x2] (dh/2 values each): element
+// j of the first half becomes x1 c - x2 s, element j of the second half x1 s + x2 c, with
+// c, s entry j of the table row of the row's position; INVERSE rotates by -s. Every product
+// and sum is rounded on its own (no fma contraction), as apply_rope's f32 torch ops round
+// them, so the kernel and its plain version get the same f32 value from the same tables.
+template <bool INVERSE>
+__device__ __forceinline__ float rope_rotate(float x1, float x2, float c, float s, bool first) {
+    if (INVERSE) s = -s;
+    return first ? __fsub_rn(__fmul_rn(x1, c), __fmul_rn(x2, s))
+                 : __fadd_rn(__fmul_rn(x1, s), __fmul_rn(x2, c));
+}
+
+// stage_rows for the q or k rows of a head. With ROPE each row is rotated in f32 by the
+// table row of its position row0 + r (tc, ts: this sequence's (S, dh/2) tables) and rounded
+// to T again, as apply_rope rounds its output (:72), before it is stored as f32.
+template <typename T, bool ROPE>
+__device__ __forceinline__ void stage_qk(float* dst, int ld, const T* src, size_t row_stride,
+                                         int row0, int nrows_valid, int nrows, int dh,
+                                         const float* tc, const float* ts) {
+    if (!ROPE) {
+        stage_rows(dst, ld, src, row_stride, row0, nrows_valid, nrows, dh);
+        return;
+    }
+    const int h = dh / 2;
+    for (int i = threadIdx.x; i < nrows * dh; i += blockDim.x) {
+        const int r = i / dh, d = i % dh;
+        float v = 0.f;
+        if (r < nrows_valid) {
+            const T* row = src + (size_t)(row0 + r) * row_stride;
+            const bool first = d < h;
+            const int j = first ? d : d - h;
+            const size_t t = (size_t)(row0 + r) * h + j;
+            v = to_f32(from_f32<T>(rope_rotate<false>(to_f32(row[j]), to_f32(row[j + h]), tc[t],
+                                                      ts[t], first)));
+        }
+        dst[r * ld + d] = v;
+    }
+}
+
+// The backward's dq or dk under ROPE: a warp's RPW accumulator rows (d = lane + 32 c) are
+// rounded to T and parked in shared memory rows of stride dh that only this warp reads,
+// because element d pairs with d +- dh/2, which another lane may own (dh <= 32 or dh not a
+// multiple of 64).
+template <typename T, int DC>
+__device__ __forceinline__ void park_rounded(float* rows, const float (&acc)[RPW][DC], int dh,
+                                             int lane) {
+#pragma unroll
+    for (int r = 0; r < RPW; ++r)
+#pragma unroll
+        for (int c = 0; c < DC; ++c) {
+            const int d = lane + 32 * c;
+            if (d < dh) rows[r * dh + d] = to_f32(from_f32<T>(acc[r][c]));
+        }
+    __syncwarp();
+}
+
+// Writes one parked row, un-rotated in f32 by its position's table row (tc, ts: dh/2
+// values) and rounded to T again (:626-628).
+template <typename T>
+__device__ __forceinline__ void store_unrotated(T* out, const float* row, int dh,
+                                                const float* tc, const float* ts, int lane) {
+    const int h = dh / 2;
+    for (int d = lane; d < dh; d += 32) {
+        const bool first = d < h;
+        const int j = first ? d : d - h;
+        out[d] = from_f32<T>(rope_rotate<true>(row[j], row[j + h], tc[j], ts[j], first));
+    }
+}
+
+// Operands and geometry of one attention launch (attn_core, or attn_bwd_q + attn_bwd_kv).
+// cos / sin are null without rope; table_stride is 0 when every sequence shares one
+// (S, dh/2) table, S dh/2 for per-sequence tables.
+struct AttnArgs {
+    const void* qkv;
+    const void* dattn;
+    void* attn;
+    void* probs;
+    void* dqkv;
+    void* stats;
+    const float* cos;
+    const float* sin;
+    int table_stride, B, S, H, dh, causal, diag;
+    float scale;
+};
+
 // ---------------------------------------------------------------------------------------
 // attn_core: qkv (B, S, 3D) -> attn (B, S, D), heads concatenated (h * dh + d).
 // One block per (sequence, query tile of QT rows, head); 4 warps of RPW query rows each.
@@ -380,10 +488,12 @@ __host__ __device__ inline size_t attn_smem_floats(int dh) {
     return (size_t)QT * dh + (size_t)KT * ks_ld(dh) + (size_t)KT * dh + (size_t)QT * KT;
 }
 
-template <typename T, int DC, bool PROBS>
+template <typename T, int DC, bool PROBS, bool ROPE>
 __global__ void __launch_bounds__(AC_WARPS * 32)
-attn_core(const T* __restrict__ qkv, T* __restrict__ out, T* __restrict__ probs, int S, int H,
-          int dh, int causal, int diag, float scale, int q_tiles) {
+attn_core(const T* __restrict__ qkv, T* __restrict__ out, T* __restrict__ probs,
+          const float* __restrict__ rope_cos, const float* __restrict__ rope_sin,
+          int table_stride, int S, int H, int dh, int causal, int diag, float scale,
+          int q_tiles) {
     extern __shared__ __align__(16) float smem[];
     float* qs = smem;                       // QT x dh
     float* ks = qs + QT * dh;               // KT x ks_ld(dh)
@@ -399,8 +509,11 @@ attn_core(const T* __restrict__ qkv, T* __restrict__ out, T* __restrict__ probs,
     // Keys past q_end - 1 + diag are masked for every row of this tile under the causal
     // mask: exp(-1e10 - m) is exactly 0 in f32, so they are not visited at all.
     const int kend = causal ? min(S, q_end + diag) : S;
+    // ROPE: this sequence's tables.
+    const float* tc = ROPE ? rope_cos + (size_t)b * table_stride : nullptr;
+    const float* ts = ROPE ? rope_sin + (size_t)b * table_stride : nullptr;
 
-    stage_rows(qs, dh, base + h * dh, stride, q0, q_end - q0, QT, dh);
+    stage_qk<T, ROPE>(qs, dh, base + h * dh, stride, q0, q_end - q0, QT, dh, tc, ts);
 
     float m[RPW], s[RPW], acc[RPW];
 #pragma unroll
@@ -409,7 +522,8 @@ attn_core(const T* __restrict__ qkv, T* __restrict__ out, T* __restrict__ probs,
     // Pass 1: row max and sum of exp over all key tiles.
     for (int k0 = 0; k0 < kend; k0 += KT) {
         __syncthreads();
-        stage_rows(ks, ks_ld(dh), base + D + h * dh, stride, k0, min(KT, kend - k0), KT, dh);
+        stage_qk<T, ROPE>(ks, ks_ld(dh), base + D + h * dh, stride, k0, min(KT, kend - k0), KT,
+                          dh, tc, ts);
         __syncthreads();
         tile_dots(qs, ks, warp, lane, dh, acc);
 #pragma unroll
@@ -431,7 +545,7 @@ attn_core(const T* __restrict__ qkv, T* __restrict__ out, T* __restrict__ probs,
     for (int k0 = 0; k0 < kend; k0 += KT) {
         const int nk = min(KT, kend - k0);
         __syncthreads();
-        stage_rows(ks, ks_ld(dh), base + D + h * dh, stride, k0, nk, KT, dh);
+        stage_qk<T, ROPE>(ks, ks_ld(dh), base + D + h * dh, stride, k0, nk, KT, dh, tc, ts);
         stage_rows(vs, dh, base + 2 * D + h * dh, stride, k0, nk, KT, dh);
         __syncthreads();
         tile_dots(qs, ks, warp, lane, dh, acc);
@@ -481,35 +595,37 @@ attn_core(const T* __restrict__ qkv, T* __restrict__ out, T* __restrict__ probs,
     }
 }
 
-template <typename T, int DC, bool PROBS>
-cudaError_t launch_attn_core(const void* qkv, void* out, void* probs, int B, int S, int H,
-                             int dh, int causal, int diag, float scale, cudaStream_t stream) {
-    const size_t smem = attn_smem_floats(dh) * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(attn_core<T, DC, PROBS>,
+template <typename T, int DC, bool PROBS, bool ROPE>
+cudaError_t launch_attn_core(const AttnArgs& a, cudaStream_t stream) {
+    const size_t smem = attn_smem_floats(a.dh) * sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(attn_core<T, DC, PROBS, ROPE>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return err;
-    const int q_tiles = (S + QT - 1) / QT;
-    dim3 grid((unsigned)B * q_tiles, H);
-    attn_core<T, DC, PROBS><<<grid, AC_WARPS * 32, smem, stream>>>(
-        static_cast<const T*>(qkv), static_cast<T*>(out), static_cast<T*>(probs), S, H, dh,
-        causal, diag, scale, q_tiles);
+    const int q_tiles = (a.S + QT - 1) / QT;
+    dim3 grid((unsigned)a.B * q_tiles, a.H);
+    attn_core<T, DC, PROBS, ROPE><<<grid, AC_WARPS * 32, smem, stream>>>(
+        static_cast<const T*>(a.qkv), static_cast<T*>(a.attn), static_cast<T*>(a.probs), a.cos,
+        a.sin, a.table_stride, a.S, a.H, a.dh, a.causal, a.diag, a.scale, q_tiles);
     return cudaGetLastError();
 }
 
+template <typename T, int DC, bool ROPE>
+cudaError_t attn_core_probs(const AttnArgs& a, cudaStream_t st) {
+    return a.probs ? launch_attn_core<T, DC, true, ROPE>(a, st)
+                   : launch_attn_core<T, DC, false, ROPE>(a, st);
+}
+
 template <typename T, int DC>
-cudaError_t attn_core_probs(const void* qkv, void* out, void* probs, int B, int S, int H,
-                            int dh, int causal, int diag, float scale, cudaStream_t st) {
-    return probs ? launch_attn_core<T, DC, true>(qkv, out, probs, B, S, H, dh, causal, diag, scale, st)
-                 : launch_attn_core<T, DC, false>(qkv, out, probs, B, S, H, dh, causal, diag, scale, st);
+cudaError_t attn_core_rope(const AttnArgs& a, cudaStream_t st) {
+    return a.cos ? attn_core_probs<T, DC, true>(a, st) : attn_core_probs<T, DC, false>(a, st);
 }
 
 template <typename T>
-cudaError_t attn_core_dispatch(const void* qkv, void* out, void* probs, int B, int S, int H,
-                               int dh, int causal, int diag, float scale, cudaStream_t st) {
-    if (dh <= 32) return attn_core_probs<T, 1>(qkv, out, probs, B, S, H, dh, causal, diag, scale, st);
-    if (dh <= 64) return attn_core_probs<T, 2>(qkv, out, probs, B, S, H, dh, causal, diag, scale, st);
-    return attn_core_probs<T, 4>(qkv, out, probs, B, S, H, dh, causal, diag, scale, st);
+cudaError_t attn_core_dispatch(const AttnArgs& a, cudaStream_t st) {
+    if (a.dh <= 32) return attn_core_rope<T, 1>(a, st);
+    if (a.dh <= 64) return attn_core_rope<T, 2>(a, st);
+    return attn_core_rope<T, 4>(a, st);
 }
 
 // attn_bwd_q: shared memory of query rows qs, dattn rows das (QT x dh each), a key and a
@@ -531,11 +647,12 @@ __device__ __forceinline__ size_t stat_at(int which, size_t RHS, int b, int H, i
     return which * RHS + ((size_t)b * H + h) * S + i;
 }
 
-template <typename T, int DC>
+template <typename T, int DC, bool ROPE>
 __global__ void __launch_bounds__(AC_WARPS * 32)
 attn_bwd_q(const T* __restrict__ qkv, const T* __restrict__ dattn, T* __restrict__ attn,
-           T* __restrict__ dqkv, float* __restrict__ stats, int S, int H, int dh, int causal,
-           int diag, float scale, int q_tiles, size_t RHS) {
+           T* __restrict__ dqkv, float* __restrict__ stats, const float* __restrict__ rope_cos,
+           const float* __restrict__ rope_sin, int table_stride, int S, int H, int dh,
+           int causal, int diag, float scale, int q_tiles, size_t RHS) {
     extern __shared__ __align__(16) float smem[];
     float* qs = smem;                       // QT x dh
     float* das = qs + QT * dh;              // QT x dh
@@ -552,8 +669,12 @@ attn_bwd_q(const T* __restrict__ qkv, const T* __restrict__ dattn, T* __restrict
     // Keys past q_end - 1 + diag are masked for every row of this tile under the causal
     // mask: their pf is exactly 0, so they are not visited at all.
     const int kend = causal ? min(S, q_end + diag) : S;
+    // ROPE: this sequence's tables; q and k are rotated as attn_core and attn_bwd_kv rotate
+    // them, so pf and dlog stay bit-identical across the two launches.
+    const float* tc = ROPE ? rope_cos + (size_t)b * table_stride : nullptr;
+    const float* ts = ROPE ? rope_sin + (size_t)b * table_stride : nullptr;
 
-    stage_rows(qs, dh, base + h * dh, stride, q0, q_end - q0, QT, dh);
+    stage_qk<T, ROPE>(qs, dh, base + h * dh, stride, q0, q_end - q0, QT, dh, tc, ts);
     stage_rows(das, dh, dattn + (size_t)b * S * D + h * dh, (size_t)D, q0, q_end - q0, QT, dh);
 
     float m[RPW], s[RPW], delta[RPW], acc[RPW], dpa[RPW];
@@ -563,7 +684,8 @@ attn_bwd_q(const T* __restrict__ qkv, const T* __restrict__ dattn, T* __restrict
     // Pass 1: row max and sum of exp over all key tiles.
     for (int k0 = 0; k0 < kend; k0 += KT) {
         __syncthreads();
-        stage_rows(ks, ks_ld(dh), base + D + h * dh, stride, k0, min(KT, kend - k0), KT, dh);
+        stage_qk<T, ROPE>(ks, ks_ld(dh), base + D + h * dh, stride, k0, min(KT, kend - k0), KT,
+                          dh, tc, ts);
         __syncthreads();
         tile_dots(qs, ks, warp, lane, dh, acc);
 #pragma unroll
@@ -586,7 +708,7 @@ attn_bwd_q(const T* __restrict__ qkv, const T* __restrict__ dattn, T* __restrict
         for (int k0 = 0; k0 < kend; k0 += KT) {
             const int nk = min(KT, kend - k0);
             __syncthreads();
-            stage_rows(ks, ks_ld(dh), base + D + h * dh, stride, k0, nk, KT, dh);
+            stage_qk<T, ROPE>(ks, ks_ld(dh), base + D + h * dh, stride, k0, nk, KT, dh, tc, ts);
             stage_rows(vs, ks_ld(dh), base + 2 * D + h * dh, stride, k0, nk, KT, dh);
             __syncthreads();
             tile_dots(qs, ks, warp, lane, dh, acc);
@@ -638,7 +760,7 @@ attn_bwd_q(const T* __restrict__ qkv, const T* __restrict__ dattn, T* __restrict
     for (int k0 = 0; k0 < kend; k0 += KT) {
         const int nk = min(KT, kend - k0);
         __syncthreads();
-        stage_rows(ks, ks_ld(dh), base + D + h * dh, stride, k0, nk, KT, dh);
+        stage_qk<T, ROPE>(ks, ks_ld(dh), base + D + h * dh, stride, k0, nk, KT, dh, tc, ts);
         stage_rows(vs, ks_ld(dh), base + 2 * D + h * dh, stride, k0, nk, KT, dh);
         __syncthreads();
         tile_dots(qs, ks, warp, lane, dh, acc);
@@ -668,15 +790,23 @@ attn_bwd_q(const T* __restrict__ qkv, const T* __restrict__ dattn, T* __restrict
         __syncwarp();
     }
 
+    // ROPE: dq = dlog . k_rot is rounded, parked in this warp's own rows of qs (no other
+    // warp reads them) and un-rotated by the query's position.
+    if (ROPE) park_rounded<T, DC>(qs + warp * RPW * dh, dq, dh, lane);
 #pragma unroll
     for (int r = 0; r < RPW; ++r) {
         const int qi = q0 + warp * RPW + r;
         if (qi >= S) continue;
         T* dqrow = dqkv + ((size_t)b * S + qi) * stride + h * dh;
+        if (ROPE) {
+            store_unrotated(dqrow, qs + (warp * RPW + r) * dh, dh, tc + (size_t)qi * (dh / 2),
+                            ts + (size_t)qi * (dh / 2), lane);
+        } else {
 #pragma unroll
-        for (int c = 0; c < DC; ++c) {
-            const int d = lane + 32 * c;
-            if (d < dh) dqrow[d] = from_f32<T>(dq[r][c]);
+            for (int c = 0; c < DC; ++c) {
+                const int d = lane + 32 * c;
+                if (d < dh) dqrow[d] = from_f32<T>(dq[r][c]);
+            }
         }
         if (lane == 0) {
             stats[stat_at(0, RHS, b, H, h, S, qi)] = m[r];
@@ -688,11 +818,13 @@ attn_bwd_q(const T* __restrict__ qkv, const T* __restrict__ dattn, T* __restrict
 
 // attn_bwd_kv: warps own key rows (RPW each), a lane owns one query of the current query
 // tile in the logit loops and columns d = lane + 32 c in the accumulations.
-template <typename T, int DC>
+template <typename T, int DC, bool ROPE>
 __global__ void __launch_bounds__(AC_WARPS * 32)
 attn_bwd_kv(const T* __restrict__ qkv, const T* __restrict__ dattn,
-            const float* __restrict__ stats, T* __restrict__ dqkv, int S, int H, int dh,
-            int causal, int diag, float scale, int k_tiles, size_t RHS) {
+            const float* __restrict__ stats, T* __restrict__ dqkv,
+            const float* __restrict__ rope_cos, const float* __restrict__ rope_sin,
+            int table_stride, int S, int H, int dh, int causal, int diag, float scale,
+            int k_tiles, size_t RHS) {
     extern __shared__ __align__(16) float smem[];
     float* kr = smem;                       // KT x dh   keys of this block
     float* vr = kr + KT * dh;               // KT x dh   values of this block
@@ -708,8 +840,10 @@ attn_bwd_kv(const T* __restrict__ qkv, const T* __restrict__ dattn,
     const T* base = qkv + (size_t)b * S * stride;
     const T* dbase = dattn + (size_t)b * S * D + h * dh;
     const int nk = min(KT, S - k0);
+    const float* tc = ROPE ? rope_cos + (size_t)b * table_stride : nullptr;
+    const float* ts = ROPE ? rope_sin + (size_t)b * table_stride : nullptr;
 
-    stage_rows(kr, dh, base + D + h * dh, stride, k0, nk, KT, dh);
+    stage_qk<T, ROPE>(kr, dh, base + D + h * dh, stride, k0, nk, KT, dh, tc, ts);
     stage_rows(vr, dh, base + 2 * D + h * dh, stride, k0, nk, KT, dh);
 
     float dk[RPW][DC], dv[RPW][DC], acc[RPW], dpa[RPW];
@@ -724,7 +858,7 @@ attn_bwd_kv(const T* __restrict__ qkv, const T* __restrict__ dattn,
     for (int q0 = q_start; q0 < S; q0 += QT) {
         const int nq = min(QT, S - q0);
         __syncthreads();
-        stage_rows(qs, ks_ld(dh), base + h * dh, stride, q0, nq, QT, dh);
+        stage_qk<T, ROPE>(qs, ks_ld(dh), base + h * dh, stride, q0, nq, QT, dh, tc, ts);
         stage_rows(das, ks_ld(dh), dbase, (size_t)D, q0, nq, QT, dh);
         __syncthreads();
         const int qi = q0 + lane;
@@ -765,6 +899,9 @@ attn_bwd_kv(const T* __restrict__ qkv, const T* __restrict__ dattn,
         __syncwarp();
     }
 
+    // ROPE: dk = dlog^T . q_rot is rounded, parked in this warp's own rows of kr and
+    // un-rotated by the key's position; dv is never rotated.
+    if (ROPE) park_rounded<T, DC>(kr + warp * RPW * dh, dk, dh, lane);
 #pragma unroll
     for (int r = 0; r < RPW; ++r) {
         const int key = k0 + warp * RPW + r;
@@ -774,51 +911,53 @@ attn_bwd_kv(const T* __restrict__ qkv, const T* __restrict__ dattn,
         for (int c = 0; c < DC; ++c) {
             const int d = lane + 32 * c;
             if (d < dh) {
-                row[D + d] = from_f32<T>(dk[r][c]);
+                if (!ROPE) row[D + d] = from_f32<T>(dk[r][c]);
                 row[2 * D + d] = from_f32<T>(dv[r][c]);
             }
         }
+        if (ROPE)
+            store_unrotated(row + D, kr + (warp * RPW + r) * dh, dh, tc + (size_t)key * (dh / 2),
+                            ts + (size_t)key * (dh / 2), lane);
     }
 }
 
-template <typename T, int DC>
-cudaError_t launch_attn_bwd(const void* qkv, const void* dattn, void* attn, void* dqkv,
-                            void* stats, int B, int S, int H, int dh, int causal, int diag,
-                            float scale, cudaStream_t stream) {
-    const size_t smem_q = bwd_q_smem_floats(dh) * sizeof(float);
-    const size_t smem_kv = bwd_kv_smem_floats(dh) * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(attn_bwd_q<T, DC>,
+template <typename T, int DC, bool ROPE>
+cudaError_t launch_attn_bwd(const AttnArgs& a, cudaStream_t stream) {
+    const size_t smem_q = bwd_q_smem_floats(a.dh) * sizeof(float);
+    const size_t smem_kv = bwd_kv_smem_floats(a.dh) * sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(attn_bwd_q<T, DC, ROPE>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem_q);
     if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(attn_bwd_kv<T, DC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem_kv);
+    err = cudaFuncSetAttribute(attn_bwd_kv<T, DC, ROPE>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_kv);
     if (err != cudaSuccess) return err;
-    const size_t RHS = (size_t)B * H * S;
-    const int tiles = (S + QT - 1) / QT;   // QT == KT
-    dim3 grid((unsigned)B * tiles, H);
-    attn_bwd_q<T, DC><<<grid, AC_WARPS * 32, smem_q, stream>>>(
-        static_cast<const T*>(qkv), static_cast<const T*>(dattn), static_cast<T*>(attn),
-        static_cast<T*>(dqkv), static_cast<float*>(stats), S, H, dh, causal, diag, scale,
-        tiles, RHS);
+    const size_t RHS = (size_t)a.B * a.H * a.S;
+    const int tiles = (a.S + QT - 1) / QT;   // QT == KT
+    dim3 grid((unsigned)a.B * tiles, a.H);
+    attn_bwd_q<T, DC, ROPE><<<grid, AC_WARPS * 32, smem_q, stream>>>(
+        static_cast<const T*>(a.qkv), static_cast<const T*>(a.dattn), static_cast<T*>(a.attn),
+        static_cast<T*>(a.dqkv), static_cast<float*>(a.stats), a.cos, a.sin, a.table_stride,
+        a.S, a.H, a.dh, a.causal, a.diag, a.scale, tiles, RHS);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    attn_bwd_kv<T, DC><<<grid, AC_WARPS * 32, smem_kv, stream>>>(
-        static_cast<const T*>(qkv), static_cast<const T*>(dattn),
-        static_cast<const float*>(stats), static_cast<T*>(dqkv), S, H, dh, causal, diag, scale,
-        tiles, RHS);
+    attn_bwd_kv<T, DC, ROPE><<<grid, AC_WARPS * 32, smem_kv, stream>>>(
+        static_cast<const T*>(a.qkv), static_cast<const T*>(a.dattn),
+        static_cast<const float*>(a.stats), static_cast<T*>(a.dqkv), a.cos, a.sin,
+        a.table_stride, a.S, a.H, a.dh, a.causal, a.diag, a.scale, tiles, RHS);
     return cudaGetLastError();
 }
 
+template <typename T, int DC>
+cudaError_t attn_bwd_rope(const AttnArgs& a, cudaStream_t st) {
+    return a.cos ? launch_attn_bwd<T, DC, true>(a, st) : launch_attn_bwd<T, DC, false>(a, st);
+}
+
 template <typename T>
-cudaError_t attn_bwd_dispatch(const void* qkv, const void* dattn, void* attn, void* dqkv,
-                              void* stats, int B, int S, int H, int dh, int causal, int diag,
-                              float scale, cudaStream_t st) {
-    if (dh <= 32)
-        return launch_attn_bwd<T, 1>(qkv, dattn, attn, dqkv, stats, B, S, H, dh, causal, diag, scale, st);
-    if (dh <= 64)
-        return launch_attn_bwd<T, 2>(qkv, dattn, attn, dqkv, stats, B, S, H, dh, causal, diag, scale, st);
-    return launch_attn_bwd<T, 4>(qkv, dattn, attn, dqkv, stats, B, S, H, dh, causal, diag, scale, st);
+cudaError_t attn_bwd_dispatch(const AttnArgs& a, cudaStream_t st) {
+    if (a.dh <= 32) return attn_bwd_rope<T, 1>(a, st);
+    if (a.dh <= 64) return attn_bwd_rope<T, 2>(a, st);
+    return attn_bwd_rope<T, 4>(a, st);
 }
 
 
@@ -973,6 +1112,14 @@ cudaError_t launch_sum_splits(const float* part, float* out, int splits, size_t 
     return cudaGetLastError();
 }
 
+// Rejects what the attention launches do not take: rope tables come as a pair, and a
+// table stride is 0 (one table) or S dh/2 (one table per sequence).
+bool bad_attn(int B, int S, int H, int dh, const void* cos, const void* sin, int table_stride) {
+    if (B <= 0 || S <= 0 || H <= 0 || dh <= 0 || dh > 128 || dh % 4) return true;
+    if ((cos == nullptr) != (sin == nullptr)) return true;
+    return cos != nullptr && table_stride != 0 && table_stride != S * (dh / 2);
+}
+
 bool bad_split(int M, int splits, int rows) {
     return M <= 0 || splits <= 0 || rows <= 0 || rows % 32 || (long long)splits * rows < M ||
            (long long)(splits - 1) * rows >= M;
@@ -993,33 +1140,35 @@ extern "C" int tcow_gemm_bias(int dtype, const void* A, const void* W, const voi
 }
 
 // qkv (B, S, 3D) -> attn (B, S, D); probs, when not null, (B, H, S, S) receives the
-// probabilities in the compute dtype (K3), zero where the causal mask drops a key.
-extern "C" int tcow_attn_core(int dtype, const void* qkv, void* out, void* probs, int B, int S,
-                              int H, int dh, int causal, int diag, float scale, void* stream) {
-    if (B <= 0 || S <= 0 || H <= 0 || dh <= 0 || dh > 128 || dh % 4) {
-        return (int)cudaErrorInvalidValue;
-    }
+// probabilities in the compute dtype (K3), zero where the causal mask drops a key. With
+// cos and sin (f32 rope tables, (S, dh/2) with table_stride 0 or (B, S, dh/2) with
+// table_stride S dh/2) q and k are rotated (K1r, K2r, K3r); both null without rope.
+extern "C" int tcow_attn_core(int dtype, const void* qkv, void* out, void* probs,
+                              const float* cos, const float* sin, int table_stride, int B,
+                              int S, int H, int dh, int causal, int diag, float scale,
+                              void* stream) {
+    if (bad_attn(B, S, H, dh, cos, sin, table_stride)) return (int)cudaErrorInvalidValue;
+    const AttnArgs a{qkv, nullptr, out, probs, nullptr, nullptr, cos, sin, table_stride,
+                     B, S, H, dh, causal, diag, scale};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (dtype == 1)
-        return (int)attn_core_dispatch<bf16>(qkv, out, probs, B, S, H, dh, causal, diag, scale, st);
-    if (dtype == 0)
-        return (int)attn_core_dispatch<float>(qkv, out, probs, B, S, H, dh, causal, diag, scale, st);
+    if (dtype == 1) return (int)attn_core_dispatch<bf16>(a, st);
+    if (dtype == 0) return (int)attn_core_dispatch<float>(a, st);
     return (int)cudaErrorInvalidValue;
 }
 
 // qkv (B, S, 3D) and dattn (B, S, D) -> attn (B, S, D), dqkv (B, S, 3D); stats is f32
-// scratch of 3 * B * H * S values.
+// scratch of 3 * B * H * S values. cos, sin and table_stride as for tcow_attn_core (K4r,
+// K5r, K6r): dq and dk are un-rotated before they are written.
 extern "C" int tcow_attn_bwd(int dtype, const void* qkv, const void* dattn, void* attn,
-                             void* dqkv, void* stats, int B, int S, int H, int dh, int causal,
+                             void* dqkv, void* stats, const float* cos, const float* sin,
+                             int table_stride, int B, int S, int H, int dh, int causal,
                              int diag, float scale, void* stream) {
-    if (B <= 0 || S <= 0 || H <= 0 || dh <= 0 || dh > 128 || dh % 4) {
-        return (int)cudaErrorInvalidValue;
-    }
+    if (bad_attn(B, S, H, dh, cos, sin, table_stride)) return (int)cudaErrorInvalidValue;
+    const AttnArgs a{qkv, dattn, attn, nullptr, dqkv, stats, cos, sin, table_stride,
+                     B, S, H, dh, causal, diag, scale};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (dtype == 1)
-        return (int)attn_bwd_dispatch<bf16>(qkv, dattn, attn, dqkv, stats, B, S, H, dh, causal, diag, scale, st);
-    if (dtype == 0)
-        return (int)attn_bwd_dispatch<float>(qkv, dattn, attn, dqkv, stats, B, S, H, dh, causal, diag, scale, st);
+    if (dtype == 1) return (int)attn_bwd_dispatch<bf16>(a, st);
+    if (dtype == 0) return (int)attn_bwd_dispatch<float>(a, st);
     return (int)cudaErrorInvalidValue;
 }
 

@@ -11,6 +11,10 @@ tcow_tpu/ops/pallas_attention.py in its four backward modes.
   'kernel_qkv'  K2 saves qkv; the backward is K5 plus plain weight products
   'kernel_x'    K1 saves nothing but x; the backward is K4 plus plain weight products
   'kernel_x_wg' K1 as 'kernel_x'; the backward is K6, weight gradients included
+With rope=True (temporal attention under `temporal_rope`) q and k are rotated by their
+position after the qkv product, as the TPU kernels do under rope=True (:120-136,
+:592-628): positions 0..S-1, or per-row f32 `pos` (B, S). The backwards un-rotate dq and
+dk. qkv stays un-rotated wherever it is saved.
 Each forward is a custom operator (`torch.ops.tcow_torch.attention{,_qkv,_res}`), so a
 selective remat policy (models/timesformer.py) can keep its outputs across a checkpoint
 and the backward never re-runs it. `fused_attention.calls[mode]` counts the forwards
@@ -18,7 +22,9 @@ computed in each mode on every device; a remat recompute counts again.
 
 A CPU tensor goes to the plain PyTorch versions beside each kernel. A CUDA tensor goes to
 the hand-written kernels built with nvcc at first use from csrc/fused_attention.cu, or the
-call raises: there is no fallback from the card to the plain version. Launch counts:
+call raises: there is no fallback from the card to the plain version. Launch counts, a
+launch with rope on `launches_rope` of the same wrapper (K1r ... K6r) and never on
+`launches`:
   K1 `fused_attention_fwd`        on `fused_attention.launches`
   K2 `fused_attention_fwd_qkv`    on `fused_attention_fwd_qkv.launches`
   K3 `fused_attention_fwd_res`    on `fused_attention_fwd_res.launches`
@@ -29,10 +35,12 @@ call raises: there is no fallback from the card to the plain version. Launch cou
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
 from tcow_tpu_torch.ops import _build
+from tcow_tpu_torch.ops import rope as rope_lib
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 BWD_MODES = ('res', 'kernel_qkv', 'kernel_x', 'kernel_x_wg')
@@ -46,21 +54,41 @@ def _causal_keep(S: int, causal_attention: int, device) -> torch.Tensor:
     return torch.ones(S, S, dtype=torch.bool, device=device).tril(_mask_diag(causal_attention))
 
 
+def rope_tables_for(S: int, dh: int, pos, device):
+    '''The rotation's (cos, sin) in f32: (S, dh/2) for row positions 0..S-1 when pos is
+    None, (B, S, dh/2) for per-row positions pos (B, S). The kernels and the plain
+    versions rotate by these same tables.'''
+    if pos is None:
+        return rope_lib.rope_tables(torch.arange(S, device=device), dh)
+    return rope_lib.rope_tables(pos, dh)
+
+
+def _head_tables(S: int, dh: int, pos, device):
+    '''rope_tables_for, broadcastable over (B, H, S, dh/2).'''
+    cos, sin = rope_tables_for(S, dh, pos, device)
+    return (cos, sin) if pos is None else (cos[:, None], sin[:, None])
+
+
 # ---------------------------------------------------------------------------------------
 # Plain versions
 # ---------------------------------------------------------------------------------------
 
-def attention_res_ref(x, qkv_w, qkv_b, proj_w, proj_b, num_heads: int, causal_attention: int):
+def attention_res_ref(x, qkv_w, qkv_b, proj_w, proj_b, num_heads: int, causal_attention: int,
+                      rope: bool = False, pos=None):
     '''Plain version of K3 over (B, S, D) -> (out, qkv (B, S, 3D), probs (B, H, S, S),
     attn (B, S, D)) in x.dtype, the counterpart of pallas_attention.py:54-84 and of the
     model's non-kernel attention (timesformer.py:281-316): logits in f32, fill -1e10 where
     key > query + diag (diag 0 for ca 1 and 2, ca - 2 for ca >= 3), f32 softmax, probs
-    cast to the compute dtype before PV.'''
+    cast to the compute dtype before PV. With rope, q and k are rotated after the qkv
+    product rounds (:67-74) and rounded again; the returned qkv is un-rotated.'''
     B, S, D = x.shape
     dh = D // num_heads
     scale = dh ** -0.5
     qkv = torch.matmul(x, qkv_w.to(x.dtype)) + qkv_b.to(x.dtype)
     q, k, v = qkv.reshape(B, S, 3, num_heads, dh).permute(2, 0, 3, 1, 4)   # (B, h, S, dh)
+    if rope:
+        cs = _head_tables(S, dh, pos, x.device)
+        q, k = rope_lib.apply_rope(q, *cs), rope_lib.apply_rope(k, *cs)
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if causal_attention > 0:
         logits = logits.masked_fill(~_causal_keep(S, causal_attention, x.device), -1e10)
@@ -70,24 +98,30 @@ def attention_res_ref(x, qkv_w, qkv_b, proj_w, proj_b, num_heads: int, causal_at
     return out, qkv, probs, attn
 
 
-def attention_ref(x, qkv_w, qkv_b, proj_w, proj_b, num_heads: int, causal_attention: int):
-    '''Plain version of K1: the output of `attention_res_ref`.'''
-    return attention_res_ref(x, qkv_w, qkv_b, proj_w, proj_b, num_heads, causal_attention)[0]
+def attention_ref(x, qkv_w, qkv_b, proj_w, proj_b, num_heads: int, causal_attention: int,
+                  rope: bool = False, pos=None):
+    '''Plain version of K1 (K1r with rope): the output of `attention_res_ref`.'''
+    return attention_res_ref(x, qkv_w, qkv_b, proj_w, proj_b, num_heads, causal_attention,
+                             rope, pos)[0]
 
 
-def attention_qkv_ref(x, qkv_w, qkv_b, proj_w, proj_b, num_heads: int, causal_attention: int):
-    '''Plain version of K2: (out, qkv) of `attention_res_ref`.'''
+def attention_qkv_ref(x, qkv_w, qkv_b, proj_w, proj_b, num_heads: int, causal_attention: int,
+                      rope: bool = False, pos=None):
+    '''Plain version of K2 (K2r): (out, qkv) of `attention_res_ref`, qkv un-rotated.'''
     out, qkv, _, _ = attention_res_ref(x, qkv_w, qkv_b, proj_w, proj_b, num_heads,
-                                       causal_attention)
+                                       causal_attention, rope, pos)
     return out, qkv
 
 
-def attention_bwd_qkv_ref(qkv, g, proj_w, num_heads: int, causal_attention: int):
+def attention_bwd_qkv_ref(qkv, g, proj_w, num_heads: int, causal_attention: int,
+                          rope: bool = False, pos=None):
     '''Plain version of K5 over qkv (B, S, 3D) and g (B, S, D) in one dtype; proj_w (D, D)
     f32 -> (dqkv (B, S, 3D), attn (B, S, D)) in that dtype. Mirrors _bwd_kernel (:568-637)
     rounding point for rounding point: every product runs in f32 on operands rounded to
     the compute dtype, and the result is rounded where the TPU kernel rounds it (dattn,
-    p_c, attn, dv, dlog, dq, dk).'''
+    p_c, attn, dv, dlog, dq, dk). With rope (K5r), q and k are rotated from the
+    un-rotated qkv and rounded (:603-605); dq and dk are rounded, un-rotated in f32 and
+    rounded again (:622-628).'''
     B, S, D3 = qkv.shape
     D = D3 // 3
     H = num_heads
@@ -96,7 +130,11 @@ def attention_bwd_qkv_ref(qkv, g, proj_w, num_heads: int, causal_attention: int)
     cdt = qkv.dtype
     f = lambda t: t.to(cdt).float()                    # round to the compute dtype, then f32
     dattn = f(torch.matmul(f(g), f(proj_w).T))                                   # :587-590
-    q, k, v = qkv.float().reshape(B, S, 3, H, dh).permute(2, 0, 3, 1, 4)         # (B, H, S, dh)
+    q, k, v = qkv.reshape(B, S, 3, H, dh).permute(2, 0, 3, 1, 4)                 # (B, H, S, dh)
+    if rope:
+        cs = _head_tables(S, dh, pos, qkv.device)
+        q, k = rope_lib.apply_rope(q, *cs), rope_lib.apply_rope(k, *cs)
+    q, k, v = q.float(), k.float(), v.float()
     da = dattn.reshape(B, S, H, dh).transpose(1, 2)
     logits = torch.matmul(q, k.transpose(-1, -2)) * scale
     if causal_attention > 0:
@@ -107,26 +145,32 @@ def attention_bwd_qkv_ref(qkv, g, proj_w, num_heads: int, causal_attention: int)
     dv = torch.matmul(p_c.transpose(-1, -2), da)
     dp = torch.matmul(da, v.transpose(-1, -2))
     dlog = f(pf * (dp - torch.sum(dp * pf, dim=-1, keepdim=True)) * scale)
-    dq = torch.matmul(dlog, k)
-    dk = torch.matmul(dlog.transpose(-1, -2), q)
+    dq = torch.matmul(dlog, k).to(cdt)
+    dk = torch.matmul(dlog.transpose(-1, -2), q).to(cdt)
+    if rope:
+        dq = rope_lib.apply_rope(dq, *cs, inverse=True)
+        dk = rope_lib.apply_rope(dk, *cs, inverse=True)
     merge = lambda t: t.transpose(1, 2).reshape(B, S, D).to(cdt)
     return torch.cat([merge(dq), merge(dk), merge(dv)], dim=-1), merge(attn)
 
 
-def attention_bwd_ref(x, g, qkv_w, qkv_b, proj_w, num_heads: int, causal_attention: int):
-    '''Plain version of K4 over x, g (B, S, D) -> (dqkv (B, S, 3D), attn (B, S, D)) in
-    x.dtype: qkv recomputed from x in f32 and rounded after the bias (:573-575), then
+def attention_bwd_ref(x, g, qkv_w, qkv_b, proj_w, num_heads: int, causal_attention: int,
+                      rope: bool = False, pos=None):
+    '''Plain version of K4 (K4r) over x, g (B, S, D) -> (dqkv (B, S, 3D), attn (B, S, D))
+    in x.dtype: qkv recomputed from x in f32 and rounded after the bias (:573-575), then
     `attention_bwd_qkv_ref`.'''
     cdt = x.dtype
     qkv = (torch.matmul(x.float(), qkv_w.to(cdt).float()) + qkv_b.float()).to(cdt)
-    return attention_bwd_qkv_ref(qkv, g, proj_w, num_heads, causal_attention)
+    return attention_bwd_qkv_ref(qkv, g, proj_w, num_heads, causal_attention, rope, pos)
 
 
-def attention_bwd_wg_ref(x, g, qkv_w, qkv_b, proj_w, num_heads: int, causal_attention: int):
-    '''Plain version of K6 -> (dx (B, S, D) in x.dtype, dqkv_w (D, 3D), dqkv_b (3D,),
+def attention_bwd_wg_ref(x, g, qkv_w, qkv_b, proj_w, num_heads: int, causal_attention: int,
+                         rope: bool = False, pos=None):
+    '''Plain version of K6 (K6r) -> (dx (B, S, D) in x.dtype, dqkv_w (D, 3D), dqkv_b (3D,),
     dproj_w (D, D), dproj_b (D,) in f32): `attention_bwd_ref`, then the five products of
     :643-660 in f32 on its rounded outputs, dx rounded to x.dtype.'''
-    dqkv, attn = attention_bwd_ref(x, g, qkv_w, qkv_b, proj_w, num_heads, causal_attention)
+    dqkv, attn = attention_bwd_ref(x, g, qkv_w, qkv_b, proj_w, num_heads, causal_attention,
+                                   rope, pos)
     D = x.shape[-1]
     x2, g2 = x.reshape(-1, D).float(), g.reshape(-1, D).float()
     dqkv2, attn2 = dqkv.reshape(-1, 3 * D).float(), attn.reshape(-1, D).float()
@@ -157,11 +201,13 @@ def _weight_grads(x, g, dqkv, attn, qkv_w):
             _mm_f32(attn2.T, g2), g2.sum(dim=0, dtype=torch.float32))
 
 
-def attention_bwd_res(x, g, qkv, probs, attn, qkv_w, proj_w, num_heads: int):
+def attention_bwd_res(x, g, qkv, probs, attn, qkv_w, proj_w, num_heads: int,
+                      rope: bool = False, pos=None):
     '''The 'res' backward (_bwd_res, :396-463), XLA math in JAX and torch ops here on both
     devices: from the saved qkv (B, S, 3D), probs (B, H, S, S) and attn, with no
     recompute and JAX's rounding points (dattn, dv, dlog, dq and dk in x.dtype; dp and
-    its row sums in f32). Returns the five gradients of `_weight_grads`.'''
+    its row sums in f32). With rope, q and k are rotated from the saved un-rotated qkv,
+    and dq and dk un-rotated (:419-449). Returns the five gradients of `_weight_grads`.'''
     B, S, D = x.shape
     H = num_heads
     dh = D // H
@@ -170,12 +216,18 @@ def attention_bwd_res(x, g, qkv, probs, attn, qkv_w, proj_w, num_heads: int):
     g = g.to(cdt)
     dattn = torch.matmul(g, proj_w.to(cdt).T).reshape(B, S, H, dh).transpose(1, 2)
     q, k, v = qkv.reshape(B, S, 3, H, dh).permute(2, 0, 3, 1, 4)
+    if rope:
+        cs = _head_tables(S, dh, pos, x.device)
+        q, k = rope_lib.apply_rope(q, *cs), rope_lib.apply_rope(k, *cs)
     dv = torch.matmul(probs.transpose(-1, -2), dattn)
     pf = probs.float()
     dp = torch.matmul(dattn.float(), v.float().transpose(-1, -2))
     dlog = ((pf * (dp - torch.sum(dp * pf, dim=-1, keepdim=True))) * scale).to(cdt)
     dq = torch.matmul(dlog, k)
     dk = torch.matmul(dlog.transpose(-1, -2), q)
+    if rope:
+        dq = rope_lib.apply_rope(dq, *cs, inverse=True)
+        dk = rope_lib.apply_rope(dk, *cs, inverse=True)
     merge = lambda t: t.transpose(1, 2).reshape(B, S, D)
     dqkv = torch.cat([merge(dq), merge(dk), merge(dv)], dim=-1)
     return _weight_grads(x, g, dqkv, attn, qkv_w)
@@ -190,9 +242,10 @@ def _lib():
     lib = _build.load('fused_attention')
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.tcow_gemm_bias.argtypes = [i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
-    lib.tcow_attn_core.argtypes = [i32, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, f32, ptr]
-    lib.tcow_attn_bwd.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
-                                  f32, ptr]
+    lib.tcow_attn_core.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
+                                   i32, f32, ptr]
+    lib.tcow_attn_bwd.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32,
+                                  i32, i32, i32, f32, ptr]
     lib.tcow_wgrad.argtypes = [i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
     lib.tcow_colsum.argtypes = [i32, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
     for fn in (lib.tcow_gemm_bias, lib.tcow_attn_core, lib.tcow_attn_bwd, lib.tcow_wgrad,
@@ -253,11 +306,29 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def _kernel_tables(x, S, dh, rope, pos):
+    '''(cos, sin, row stride) for attn_core / attn_bwd: null pointers and 0 without rope;
+    one (S, dh/2) f32 table shared by every row (stride 0) when pos is None; per-row
+    tables (B, S, dh/2) from pos (B, S) f32 on x's device (stride S dh/2).'''
+    if not rope:
+        return None, None, 0
+    if pos is not None and (pos.dtype != torch.float32 or tuple(pos.shape) != (x.shape[0], S)
+                            or pos.device != x.device):
+        raise ValueError(f'pos must be float32 {(x.shape[0], S)} on {x.device}, got '
+                         f'{pos.dtype} {tuple(pos.shape)} on {pos.device}')
+    cos, sin = (t.contiguous() for t in rope_tables_for(S, dh, pos, x.device))
+    return cos, sin, 0 if pos is None else S * (dh // 2)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def _launch_forward(x, qkv_w, qkv_b, proj_w, proj_b, num_heads, causal_attention, probs,
-                    what):
+                    what, rope=False, pos=None):
     '''K1's chain on the card: gemm_bias (qkv) -> attn_core -> gemm_bias (proj); with
-    probs, attn_core also stores the probabilities. Returns (out, qkv, probs or None,
-    attn).'''
+    probs, attn_core also stores the probabilities; with rope, attn_core<ROPE> rotates q
+    and k as it stages them. Returns (out, qkv (un-rotated), probs or None, attn).'''
     D = x.shape[-1]
     B, S, D, dh = _check_kernel_inputs(
         x, (('qkv_w', qkv_w, (D, 3 * D)), ('qkv_b', qkv_b, (3 * D,)),
@@ -267,6 +338,7 @@ def _launch_forward(x, qkv_w, qkv_b, proj_w, proj_b, num_heads, causal_attention
     code = _DTYPE_CODES[x.dtype]
     with torch.cuda.device(x.device):
         stream = _stream(x)
+        cos, sin, table_stride = _kernel_tables(x, S, dh, rope, pos)
         qkv = torch.empty((B, S, 3 * D), dtype=x.dtype, device=x.device)
         attn = torch.empty_like(x)
         out = torch.empty_like(x)
@@ -274,8 +346,8 @@ def _launch_forward(x, qkv_w, qkv_b, proj_w, proj_b, num_heads, causal_attention
              else None)
         _check(lib.tcow_gemm_bias(code, x.data_ptr(), qkv_w.data_ptr(), qkv_b.data_ptr(),
                                   qkv.data_ptr(), B * S, 3 * D, D, 0, stream), 'gemm_bias(qkv)')
-        _check(lib.tcow_attn_core(code, qkv.data_ptr(), attn.data_ptr(),
-                                  None if p is None else p.data_ptr(), B, S, num_heads, dh,
+        _check(lib.tcow_attn_core(code, qkv.data_ptr(), attn.data_ptr(), _ptr(p), _ptr(cos),
+                                  _ptr(sin), table_stride, B, S, num_heads, dh,
                                   int(causal_attention > 0), _mask_diag(causal_attention),
                                   dh ** -0.5, stream), 'attn_core')
         _check(lib.tcow_gemm_bias(code, attn.data_ptr(), proj_w.data_ptr(), proj_b.data_ptr(),
@@ -283,51 +355,67 @@ def _launch_forward(x, qkv_w, qkv_b, proj_w, proj_b, num_heads, causal_attention
     return out, qkv, p, attn
 
 
+def _count(wrapper, rope: bool):
+    '''One launch on the wrapper's counter: `launches_rope` for a rope launch, else
+    `launches`.'''
+    if rope:
+        wrapper.launches_rope += 1
+    else:
+        wrapper.launches += 1
+
+
 def fused_attention_fwd(x, qkv_w, qkv_b, proj_w, proj_b, num_heads: int,
-                        causal_attention: int):
-    '''K1: attention forward over x (B, S, D); weights (D, 3D), (3D,), (D, D), (D,) f32.
-    CPU tensors run `attention_ref`; CUDA tensors launch the kernel chain gemm_bias ->
-    attn_core -> gemm_bias on the current stream and add one to
-    `fused_attention.launches`.'''
+                        causal_attention: int, rope: bool = False, pos=None):
+    '''K1 (K1r with rope): attention forward over x (B, S, D); weights (D, 3D), (3D,),
+    (D, D), (D,) f32; pos None or (B, S) f32. CPU tensors run `attention_ref`; CUDA
+    tensors launch the kernel chain gemm_bias -> attn_core -> gemm_bias on the current
+    stream and add one to `fused_attention.launches` (`launches_rope` with rope).'''
     if _on_cpu(x, 'fused_attention'):
-        return attention_ref(x, qkv_w, qkv_b, proj_w, proj_b, num_heads, causal_attention)
+        return attention_ref(x, qkv_w, qkv_b, proj_w, proj_b, num_heads, causal_attention,
+                             rope, pos)
     out = _launch_forward(x, qkv_w, qkv_b, proj_w, proj_b, num_heads, causal_attention,
-                          False, 'fused_attention')[0]
-    fused_attention.launches += 1
+                          False, 'fused_attention', rope, pos)[0]
+    _count(fused_attention, rope)
     return out
 
 
 def fused_attention_fwd_qkv(x, qkv_w, qkv_b, proj_w, proj_b, num_heads: int,
-                            causal_attention: int):
-    '''K2: K1 that also returns qkv (B, S, 3D) in x.dtype -> (out, qkv). CPU tensors run
-    `attention_qkv_ref`; CUDA tensors launch K1's chain and add one to
-    `fused_attention_fwd_qkv.launches`.'''
+                            causal_attention: int, rope: bool = False, pos=None):
+    '''K2 (K2r): K1 that also returns the un-rotated qkv (B, S, 3D) in x.dtype -> (out,
+    qkv). CPU tensors run `attention_qkv_ref`; CUDA tensors launch K1's chain and add one
+    to `fused_attention_fwd_qkv.launches` (`launches_rope` with rope).'''
     if _on_cpu(x, 'fused_attention_fwd_qkv'):
-        return attention_qkv_ref(x, qkv_w, qkv_b, proj_w, proj_b, num_heads, causal_attention)
+        return attention_qkv_ref(x, qkv_w, qkv_b, proj_w, proj_b, num_heads, causal_attention,
+                                 rope, pos)
     out, qkv, _, _ = _launch_forward(x, qkv_w, qkv_b, proj_w, proj_b, num_heads,
-                                     causal_attention, False, 'fused_attention_fwd_qkv')
-    fused_attention_fwd_qkv.launches += 1
+                                     causal_attention, False, 'fused_attention_fwd_qkv',
+                                     rope, pos)
+    _count(fused_attention_fwd_qkv, rope)
     return out, qkv
 
 
 def fused_attention_fwd_res(x, qkv_w, qkv_b, proj_w, proj_b, num_heads: int,
-                            causal_attention: int):
-    '''K3: K1 that also returns qkv, the probabilities (B, H, S, S) and attn (B, S, D), all
-    in x.dtype -> (out, qkv, probs, attn). CPU tensors run `attention_res_ref`; CUDA
-    tensors launch K1's chain with attn_core storing the probabilities and add one to
-    `fused_attention_fwd_res.launches`.'''
+                            causal_attention: int, rope: bool = False, pos=None):
+    '''K3 (K3r): K1 that also returns the un-rotated qkv, the probabilities (B, H, S, S)
+    and attn (B, S, D), all in x.dtype -> (out, qkv, probs, attn). CPU tensors run
+    `attention_res_ref`; CUDA tensors launch K1's chain with attn_core storing the
+    probabilities and add one to `fused_attention_fwd_res.launches` (`launches_rope` with
+    rope).'''
     if _on_cpu(x, 'fused_attention_fwd_res'):
-        return attention_res_ref(x, qkv_w, qkv_b, proj_w, proj_b, num_heads, causal_attention)
+        return attention_res_ref(x, qkv_w, qkv_b, proj_w, proj_b, num_heads, causal_attention,
+                                 rope, pos)
     res = _launch_forward(x, qkv_w, qkv_b, proj_w, proj_b, num_heads, causal_attention,
-                          True, 'fused_attention_fwd_res')
-    fused_attention_fwd_res.launches += 1
+                          True, 'fused_attention_fwd_res', rope, pos)
+    _count(fused_attention_fwd_res, rope)
     return res
 
 
-def _launch_backward(x, g, qkv_w, qkv_b, proj_w, qkv, num_heads, causal_attention, what):
+def _launch_backward(x, g, qkv_w, qkv_b, proj_w, qkv, num_heads, causal_attention, what,
+                     rope=False, pos=None):
     '''K4's chain on the card: gemm_bias (qkv from x; skipped when qkv is given, K5) ->
-    gemm_bias (g . proj_w^T) -> attn_bwd_q -> attn_bwd_kv. With qkv given, x is only
-    checked for shape. Returns (qkv, dqkv, attn).'''
+    gemm_bias (g . proj_w^T) -> attn_bwd_q -> attn_bwd_kv; with rope both attention
+    launches rotate q and k as they stage them and un-rotate dq and dk. With qkv given, x
+    is only checked for shape. Returns (qkv, dqkv, attn).'''
     D = x.shape[-1]
     weights = [('proj_w', proj_w, (D, D))]
     if qkv is None:
@@ -340,6 +428,7 @@ def _launch_backward(x, g, qkv_w, qkv_b, proj_w, qkv, num_heads, causal_attentio
     code = _DTYPE_CODES[x.dtype]
     with torch.cuda.device(x.device):
         stream = _stream(x)
+        cos, sin, table_stride = _kernel_tables(x, S, dh, rope, pos)
         dattn = torch.empty_like(x)
         attn = torch.empty_like(x)
         dqkv = torch.empty((B, S, 3 * D), dtype=x.dtype, device=x.device)
@@ -352,36 +441,40 @@ def _launch_backward(x, g, qkv_w, qkv_b, proj_w, qkv, num_heads, causal_attentio
         _check(lib.tcow_gemm_bias(code, g.data_ptr(), proj_w.data_ptr(), None,
                                   dattn.data_ptr(), B * S, D, D, 1, stream), 'gemm(g proj_w^T)')
         _check(lib.tcow_attn_bwd(code, qkv.data_ptr(), dattn.data_ptr(), attn.data_ptr(),
-                                 dqkv.data_ptr(), stats.data_ptr(), B, S, num_heads, dh,
-                                 int(causal_attention > 0), _mask_diag(causal_attention),
-                                 dh ** -0.5, stream), 'attn_bwd')
+                                 dqkv.data_ptr(), stats.data_ptr(), _ptr(cos), _ptr(sin),
+                                 table_stride, B, S, num_heads, dh, int(causal_attention > 0),
+                                 _mask_diag(causal_attention), dh ** -0.5, stream), 'attn_bwd')
     return qkv, dqkv, attn
 
 
-def fused_attention_bwd(x, g, qkv_w, qkv_b, proj_w, num_heads: int, causal_attention: int):
-    '''K4: the in-kernel part of the attention backward over x, g (B, S, D) in one dtype;
-    weights (D, 3D), (3D,), (D, D) f32 -> (dqkv (B, S, 3D), attn (B, S, D)) in x.dtype.
-    CPU tensors run `attention_bwd_ref`; CUDA tensors launch gemm_bias (qkv) -> gemm_bias
-    (g . proj_w^T) -> attn_bwd_q -> attn_bwd_kv on the current stream and add one to
-    `fused_attention_bwd.launches`.'''
+def fused_attention_bwd(x, g, qkv_w, qkv_b, proj_w, num_heads: int, causal_attention: int,
+                        rope: bool = False, pos=None):
+    '''K4 (K4r): the in-kernel part of the attention backward over x, g (B, S, D) in one
+    dtype; weights (D, 3D), (3D,), (D, D) f32 -> (dqkv (B, S, 3D), attn (B, S, D)) in
+    x.dtype. CPU tensors run `attention_bwd_ref`; CUDA tensors launch gemm_bias (qkv) ->
+    gemm_bias (g . proj_w^T) -> attn_bwd_q -> attn_bwd_kv on the current stream and add
+    one to `fused_attention_bwd.launches` (`launches_rope` with rope).'''
     if _on_cpu(x, 'fused_attention_bwd'):
-        return attention_bwd_ref(x, g, qkv_w, qkv_b, proj_w, num_heads, causal_attention)
+        return attention_bwd_ref(x, g, qkv_w, qkv_b, proj_w, num_heads, causal_attention,
+                                 rope, pos)
     _, dqkv, attn = _launch_backward(x, g, qkv_w, qkv_b, proj_w, None, num_heads,
-                                     causal_attention, 'fused_attention_bwd')
-    fused_attention_bwd.launches += 1
+                                     causal_attention, 'fused_attention_bwd', rope, pos)
+    _count(fused_attention_bwd, rope)
     return dqkv, attn
 
 
-def fused_attention_bwd_qkv(qkv, g, proj_w, num_heads: int, causal_attention: int):
-    '''K5: K4 from the saved qkv (B, S, 3D) instead of x; g (B, S, D) in qkv's dtype,
-    proj_w (D, D) f32 -> (dqkv, attn). CPU tensors run `attention_bwd_qkv_ref`; CUDA
-    tensors launch gemm_bias (g . proj_w^T) -> attn_bwd_q -> attn_bwd_kv and add one to
-    `fused_attention_bwd_qkv.launches`.'''
+def fused_attention_bwd_qkv(qkv, g, proj_w, num_heads: int, causal_attention: int,
+                            rope: bool = False, pos=None):
+    '''K5 (K5r): K4 from the saved un-rotated qkv (B, S, 3D) instead of x; g (B, S, D) in
+    qkv's dtype, proj_w (D, D) f32 -> (dqkv, attn). CPU tensors run
+    `attention_bwd_qkv_ref`; CUDA tensors launch gemm_bias (g . proj_w^T) -> attn_bwd_q ->
+    attn_bwd_kv and add one to `fused_attention_bwd_qkv.launches` (`launches_rope` with
+    rope).'''
     if _on_cpu(qkv, 'fused_attention_bwd_qkv'):
-        return attention_bwd_qkv_ref(qkv, g, proj_w, num_heads, causal_attention)
+        return attention_bwd_qkv_ref(qkv, g, proj_w, num_heads, causal_attention, rope, pos)
     _, dqkv, attn = _launch_backward(g, g, None, None, proj_w, qkv, num_heads,
-                                     causal_attention, 'fused_attention_bwd_qkv')
-    fused_attention_bwd_qkv.launches += 1
+                                     causal_attention, 'fused_attention_bwd_qkv', rope, pos)
+    _count(fused_attention_bwd_qkv, rope)
     return dqkv, attn
 
 
@@ -422,16 +515,19 @@ def _launch_colsum(lib, code, a, stream):
     return out
 
 
-def fused_attention_bwd_wg(x, g, qkv_w, qkv_b, proj_w, num_heads: int, causal_attention: int):
-    '''K6: K4 plus dx and the weight and bias gradients -> (dx (B, S, D) in x.dtype,
+def fused_attention_bwd_wg(x, g, qkv_w, qkv_b, proj_w, num_heads: int, causal_attention: int,
+                           rope: bool = False, pos=None):
+    '''K6 (K6r): K4 plus dx and the weight and bias gradients -> (dx (B, S, D) in x.dtype,
     dqkv_w (D, 3D), dqkv_b (3D,), dproj_w (D, D), dproj_b (D,) in f32). CPU tensors run
     `attention_bwd_wg_ref`; CUDA tensors launch K4's chain, gemm_bias (dqkv . qkv_w^T),
     wgrad (x^T . dqkv, attn^T . g) and colsum (dqkv, g), and add one to
-    `fused_attention_bwd_wg.launches`. The reductions over rows are deterministic.'''
+    `fused_attention_bwd_wg.launches` (`launches_rope` with rope). The reductions over
+    rows are deterministic; with rope they read the un-rotated dqkv that K4r writes.'''
     if _on_cpu(x, 'fused_attention_bwd_wg'):
-        return attention_bwd_wg_ref(x, g, qkv_w, qkv_b, proj_w, num_heads, causal_attention)
+        return attention_bwd_wg_ref(x, g, qkv_w, qkv_b, proj_w, num_heads, causal_attention,
+                                    rope, pos)
     _, dqkv, attn = _launch_backward(x, g, qkv_w, qkv_b, proj_w, None, num_heads,
-                                     causal_attention, 'fused_attention_bwd_wg')
+                                     causal_attention, 'fused_attention_bwd_wg', rope, pos)
     B, S, D = x.shape
     lib = _lib()
     code = _DTYPE_CODES[x.dtype]
@@ -446,7 +542,7 @@ def fused_attention_bwd_wg(x, g, qkv_w, qkv_b, proj_w, num_heads: int, causal_at
                  _launch_colsum(lib, code, dqkv2, stream),
                  _launch_wgrad(lib, code, attn2, g2, stream),
                  _launch_colsum(lib, code, g2, stream))
-    fused_attention_bwd_wg.launches += 1
+    _count(fused_attention_bwd_wg, rope)
     return grads
 
 
@@ -461,76 +557,82 @@ def _count_call(bwd_mode: str):
 @torch.library.custom_op('tcow_torch::attention', mutates_args=())
 def _attention_op(x: torch.Tensor, qkv_w: torch.Tensor, qkv_b: torch.Tensor,
                   proj_w: torch.Tensor, proj_b: torch.Tensor, num_heads: int,
-                  causal_attention: int, bwd_mode: str) -> torch.Tensor:
+                  causal_attention: int, bwd_mode: str, rope: bool,
+                  pos: Optional[torch.Tensor]) -> torch.Tensor:
     '''The forward of 'kernel_x' and 'kernel_x_wg': K1, saving x (:344-351).'''
     _count_call(bwd_mode)
-    return fused_attention_fwd(x, qkv_w, qkv_b, proj_w, proj_b, num_heads, causal_attention)
+    return fused_attention_fwd(x, qkv_w, qkv_b, proj_w, proj_b, num_heads, causal_attention,
+                               rope, pos)
 
 
 def _setup_x(ctx, inputs, output):
-    x, qkv_w, qkv_b, proj_w, _, ctx.num_heads, ctx.ca, ctx.bwd_mode = inputs
-    ctx.save_for_backward(x, qkv_w, qkv_b, proj_w)
+    x, qkv_w, qkv_b, proj_w, _, ctx.num_heads, ctx.ca, ctx.bwd_mode, ctx.rope, pos = inputs
+    ctx.save_for_backward(x, qkv_w, qkv_b, proj_w, pos)
 
 
 def _backward_x(ctx, g):
-    x, qkv_w, qkv_b, proj_w = ctx.saved_tensors
+    x, qkv_w, qkv_b, proj_w, pos = ctx.saved_tensors
     g = g.to(x.dtype).contiguous()                                           # :687
+    args = (x, g, qkv_w, qkv_b, proj_w, ctx.num_heads, ctx.ca, ctx.rope, pos)
     if ctx.bwd_mode == 'kernel_x_wg':
-        grads = fused_attention_bwd_wg(x, g, qkv_w, qkv_b, proj_w, ctx.num_heads, ctx.ca)
+        grads = fused_attention_bwd_wg(*args)
     else:
-        dqkv, attn = fused_attention_bwd(x, g, qkv_w, qkv_b, proj_w, ctx.num_heads, ctx.ca)
+        dqkv, attn = fused_attention_bwd(*args)
         grads = _weight_grads(x, g, dqkv, attn, qkv_w)
-    return (*grads, None, None, None)
+    return (*grads, None, None, None, None, None)   # positions have no gradient (:373-375)
 
 
 @torch.library.custom_op('tcow_torch::attention_qkv', mutates_args=())
 def _attention_qkv_op(x: torch.Tensor, qkv_w: torch.Tensor, qkv_b: torch.Tensor,
                       proj_w: torch.Tensor, proj_b: torch.Tensor, num_heads: int,
-                      causal_attention: int) -> tuple[torch.Tensor, torch.Tensor]:
-    '''The forward of 'kernel_qkv': K2, saving x and qkv, JAX's `attn_qkv` (:352-360).'''
+                      causal_attention: int, rope: bool, pos: Optional[torch.Tensor]
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    '''The forward of 'kernel_qkv': K2, saving x and the un-rotated qkv, JAX's `attn_qkv`
+    (:352-360).'''
     _count_call('kernel_qkv')
     return fused_attention_fwd_qkv(x, qkv_w, qkv_b, proj_w, proj_b, num_heads,
-                                   causal_attention)
+                                   causal_attention, rope, pos)
 
 
 def _setup_qkv(ctx, inputs, output):
-    x, qkv_w, _, proj_w, _, ctx.num_heads, ctx.ca = inputs
+    x, qkv_w, _, proj_w, _, ctx.num_heads, ctx.ca, ctx.rope, pos = inputs
     ctx.mark_non_differentiable(output[1])
     ctx.set_materialize_grads(False)
-    ctx.save_for_backward(x, output[1], qkv_w, proj_w)
+    ctx.save_for_backward(x, output[1], qkv_w, proj_w, pos)
 
 
 def _backward_qkv(ctx, g, _):
-    x, qkv, qkv_w, proj_w = ctx.saved_tensors
+    x, qkv, qkv_w, proj_w, pos = ctx.saved_tensors
     g = g.to(x.dtype).contiguous()
-    dqkv, attn = fused_attention_bwd_qkv(qkv, g, proj_w, ctx.num_heads, ctx.ca)
-    return (*_weight_grads(x, g, dqkv, attn, qkv_w), None, None)
+    dqkv, attn = fused_attention_bwd_qkv(qkv, g, proj_w, ctx.num_heads, ctx.ca, ctx.rope, pos)
+    return (*_weight_grads(x, g, dqkv, attn, qkv_w), None, None, None, None)
 
 
 @torch.library.custom_op('tcow_torch::attention_res', mutates_args=())
 def _attention_res_op(x: torch.Tensor, qkv_w: torch.Tensor, qkv_b: torch.Tensor,
                       proj_w: torch.Tensor, proj_b: torch.Tensor, num_heads: int,
-                      causal_attention: int
+                      causal_attention: int, rope: bool, pos: Optional[torch.Tensor]
                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    '''The forward of 'res': K3, saving x, qkv, probs and attn, JAX's `attn_res`
-    (:361-370).'''
+    '''The forward of 'res': K3, saving x, the un-rotated qkv, probs and attn, JAX's
+    `attn_res` (:361-370).'''
     _count_call('res')
     return fused_attention_fwd_res(x, qkv_w, qkv_b, proj_w, proj_b, num_heads,
-                                   causal_attention)
+                                   causal_attention, rope, pos)
 
 
 def _setup_res(ctx, inputs, output):
-    x, qkv_w, _, proj_w, _, ctx.num_heads, _ = inputs
+    x, qkv_w, _, proj_w, _, ctx.num_heads, _, ctx.rope, pos = inputs
     _, qkv, probs, attn = output
     ctx.mark_non_differentiable(qkv, probs, attn)
     ctx.set_materialize_grads(False)
-    ctx.save_for_backward(x, qkv, probs, attn, qkv_w, proj_w)
+    ctx.save_for_backward(x, qkv, probs, attn, qkv_w, proj_w, pos)
 
 
 def _backward_res(ctx, g, *_):
-    x, qkv, probs, attn, qkv_w, proj_w = ctx.saved_tensors
-    return (*attention_bwd_res(x, g, qkv, probs, attn, qkv_w, proj_w, ctx.num_heads),
-            None, None)
+    x, qkv, probs, attn, qkv_w, proj_w, pos = ctx.saved_tensors
+    return (*attention_bwd_res(x, g, qkv, probs, attn, qkv_w, proj_w, ctx.num_heads,
+                               ctx.rope, pos),
+            None, None, None, None)
 
 
 torch.library.register_autograd('tcow_torch::attention', _backward_x, setup_context=_setup_x)
@@ -547,29 +649,29 @@ FORWARD_OPS = {'res': torch.ops.tcow_torch.attention_res.default,
 
 
 def fused_attention(x, qkv_w, qkv_b, proj_w, proj_b, num_heads: int, causal_attention: int,
-                    bwd_mode: str = 'res'):
+                    bwd_mode: str = 'res', rope: bool = False, pos=None):
     '''Differentiable fused attention over x (B, S, D); weights (D, 3D), (3D,), (D, D),
-    (D,) f32. Without gradients it runs K1 and saves nothing; with them the forward and
-    backward of `bwd_mode` (module docstring). Kernels on CUDA tensors, the plain
-    versions on CPU tensors; every other device raises.'''
+    (D,) f32; with rope, q and k rotated by positions 0..S-1 or by pos (B, S) f32, which
+    gets no gradient. Without gradients it runs K1 and saves nothing; with them the
+    forward and backward of `bwd_mode` (module docstring). Kernels on CUDA tensors, the
+    plain versions on CPU tensors; every other device raises.'''
     if bwd_mode not in BWD_MODES:
         raise ValueError(f'unknown bwd_mode {bwd_mode!r}; one of {BWD_MODES}')
     _on_cpu(x, 'fused_attention')
     args = (x, qkv_w, qkv_b, proj_w, proj_b, num_heads, causal_attention)
+    pos = pos if rope else None
     if not (torch.is_grad_enabled() and any(t.requires_grad for t in args[:5])):
         _count_call(bwd_mode)
-        return fused_attention_fwd(*args)
+        return fused_attention_fwd(*args, rope, pos)
     if bwd_mode == 'res':
-        return _attention_res_op(*args)[0]
+        return _attention_res_op(*args, rope, pos)[0]
     if bwd_mode == 'kernel_qkv':
-        return _attention_qkv_op(*args)[0]
-    return _attention_op(*args, bwd_mode)
+        return _attention_qkv_op(*args, rope, pos)[0]
+    return _attention_op(*args, bwd_mode, rope, pos)
 
 
-fused_attention.launches = 0
 fused_attention.calls = dict.fromkeys(BWD_MODES, 0)
-fused_attention_fwd_qkv.launches = 0
-fused_attention_fwd_res.launches = 0
-fused_attention_bwd.launches = 0
-fused_attention_bwd_qkv.launches = 0
-fused_attention_bwd_wg.launches = 0
+for _wrapper in (fused_attention, fused_attention_fwd_qkv, fused_attention_fwd_res,
+                 fused_attention_bwd, fused_attention_bwd_qkv, fused_attention_bwd_wg):
+    _wrapper.launches = _wrapper.launches_rope = 0
+del _wrapper

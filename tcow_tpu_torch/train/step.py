@@ -14,6 +14,8 @@ Batch schema (numpy arrays or tensors; the step moves them to the model's device
   query_time    ()              int32    shared query frame index
   occl_fracs    (B, M, T, 3)    float32
   occl_cont_dag (B, T, M, M, 3) float32
+  frame_times   (B, T)          float32  optional: true source timestamps, read when
+                                         seeker.rope_time_coords is set
 '''
 
 import dataclasses
@@ -95,14 +97,19 @@ def build_supervision(cfg: StepConfig, batch) -> Dict[str, torch.Tensor]:
 
 def _forward_queries(model: MaskTracker, cfg: StepConfig, batch, sup, train: bool,
                      generator: Optional[torch.Generator]):
-    '''The seeker on all (example, query) pairs as one folded batch (step.py:63-85).
-    Returns output_mask (B, Q, C, T, H, W) and output_flags (B, Q, T, F) or None.'''
+    '''The seeker on all (example, query) pairs as one folded batch (step.py:63-85), every
+    query of an example on its clock when rope_time_coords is set (:73-77). Returns
+    output_mask (B, Q, C, T, H, W) and output_flags (B, Q, T, F) or None.'''
     B, Q = batch['query_inds'].shape
     rgb = batch['rgb']
     _, _, T, H, W = rgb.shape
     rgb_q = rgb[:, None].expand((B, Q) + rgb.shape[1:]).reshape(B * Q, 3, T, H, W)
     qmask = sup['seeker_query_mask'].reshape(B * Q, 1, T, H, W)
-    out_mask, out_flags = model(rgb_q, qmask, train=train, generator=generator)
+    frame_times = None
+    if cfg.seeker.rope_time_coords and 'frame_times' in batch:
+        frame_times = batch['frame_times'][:, None].expand(B, Q, T).reshape(B * Q, T)
+    out_mask, out_flags = model(rgb_q, qmask, train=train, generator=generator,
+                                frame_times=frame_times)
     out_mask = out_mask.reshape(B, Q, cfg.seeker.output_channels, T, H, W)
     if out_flags is not None:
         out_flags = out_flags.reshape(B, Q, T, -1)

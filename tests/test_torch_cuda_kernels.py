@@ -5,7 +5,10 @@ column and depth tiles, head sizes 32, 40, 64 and 128, every causal mode) for th
 forwards K1, K2 and K3 and the backwards K4, K5 and K6, K6's weight gradients identical
 across runs, the gradients of the differentiable fused_attention on the card, and the
 launch counts of the seeker's entry points and of one train step under each pairing of a
-backward mode with its remat policy. Every test carries the `cuda` marker and skips
+backward mode with its remat policy; and the rope variants K1r ... K6r (head sizes 32,
+64 and 128, where the rotation's partner element sits in another lane or the same one,
+with row positions and per-row frame times), a rope train step per pairing, and
+run_plugin of a time-calibrated rope seeker. Every test carries the `cuda` marker and skips
 without CUDA. The file imports neither JAX nor the tests'
 conftest, so on a GPU machine without JAX it runs as:
 
@@ -16,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from tcow_tpu_torch.data.synthetic import synthetic_device_batch
+from tcow_tpu_torch.data.synthetic import synthetic_device_batch, synthetic_frame_times
 from tcow_tpu_torch.evaluation.inference import InferenceEngine
 from tcow_tpu_torch.models import timesformer as tsf
 from tcow_tpu_torch.models.mask_tracker import MaskTracker, SeekerConfig, seeker_config_from_args
@@ -70,10 +73,16 @@ def cuda():
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
 
 
+WRAPPERS = {'k1': fa.fused_attention, 'k2': fa.fused_attention_fwd_qkv,
+            'k3': fa.fused_attention_fwd_res, 'k4': fa.fused_attention_bwd,
+            'k5': fa.fused_attention_bwd_qkv, 'k6': fa.fused_attention_bwd_wg}
+
+
 def launches():
-    return {'k1': fa.fused_attention.launches, 'k2': fa.fused_attention_fwd_qkv.launches,
-            'k3': fa.fused_attention_fwd_res.launches, 'k4': fa.fused_attention_bwd.launches,
-            'k5': fa.fused_attention_bwd_qkv.launches, 'k6': fa.fused_attention_bwd_wg.launches}
+    '''Every counter: 'k1' ... 'k6' without rope, 'k1r' ... 'k6r' with it.'''
+    out = {k: w.launches for k, w in WRAPPERS.items()}
+    out.update({f'{k}r': w.launches_rope for k, w in WRAPPERS.items()})
+    return out
 
 
 def since(before):
@@ -199,7 +208,8 @@ def test_fused_attention_is_differentiable_on_the_card(cuda, dtype, mode):
 
 
 def tiny_train_step(monkeypatch, **seeker_kw):
-    '''Launches and changed parameters of one train step at width 64, depth 2.'''
+    '''Launches and changed parameters of one train step at width 64, depth 2 (with
+    frame times in the batch).'''
     monkeypatch.setitem(tsf.DEPTH_PRESETS, 2, (64, 4))
     seeker = SeekerConfig(num_total_frames=4, frame_height=32, frame_width=48,
                           causal_attention=1, network_depth=2, drop_path_rate=0.1,
@@ -207,6 +217,7 @@ def tiny_train_step(monkeypatch, **seeker_kw):
     cfg = step_lib.StepConfig(seeker=seeker, loss=LossConfig(), num_queries=2)
     state = step_lib.init_train_state(0, cfg, optim.make_optimizer(), device='cuda')
     batch = synthetic_device_batch(0, B=2, Q=2, T=4, H=32, W=48, M=8, K=4)
+    batch['frame_times'] = synthetic_frame_times(0, B=2, T=4, frame_stride=2)
     before = {k: v.clone() for k, v in state.model.state_dict().items()}
     counts = launches()
     state, aux = step_lib.make_train_step(cfg)(state, batch, 0.1)
@@ -291,3 +302,135 @@ def test_seeker_entry_points_launch_the_kernel(cuda, tmp_path):
         run()
         torch.cuda.synchronize()
         assert fa.fused_attention.launches - before == 24
+
+
+# ---------------------------------------------------------------------------------------
+# K1r ... K6r: the kernels with rope
+# ---------------------------------------------------------------------------------------
+
+# (head dim, heads): 32 puts the rotation's partner element in another lane, 64 and 128
+# in the same lane.
+ROPE_HEADS = [(32, 2), (64, 2), (128, 2)]
+ROPE_CASES = [(dh, H, S, ca, pos, dtype) for dh, H in ROPE_HEADS for S in (1, 7, 30, 70)
+              for ca in (0, 1, 3) for pos in (None, 'times')
+              for dtype in (torch.bfloat16, torch.float32)]
+
+
+def rope_positions(B, S, pos, device):
+    return (None if pos is None
+            else torch.from_numpy(synthetic_frame_times(S, B, S, frame_stride=2)).to(device))
+
+
+@pytest.mark.parametrize('dh,H,S,ca,pos,dtype', ROPE_CASES)
+def test_rope_forwards_match_plain(cuda, dh, H, S, ca, pos, dtype):
+    '''K1r, K2r (out, un-rotated qkv) and K3r (and probabilities and attn) against
+    attention_res_ref with rope in f32 from the same inputs and positions.'''
+    B, D = 3, dh * H
+    x, w = inputs(B, S, D, dtype, cuda, seed=10)
+    p = rope_positions(B, S, pos, cuda)
+    before = launches()
+    k1 = fa.fused_attention_fwd(x, *w, H, ca, True, p)
+    k2 = fa.fused_attention_fwd_qkv(x, *w, H, ca, True, p)
+    k3 = fa.fused_attention_fwd_res(x, *w, H, ca, True, p)
+    torch.cuda.synchronize()
+    assert since(before) == {'k1r': 1, 'k2r': 1, 'k3r': 1}
+    want = fa.attention_res_ref(x.float(), *w, H, ca, True, p)
+    for got, ref in zip((k1,) + k2 + k3, want[:1] + want[:2] + want):
+        assert got.dtype == dtype and got.shape == ref.shape
+        err = rel_l2(got, ref)
+        assert err <= TOL[dtype], err
+
+
+@pytest.mark.parametrize('dh,H,S,ca,pos,dtype', ROPE_CASES)
+def test_rope_backwards_match_plain(cuda, dh, H, S, ca, pos, dtype):
+    '''K4r (dqkv, attn), K5r from the un-rotated qkv and K6r (dx and the weight and bias
+    gradients) against their plain versions with rope in f32 from the same inputs.'''
+    B, D = 3, dh * H
+    x, w = inputs(B, S, D, dtype, cuda, seed=11)
+    g = grad_input(B, S, D, dtype, cuda, seed=12)
+    p = rope_positions(B, S, pos, cuda)
+    _, qkv = fa.fused_attention_fwd_qkv(x, *w, H, ca, True, p)
+    before = launches()
+    k4 = fa.fused_attention_bwd(x, g, *w[:3], H, ca, True, p)
+    k5 = fa.fused_attention_bwd_qkv(qkv, g, w[2], H, ca, True, p)
+    k6 = fa.fused_attention_bwd_wg(x, g, *w[:3], H, ca, True, p)
+    torch.cuda.synchronize()
+    assert since(before) == {'k4r': 1, 'k5r': 1, 'k6r': 1}
+    want = (fa.attention_bwd_ref(x.float(), g.float(), *w[:3], H, ca, True, p)
+            + fa.attention_bwd_qkv_ref(qkv.float(), g.float(), w[2], H, ca, True, p)
+            + fa.attention_bwd_wg_ref(x.float(), g.float(), *w[:3], H, ca, True, p))
+    for got, ref in zip(k4 + k5 + k6, want):
+        assert got.shape == ref.shape
+        err = rel_l2(got, ref)
+        assert err <= TOL_BWD[dtype], err
+
+
+@pytest.mark.parametrize('mode', fa.BWD_MODES)
+def test_rope_fused_attention_is_differentiable_on_the_card(cuda, mode):
+    '''The differentiable call with rope and per-row positions: the rope launches of the
+    mode, and the five gradients of autograd through the plain version.'''
+    x, w = inputs(4, 30, 256, torch.bfloat16, cuda, seed=13)
+    g = grad_input(4, 30, 256, torch.bfloat16, cuda, seed=14)
+    p = rope_positions(4, 30, 'times', cuda)
+    leaves = [x.clone().requires_grad_()] + [a.clone().requires_grad_() for a in w]
+    before = launches()
+    fa.fused_attention(*leaves, 4, 1, mode, True, p).backward(g)
+    torch.cuda.synchronize()
+    assert since(before) == {'res': {'k3r': 1}, 'kernel_qkv': {'k2r': 1, 'k5r': 1},
+                             'kernel_x': {'k1r': 1, 'k4r': 1},
+                             'kernel_x_wg': {'k1r': 1, 'k6r': 1}}[mode]
+    ref = [x.float().requires_grad_()] + [a.clone().requires_grad_() for a in w]
+    fa.attention_ref(*ref, 4, 1, True, p).backward(g.float())
+    for a, b in zip(leaves, ref):
+        err = rel_l2(a.grad, b.grad)
+        assert err <= TOL_BWD[torch.bfloat16], err
+
+
+@pytest.mark.parametrize('mode,policy', list(PAIRINGS))
+def test_rope_train_step_pairing_launches(cuda, monkeypatch, mode, policy):
+    '''A time-calibrated rope step: the temporal calls (one per block) launch the rope
+    kernels, the spatial calls the plain ones.'''
+    got = tiny_train_step(monkeypatch, remat=True, remat_policy=policy, attention_bwd=mode,
+                          temporal_rope=True, rope_time_coords=True)
+    want = {}
+    for k, n in PAIRINGS[mode, policy].items():
+        want[k] = want[f'{k}r'] = 2 * n
+    assert got == want
+
+
+def test_rope_run_plugin_reads_frame_times(cuda, monkeypatch):
+    '''ViT-B/16 with time-calibrated rope on small frames: a request launches K1r for
+    each temporal call and K1 for each spatial one, stride-2 frame times change the
+    output, and the output stays within the seeker tolerance of the plain path.'''
+    args = dict(num_total_frames=4, frame_height=32, frame_width=48, network_depth=12,
+                causal_attention=1, temporal_rope=1, rope_time_coords=1)
+    model = MaskTracker(seeker_config_from_args(args))
+    model.init_params_(torch.Generator().manual_seed(0))
+    engine = InferenceEngine(params_to_jax(model.state_dict()), seeker_config_from_args(args),
+                             device='cuda')
+    rng = np.random.RandomState(0)
+    rgb = rng.rand(1, 3, 4, 32, 48).astype(np.float32)
+    query = (rng.rand(1, 1, 4, 32, 48) > 0.5).astype(np.float32)
+    target = np.zeros((1, 3, 4, 32, 48), np.float32)
+    before = launches()
+    rows = engine.run_plugin(rgb, query, target)[0][0]['output_mask']
+    torch.cuda.synchronize()
+    assert since(before) == {'k1r': 12, 'k1': 12}
+    times = np.arange(4, dtype=np.float32)[None] * 2.0
+    strided = engine.run_plugin(rgb, query, target, frame_times=times)[0][0]['output_mask']
+    assert np.abs(strided - rows).max() > 0
+    monkeypatch.setattr(tsf, 'fused_attention',
+                        lambda *a: fa.attention_ref(*a[:7], *a[8:]))   # drop bwd_mode
+    want = engine.run_plugin(rgb, query, target, frame_times=times)[0][0]['output_mask']
+    assert rel_l2(torch.from_numpy(strided), torch.from_numpy(want)) <= 1e-3
+
+
+def test_rope_kernel_rejects_bad_positions(cuda):
+    x, w = inputs(2, 8, 64, torch.bfloat16, cuda)
+    g = grad_input(2, 8, 64, torch.bfloat16, cuda)
+    good = torch.zeros(2, 8, device=cuda)
+    for bad in (good[:, :4], good.double(), good[None], good.cpu()):
+        with pytest.raises(ValueError, match='pos'):
+            fa.fused_attention_fwd(x, *w, 2, 1, True, bad)
+        with pytest.raises(ValueError, match='pos'):
+            fa.fused_attention_bwd(x, g, *w[:3], 2, 1, True, bad)

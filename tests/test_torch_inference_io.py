@@ -100,9 +100,10 @@ def test_import_without_jax_or_tcow_tpu():
         "        pkgutil.walk_packages(tcow_tpu_torch.__path__, 'tcow_tpu_torch.')]\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
-        "training = {'tcow_tpu_torch.' + m for m in ('train.step', 'train.optim',\n"
-        "            'objectives.losses', 'objectives.supervision', 'data.synthetic')}\n"
-        "assert training <= set(mods), training - set(mods)\n"
+        "named = {'tcow_tpu_torch.' + m for m in ('train.step', 'train.optim',\n"
+        "            'objectives.losses', 'objectives.supervision', 'data.synthetic',\n"
+        "            'ops.rope')}\n"
+        "assert named <= set(mods), named - set(mods)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'tcow_tpu' or m.startswith('tcow_tpu.')]\n"
         "assert not bad, bad\n"
@@ -126,15 +127,27 @@ def test_cuda_default_raises_without_cuda(tmp_path, jax_params):
         Seeker(cfg, jax_params)
 
 
-@pytest.mark.parametrize('args,cfg_kw', [
-    (dict(temporal_rope=1), dict(temporal_rope=True)),
-    (dict(rope_time_coords=1), dict(temporal_rope=True)),
-    (dict(attention_type='joint_space_time'), dict(attention_type='joint_space_time'))])
-def test_unported_configs_raise(args, cfg_kw):
-    with pytest.raises(NotImplementedError):
-        pmt.seeker_config_from_args({**SEEKER_ARGS, **args})
-    with pytest.raises(NotImplementedError):
-        pmt.SeekerConfig(**cfg_kw)
+@pytest.mark.parametrize('args', [dict(rope_time_coords=1),
+                                  dict(temporal_rope=1, rope_time_coords=1),
+                                  dict(attention_type='joint_space_time')])
+def test_unported_configs_raise(tiny_preset, args):
+    '''rope_time_coords without temporal_rope raises ValueError, as JAX does when it builds
+    the backbone config; both rope keys build a config with both fields set, as in JAX;
+    joint attention is not ported yet.'''
+    full = {**SEEKER_ARGS, **args}
+    if 'attention_type' in args:
+        with pytest.raises(NotImplementedError):
+            pmt.seeker_config_from_args(full)
+    elif 'temporal_rope' in args:
+        cfg, jcfg = pmt.seeker_config_from_args(full), mt.seeker_config_from_args(full)
+        assert (cfg.temporal_rope, cfg.rope_time_coords) == (True, True)
+        assert (jcfg.temporal_rope, jcfg.rope_time_coords) == (True, True)
+        assert cfg.backbone_config().temporal_rope
+    else:
+        with pytest.raises(ValueError, match='rope_time_coords'):
+            pmt.seeker_config_from_args(full)
+        with pytest.raises(ValueError, match='rope_time_coords'):
+            mt.seeker_config_from_args(full).backbone_config()
 
 
 def random_masks(B, C, T, H, W, seed, unannotated=False):

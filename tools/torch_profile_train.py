@@ -5,15 +5,17 @@ Device-time breakdown of the PyTorch port's training step on one NVIDIA GPU.
 Builds the training step of chip_smoke.py (2 clips x 3 queries, ViT-B/16, depth 12, T=30,
 240x320, causal_attention=1, bf16, per-block remat, drop-path 0.1, AdamW) under an
 attention-backward mode and a remat policy, by default the step of record (kernel_x with
-dots_nb_out: K1 forward, K4 backward), and, for the kernel path and the plain attention
-path, runs one warm-up step and profiles one step with torch.profiler. Prints one JSON
-line each: host wall time of the step, device busy time and its share of the wall time,
-and device time per kernel group. With --table_dir DIR the per-kernel tables go to
-DIR/torch_profile_train_<mode>_<policy>_<path>.txt.
+dots_nb_out: K1 forward, K4 backward), with --rope the time-calibrated rope step
+(temporal_rope, rope_time_coords, frame times in the batch: K1r/K4r on the temporal calls),
+and, for the kernel path and the plain attention path, runs one warm-up step and profiles
+one step with torch.profiler. Prints one JSON line each: host wall time of the step,
+device busy time and its share of the wall time, and device time per kernel group. With
+--table_dir DIR the per-kernel tables go to
+DIR/torch_profile_train_<mode>_<policy>[_rope]_<path>.txt.
 
 Run from the repository root:
 `python3 tools/torch_profile_train.py [--attention_bwd MODE] [--remat_policy POLICY]
-[--table_dir DIR]`.
+[--rope] [--table_dir DIR]`.
 '''
 
 import argparse
@@ -38,6 +40,8 @@ def main():
                     help='attention backward mode (default: the step of record\'s)')
     ap.add_argument('--remat_policy', default=cs.STEP_OF_RECORD[1], choices=REMAT_POLICIES,
                     help='per-block remat policy (default: the step of record\'s)')
+    ap.add_argument('--rope', action='store_true',
+                    help='the time-calibrated rope step (rope256 configuration)')
     ap.add_argument('--table_dir', default=None,
                     help='write the per-kernel profiler tables into this directory')
     args = ap.parse_args()
@@ -46,15 +50,17 @@ def main():
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = cs.train_config(torch.bfloat16, pairing=(args.attention_bwd, args.remat_policy))
+    cfg = cs.train_config(torch.bfloat16, pairing=(args.attention_bwd, args.remat_policy),
+                          rope=args.rope)
     tx = optim.make_optimizer('adamw', learn_rate=1e-4, num_epochs=70, steps_per_epoch=1000)
     state = step_lib.init_train_state(cs.SEED, cfg, tx, device='cuda')
     train_step = step_lib.make_train_step(cfg)
-    batch = cs.train_batch()
+    batch = cs.train_batch(args.rope)
+    rope = '_rope' if args.rope else ''
     for tag in ('kernel', 'plain'):
         profile_call(lambda: train_step(state, batch, cs.TRAIN_PROGRESS),
-                     f'train_{args.attention_bwd}_{args.remat_policy}_{tag}', tag == 'plain',
-                     args.table_dir)
+                     f'train_{args.attention_bwd}_{args.remat_policy}{rope}_{tag}',
+                     tag == 'plain', args.table_dir)
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True).stdout.strip())
