@@ -39,7 +39,12 @@ Drives the PyTorch port (tcow_tpu_torch) on one NVIDIA GPU and checks it:
      output and time_embed not (rope_slice); the training step under each pairing, per
      step 12 rope + 12 plain launches of each kernel of the pairing (rope_train), its
      parity (rope_train_parity); and every rope kernel timed beside its plain version,
-     its library yardstick, its bound and the kernel without rope (rope_times).
+     its library yardstick, its bound and the kernel without rope (rope_times);
+  9. the bf16 attention core of K1-K3 and K1r-K3r (tensor cores) launched alone through
+     tcow_attn_core at the nine shapes the main paths give it (CORE_SHAPES): against its
+     plain version, the same bits on a second run (and K1 or K3 through its wrapper), and
+     timed beside the plain version, SDPA (or matmul + softmax + matmul for the
+     probabilities) and its bound (phase attn_core_times).
 
 Run from the repository root: `python3 chip_smoke.py`. Prints one JSON object per phase,
 then the `{"kernels": [...]}` line, the nvidia-smi line, and last
@@ -1133,6 +1138,143 @@ def phase_rope_times():
     return per_geom
 
 
+# ---------------------------------------------------------------------------------------
+# attn_core alone: the bf16 attention core of K1-K3 and K1r-K3r (tensor cores)
+# ---------------------------------------------------------------------------------------
+
+# (name, sequences, S, causal_attention, rope with frame times, probabilities) of the
+# attention core's calls on the main paths.
+CORE_SHAPES = (
+    ('inference_temporal', *GEOMETRIES['temporal'], False, False),
+    ('inference_spatial', *GEOMETRIES['spatial'], False, False),
+    ('train_temporal', *TRAIN_GEOMETRIES['temporal'], False, False),
+    ('train_spatial', *TRAIN_GEOMETRIES['spatial'], False, False),
+    ('rope_inference_temporal', *GEOMETRIES['temporal'], True, False),
+    ('rope_train_temporal', *TRAIN_GEOMETRIES['temporal'], True, False),
+    ('probs_train_temporal', *TRAIN_GEOMETRIES['temporal'], False, True),
+    ('probs_train_spatial', *TRAIN_GEOMETRIES['spatial'], False, True),
+    ('rope_probs_train_temporal', *TRAIN_GEOMETRIES['temporal'], True, True),
+)
+# The core shapes each kernel of the kernels line runs at.
+CORE_OF_KERNEL = {
+    'K1': ('inference_temporal', 'inference_spatial', 'train_temporal', 'train_spatial'),
+    'K2': ('train_temporal', 'train_spatial'),
+    'K3': ('probs_train_temporal', 'probs_train_spatial'),
+    'K1r': ('rope_inference_temporal', 'rope_train_temporal'),
+    'K2r': ('rope_train_temporal',),
+    'K3r': ('rope_probs_train_temporal',),
+}
+
+
+def core_split(qkv, cs):
+    '''q, k, v (B, H, S, dh) views of qkv (B, S, 3D); q and k rotated by the rope tables cs
+    (None: unchanged).'''
+    B, S, _ = qkv.shape
+    q, k, v = qkv.reshape(B, S, 3, HEADS, D // HEADS).permute(2, 0, 3, 1, 4)
+    return (*rotate(q, k, cs), v)
+
+
+def core_ref(qkv, ca, cs, probs):
+    '''The attention core's plain version, from the bf16 qkv: f32 logits, -1e10 fill, f32
+    softmax, p rounded to bf16, p v in f32 -> (attn (B, S, D) f32, p (B, H, S, S) or
+    None).'''
+    B, S, _ = qkv.shape
+    q, k, v = core_split(qkv, cs)
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (D // HEADS) ** -0.5
+    if ca > 0:
+        logits = logits.masked_fill(~fa._causal_keep(S, ca, qkv.device), -1e10)
+    p = torch.softmax(logits, dim=-1).to(qkv.dtype)
+    attn = torch.matmul(p.float(), v.float()).transpose(1, 2).reshape(B, S, D)
+    return attn, (p if probs else None)
+
+
+def library_core(qkv, ca, cs, probs):
+    '''The same function by library calls (yardstick only): SDPA with the causal mask, or
+    for the probabilities matmul + softmax + matmul.'''
+    q, k, v = core_split(qkv, cs)
+    if not probs:
+        return F.scaled_dot_product_attention(q, k, v, is_causal=ca > 0)
+    logits = torch.matmul(q, k.transpose(-1, -2)) * (D // HEADS) ** -0.5
+    if ca > 0:
+        logits = logits.masked_fill(~fa._causal_keep(q.shape[2], ca, q.device), -1e10)
+    p = torch.softmax(logits, dim=-1, dtype=torch.float32).to(q.dtype)
+    return torch.matmul(p, v), p
+
+
+def core_bound(R, S, ca, rope, probs):
+    '''(flops, bytes) of the attention core: 4 dh operations per kept pair and head (q.k
+    and p.v), 6 per rotated pair of q and k with rope; qkv read once, attn (and the
+    probabilities, the per-row tables) written / read once.'''
+    flops = 4 * (D // HEADS) * HEADS * R * attended_pairs(S, ca)
+    nbytes = 2 * (4 * R * S * D + (R * HEADS * S * S if probs else 0))
+    if rope:
+        flops, nbytes = flops + rope_flops(R, S), nbytes + table_bytes(R, S)
+    return flops, nbytes
+
+
+def phase_attn_core_times():
+    '''The bf16 attention core launched alone through tcow_attn_core, as the wrapper launches
+    it, on a qkv made by K2 at each shape of CORE_SHAPES: against its plain version in f32
+    (attn and probabilities, rel L2 <= TOL_BF16), the same bits on a second run, and timed
+    beside the plain version, the library yardstick and its bound. K1 (K3 at the
+    probability shapes) through its wrapper must give the same bits twice too.'''
+    lib = fa._lib()
+    dh = D // HEADS
+    per_shape = {}
+    for i, (name, R, S, ca, rope, probs) in enumerate(CORE_SHAPES):
+        x, w = attn_inputs(R, S, torch.bfloat16, SEED + 500 + i)
+        pos = rope_positions(R, S, SEED + 520 + i) if rope else None
+        cs = head_tables(S, pos) if rope else None
+        with torch.no_grad():
+            qkv = fa.fused_attention_fwd_qkv(x, *w, HEADS, ca, rope, pos)[1]
+            kernel = fa.fused_attention_fwd_res if probs else fa.fused_attention_fwd
+            runs = [kernel(x, *w, HEADS, ca, rope, pos) for _ in range(2)]
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in (zip(*runs) if probs else [runs])):
+            fail(f'attn_core {name}: {"K3" if probs else "K1"} gave other bits on a second run')
+        del x, runs
+        cos, sin, stride = fa._kernel_tables(qkv, S, dh, rope, pos)
+        attn = torch.empty((R, S, D), dtype=qkv.dtype, device=DEV)
+        p = torch.empty((R, HEADS, S, S), dtype=qkv.dtype, device=DEV) if probs else None
+
+        def launch():
+            fa._check(lib.tcow_attn_core(1, qkv.data_ptr(), attn.data_ptr(), fa._ptr(p),
+                                         fa._ptr(cos), fa._ptr(sin), stride, R, S, HEADS, dh,
+                                         int(ca > 0), fa._mask_diag(ca), dh ** -0.5,
+                                         fa._stream(qkv)), 'attn_core')
+
+        launch()
+        got = (attn.clone(), p.clone() if probs else None)
+        launch()
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], attn) and (not probs or torch.equal(got[1], p))):
+            fail(f'attn_core {name}: other bits on a second run')
+        want = core_ref(qkv, ca, cs, probs)
+        e = dict(R=R, S=S, ca=ca, rope=rope, probs=probs, tol_rel_l2=TOL_BF16,
+                 rel_l2_attn=rel_l2(attn.float(), want[0]),
+                 max_abs_err=float((attn.float() - want[0]).abs().max()))
+        if probs:
+            e['rel_l2_probs'] = rel_l2(p.float(), want[1].float())
+            e['max_abs_err'] = max(e['max_abs_err'], float((p.float() - want[1].float())
+                                                            .abs().max()))
+        del want, got
+        bad = {k: v for k, v in e.items() if k.startswith('rel_l2') and not v <= TOL_BF16}
+        if bad:
+            fail(f'attn_core {name}: kernel vs plain rel L2 above {TOL_BF16}: {bad}')
+        flops, nbytes = core_bound(R, S, ca, rope, probs)
+        bound_ms, bound_by = bound(flops, nbytes)
+        with torch.no_grad():
+            e.update(ms=cuda_ms(launch), plain_ms=cuda_ms(lambda: core_ref(qkv, ca, cs, probs),
+                                                          iters=5),
+                     library_ms=cuda_ms(lambda: library_core(qkv, ca, cs, probs)),
+                     bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=nbytes)
+        per_shape[name] = e
+        del qkv, attn, p, cos, sin, cs, pos
+        torch.cuda.empty_cache()
+    emit({'phase': 'attn_core_times', 'per_shape': per_shape, 'deterministic': True})
+    return per_shape
+
+
 def kernel_entry(name, source, replaces, launches, errs, per_geom):
     '''One item of the `kernels` line: means over the geometries of the main path (each
     is called once per block).'''
@@ -1201,6 +1343,7 @@ def main():
         del rope_record[key]
     torch.cuda.empty_cache()
     rope_geom = phase_rope_times()
+    core = phase_attn_core_times()
 
     def train_launches(kernel, runs=trains, prefix='train'):
         return {f'{prefix}_{m}': t['launches'][kernel] for (m, _), t in runs.items()
@@ -1234,6 +1377,11 @@ def main():
             launches = {'rope_inference': rope_inference_launches, **launches}
         entries.append(kernel_entry(name, source, replaces + line, launches,
                                     rope_errs[kernel], rope_geom[kernel]))
+    # K1-K3 and K1r-K3r: their bf16 attention core (attn_core_mma) timed alone.
+    for kernel, entry in zip(('K1', 'K2', 'K3', 'K4', 'K5', 'K6', 'K1r', 'K2r', 'K3r'),
+                             entries):
+        if kernel in CORE_OF_KERNEL:
+            entry['attn_core'] = {s: core[s] for s in CORE_OF_KERNEL[kernel]}
     emit({'kernels': entries})
     print(smi)
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -19,17 +19,41 @@
 // (D=768, 12 heads, dh=64) one temporal call (600 sequences of 30) is ~86.6 GFLOP
 // (qkv 63.7, proj 21.2, scores+PV 1.7 counted over the full square) and one spatial call
 // (60 sequences of 301) ~101.9 GFLOP (63.9 + 21.3 + 16.7), against ~65 MB of compulsory
-// traffic: about 1300 FLOP per byte, so the call is compute-bound, ~88 us and ~103 us.
-// What the design does about that bound: nothing yet. The GEMMs use wmma bf16 tensor-core
-// tiles without a copy pipeline; attn_core runs on the CUDA cores in f32 and computes
-// the logits twice (two passes, see below); qkv and attn make a round trip through HBM.
-// wgmma, TMA and fusing the three stages are later work.
+// traffic: about 1300 FLOP per byte, so the chain is compute-bound, ~88 us and ~103 us.
+// The GEMMs use wmma bf16 tensor-core tiles without a copy pipeline; qkv and attn make a
+// round trip through HBM. wgmma, TMA and fusing the three stages are later work.
 //
-// attn_core keeps the rounding points of the plain version (attention_ref): pass 1 over
-// the key tiles finds each row's max and sum of exp, pass 2 recomputes the same logits,
-// forms p = exp(l - m) / s, rounds p to the compute dtype and accumulates p.v in f32. An
-// online softmax would rescale partial outputs and round elsewhere. Shared memory is
-// bounded for any S: one query tile, one key tile and one value tile at a time.
+// attn_core alone is bytes-bound: it reads qkv once (R S 3D bf16) and writes attn (R S D)
+// and, for K3, the probabilities (R H S S), against 4 dh operations per kept (query, key)
+// pair and head: ~0.099 ms of bytes against ~0.05 ms of operations at training 180x301.
+// In bf16 it is attn_core_mma, on tensor cores:
+//   - mma.sync m16n8k16 (bf16 in, f32 accumulate) through the fragment helpers below
+//     (frag::), for q k^T and for p v; ldmatrix loads, .trans for v as the B operand. A
+//     warp owns 16 query rows and keeps its q fragments in registers for the whole call.
+//   - bf16 staging: q once per block, k and v per tile of 64 keys, into shared rows of
+//     stride dh + 8 (dh padded to a multiple of 16 with zero columns, which add exactly 0),
+//     so ldmatrix has no bank conflicts. Without rope the rows arrive by 16-byte cp.async
+//     (8-byte when dh % 8 != 0), and the next tile's copy overlaps the current tile's
+//     products (two buffers). With rope q and k rows are rotated in f32 by rope_rotate and
+//     rounded to bf16 as they are stored (the values stage_qk<bf16, true> gives).
+//   - Tile shapes from S at launch: warps per block = ceil(S / 16) up to 4, so S = 30 (the
+//     temporal calls, 600 or 1800 sequences) takes 2 warps and a 32-row tile instead of
+//     half-filling a 64-row one, and S = 301 takes 4 warps and five 64-row query tiles. A
+//     block whose keys fit one 64-key tile (S <= 64) stages k and v once for both passes,
+//     in one buffer sized round_up(S, 16). Under the causal mask each warp skips the
+//     16-key chunks wholly past its own last row + diag, not only the block's.
+//   - Rounding points of the plain version (attention_ref), kept: pass 1 over the key
+//     tiles finds each row's max m and sum s from f32 logits q.k * scale (fill -1e10 for
+//     causal-masked keys, -inf past the visited range: both add exactly 0); pass 2
+//     recomputes the same logits on the tensor cores, forms p = exp(l - m) / s, rounds it
+//     to bf16 in registers, writes it there for K3, and packs two n8 accumulator
+//     fragments into the A fragment of p v, with no shared-memory round trip. An online
+//     softmax would rescale partial outputs and round elsewhere. No atomics and no split
+//     over keys: the same inputs give the same bits on every run (full remat re-runs K1,
+//     and the res pairing K3).
+// In f32, attn_core_f32 stays on the CUDA cores (one block per sequence, 32-query tile and
+// head, f32 staging, fmaf logits in tile_dots, the same two passes): tensor cores take no
+// f32 inputs, and TF32 keeps ~10 mantissa bits, too few for the 1e-4 f32 limit.
 //
 // ---- K4, the backward ----
 //
@@ -71,8 +95,12 @@
 // spatial. What the design does about that bound: nothing yet. The GEMMs are the
 // forward's wmma tiles without a copy pipeline; the attention core runs on the CUDA cores
 // in f32, computes the logits three times in attn_bwd_q and once more in attn_bwd_kv, and
-// qkv, dattn and the statistics make a round trip through HBM. Tensor cores (mma) in the
-// core and wgmma + TMA in the GEMMs are later work.
+// qkv, dattn and the statistics make a round trip through HBM. Tensor cores in the core
+// are later work, on the forward's fragment helpers: frag::load_a (q, dA rows), load_bt
+// (k, v rows for q k^T and dA v^T), load_b (.trans: v, k, q, dA as a B operand), mma,
+// quad_max / quad_sum (row statistics) and p_as_a (p_c or dlog from accumulators as an A
+// operand), with stage_async and stage_rope for bf16 tiles; pf and dlog must stay
+// bit-identical between the two launches. wgmma + TMA in the GEMMs are later work.
 
 // ---- K2, K3: the forward with residuals ----
 //
@@ -81,10 +109,11 @@
 // device memory between its launches; the wrapper returns it. No device code of its own.
 // K3 replaces _fused_attention_fwd_impl(want_residuals=True) (`pallas_call` :327, probs and
 // attn stored at :141-142 and :152-155), the forward of the 'res' mode: K1's chain with
-// attn_core<PROBS = true>, which stores each p_c it forms in pass 2 into probs
+// attn_core_{mma,f32}<PROBS = true>, which stores each p_c it forms in pass 2 into probs
 // (B, H, S, S) in the compute dtype, per sequence and not in the TPU's packed
 // (B/pack, H, SP, SP) layout, and zeros for the keys the causal mask drops. attn (B, S, D)
-// is K1's intermediate. Bound at the training step of record (bf16): K1's operations
+// is K1's intermediate. In bf16 attn_core_mma<PROBS> writes p_c from the registers that
+// feed p v. Bound at the training step of record (bf16): K1's operations
 // (2.6e11 temporal, 3.1e11 spatial) against K1's bytes plus qkv, attn and the
 // probabilities (0.39 GB spatial, 0.04 GB temporal): operations-bound, ~0.26 / ~0.31 ms.
 // What the design does about it: nothing beyond K1's design.
@@ -479,7 +508,7 @@ struct AttnArgs {
 };
 
 // ---------------------------------------------------------------------------------------
-// attn_core: qkv (B, S, 3D) -> attn (B, S, D), heads concatenated (h * dh + d).
+// attn_core_f32: qkv (B, S, 3D) -> attn (B, S, D) in f32, heads concatenated (h * dh + d).
 // One block per (sequence, query tile of QT rows, head); 4 warps of RPW query rows each.
 // In the logit loops a lane owns one key of the tile; in P.v a lane owns columns
 // d = lane + 32 c of the head.
@@ -488,12 +517,13 @@ __host__ __device__ inline size_t attn_smem_floats(int dh) {
     return (size_t)QT * dh + (size_t)KT * ks_ld(dh) + (size_t)KT * dh + (size_t)QT * KT;
 }
 
-template <typename T, int DC, bool PROBS, bool ROPE>
+template <int DC, bool PROBS, bool ROPE>
 __global__ void __launch_bounds__(AC_WARPS * 32)
-attn_core(const T* __restrict__ qkv, T* __restrict__ out, T* __restrict__ probs,
-          const float* __restrict__ rope_cos, const float* __restrict__ rope_sin,
-          int table_stride, int S, int H, int dh, int causal, int diag, float scale,
-          int q_tiles) {
+attn_core_f32(const float* __restrict__ qkv, float* __restrict__ out, float* __restrict__ probs,
+              const float* __restrict__ rope_cos, const float* __restrict__ rope_sin,
+              int table_stride, int S, int H, int dh, int causal, int diag, float scale,
+              int q_tiles) {
+    using T = float;
     extern __shared__ __align__(16) float smem[];
     float* qs = smem;                       // QT x dh
     float* ks = qs + QT * dh;               // KT x ks_ld(dh)
@@ -595,37 +625,473 @@ attn_core(const T* __restrict__ qkv, T* __restrict__ out, T* __restrict__ probs,
     }
 }
 
-template <typename T, int DC, bool PROBS, bool ROPE>
-cudaError_t launch_attn_core(const AttnArgs& a, cudaStream_t stream) {
+template <int DC, bool PROBS, bool ROPE>
+cudaError_t launch_attn_core_f32(const AttnArgs& a, cudaStream_t stream) {
     const size_t smem = attn_smem_floats(a.dh) * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(attn_core<T, DC, PROBS, ROPE>,
+    cudaError_t err = cudaFuncSetAttribute(attn_core_f32<DC, PROBS, ROPE>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return err;
     const int q_tiles = (a.S + QT - 1) / QT;
     dim3 grid((unsigned)a.B * q_tiles, a.H);
-    attn_core<T, DC, PROBS, ROPE><<<grid, AC_WARPS * 32, smem, stream>>>(
-        static_cast<const T*>(a.qkv), static_cast<T*>(a.attn), static_cast<T*>(a.probs), a.cos,
-        a.sin, a.table_stride, a.S, a.H, a.dh, a.causal, a.diag, a.scale, q_tiles);
+    attn_core_f32<DC, PROBS, ROPE><<<grid, AC_WARPS * 32, smem, stream>>>(
+        static_cast<const float*>(a.qkv), static_cast<float*>(a.attn),
+        static_cast<float*>(a.probs), a.cos, a.sin, a.table_stride, a.S, a.H, a.dh, a.causal,
+        a.diag, a.scale, q_tiles);
     return cudaGetLastError();
 }
 
-template <typename T, int DC, bool ROPE>
-cudaError_t attn_core_probs(const AttnArgs& a, cudaStream_t st) {
-    return a.probs ? launch_attn_core<T, DC, true, ROPE>(a, st)
-                   : launch_attn_core<T, DC, false, ROPE>(a, st);
+// ---------------------------------------------------------------------------------------
+// Tensor-core fragment helpers: mma.sync m16n8k16, bf16 operands, f32 accumulation, fed by
+// ldmatrix from bf16 tiles in shared memory. Lane = 4 g + t (g = lane / 4, t = lane % 4).
+// An accumulator fragment c[4] of a 16 x 8 tile holds row g at columns 2t, 2t + 1 (c[0],
+// c[1]) and row g + 8 at the same columns (c[2], c[3]): a row lives in the four lanes of one
+// quad, so a row reduction is two shuffles. Two n8 accumulator fragments (columns 0-7 and
+// 8-15), rounded to bf16, are exactly the A fragment of a 16 x 16 operand (p_as_a). Tiles
+// are row-major with a row stride of (a multiple of 16) + 8 elements: eight consecutive
+// rows then start in eight different 16-byte bank groups, and ldmatrix has no conflicts.
+// ---------------------------------------------------------------------------------------
+namespace frag {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <typename T, int DC>
-cudaError_t attn_core_rope(const AttnArgs& a, cudaStream_t st) {
-    return a.cos ? attn_core_probs<T, DC, true>(a, st) : attn_core_probs<T, DC, false>(a, st);
+// A fragment of rows 0-15, columns 0-15 of the tile at `tile` (row stride ld).
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile, int ld, int lane) {
+    const bf16* p = tile + (lane & 15) * ld + (lane >> 4) * 8;
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+                 : "r"(smem_u32(p)));
 }
 
-template <typename T>
-cudaError_t attn_core_dispatch(const AttnArgs& a, cudaStream_t st) {
-    if (a.dh <= 32) return attn_core_rope<T, 1>(a, st);
-    if (a.dh <= 64) return attn_core_rope<T, 2>(a, st);
-    return attn_core_rope<T, 4>(a, st);
+// B fragments of X^T for two n8 tiles, X (n rows, k columns) at `tile`: n 0-7 in b[0], b[1],
+// n 8-15 in b[2], b[3], k 0-15. For a . x^T with x stored by rows (q k^T: x = k).
+__device__ __forceinline__ void load_bt(uint32_t (&b)[4], const bf16* tile, int ld, int lane) {
+    const bf16* p = tile + ((lane & 7) + ((lane >> 4) << 3)) * ld + ((lane >> 3) & 1) * 8;
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
+                 : "r"(smem_u32(p)));
+}
+
+// B fragments of X for two n8 tiles, X (k rows 0-15, n columns) at `tile`, transposed by
+// ldmatrix: n 0-7 in b[0], b[1], n 8-15 in b[2], b[3]. For a . x (p v: x = v).
+__device__ __forceinline__ void load_b(uint32_t (&b)[4], const bf16* tile, int ld, int lane) {
+    const bf16* p = tile + ((lane & 7) + ((lane >> 3) & 1) * 8) * ld + (lane >> 4) * 8;
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
+                 : "r"(smem_u32(p)));
+}
+
+// c (16 x 8, f32) += a (16 x 16, bf16) . b (16 x 8, bf16).
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Max and sum of a row over the four lanes of its quad.
+__device__ __forceinline__ float quad_max(float v) {
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+    return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+    v += __shfl_xor_sync(0xffffffffu, v, 1);
+    return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+__device__ __forceinline__ uint32_t pack(bf16 lo, bf16 hi) {
+    return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+// The A fragment of a 16 x 16 operand from its two n8 accumulator fragments, rounded.
+__device__ __forceinline__ void p_as_a(uint32_t (&a)[4], const bf16 (&p)[2][4]) {
+    a[0] = pack(p[0][0], p[0][1]);
+    a[1] = pack(p[0][2], p[0][3]);
+    a[2] = pack(p[1][0], p[1][1]);
+    a[3] = pack(p[1][2], p[1][3]);
+}
+
+// Asynchronous copy of BYTES (16 or 8) from global to shared memory; zeros when !valid.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, bool valid) {
+    static_assert(BYTES == 16 || BYTES == 8, "cp.async copies 16 or 8 bytes here");
+    const int n = valid ? BYTES : 0;
+    if (BYTES == 16)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                     :: "r"(smem_u32(dst)), "l"(src), "r"(n) : "memory");
+    else
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+                     :: "r"(smem_u32(dst)), "l"(src), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N committed groups of this thread are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+}  // namespace frag
+
+// Stages rows row0 .. row0 + nrows - 1 of one head (dh bf16 values each, source row stride
+// `stride` elements) into the bf16 tile dst (row stride ld) by cp.async: 16 bytes a copy
+// when dh % 8 == 0, else 8 (dh % 4 == 0, 8-byte aligned rows). Rows from nvalid on are
+// zero-filled; columns from dh on are not touched.
+__device__ __forceinline__ void stage_async(bf16* dst, int ld, const bf16* src, size_t stride,
+                                            int row0, int nvalid, int nrows, int dh) {
+    const bool wide = (dh & 7) == 0;
+    const int w = wide ? 8 : 4, per_row = dh / w;
+    for (int i = threadIdx.x; i < nrows * per_row; i += blockDim.x) {
+        const int r = i / per_row, c = (i - r * per_row) * w;
+        const bool ok = r < nvalid;
+        const bf16* g = src + (size_t)(row0 + (ok ? r : 0)) * stride + c;
+        if (wide)
+            frag::cp_async<16>(dst + r * ld + c, g, ok);
+        else
+            frag::cp_async<8>(dst + r * ld + c, g, ok);
+    }
+}
+
+// stage_qk<bf16, true> into a bf16 tile: row r rotated in f32 by the table row of position
+// row0 + r and rounded to bf16 (the values apply_rope gives), zero from nvalid on. Plain
+// loads and stores, since the rotation needs the data in registers: a thread item is the
+// element pairs (j, j + h) and (j + 1, j + h + 1), read as bf16 and f32 pairs (dh % 4 == 0,
+// so j and h are even), and a thread loads RB items before it stores any, so that their
+// loads are in flight together.
+__device__ __forceinline__ void stage_rope(bf16* dst, int ld, const bf16* __restrict__ src,
+                                           size_t stride, int row0, int nvalid, int nrows,
+                                           int dh, const float* __restrict__ tc,
+                                           const float* __restrict__ ts) {
+    constexpr int RB = 4;
+    const int h = dh / 2, per_row = h / 2, items = nrows * per_row;
+    for (int i0 = threadIdx.x; i0 < items; i0 += RB * blockDim.x) {
+        float2 x1[RB], x2[RB], c[RB], s[RB];
+#pragma unroll
+        for (int u = 0; u < RB; ++u) {
+            const int i = i0 + u * blockDim.x, r = i / per_row, j = 2 * (i - r * per_row);
+            x1[u] = x2[u] = c[u] = s[u] = make_float2(0.f, 0.f);
+            if (i < items && r < nvalid) {
+                const bf16* row = src + (size_t)(row0 + r) * stride;
+                const size_t at = (size_t)(row0 + r) * h + j;
+                x1[u] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(row + j));
+                x2[u] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(row + j + h));
+                c[u] = *reinterpret_cast<const float2*>(tc + at);
+                s[u] = *reinterpret_cast<const float2*>(ts + at);
+            }
+        }
+#pragma unroll
+        for (int u = 0; u < RB; ++u) {
+            const int i = i0 + u * blockDim.x, r = i / per_row, j = 2 * (i - r * per_row);
+            if (i >= items) break;
+            bf16* out = dst + r * ld + j;
+            *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(
+                rope_rotate<false>(x1[u].x, x2[u].x, c[u].x, s[u].x, true),
+                rope_rotate<false>(x1[u].y, x2[u].y, c[u].y, s[u].y, true));
+            *reinterpret_cast<__nv_bfloat162*>(out + h) = __floats2bfloat162_rn(
+                rope_rotate<false>(x1[u].x, x2[u].x, c[u].x, s[u].x, false),
+                rope_rotate<false>(x1[u].y, x2[u].y, c[u].y, s[u].y, false));
+        }
+    }
+}
+
+// ---------------------------------------------------------------------------------------
+// attn_core_mma: qkv (B, S, 3D) -> attn (B, S, D) in bf16 on tensor cores (design in the
+// note at the top). One block per (sequence, query tile of 16 W rows, head), W warps of 16
+// query rows; key tiles of MK rows; dh padded to DHP = 16 DK. Shared memory: the query
+// tile, then nbuf buffers of kt key rows followed by kt value rows, all of row stride
+// DHP + 8.
+// ---------------------------------------------------------------------------------------
+constexpr int MQ = 16, MK = 64, MMA_MAX_WARPS = 4;
+
+__host__ __device__ inline size_t mma_smem_bytes(int dk, int warps, int kt, int nbuf) {
+    return (size_t)(MQ * warps + 2 * nbuf * kt) * (16 * dk + 8) * sizeof(bf16);
+}
+
+// Masked logits of this warp's 16 query rows (from wq0) against the 16 keys of tile rows
+// kc .. kc + 15 of ks, which are keys key0 .. key0 + 15: l[j] is the n8 fragment of keys
+// key0 + 8 j ...
+template <int DK>
+__device__ __forceinline__ void chunk_logits(float (&l)[2][4], const uint32_t (&qf)[DK][4],
+                                             const bf16* ks, int kc, int key0, int wq0,
+                                             int kend, int causal, int diag, float scale,
+                                             int lane) {
+    constexpr int LD = 16 * DK + 8;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) l[j][e] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < DK; ++kd) {
+        uint32_t kb[4];
+        frag::load_bt(kb, ks + kc * LD + kd * 16, LD, lane);
+        frag::mma(l[0], qf[kd], kb[0], kb[1]);
+        frag::mma(l[1], qf[kd], kb[2], kb[3]);
+    }
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+            l[j][e] = masked_logit(l[j][e], scale, key0 + 8 * j + 2 * t + (e & 1), kend,
+                                   wq0 + g + 8 * (e >> 1), causal, diag);
+}
+
+template <int DK, bool PROBS, bool ROPE>
+__global__ void __launch_bounds__(MMA_MAX_WARPS * 32)
+attn_core_mma(const bf16* __restrict__ qkv, bf16* __restrict__ out, bf16* __restrict__ probs,
+              const float* __restrict__ rope_cos, const float* __restrict__ rope_sin,
+              int table_stride, int S, int H, int dh, int causal, int diag, float scale,
+              int q_tiles, int kt, int nbuf) {
+    constexpr int DHP = 16 * DK, LD = DHP + 8, CHUNKS = MK / 16;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int W = blockDim.x / 32, QTW = MQ * W;
+    bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+    bf16* kv = qs + QTW * LD;
+
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+    const int b = blockIdx.x / q_tiles, q0 = (blockIdx.x % q_tiles) * QTW, h = blockIdx.y;
+    const int D = H * dh;
+    const size_t stride = 3 * (size_t)D;
+    const bf16* base = qkv + (size_t)b * S * stride + h * dh;
+    const int q_end = min(S, q0 + QTW);
+    // Keys past q_end - 1 + diag are masked for every row of the block, and keys past
+    // min(S, wq0 + 16) - 1 + diag for every row of the warp: exp(-1e10 - m) is exactly 0
+    // in f32, so they are not visited.
+    const int kend = causal ? min(S, q_end + diag) : S;
+    const int nt = (kend + MK - 1) / MK;
+    const int wq0 = q0 + warp * MQ;
+    const bool active = wq0 < S;
+    const int kend_w = causal ? min(S, min(S, wq0 + MQ) + diag) : S;
+    const float* tc = ROPE ? rope_cos + (size_t)b * table_stride : nullptr;
+    const float* ts = ROPE ? rope_sin + (size_t)b * table_stride : nullptr;
+
+    // Zero columns dh .. DHP - 1 of every tile once; the staging never writes them.
+    if (dh < DHP) {
+        const int rows = QTW + 2 * nbuf * kt, pad = DHP - dh;
+        for (int i = threadIdx.x; i < rows * pad; i += blockDim.x)
+            qs[(i / pad) * LD + dh + i % pad] = __float2bfloat16(0.f);
+    }
+
+    // Step s < nt is pass 1 over key tile s, step nt + i pass 2 over key tile i. Each step's
+    // tiles are staged during the step before (two buffers); with one key tile, k and v are
+    // staged once, in step 0, and both passes read buffer 0.
+    const int steps = 2 * nt;
+    auto keys_of = [&](int s) { return kv + (size_t)(nt == 1 ? 0 : (s & 1)) * 2 * kt * LD; };
+    auto stage_step = [&](int s) {
+        if (nt == 1 && s > 0) return;
+        const int k0 = (s < nt ? s : s - nt) * MK;
+        const int nk = min(MK, kend - k0), rows = (nk + 15) & ~15;
+        bf16* ks = keys_of(s);
+        if (ROPE)
+            stage_rope(ks, LD, base + D, stride, k0, nk, rows, dh, tc, ts);
+        else
+            stage_async(ks, LD, base + D, stride, k0, nk, rows, dh);
+        if (nt == 1 || s >= nt)
+            stage_async(ks + kt * LD, LD, base + 2 * D, stride, k0, nk, rows, dh);
+    };
+
+    if (ROPE)
+        stage_rope(qs, LD, base, stride, q0, q_end - q0, QTW, dh, tc, ts);
+    else
+        stage_async(qs, LD, base, stride, q0, q_end - q0, QTW, dh);
+    stage_step(0);
+    frag::cp_async_commit();
+
+    uint32_t qf[DK][4];
+    float m[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
+    float o[2 * DK][4];
+#pragma unroll
+    for (int n = 0; n < 2 * DK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+
+    for (int s = 0; s < steps; ++s) {
+        if (s + 1 < steps) {
+            stage_step(s + 1);
+            frag::cp_async_commit();
+            frag::cp_async_wait<1>();
+        } else {
+            frag::cp_async_wait<0>();
+        }
+        __syncthreads();
+        if (s == 0 && active) {
+#pragma unroll
+            for (int kd = 0; kd < DK; ++kd)
+                frag::load_a(qf[kd], qs + warp * MQ * LD + kd * 16, LD, lane);
+        }
+        const int k0 = (s < nt ? s : s - nt) * MK;
+        const bf16* ks = keys_of(s);
+        if (active && k0 < kend_w && s < nt) {
+            // Pass 1: the tile's row max, then the sum of exp against the new max.
+            float l[CHUNKS][2][4];
+#pragma unroll
+            for (int c = 0; c < CHUNKS; ++c) {
+                if (k0 + 16 * c < kend_w) {
+                    chunk_logits<DK>(l[c], qf, ks, 16 * c, k0 + 16 * c, wq0, kend_w, causal,
+                                     diag, scale, lane);
+                } else {
+#pragma unroll
+                    for (int j = 0; j < 2; ++j)
+#pragma unroll
+                        for (int e = 0; e < 4; ++e) l[c][j][e] = -INFINITY;
+                }
+            }
+            float mx[2] = {-INFINITY, -INFINITY}, add[2] = {0.f, 0.f};
+#pragma unroll
+            for (int c = 0; c < CHUNKS; ++c)
+#pragma unroll
+                for (int j = 0; j < 2; ++j)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], l[c][j][e]);
+#pragma unroll
+            for (int r = 0; r < 2; ++r) mx[r] = fmaxf(m[r], frag::quad_max(mx[r]));
+#pragma unroll
+            for (int c = 0; c < CHUNKS; ++c)
+#pragma unroll
+                for (int j = 0; j < 2; ++j)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) add[e >> 1] += expf(l[c][j][e] - mx[e >> 1]);
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                sum[r] = sum[r] * expf(m[r] - mx[r]) + frag::quad_sum(add[r]);
+                m[r] = mx[r];
+            }
+        } else if (active && k0 < kend_w) {
+            // Pass 2: p = exp(l - m) / s rounded to bf16, then o += p . v, 16 keys at a time.
+            const bf16* vs = ks + kt * LD;
+#pragma unroll
+            for (int c = 0; c < CHUNKS; ++c) {
+                if (k0 + 16 * c >= kend_w) continue;
+                const int key0 = k0 + 16 * c;
+                float l[2][4];
+                chunk_logits<DK>(l, qf, ks, 16 * c, key0, wq0, kend_w, causal, diag, scale,
+                                 lane);
+                bf16 p[2][4];
+#pragma unroll
+                for (int j = 0; j < 2; ++j)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e)
+                        p[j][e] = __float2bfloat16(expf(l[j][e] - m[e >> 1]) / sum[e >> 1]);
+                if (PROBS) {
+#pragma unroll
+                    for (int r = 0; r < 2; ++r) {
+                        const int qi = wq0 + g + 8 * r;
+                        if (qi >= S) continue;
+#pragma unroll
+                        for (int j = 0; j < 2; ++j) {
+                            const int key = key0 + 8 * j + 2 * t;
+                            const size_t at = (((size_t)b * H + h) * S + qi) * S + key;
+                            if (key + 1 < S && (at & 1) == 0) {
+                                __nv_bfloat162 pair;
+                                pair.x = p[j][2 * r];
+                                pair.y = p[j][2 * r + 1];
+                                *reinterpret_cast<__nv_bfloat162*>(probs + at) = pair;
+                            } else {
+                                if (key < S) probs[at] = p[j][2 * r];
+                                if (key + 1 < S) probs[at + 1] = p[j][2 * r + 1];
+                            }
+                        }
+                    }
+                }
+                uint32_t a[4];
+                frag::p_as_a(a, p);
+#pragma unroll
+                for (int dn = 0; dn < DK; ++dn) {
+                    uint32_t vb[4];
+                    frag::load_b(vb, vs + 16 * c * LD + dn * 16, LD, lane);
+                    frag::mma(o[2 * dn], a, vb[0], vb[1]);
+                    frag::mma(o[2 * dn + 1], a, vb[2], vb[3]);
+                }
+            }
+        }
+        __syncthreads();
+    }
+    if (!active) return;
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const int qi = wq0 + g + 8 * r;
+        if (qi >= S) continue;
+        bf16* orow = out + ((size_t)b * S + qi) * D + h * dh;
+#pragma unroll
+        for (int n = 0; n < 2 * DK; ++n) {
+            const int col = 8 * n + 2 * t;   // dh is even: col < dh means col + 1 < dh
+            if (col < dh)
+                *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+                    __floats2bfloat162_rn(o[n][2 * r], o[n][2 * r + 1]);
+        }
+    }
+    // Keys from the first unvisited 16-key chunk on: masked for every row of the warp, p = 0.
+    if (PROBS) {
+        const int kz = min(S, (kend_w + 15) & ~15);
+        for (int r = 0; r < MQ && wq0 + r < S; ++r) {
+            bf16* prow = probs + (((size_t)b * H + h) * S + wq0 + r) * S;
+            for (int key = kz + lane; key < S; key += 32) prow[key] = __float2bfloat16(0.f);
+        }
+    }
+}
+
+template <int DK, bool PROBS, bool ROPE>
+cudaError_t launch_attn_core_mma(const AttnArgs& a, cudaStream_t stream) {
+    // Tile shapes from S: one warp per 16 query rows up to 4; key buffers of round_up(S,
+    // 16) rows up to MK, two of them only when a block can see more than one key tile.
+    const int warps = min(MMA_MAX_WARPS, (a.S + MQ - 1) / MQ);
+    const int kt = min(MK, (a.S + 15) & ~15), nbuf = a.S > MK ? 2 : 1;
+    const size_t smem = mma_smem_bytes(DK, warps, kt, nbuf);
+    cudaError_t err = cudaFuncSetAttribute(attn_core_mma<DK, PROBS, ROPE>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return err;
+    const int q_tiles = (a.S + MQ * warps - 1) / (MQ * warps);
+    dim3 grid((unsigned)a.B * q_tiles, a.H);
+    attn_core_mma<DK, PROBS, ROPE><<<grid, warps * 32, smem, stream>>>(
+        static_cast<const bf16*>(a.qkv), static_cast<bf16*>(a.attn), static_cast<bf16*>(a.probs),
+        a.cos, a.sin, a.table_stride, a.S, a.H, a.dh, a.causal, a.diag, a.scale, q_tiles, kt,
+        nbuf);
+    return cudaGetLastError();
+}
+
+// The launcher L<N, PROBS, ROPE> for the run-time flags (probs, rope tables).
+template <int N, template <int, bool, bool> class L>
+cudaError_t attn_core_flags(const AttnArgs& a, cudaStream_t st) {
+    if (a.cos) return a.probs ? L<N, true, true>::run(a, st) : L<N, false, true>::run(a, st);
+    return a.probs ? L<N, true, false>::run(a, st) : L<N, false, false>::run(a, st);
+}
+
+template <int N, bool PROBS, bool ROPE> struct CoreF32 {
+    static cudaError_t run(const AttnArgs& a, cudaStream_t st) {
+        return launch_attn_core_f32<N, PROBS, ROPE>(a, st);
+    }
+};
+
+template <int N, bool PROBS, bool ROPE> struct CoreMma {
+    static cudaError_t run(const AttnArgs& a, cudaStream_t st) {
+        return launch_attn_core_mma<N, PROBS, ROPE>(a, st);
+    }
+};
+
+// dtype 1 (bf16): attn_core_mma with dh padded to 32, 64 or 128; dtype 0 (f32):
+// attn_core_f32 with 1, 2 or 4 columns of 32 per lane.
+cudaError_t attn_core_dispatch(int dtype, const AttnArgs& a, cudaStream_t st) {
+    if (dtype == 1) {
+        if (a.dh <= 32) return attn_core_flags<2, CoreMma>(a, st);
+        if (a.dh <= 64) return attn_core_flags<4, CoreMma>(a, st);
+        return attn_core_flags<8, CoreMma>(a, st);
+    }
+    if (dtype == 0) {
+        if (a.dh <= 32) return attn_core_flags<1, CoreF32>(a, st);
+        if (a.dh <= 64) return attn_core_flags<2, CoreF32>(a, st);
+        return attn_core_flags<4, CoreF32>(a, st);
+    }
+    return cudaErrorInvalidValue;
 }
 
 // attn_bwd_q: shared memory of query rows qs, dattn rows das (QT x dh each), a key and a
@@ -1150,10 +1616,7 @@ extern "C" int tcow_attn_core(int dtype, const void* qkv, void* out, void* probs
     if (bad_attn(B, S, H, dh, cos, sin, table_stride)) return (int)cudaErrorInvalidValue;
     const AttnArgs a{qkv, nullptr, out, probs, nullptr, nullptr, cos, sin, table_stride,
                      B, S, H, dh, causal, diag, scale};
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (dtype == 1) return (int)attn_core_dispatch<bf16>(a, st);
-    if (dtype == 0) return (int)attn_core_dispatch<float>(a, st);
-    return (int)cudaErrorInvalidValue;
+    return (int)attn_core_dispatch(dtype, a, static_cast<cudaStream_t>(stream));
 }
 
 // qkv (B, S, 3D) and dattn (B, S, D) -> attn (B, S, D), dqkv (B, S, 3D); stats is f32

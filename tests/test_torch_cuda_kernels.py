@@ -2,7 +2,9 @@
 The CUDA kernels of tcow_tpu_torch against their plain versions, on the GPU only: edge
 geometries that the full-width run in chip_smoke.py does not reach (S=1, ragged row,
 column and depth tiles, head sizes 32, 40, 64 and 128, every causal mode) for the
-forwards K1, K2 and K3 and the backwards K4, K5 and K6, K6's weight gradients identical
+forwards K1, K2 and K3 and the backwards K4, K5 and K6, the bf16 attention core's tiles
+(K1, K3, K1r at lengths around 16 and 64 and head sizes 4 to 128; K1 and K3 identical
+across runs, K3's probabilities), K6's weight gradients identical
 across runs, the gradients of the differentiable fused_attention on the card, and the
 launch counts of the seeker's entry points and of one train step under each pairing of a
 backward mode with its remat policy; and the rope variants K1r ... K6r (head sizes 32,
@@ -114,6 +116,46 @@ def test_kernel_matches_plain(cuda, B, S, D, H, ca, dtype):
     want = fa.attention_ref(x.float(), *w, H, ca)
     err = rel_l2(got, want)
     assert err <= TOL[dtype], err
+
+
+# The bf16 attn_core's tiling (tensor cores): lengths around its 16-row warp tile and its
+# 64-key tile, head sizes padded to a multiple of 16 (4, 20, 40, 100) or not, 8-byte
+# copies (dh % 8 == 4), and every causal form.
+CORE_S = (1, 15, 16, 17, 63, 64, 65, 129, 301)
+CORE_DH = (4, 20, 40, 64, 100, 128)
+
+
+@pytest.mark.parametrize('ca', (0, 1, 3))
+@pytest.mark.parametrize('dh', CORE_DH)
+@pytest.mark.parametrize('S', CORE_S)
+def test_attn_core_tiles_match_plain(cuda, S, dh, ca):
+    '''bf16 K1, K3 and K1r (per-row frame times) against their plain versions in f32;
+    K3's probabilities exactly 0 past the causal edge and each row summing to 1 within
+    bf16 rounding; K1 and K3 giving the same bits on a second run.'''
+    B, H = 2, 2
+    x, w = inputs(B, S, dh * H, torch.bfloat16, cuda, seed=20)
+    p = rope_positions(B, S, 'times', cuda)
+    before = launches()
+    k1 = fa.fused_attention_fwd(x, *w, H, ca)
+    k3 = fa.fused_attention_fwd_res(x, *w, H, ca)
+    k1r = fa.fused_attention_fwd(x, *w, H, ca, True, p)
+    k1_again = fa.fused_attention_fwd(x, *w, H, ca)
+    k3_again = fa.fused_attention_fwd_res(x, *w, H, ca)
+    torch.cuda.synchronize()
+    assert since(before) == {'k1': 2, 'k3': 2, 'k1r': 1}
+    assert torch.equal(k1, k1_again)
+    assert all(torch.equal(a, b) for a, b in zip(k3, k3_again))
+    want = fa.attention_res_ref(x.float(), *w, H, ca)
+    want_r = fa.attention_ref(x.float(), *w, H, ca, True, p)
+    for got, ref in zip((k1, k1r) + k3, (want[0], want_r) + want):
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+        err = rel_l2(got, ref)
+        assert err <= TOL[torch.bfloat16], err
+    probs = k3[2].float()
+    if ca > 0:
+        assert (probs[..., ~fa._causal_keep(S, ca, cuda)] == 0).all()
+    # Each p rounds to bf16 (relative error <= 2^-9), so a row sums to 1 within 2^-9.
+    assert (probs.sum(-1) - 1).abs().max() <= 2 ** -8
 
 
 @pytest.mark.parametrize('B,S,D,H,ca,dtype', GEOMETRIES)
