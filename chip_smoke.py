@@ -44,7 +44,12 @@ Drives the PyTorch port (tcow_tpu_torch) on one NVIDIA GPU and checks it:
      tcow_attn_core at the nine shapes the main paths give it (CORE_SHAPES): against its
      plain version, the same bits on a second run (and K1 or K3 through its wrapper), and
      timed beside the plain version, SDPA (or matmul + softmax + matmul for the
-     probabilities) and its bound (phase attn_core_times).
+     probabilities) and its bound (phase attn_core_times);
+ 10. the bf16 backward core of K4-K6 and K4r-K6r (tensor cores) launched alone through
+     tcow_attn_bwd at training 1800x30 causal, 180x301 and rope 1800x30 with frame times
+     (BWD_CORE_SHAPES): attn, dq, dk and dv against the plain core in f32, the same bits
+     on a second run, and timed beside the plain core, SDPA's forward and autograd
+     backward and its bound (phase attn_bwd_times).
 
 Run from the repository root: `python3 chip_smoke.py`. Prints one JSON object per phase,
 then the `{"kernels": [...]}` line, the nvidia-smi line, and last
@@ -810,6 +815,19 @@ def phase_train_parity(init_state, batch, rope=False):
     return errs
 
 
+def library_bwd_core(qkv, dattn, ca, cs):
+    '''The backward core's function by library calls (yardstick only): SDPA's forward for
+    attn and its autograd backward for dq, dk and dv, on the q, k, v views of qkv with the
+    same mask; with rope tables cs, q and k go through apply_rope inside the graph.'''
+    B, S, _ = qkv.shape
+    q, k, v = (t.detach().requires_grad_()
+               for t in qkv.reshape(B, S, 3, HEADS, D // HEADS).permute(2, 0, 3, 1, 4).unbind(0))
+    da = dattn.reshape(B, S, HEADS, D // HEADS).transpose(1, 2)
+    with torch.enable_grad():
+        attn = F.scaled_dot_product_attention(*rotate(q, k, cs), v, is_causal=ca > 0)
+        return attn, torch.autograd.grad(attn, (q, k, v), da)
+
+
 def library_attention_bwd(x, w16, ca, g, qkv=None, wgrads=False, cs=None):
     '''K4's function, (dqkv, attn) from x and g, with library calls (yardstick only): the
     qkv recompute and g . proj_w^T as addmm / mm, then SDPA's forward for attn and its
@@ -818,17 +836,12 @@ def library_attention_bwd(x, w16, ca, g, qkv=None, wgrads=False, cs=None):
     bias gradients as sums. With rope tables cs, q and k go through apply_rope inside
     the autograd graph, so dq and dk come back un-rotated.'''
     B, S, _ = x.shape
-    dh = D // HEADS
 
     def run():
         qkv_ = torch.addmm(w16[1], x.reshape(B * S, D), w16[0]) if qkv is None else qkv
-        q, k, v = (t.detach().requires_grad_()
-                   for t in qkv_.reshape(B, S, 3, HEADS, dh).permute(2, 0, 3, 1, 4).unbind(0))
         g2 = g.reshape(B * S, D)
-        dattn = torch.mm(g2, w16[2].T).reshape(B, S, HEADS, dh).transpose(1, 2)
-        with torch.enable_grad():
-            attn = F.scaled_dot_product_attention(*rotate(q, k, cs), v, is_causal=ca > 0)
-            grads = torch.autograd.grad(attn, (q, k, v), dattn)
+        attn, grads = library_bwd_core(qkv_.reshape(B, S, 3 * D),
+                                       torch.mm(g2, w16[2].T).reshape(B, S, D), ca, cs)
         if not wgrads:
             return attn, grads
         dqkv = torch.stack(grads).permute(1, 3, 0, 2, 4).reshape(B * S, 3 * D)
@@ -1275,6 +1288,97 @@ def phase_attn_core_times():
     return per_shape
 
 
+# ---------------------------------------------------------------------------------------
+# attn_bwd alone: the bf16 backward core of K4-K6 and K4r-K6r (tensor cores)
+# ---------------------------------------------------------------------------------------
+
+# (name, sequences, S, causal_attention, rope with frame times) of the backward core's calls
+# on the training paths.
+BWD_CORE_SHAPES = (
+    ('train_temporal', *TRAIN_GEOMETRIES['temporal'], False),
+    ('train_spatial', *TRAIN_GEOMETRIES['spatial'], False),
+    ('rope_train_temporal', *TRAIN_GEOMETRIES['temporal'], True),
+)
+# The backward core shapes each kernel of the kernels line runs at.
+BWD_CORE_OF_KERNEL = {k: ('train_temporal', 'train_spatial') for k in ('K4', 'K5', 'K6')}
+BWD_CORE_OF_KERNEL.update({k: ('rope_train_temporal',) for k in ('K4r', 'K5r', 'K6r')})
+
+
+def bwd_core_bound(R, S, ca, rope):
+    '''(flops, bytes) of the backward core: 12 dh operations per kept pair and head (the
+    logits, p v, dp, dv, dq, dk), 6 per rotated pair of q, k, dq and dk with rope; qkv and
+    dattn read once, attn and dqkv written once (16 D bytes a row in bf16), the per-row
+    tables read once.'''
+    flops = 12 * D * R * attended_pairs(S, ca)
+    nbytes = 2 * 8 * R * S * D
+    if rope:
+        flops, nbytes = flops + 2 * rope_flops(R, S), nbytes + table_bytes(R, S)
+    return flops, nbytes
+
+
+def phase_attn_bwd_times():
+    '''The bf16 backward core launched alone through tcow_attn_bwd, as the wrapper launches
+    it, on a qkv made by K2 and dattn = g . proj_w^T at each shape of BWD_CORE_SHAPES:
+    attn, dq, dk and dv against the plain core in f32 from the same bf16 inputs (rel L2 <=
+    TOL_K4_BF16), the same bits on a second run, and timed beside the plain core, the
+    library yardstick and its bound.'''
+    lib = fa._lib()
+    dh = D // HEADS
+    per_shape = {}
+    for i, (name, R, S, ca, rope) in enumerate(BWD_CORE_SHAPES):
+        x, w = attn_inputs(R, S, torch.bfloat16, SEED + 600 + i)
+        g = grad_input(R, S, torch.bfloat16, SEED + 610 + i)
+        pos = rope_positions(R, S, SEED + 620 + i) if rope else None
+        cs = head_tables(S, pos) if rope else None
+        with torch.no_grad():
+            qkv = fa.fused_attention_fwd_qkv(x, *w, HEADS, ca, rope, pos)[1]
+            dattn = torch.matmul(g, w[2].to(torch.bfloat16).T).contiguous()
+        del x, g
+        cos, sin, stride = fa._kernel_tables(qkv, S, dh, rope, pos)
+        attn = torch.empty((R, S, D), dtype=qkv.dtype, device=DEV)
+        dqkv = torch.empty((R, S, 3 * D), dtype=qkv.dtype, device=DEV)
+        stats = torch.empty((3, R, HEADS, S), dtype=torch.float32, device=DEV)
+
+        def launch():
+            fa._check(lib.tcow_attn_bwd(1, qkv.data_ptr(), dattn.data_ptr(), attn.data_ptr(),
+                                        dqkv.data_ptr(), stats.data_ptr(), fa._ptr(cos),
+                                        fa._ptr(sin), stride, R, S, HEADS, dh, int(ca > 0),
+                                        fa._mask_diag(ca), dh ** -0.5, fa._stream(qkv)),
+                      'attn_bwd')
+
+        def plain():
+            return fa.attention_bwd_core_ref(qkv.float(), dattn.float(), HEADS, ca, rope, pos)
+
+        launch()
+        got = (attn.clone(), dqkv.clone())
+        launch()
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], attn) and torch.equal(got[1], dqkv)):
+            fail(f'attn_bwd {name}: other bits on a second run')
+        want_dqkv, want_attn = plain()
+        parts = {'attn': (attn, want_attn)}
+        parts.update({n: (dqkv[..., j * D:(j + 1) * D], want_dqkv[..., j * D:(j + 1) * D])
+                      for j, n in enumerate(('dq', 'dk', 'dv'))})
+        e = dict(R=R, S=S, ca=ca, rope=rope, tol_rel_l2=TOL_K4_BF16,
+                 max_abs_err=max(float((a.float() - b).abs().max()) for a, b in parts.values()))
+        e.update({f'rel_l2_{n}': rel_l2(a.float(), b) for n, (a, b) in parts.items()})
+        del want_dqkv, want_attn, parts, got
+        bad = {k: v for k, v in e.items() if k.startswith('rel_l2') and not v <= TOL_K4_BF16}
+        if bad:
+            fail(f'attn_bwd {name}: kernel vs plain rel L2 above {TOL_K4_BF16}: {bad}')
+        flops, nbytes = bwd_core_bound(R, S, ca, rope)
+        bound_ms, bound_by = bound(flops, nbytes)
+        with torch.no_grad():
+            e.update(ms=cuda_ms(launch), plain_ms=cuda_ms(plain, iters=5),
+                     library_ms=cuda_ms(lambda: library_bwd_core(qkv, dattn, ca, cs)),
+                     bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=nbytes)
+        per_shape[name] = e
+        del qkv, dattn, attn, dqkv, stats, cos, sin, cs, pos
+        torch.cuda.empty_cache()
+    emit({'phase': 'attn_bwd_times', 'per_shape': per_shape, 'deterministic': True})
+    return per_shape
+
+
 def kernel_entry(name, source, replaces, launches, errs, per_geom):
     '''One item of the `kernels` line: means over the geometries of the main path (each
     is called once per block).'''
@@ -1344,6 +1448,7 @@ def main():
     torch.cuda.empty_cache()
     rope_geom = phase_rope_times()
     core = phase_attn_core_times()
+    bwd_core = phase_attn_bwd_times()
 
     def train_launches(kernel, runs=trains, prefix='train'):
         return {f'{prefix}_{m}': t['launches'][kernel] for (m, _), t in runs.items()
@@ -1377,11 +1482,14 @@ def main():
             launches = {'rope_inference': rope_inference_launches, **launches}
         entries.append(kernel_entry(name, source, replaces + line, launches,
                                     rope_errs[kernel], rope_geom[kernel]))
-    # K1-K3 and K1r-K3r: their bf16 attention core (attn_core_mma) timed alone.
-    for kernel, entry in zip(('K1', 'K2', 'K3', 'K4', 'K5', 'K6', 'K1r', 'K2r', 'K3r'),
-                             entries):
+    # K1-K3 and K1r-K3r: their bf16 attention core (attn_core_mma) timed alone; K4-K6 and
+    # K4r-K6r: their bf16 backward core (attn_bwd_q_mma + attn_bwd_kv_mma).
+    for kernel, entry in zip(('K1', 'K2', 'K3', 'K4', 'K5', 'K6', 'K1r', 'K2r', 'K3r', 'K4r',
+                              'K5r', 'K6r'), entries, strict=True):
         if kernel in CORE_OF_KERNEL:
             entry['attn_core'] = {s: core[s] for s in CORE_OF_KERNEL[kernel]}
+        if kernel in BWD_CORE_OF_KERNEL:
+            entry['attn_bwd'] = {s: bwd_core[s] for s in BWD_CORE_OF_KERNEL[kernel]}
     emit({'kernels': entries})
     print(smi)
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -84,23 +84,50 @@
 //                see its keys (under the causal mask the earlier ones are skipped) it
 //                recomputes pf and dlog from the saved statistics and accumulates
 //                dv = p_c^T . dA and dk = dlog^T . q in f32.
-// Both kernels compute every logit and every dp with the same tile_dots order, so pf and
-// dlog are bit-identical in the two. Rounding points follow attention_bwd_ref.
+// pf and dlog are bit-identical in the two launches; rounding points follow
+// attention_bwd_ref (logits and softmax in f32, p_c and dlog rounded before their
+// products, attn, dq, dk, dv accumulated in f32 and rounded once).
 //
 // Bound on the H100 (989 TFLOP/s dense bf16, 3.35 TB/s) at the training step of record
 // (D=768, 12 heads of 64, bf16): the two products inside the kernel are 8 R S D^2
 // operations (2.55e11 temporal, 1800 sequences of 30; 2.56e11 spatial, 180 of 301), the
 // attention 12 D per (query, key) pair the mask keeps (7.7e9 temporal, 1.50e11 spatial),
 // against ~0.5 GB of compulsory traffic: operations-bound, ~0.27 ms temporal and ~0.41 ms
-// spatial. What the design does about that bound: nothing yet. The GEMMs are the
-// forward's wmma tiles without a copy pipeline; the attention core runs on the CUDA cores
-// in f32, computes the logits three times in attn_bwd_q and once more in attn_bwd_kv, and
-// qkv, dattn and the statistics make a round trip through HBM. Tensor cores in the core
-// are later work, on the forward's fragment helpers: frag::load_a (q, dA rows), load_bt
-// (k, v rows for q k^T and dA v^T), load_b (.trans: v, k, q, dA as a B operand), mma,
-// quad_max / quad_sum (row statistics) and p_as_a (p_c or dlog from accumulators as an A
-// operand), with stage_async and stage_rope for bf16 tiles; pf and dlog must stay
-// bit-identical between the two launches. wgmma + TMA in the GEMMs are later work.
+// spatial. The GEMMs are the forward's wmma tiles without a copy pipeline (wgmma + TMA
+// are later work); qkv, dattn and the statistics make a round trip through HBM. The core
+// alone reads qkv and dattn and writes attn and dqkv (16 D bytes a row in bf16, 0.66 GB
+// at the step of record's shapes) against 12 dh operations per kept pair and head:
+// ~0.2 ms at both shapes. In bf16 it is attn_bwd_q_mma + attn_bwd_kv_mma, on tensor
+// cores, built from attn_core_mma's pieces:
+//   - mma.sync m16n8k16 (bf16 in, f32 accumulate) through frag::: load_a for query-side
+//     rows (q, dA), load_bt for key-side rows as X^T (k for q k^T, v for dA v^T), load_b
+//     (.trans) for the depth operand of the products (v for p v, k for dlog k, dA for
+//     P^T dA, q for dlog^T q), p_as_a to turn rounded accumulators into an A operand.
+//   - bf16 staging by cp.async (16- or 8-byte; 4-byte for the f32 statistics), rows of
+//     stride 16 DK + 8 (dh padded to 16 DK with zero columns), two buffers so the next
+//     tile's copy overlaps the current tile's products; rope rows by stage_rope.
+//   - Tiles from S as in attn_core_mma: a warp owns 16 rows, warps per block ceil(S / 16)
+//     up to 4 (2 at S = 30, 4 at S = 301), tiles of 64 keys (queries) or round_up(S, 16)
+//     rows staged once when S <= 64. attn_bwd_q_mma keeps a warp's q and dA fragments in
+//     registers for its three passes; attn_bwd_kv_mma keeps its warp's k and v B
+//     fragments (dh <= 64) and walks the query chunks of 16 that see its keys.
+//   - dV and dK need P^T and dlog^T as the A operand. The A fragment of a 16 x 16 operand
+//     is four 8 x 8 blocks; the transpose's is the same blocks swapped and each transposed
+//     by movmatrix.m8n8.trans (frag::transpose_a), all in registers.
+//   - Bit-identity of pf and dlog across the launches: both form every logit and every dp
+//     with the query rows as the A operand and the key rows as B (attn_bwd_kv_mma does not
+//     compute k q^T, which need not give the same bits), from a zero accumulator over
+//     the depth slices kd = 0 .. DK - 1 in order (chunk_dots), with query and key chunks
+//     that start at multiples of 16, so element (i, j) sits at the same place of its mma
+//     tile with the same operand bits in both launches. The scale, the subtraction of m,
+//     the division by s and dlog's products are rounded one by one (__fmul_rn, __fsub_rn,
+//     __fdiv_rn: never contracted into an fma), from the same (m, s, delta) floats. Keys
+//     one launch skips or fills with -inf are causal-masked in the other: pf = 0 in both.
+//   - No atomics and no split over keys or queries: the same inputs give the same bits on
+//     every run (full remat re-runs the backward).
+// In f32, attn_bwd_q / attn_bwd_kv below stay on the CUDA cores (f32 staging, fmaf logits
+// in tile_dots, the same order in both launches): TF32 keeps ~10 mantissa bits, too few
+// for the 1e-4 f32 limit.
 
 // ---- K2, K3: the forward with residuals ----
 //
@@ -143,7 +170,8 @@
 // the rotation of q and k in _kernel (:120-136) and _bwd_kernel (:592-605), the
 // un-rotation of dq and dk (:626-628), and the per-row tables (_pos_tables :242-249) or
 // row positions (packed_tables, rope.py:49-60). ROPE is a compile-time flag of attn_core,
-// attn_bwd_q and attn_bwd_kv; the GEMMs, wgrad and colsum do not change, since qkv and
+// attn_bwd_q and attn_bwd_kv (and of their _mma forms in bf16); the GEMMs, wgrad and
+// colsum do not change, since qkv and
 // dqkv stay un-rotated in device memory. The wrapper builds f32 cos / sin tables with the
 // port's rope.py (one (S, dh/2) table, or one per sequence from its positions), and the
 // plain version rotates by the same tables, so no cosf of a ~230 rad angle differs by
@@ -152,8 +180,10 @@
 //   launch that reads them (attn_core, attn_bwd_q, attn_bwd_kv, identically, so pf and dlog
 //   stay bit-identical between the two backward launches); v is never rotated;
 //   dq, dk: accumulate in f32 -> round to T -> un-rotate in f32 -> round to T, one rounding
-//   more than K4. A lane owns d = lane + 32 c and element d pairs with d +- dh/2, which
-//   another lane owns when dh <= 32, so the rounded rows go through shared memory.
+//   more than K4. Element d pairs with d +- dh/2, which another lane owns (in f32 a lane
+//   owns d = lane + 32 c; in bf16 the accumulator fragments spread a row over a quad), so
+//   each lane parks its rounded values as f32 in rows only its warp reads (park_rounded;
+//   store_rows_unrotated for fragments), and store_unrotated writes each row.
 // Bound: K1's (K4's ...) operations plus 6 per rotated element pair of q and k (and dq,
 // dk), against K1's bytes plus the tables: operations-bound, as the kernel without rope.
 // What the design does about it: nothing beyond the kernels' own design; the tables are
@@ -716,16 +746,37 @@ __device__ __forceinline__ void p_as_a(uint32_t (&a)[4], const bf16 (&p)[2][4]) 
     a[3] = pack(p[1][2], p[1][3]);
 }
 
-// Asynchronous copy of BYTES (16 or 8) from global to shared memory; zeros when !valid.
+// One 8 x 8 b16 block of a fragment, transposed across the warp: the lane that held
+// elements (g, 2t) and (g, 2t + 1) receives (2t, g) and (2t + 1, g).
+__device__ __forceinline__ uint32_t transpose8(uint32_t x) {
+    uint32_t y;
+    asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
+    return y;
+}
+
+// The A fragment of M^T from the A fragment of a 16 x 16 operand M. a[0..3] are M's 8 x 8
+// blocks (rows 0-7, cols 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15); block (r, c) of M^T
+// is block (c, r) of M transposed. In registers, with no shared-memory round trip.
+__device__ __forceinline__ void transpose_a(uint32_t (&at)[4], const uint32_t (&a)[4]) {
+    at[0] = transpose8(a[0]);
+    at[1] = transpose8(a[2]);
+    at[2] = transpose8(a[1]);
+    at[3] = transpose8(a[3]);
+}
+
+// Asynchronous copy of BYTES (16, 8 or 4) from global to shared memory; zeros when !valid.
 template <int BYTES>
 __device__ __forceinline__ void cp_async(void* dst, const void* src, bool valid) {
-    static_assert(BYTES == 16 || BYTES == 8, "cp.async copies 16 or 8 bytes here");
+    static_assert(BYTES == 16 || BYTES == 8 || BYTES == 4, "cp.async copies 16, 8 or 4 bytes");
     const int n = valid ? BYTES : 0;
     if (BYTES == 16)
         asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                      :: "r"(smem_u32(dst)), "l"(src), "r"(n) : "memory");
-    else
+    else if (BYTES == 8)
         asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+                     :: "r"(smem_u32(dst)), "l"(src), "r"(n) : "memory");
+    else
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                      :: "r"(smem_u32(dst)), "l"(src), "r"(n) : "memory");
 }
 
@@ -815,6 +866,48 @@ __host__ __device__ inline size_t mma_smem_bytes(int dk, int warps, int kt, int 
     return (size_t)(MQ * warps + 2 * nbuf * kt) * (16 * dk + 8) * sizeof(bf16);
 }
 
+// c (16 x 16, f32) = A . X^T from a zero accumulator, depth slices kd = 0 .. DK - 1 in
+// order: A's 16 rows as fragments af, X's 16 rows at xs. Every logit (A = q, X = k) of
+// both cores, and every dp (A = dA, X = v) of both backward launches, is formed this way,
+// with the query rows as A.
+template <int DK>
+__device__ __forceinline__ void chunk_dots(float (&c)[2][4], const uint32_t (&af)[DK][4],
+                                           const bf16* xs, int lane) {
+    constexpr int LD = 16 * DK + 8;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < DK; ++kd) {
+        uint32_t xb[4];
+        frag::load_bt(xb, xs + kd * 16, LD, lane);
+        frag::mma(c[0], af[kd], xb[0], xb[1]);
+        frag::mma(c[1], af[kd], xb[2], xb[3]);
+    }
+}
+
+// Writes a warp's 16 x dh accumulator (its row r to out + r stride) in bf16; rows from
+// nrows on are not written.
+template <int DK>
+__device__ __forceinline__ void store_rows(bf16* out, size_t stride,
+                                           const float (&acc)[2 * DK][4], int nrows, int dh,
+                                           int lane) {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        if (g + 8 * r >= nrows) continue;
+        bf16* row = out + (size_t)(g + 8 * r) * stride;
+#pragma unroll
+        for (int n = 0; n < 2 * DK; ++n) {
+            const int col = 8 * n + 2 * t;   // dh is even: col < dh means col + 1 < dh
+            if (col < dh)
+                *reinterpret_cast<__nv_bfloat162*>(row + col) =
+                    __floats2bfloat162_rn(acc[n][2 * r], acc[n][2 * r + 1]);
+        }
+    }
+}
+
 // Masked logits of this warp's 16 query rows (from wq0) against the 16 keys of tile rows
 // kc .. kc + 15 of ks, which are keys key0 .. key0 + 15: l[j] is the n8 fragment of keys
 // key0 + 8 j ...
@@ -823,18 +916,7 @@ __device__ __forceinline__ void chunk_logits(float (&l)[2][4], const uint32_t (&
                                              const bf16* ks, int kc, int key0, int wq0,
                                              int kend, int causal, int diag, float scale,
                                              int lane) {
-    constexpr int LD = 16 * DK + 8;
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) l[j][e] = 0.f;
-#pragma unroll
-    for (int kd = 0; kd < DK; ++kd) {
-        uint32_t kb[4];
-        frag::load_bt(kb, ks + kc * LD + kd * 16, LD, lane);
-        frag::mma(l[0], qf[kd], kb[0], kb[1]);
-        frag::mma(l[1], qf[kd], kb[2], kb[3]);
-    }
+    chunk_dots<DK>(l, qf, ks + kc * (16 * DK + 8), lane);
     const int g = lane >> 2, t = lane & 3;
 #pragma unroll
     for (int j = 0; j < 2; ++j)
@@ -1016,19 +1098,7 @@ attn_core_mma(const bf16* __restrict__ qkv, bf16* __restrict__ out, bf16* __rest
     }
     if (!active) return;
 
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-        const int qi = wq0 + g + 8 * r;
-        if (qi >= S) continue;
-        bf16* orow = out + ((size_t)b * S + qi) * D + h * dh;
-#pragma unroll
-        for (int n = 0; n < 2 * DK; ++n) {
-            const int col = 8 * n + 2 * t;   // dh is even: col < dh means col + 1 < dh
-            if (col < dh)
-                *reinterpret_cast<__nv_bfloat162*>(orow + col) =
-                    __floats2bfloat162_rn(o[n][2 * r], o[n][2 * r + 1]);
-        }
-    }
+    store_rows<DK>(out + ((size_t)b * S + wq0) * D + h * dh, (size_t)D, o, S - wq0, dh, lane);
     // Keys from the first unvisited 16-key chunk on: masked for every row of the warp, p = 0.
     if (PROBS) {
         const int kz = min(S, (kend_w + 15) & ~15);
@@ -1414,16 +1484,522 @@ cudaError_t launch_attn_bwd(const AttnArgs& a, cudaStream_t stream) {
     return cudaGetLastError();
 }
 
-template <typename T, int DC>
-cudaError_t attn_bwd_rope(const AttnArgs& a, cudaStream_t st) {
-    return a.cos ? launch_attn_bwd<T, DC, true>(a, st) : launch_attn_bwd<T, DC, false>(a, st);
+template <int DC>
+cudaError_t attn_bwd_f32(const AttnArgs& a, cudaStream_t st) {
+    return a.cos ? launch_attn_bwd<float, DC, true>(a, st)
+                 : launch_attn_bwd<float, DC, false>(a, st);
 }
 
-template <typename T>
-cudaError_t attn_bwd_dispatch(const AttnArgs& a, cudaStream_t st) {
-    if (a.dh <= 32) return attn_bwd_rope<T, 1>(a, st);
-    if (a.dh <= 64) return attn_bwd_rope<T, 2>(a, st);
-    return attn_bwd_rope<T, 4>(a, st);
+// ---------------------------------------------------------------------------------------
+// attn_bwd_q_mma, attn_bwd_kv_mma: the bf16 backward core on tensor cores (design in the
+// note at the top). Tiles as attn_core_mma's: a warp owns 16 rows, dh is padded to
+// DHP = 16 DK, rows of stride DHP + 8 in shared memory.
+// ---------------------------------------------------------------------------------------
+
+// A logit of the backward: the scaled dot product rounded on its own (__fmul_rn is never
+// contracted into an fma), -1e10 for causal-masked keys, -inf for keys past kend. pf and
+// dlog below round every step the same way, so the two launches form the same bits.
+__device__ __forceinline__ float bwd_logit(float dot, float scale, int key, int kend, int qi,
+                                           int causal, int diag) {
+    if (key >= kend) return -INFINITY;
+    return (causal && key > qi + diag) ? -1e10f : __fmul_rn(dot, scale);
+}
+
+__device__ __forceinline__ float bwd_pf(float l, float m, float s) {
+    return __fdiv_rn(expf(__fsub_rn(l, m)), s);
+}
+
+__device__ __forceinline__ float bwd_dlog(float pf, float dp, float delta, float scale) {
+    return __fmul_rn(__fmul_rn(pf, __fsub_rn(dp, delta)), scale);
+}
+
+// Masks the 16 x 16 chunk l (queries q0 + row, keys key0 + column, accumulator layout).
+__device__ __forceinline__ void bwd_mask(float (&l)[2][4], float scale, int key0, int q0,
+                                         int kend, int causal, int diag, int lane) {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+            l[j][e] = bwd_logit(l[j][e], scale, key0 + 8 * j + 2 * t + (e & 1), kend,
+                                q0 + g + 8 * (e >> 1), causal, diag);
+}
+
+// chunk_dots with A's rows loaded from as and X's B fragments held in registers (KH ==
+// DK) or loaded again from xs (KH == 1): the same mma sequence, so the same bits.
+template <int DK, int KH>
+__device__ __forceinline__ void chunk_dots_held(float (&c)[2][4], const bf16* as,
+                                                const uint32_t (&held)[KH][4], const bf16* xs,
+                                                int lane) {
+    constexpr int LD = 16 * DK + 8;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < DK; ++kd) {
+        uint32_t a[4], xb[4];
+        frag::load_a(a, as + kd * 16, LD, lane);
+        if constexpr (KH == DK) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) xb[i] = held[kd][i];
+        } else {
+            frag::load_bt(xb, xs + kd * 16, LD, lane);
+        }
+        frag::mma(c[0], a, xb[0], xb[1]);
+        frag::mma(c[1], a, xb[2], xb[3]);
+    }
+}
+
+// acc (16 x 16 DK) += a . X, X's 16 rows (the depth of the product) at xs, by ldmatrix.trans.
+template <int DK>
+__device__ __forceinline__ void mma_rows(float (&acc)[2 * DK][4], const uint32_t (&a)[4],
+                                         const bf16* xs, int lane) {
+    constexpr int LD = 16 * DK + 8;
+#pragma unroll
+    for (int dn = 0; dn < DK; ++dn) {
+        uint32_t xb[4];
+        frag::load_b(xb, xs + dn * 16, LD, lane);
+        frag::mma(acc[2 * dn], a, xb[0], xb[1]);
+        frag::mma(acc[2 * dn + 1], a, xb[2], xb[3]);
+    }
+}
+
+// ROPE: dq or dk of a warp's 16 rows, rounded to bf16 and parked as f32 in `park` (16 rows
+// of dh, read only by this warp), then each row un-rotated by its position's table row
+// and rounded again by store_unrotated. out: row 0's dh values, rows `stride` apart.
+template <int DK>
+__device__ __forceinline__ void store_rows_unrotated(bf16* out, size_t stride,
+                                                     const float (&acc)[2 * DK][4], float* park,
+                                                     int row0, int nrows, int dh,
+                                                     const float* tc, const float* ts,
+                                                     int lane) {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int n = 0; n < 2 * DK; ++n) {
+            const int col = 8 * n + 2 * t;
+            if (col < dh) {
+                park[(g + 8 * r) * dh + col] = __bfloat162float(__float2bfloat16(acc[n][2 * r]));
+                park[(g + 8 * r) * dh + col + 1] =
+                    __bfloat162float(__float2bfloat16(acc[n][2 * r + 1]));
+            }
+        }
+    __syncwarp();
+    const int half = dh / 2;
+    for (int r = 0; r < nrows; ++r)
+        store_unrotated(out + (size_t)r * stride, park + r * dh, dh,
+                        tc + (size_t)(row0 + r) * half, ts + (size_t)(row0 + r) * half, lane);
+}
+
+// One block per (sequence, query tile of 16 W rows, head); W warps of 16 query rows. A
+// warp keeps its q and dA fragments in registers and walks the key tiles of MK rows three
+// times: pass 1 the row max m and sum s, pass 2 attn = p_c . v and delta = rowsum(dp pf),
+// pass 3 dq = dlog . k. Shared memory: q and dA tiles (16 W rows each), then nbuf buffers
+// of kt key rows followed by kt value rows; after the passes, ROPE parks dq where the key
+// buffers were.
+template <int DK, bool ROPE>
+__global__ void __launch_bounds__(MMA_MAX_WARPS * 32)
+attn_bwd_q_mma(const bf16* __restrict__ qkv, const bf16* __restrict__ dattn,
+               bf16* __restrict__ attn, bf16* __restrict__ dqkv, float* __restrict__ stats,
+               const float* __restrict__ rope_cos, const float* __restrict__ rope_sin,
+               int table_stride, int S, int H, int dh, int causal, int diag, float scale,
+               int q_tiles, int kt, int nbuf, size_t RHS) {
+    constexpr int DHP = 16 * DK, LD = DHP + 8, CHUNKS = MK / 16;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int W = blockDim.x / 32, QTW = MQ * W;
+    bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+    bf16* das = qs + QTW * LD;
+    bf16* kv = das + QTW * LD;
+
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+    const int b = blockIdx.x / q_tiles, q0 = (blockIdx.x % q_tiles) * QTW, h = blockIdx.y;
+    const int D = H * dh;
+    const size_t stride = 3 * (size_t)D;
+    const bf16* base = qkv + (size_t)b * S * stride + h * dh;
+    const bf16* dbase = dattn + (size_t)b * S * D + h * dh;
+    const int q_end = min(S, q0 + QTW);
+    // Keys past q_end - 1 + diag are masked for every row of the block, and keys past
+    // min(S, wq0 + 16) - 1 + diag for every row of the warp: pf is exactly 0 there, so
+    // they are not visited.
+    const int kend = causal ? min(S, q_end + diag) : S;
+    const int nt = (kend + MK - 1) / MK;
+    const int wq0 = q0 + warp * MQ;
+    const bool active = wq0 < S;
+    const int kend_w = causal ? min(S, min(S, wq0 + MQ) + diag) : S;
+    const float* tc = ROPE ? rope_cos + (size_t)b * table_stride : nullptr;
+    const float* ts = ROPE ? rope_sin + (size_t)b * table_stride : nullptr;
+
+    // Zero columns dh .. DHP - 1 of every tile once; the staging never writes them.
+    if (dh < DHP) {
+        const int rows = 2 * QTW + 2 * nbuf * kt, pad = DHP - dh;
+        for (int i = threadIdx.x; i < rows * pad; i += blockDim.x)
+            qs[(i / pad) * LD + dh + i % pad] = __float2bfloat16(0.f);
+    }
+
+    // Step s is pass s / nt over key tile s % nt; each step's tiles are staged during the
+    // step before (two buffers). With one key tile, k and v are staged once, in step 0.
+    const int steps = 3 * nt;
+    auto keys_of = [&](int s) { return kv + (size_t)(nt == 1 ? 0 : (s & 1)) * 2 * kt * LD; };
+    auto stage_step = [&](int s) {
+        if (nt == 1 && s > 0) return;
+        const int k0 = (s % nt) * MK;
+        const int nk = min(MK, kend - k0), rows = (nk + 15) & ~15;
+        bf16* ks = keys_of(s);
+        if (ROPE)
+            stage_rope(ks, LD, base + D, stride, k0, nk, rows, dh, tc, ts);
+        else
+            stage_async(ks, LD, base + D, stride, k0, nk, rows, dh);
+        if (nt == 1 || s >= nt)
+            stage_async(ks + kt * LD, LD, base + 2 * D, stride, k0, nk, rows, dh);
+    };
+
+    if (ROPE)
+        stage_rope(qs, LD, base, stride, q0, q_end - q0, QTW, dh, tc, ts);
+    else
+        stage_async(qs, LD, base, stride, q0, q_end - q0, QTW, dh);
+    stage_async(das, LD, dbase, (size_t)D, q0, q_end - q0, QTW, dh);
+    stage_step(0);
+    frag::cp_async_commit();
+
+    uint32_t qf[DK][4], daf[DK][4];
+    float m[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
+    float dsum[2] = {0.f, 0.f}, delta[2] = {0.f, 0.f};
+    float acc[2 * DK][4];   // attn in pass 2, dq in pass 3
+#pragma unroll
+    for (int n = 0; n < 2 * DK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+    for (int s = 0; s < steps; ++s) {
+        if (s + 1 < steps) {
+            stage_step(s + 1);
+            frag::cp_async_commit();
+            frag::cp_async_wait<1>();
+        } else {
+            frag::cp_async_wait<0>();
+        }
+        __syncthreads();
+        if (s == 0 && active) {
+#pragma unroll
+            for (int kd = 0; kd < DK; ++kd) {
+                frag::load_a(qf[kd], qs + warp * MQ * LD + kd * 16, LD, lane);
+                frag::load_a(daf[kd], das + warp * MQ * LD + kd * 16, LD, lane);
+            }
+        }
+        const int pass = s / nt, k0 = (s - pass * nt) * MK;
+        const bf16* ks = keys_of(s);
+        const bf16* vs = ks + kt * LD;
+        if (active && pass == 2 && k0 == 0) {
+            // Pass 2 is over: delta's quad sums, attn written, the accumulator freed for dq.
+#pragma unroll
+            for (int r = 0; r < 2; ++r) delta[r] = frag::quad_sum(dsum[r]);
+            store_rows<DK>(attn + ((size_t)b * S + wq0) * D + h * dh, (size_t)D, acc, S - wq0,
+                           dh, lane);
+#pragma unroll
+            for (int n = 0; n < 2 * DK; ++n)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+        }
+        if (active && k0 < kend_w && pass == 0) {
+            // Pass 1: the tile's row max, then the sum of exp against the new max.
+            float l[CHUNKS][2][4];
+#pragma unroll
+            for (int c = 0; c < CHUNKS; ++c) {
+                if (k0 + 16 * c < kend_w) {
+                    chunk_dots<DK>(l[c], qf, ks + 16 * c * LD, lane);
+                    bwd_mask(l[c], scale, k0 + 16 * c, wq0, kend_w, causal, diag, lane);
+                } else {
+#pragma unroll
+                    for (int j = 0; j < 2; ++j)
+#pragma unroll
+                        for (int e = 0; e < 4; ++e) l[c][j][e] = -INFINITY;
+                }
+            }
+            float mx[2] = {-INFINITY, -INFINITY}, add[2] = {0.f, 0.f};
+#pragma unroll
+            for (int c = 0; c < CHUNKS; ++c)
+#pragma unroll
+                for (int j = 0; j < 2; ++j)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], l[c][j][e]);
+#pragma unroll
+            for (int r = 0; r < 2; ++r) mx[r] = fmaxf(m[r], frag::quad_max(mx[r]));
+#pragma unroll
+            for (int c = 0; c < CHUNKS; ++c)
+#pragma unroll
+                for (int j = 0; j < 2; ++j)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) add[e >> 1] += expf(l[c][j][e] - mx[e >> 1]);
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                sum[r] = sum[r] * expf(m[r] - mx[r]) + frag::quad_sum(add[r]);
+                m[r] = mx[r];
+            }
+        } else if (active && k0 < kend_w) {
+            // Pass 2: pf, p_c; attn += p_c . v; delta += rowsum(dp pf). Pass 3: dlog from
+            // pf, dp and delta; dq += dlog . k. 16 keys at a time.
+#pragma unroll
+            for (int c = 0; c < CHUNKS; ++c) {
+                if (k0 + 16 * c >= kend_w) continue;
+                float l[2][4], dp[2][4];
+                chunk_dots<DK>(l, qf, ks + 16 * c * LD, lane);
+                bwd_mask(l, scale, k0 + 16 * c, wq0, kend_w, causal, diag, lane);
+                chunk_dots<DK>(dp, daf, vs + 16 * c * LD, lane);
+                bf16 x[2][4];
+#pragma unroll
+                for (int j = 0; j < 2; ++j)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        const int r = e >> 1;
+                        const float pf = bwd_pf(l[j][e], m[r], sum[r]);
+                        if (pass == 1) {
+                            dsum[r] += dp[j][e] * pf;
+                            x[j][e] = __float2bfloat16(pf);
+                        } else {
+                            x[j][e] = __float2bfloat16(bwd_dlog(pf, dp[j][e], delta[r], scale));
+                        }
+                    }
+                uint32_t a[4];
+                frag::p_as_a(a, x);
+                mma_rows<DK>(acc, a, (pass == 1 ? vs : ks) + 16 * c * LD, lane);
+            }
+        }
+        __syncthreads();
+    }
+    if (!active) return;
+
+    // dq (un-rotated under ROPE, parked where the key buffers were) and the statistics.
+    bf16* dq = dqkv + ((size_t)b * S + wq0) * stride + h * dh;
+    if (ROPE)
+        store_rows_unrotated<DK>(dq, stride, acc, reinterpret_cast<float*>(kv) + warp * MQ * dh,
+                                 wq0, min(MQ, S - wq0), dh, tc, ts, lane);
+    else
+        store_rows<DK>(dq, stride, acc, S - wq0, dh, lane);
+    if (t == 0) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            const int qi = wq0 + g + 8 * r;
+            if (qi >= S) continue;
+            stats[stat_at(0, RHS, b, H, h, S, qi)] = m[r];
+            stats[stat_at(1, RHS, b, H, h, S, qi)] = sum[r];
+            stats[stat_at(2, RHS, b, H, h, S, qi)] = delta[r];
+        }
+    }
+}
+
+// One block per (sequence, key tile of 16 W rows, head); W warps of 16 keys. A warp walks
+// the query tiles of qt rows that can see its keys and, per chunk of 16 queries, forms
+// the logits and dp with the query rows as the A operand (as attn_bwd_q_mma does), pf and
+// dlog from the saved (m, s, delta), and accumulates dv += p_c^T . dA and dk += dlog^T . q
+// with the transposed A fragments. Shared memory: the block's key and value rows (16 W
+// each), then nbuf buffers of qt query rows followed by qt dA rows, then nbuf x 3 x qt f32
+// statistics; after the loop, ROPE parks dk where the query buffers were.
+template <int DK, bool ROPE>
+__global__ void __launch_bounds__(MMA_MAX_WARPS * 32)
+attn_bwd_kv_mma(const bf16* __restrict__ qkv, const bf16* __restrict__ dattn,
+                const float* __restrict__ stats, bf16* __restrict__ dqkv,
+                const float* __restrict__ rope_cos, const float* __restrict__ rope_sin,
+                int table_stride, int S, int H, int dh, int causal, int diag, float scale,
+                int k_tiles, int qt, int nbuf, size_t RHS) {
+    constexpr int DHP = 16 * DK, LD = DHP + 8, CHUNKS = MK / 16;
+    // The k and v B fragments stay in registers for dh <= 64; dh 128 loads them per chunk.
+    constexpr int KH = DK <= 4 ? DK : 1;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int W = blockDim.x / 32, KTW = MQ * W;
+    bf16* ks = reinterpret_cast<bf16*>(smem_raw);
+    bf16* vs = ks + KTW * LD;
+    bf16* qbuf = vs + KTW * LD;
+    float* st = reinterpret_cast<float*>(qbuf + (size_t)nbuf * 2 * qt * LD);
+
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2;
+    const int b = blockIdx.x / k_tiles, k0 = (blockIdx.x % k_tiles) * KTW, h = blockIdx.y;
+    const int D = H * dh;
+    const size_t stride = 3 * (size_t)D;
+    const bf16* base = qkv + (size_t)b * S * stride + h * dh;
+    const bf16* dbase = dattn + (size_t)b * S * D + h * dh;
+    const float* srow = stats + ((size_t)b * H + h) * S;
+    const int wk0 = k0 + warp * MQ;
+    const bool active = wk0 < S;
+    const float* tc = ROPE ? rope_cos + (size_t)b * table_stride : nullptr;
+    const float* ts = ROPE ? rope_sin + (size_t)b * table_stride : nullptr;
+
+    if (dh < DHP) {
+        const int rows = 2 * KTW + 2 * nbuf * qt, pad = DHP - dh;
+        for (int i = threadIdx.x; i < rows * pad; i += blockDim.x)
+            ks[(i / pad) * LD + dh + i % pad] = __float2bfloat16(0.f);
+    }
+
+    // Under the causal mask query i sees key j only when j <= i + diag: the queries before
+    // k0 - diag add exactly 0 and are skipped. Query tiles start at a multiple of 16, so
+    // each query sits at the same row of its 16-row chunk as in attn_bwd_q_mma.
+    const int qbase = causal ? (max(0, k0 - diag) & ~15) : 0;
+    const int steps = (S - qbase + qt - 1) / qt;
+    auto qtile = [&](int s) { return qbuf + (size_t)(nbuf == 1 ? 0 : (s & 1)) * 2 * qt * LD; };
+    auto stat_tile = [&](int s) { return st + (nbuf == 1 ? 0 : (s & 1)) * 3 * qt; };
+    auto stage_step = [&](int s) {
+        const int q0 = qbase + s * qt, nq = min(qt, S - q0), rows = (nq + 15) & ~15;
+        bf16* qd = qtile(s);
+        if (ROPE)
+            stage_rope(qd, LD, base, stride, q0, nq, rows, dh, tc, ts);
+        else
+            stage_async(qd, LD, base, stride, q0, nq, rows, dh);
+        stage_async(qd + qt * LD, LD, dbase, (size_t)D, q0, nq, rows, dh);
+        float* sd = stat_tile(s);
+        for (int i = threadIdx.x; i < 3 * rows; i += blockDim.x) {
+            const int which = i / rows, r = i - which * rows;
+            const bool ok = r < nq;
+            frag::cp_async<4>(sd + which * qt + r, srow + which * RHS + q0 + (ok ? r : 0), ok);
+        }
+    };
+
+    const int nk = min(KTW, S - k0);
+    if (ROPE)
+        stage_rope(ks, LD, base + D, stride, k0, nk, KTW, dh, tc, ts);
+    else
+        stage_async(ks, LD, base + D, stride, k0, nk, KTW, dh);
+    stage_async(vs, LD, base + 2 * D, stride, k0, nk, KTW, dh);
+    stage_step(0);
+    frag::cp_async_commit();
+
+    uint32_t kf[KH][4], vf[KH][4];
+    float dk[2 * DK][4], dv[2 * DK][4];
+#pragma unroll
+    for (int n = 0; n < 2 * DK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+    const bf16* kw = ks + warp * MQ * LD;
+    const bf16* vw = vs + warp * MQ * LD;
+
+    for (int s = 0; s < steps; ++s) {
+        if (s + 1 < steps) {
+            stage_step(s + 1);
+            frag::cp_async_commit();
+            frag::cp_async_wait<1>();
+        } else {
+            frag::cp_async_wait<0>();
+        }
+        __syncthreads();
+        if (s == 0 && active && KH == DK) {
+#pragma unroll
+            for (int kd = 0; kd < KH; ++kd) {
+                frag::load_bt(kf[kd], kw + kd * 16, LD, lane);
+                frag::load_bt(vf[kd], vw + kd * 16, LD, lane);
+            }
+        }
+        const int q0 = qbase + s * qt;
+        const bf16* qd = qtile(s);
+        const bf16* dd = qd + qt * LD;
+        const float* sd = stat_tile(s);
+#pragma unroll
+        for (int c = 0; c < CHUNKS; ++c) {
+            const int qc = q0 + 16 * c;
+            if (!active || 16 * c >= qt || qc >= S) break;
+            if (causal && qc + 16 + diag <= wk0) continue;   // no query of the chunk sees a key
+            float l[2][4], dp[2][4];
+            chunk_dots_held<DK, KH>(l, qd + 16 * c * LD, kf, kw, lane);
+            bwd_mask(l, scale, wk0, qc, S, causal, diag, lane);
+            chunk_dots_held<DK, KH>(dp, dd + 16 * c * LD, vf, vw, lane);
+            float mi[2], si[2], di[2];
+            bool valid[2];
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                const int i = 16 * c + g + 8 * r;
+                valid[r] = qc + g + 8 * r < S;
+                mi[r] = sd[i];
+                si[r] = sd[qt + i];
+                di[r] = sd[2 * qt + i];
+            }
+            bf16 p[2][4], dl[2][4];
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int r = e >> 1;
+                    const float pf = valid[r] ? bwd_pf(l[j][e], mi[r], si[r]) : 0.f;
+                    p[j][e] = __float2bfloat16(pf);
+                    dl[j][e] = __float2bfloat16(bwd_dlog(pf, dp[j][e], di[r], scale));
+                }
+            uint32_t a[4], at[4];
+            frag::p_as_a(a, p);
+            frag::transpose_a(at, a);
+            mma_rows<DK>(dv, at, dd + 16 * c * LD, lane);
+            frag::p_as_a(a, dl);
+            frag::transpose_a(at, a);
+            mma_rows<DK>(dk, at, qd + 16 * c * LD, lane);
+        }
+        __syncthreads();
+    }
+    if (!active) return;
+
+    // dv, and dk (un-rotated under ROPE, parked where the query buffers were).
+    bf16* row = dqkv + ((size_t)b * S + wk0) * stride + h * dh;
+    store_rows<DK>(row + 2 * D, stride, dv, S - wk0, dh, lane);
+    if (ROPE)
+        store_rows_unrotated<DK>(row + D, stride, dk,
+                                 reinterpret_cast<float*>(qbuf) + warp * MQ * dh, wk0,
+                                 min(MQ, S - wk0), dh, tc, ts, lane);
+    else
+        store_rows<DK>(row + D, stride, dk, S - wk0, dh, lane);
+}
+
+template <int DK, bool ROPE>
+cudaError_t launch_attn_bwd_mma(const AttnArgs& a, cudaStream_t stream) {
+    // Tiles from S as launch_attn_core_mma's: one warp per 16 rows up to 4; key (query)
+    // buffers of round_up(S, 16) rows up to MK, two of them when S > MK. The rope park
+    // (16 rows of dh f32 per warp) reuses the buffers.
+    const int warps = min(MMA_MAX_WARPS, (a.S + MQ - 1) / MQ), rows = MQ * warps;
+    const int kt = min(MK, (a.S + 15) & ~15), nbuf = a.S > MK ? 2 : 1;
+    const size_t row_bytes = (size_t)(16 * DK + 8) * sizeof(bf16);
+    const size_t park = (size_t)rows * a.dh * sizeof(float);
+    const size_t bufs = 2 * (size_t)nbuf * kt * row_bytes;
+    const size_t smem_q = 2 * rows * row_bytes + (bufs > park ? bufs : park);
+    const size_t bufs_kv = bufs + 3 * (size_t)nbuf * kt * sizeof(float);
+    const size_t smem_kv = 2 * rows * row_bytes + (bufs_kv > park ? bufs_kv : park);
+    cudaError_t err = cudaFuncSetAttribute(attn_bwd_q_mma<DK, ROPE>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem_q);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(attn_bwd_kv_mma<DK, ROPE>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_kv);
+    if (err != cudaSuccess) return err;
+    const size_t RHS = (size_t)a.B * a.H * a.S;
+    const int tiles = (a.S + rows - 1) / rows;
+    dim3 grid((unsigned)a.B * tiles, a.H);
+    attn_bwd_q_mma<DK, ROPE><<<grid, warps * 32, smem_q, stream>>>(
+        static_cast<const bf16*>(a.qkv), static_cast<const bf16*>(a.dattn),
+        static_cast<bf16*>(a.attn), static_cast<bf16*>(a.dqkv), static_cast<float*>(a.stats),
+        a.cos, a.sin, a.table_stride, a.S, a.H, a.dh, a.causal, a.diag, a.scale, tiles, kt,
+        nbuf, RHS);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    attn_bwd_kv_mma<DK, ROPE><<<grid, warps * 32, smem_kv, stream>>>(
+        static_cast<const bf16*>(a.qkv), static_cast<const bf16*>(a.dattn),
+        static_cast<const float*>(a.stats), static_cast<bf16*>(a.dqkv), a.cos, a.sin,
+        a.table_stride, a.S, a.H, a.dh, a.causal, a.diag, a.scale, tiles, kt, nbuf, RHS);
+    return cudaGetLastError();
+}
+
+template <int DK>
+cudaError_t attn_bwd_mma(const AttnArgs& a, cudaStream_t st) {
+    return a.cos ? launch_attn_bwd_mma<DK, true>(a, st) : launch_attn_bwd_mma<DK, false>(a, st);
+}
+
+// dtype 1 (bf16): attn_bwd_{q,kv}_mma with dh padded to 32, 64 or 128; dtype 0 (f32):
+// attn_bwd_{q,kv} on the CUDA cores with 1, 2 or 4 columns of 32 per lane.
+cudaError_t attn_bwd_dispatch(int dtype, const AttnArgs& a, cudaStream_t st) {
+    if (dtype == 1) {
+        if (a.dh <= 32) return attn_bwd_mma<2>(a, st);
+        if (a.dh <= 64) return attn_bwd_mma<4>(a, st);
+        return attn_bwd_mma<8>(a, st);
+    }
+    if (dtype == 0) {
+        if (a.dh <= 32) return attn_bwd_f32<1>(a, st);
+        if (a.dh <= 64) return attn_bwd_f32<2>(a, st);
+        return attn_bwd_f32<4>(a, st);
+    }
+    return cudaErrorInvalidValue;
 }
 
 
@@ -1629,10 +2205,7 @@ extern "C" int tcow_attn_bwd(int dtype, const void* qkv, const void* dattn, void
     if (bad_attn(B, S, H, dh, cos, sin, table_stride)) return (int)cudaErrorInvalidValue;
     const AttnArgs a{qkv, dattn, attn, nullptr, dqkv, stats, cos, sin, table_stride,
                      B, S, H, dh, causal, diag, scale};
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (dtype == 1) return (int)attn_bwd_dispatch<bf16>(a, st);
-    if (dtype == 0) return (int)attn_bwd_dispatch<float>(a, st);
-    return (int)cudaErrorInvalidValue;
+    return (int)attn_bwd_dispatch(dtype, a, static_cast<cudaStream_t>(stream));
 }
 
 // K6's weight gradient: out (K, N) f32 = A^T . B over the M rows of A (M, K) and B (M, N);

@@ -122,20 +122,30 @@ def attention_bwd_qkv_ref(qkv, g, proj_w, num_heads: int, causal_attention: int,
     p_c, attn, dv, dlog, dq, dk). With rope (K5r), q and k are rotated from the
     un-rotated qkv and rounded (:603-605); dq and dk are rounded, un-rotated in f32 and
     rounded again (:622-628).'''
+    cdt = qkv.dtype
+    f = lambda t: t.to(cdt).float()                    # round to the compute dtype, then f32
+    dattn = torch.matmul(f(g), f(proj_w).T).to(cdt)                              # :587-590
+    return attention_bwd_core_ref(qkv, dattn, num_heads, causal_attention, rope, pos)
+
+
+def attention_bwd_core_ref(qkv, dattn, num_heads: int, causal_attention: int,
+                           rope: bool = False, pos=None):
+    '''Plain version of the backward core (attn_bwd_q + attn_bwd_kv, _bwd_kernel
+    :598-630) over qkv (B, S, 3D) and dattn (B, S, D) in one dtype -> (dqkv (B, S, 3D),
+    attn (B, S, D)) in that dtype, with the rounding points of `attention_bwd_qkv_ref`.'''
     B, S, D3 = qkv.shape
     D = D3 // 3
     H = num_heads
     dh = D // H
     scale = dh ** -0.5
     cdt = qkv.dtype
-    f = lambda t: t.to(cdt).float()                    # round to the compute dtype, then f32
-    dattn = f(torch.matmul(f(g), f(proj_w).T))                                   # :587-590
+    f = lambda t: t.to(cdt).float()
     q, k, v = qkv.reshape(B, S, 3, H, dh).permute(2, 0, 3, 1, 4)                 # (B, H, S, dh)
     if rope:
         cs = _head_tables(S, dh, pos, qkv.device)
         q, k = rope_lib.apply_rope(q, *cs), rope_lib.apply_rope(k, *cs)
     q, k, v = q.float(), k.float(), v.float()
-    da = dattn.reshape(B, S, H, dh).transpose(1, 2)
+    da = dattn.float().reshape(B, S, H, dh).transpose(1, 2)
     logits = torch.matmul(q, k.transpose(-1, -2)) * scale
     if causal_attention > 0:
         logits = logits.masked_fill(~_causal_keep(S, causal_attention, qkv.device), -1e10)

@@ -1,6 +1,7 @@
 '''
-The port's attention backward (K4's plain version `attention_bwd_ref` and the
-differentiable `fused_attention` in its 'kernel_x' mode) against the JAX reference on the
+The port's attention backward (K4's plain version `attention_bwd_ref`, its core alone
+`attention_bwd_core_ref`, and the differentiable `fused_attention` in its 'kernel_x'
+mode) against the JAX reference on the
 CPU in float32: the Pallas backward kernel in interpret mode (_fused_attention_bwd_impl
 with qkv=None, the 'kernel_x' mode) and jax.grad of the plain XLA attention.
 '''
@@ -64,6 +65,22 @@ def test_bwd_ref_matches_jax_vjp(ca, S):
     (dqkv,) = vjp(jnp.einsum('bsd,ed->bse', g, proj_w))
     got_dqkv, got_attn = fa.attention_bwd_ref(
         *map(torch.from_numpy, (x, g, qkv_w, qkv_b, proj_w)), HEADS, ca)
+    np.testing.assert_allclose(got_attn.numpy(), np.asarray(attn), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got_dqkv.numpy(), np.asarray(dqkv), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize('ca,S', GEOMETRIES)
+def test_bwd_core_ref_matches_jax_vjp(ca, S):
+    '''The backward core alone, attention_bwd_core_ref from qkv and dattn (what the bf16
+    kernels attn_bwd_q_mma + attn_bwd_kv_mma compute), against jax.vjp of the attention
+    core with dattn as the cotangent.'''
+    rng = np.random.RandomState(5)
+    qkv = (rng.randn(5, S, 3 * 64) * 0.5).astype(np.float32)
+    dattn = rng.randn(5, S, 64).astype(np.float32)
+    attn, vjp = jax.vjp(lambda t: jax_core(t, ca), qkv)
+    (dqkv,) = vjp(jnp.asarray(dattn))
+    got_dqkv, got_attn = fa.attention_bwd_core_ref(torch.from_numpy(qkv),
+                                                   torch.from_numpy(dattn), HEADS, ca)
     np.testing.assert_allclose(got_attn.numpy(), np.asarray(attn), rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(got_dqkv.numpy(), np.asarray(dqkv), rtol=RTOL, atol=ATOL)
 

@@ -4,7 +4,8 @@ geometries that the full-width run in chip_smoke.py does not reach (S=1, ragged 
 column and depth tiles, head sizes 32, 40, 64 and 128, every causal mode) for the
 forwards K1, K2 and K3 and the backwards K4, K5 and K6, the bf16 attention core's tiles
 (K1, K3, K1r at lengths around 16 and 64 and head sizes 4 to 128; K1 and K3 identical
-across runs, K3's probabilities), K6's weight gradients identical
+across runs, K3's probabilities) and the bf16 backward core's (K4, K5, K4r and K6 at the
+same lengths and head sizes; K4 and K5 identical across runs), K6's weight gradients identical
 across runs, the gradients of the differentiable fused_attention on the card, and the
 launch counts of the seeker's entry points and of one train step under each pairing of a
 backward mode with its remat policy; and the rope variants K1r ... K6r (head sizes 32,
@@ -156,6 +157,40 @@ def test_attn_core_tiles_match_plain(cuda, S, dh, ca):
         assert (probs[..., ~fa._causal_keep(S, ca, cuda)] == 0).all()
     # Each p rounds to bf16 (relative error <= 2^-9), so a row sums to 1 within 2^-9.
     assert (probs.sum(-1) - 1).abs().max() <= 2 ** -8
+
+
+@pytest.mark.parametrize('ca', (0, 1, 3))
+@pytest.mark.parametrize('dh', CORE_DH)
+@pytest.mark.parametrize('S', CORE_S + (30,))
+def test_attn_bwd_tiles_match_plain(cuda, S, dh, ca):
+    '''The bf16 backward core's tiling (attn_bwd_q_mma, attn_bwd_kv_mma): K4, K5 and K4r
+    (per-row frame times) against their plain versions in f32; K4 and K5 giving the same
+    bits on a second run; at dh 64, K6, whose weight gradients read the new dqkv.'''
+    B, H = 2, 2
+    x, w = inputs(B, S, dh * H, torch.bfloat16, cuda, seed=21)
+    g = grad_input(B, S, dh * H, torch.bfloat16, cuda, seed=22)
+    p = rope_positions(B, S, 'times', cuda)
+    _, qkv = fa.fused_attention_fwd_qkv(x, *w, H, ca)
+    before = launches()
+    k4 = fa.fused_attention_bwd(x, g, *w[:3], H, ca)
+    k5 = fa.fused_attention_bwd_qkv(qkv, g, w[2], H, ca)
+    k4r = fa.fused_attention_bwd(x, g, *w[:3], H, ca, True, p)
+    k4_again = fa.fused_attention_bwd(x, g, *w[:3], H, ca)
+    k5_again = fa.fused_attention_bwd_qkv(qkv, g, w[2], H, ca)
+    torch.cuda.synchronize()
+    assert since(before) == {'k4': 2, 'k5': 2, 'k4r': 1}
+    assert all(torch.equal(a, b) for a, b in zip(k4 + k5, k4_again + k5_again))
+    want = (fa.attention_bwd_ref(x.float(), g.float(), *w[:3], H, ca)
+            + fa.attention_bwd_qkv_ref(qkv.float(), g.float(), w[2], H, ca)
+            + fa.attention_bwd_ref(x.float(), g.float(), *w[:3], H, ca, True, p))
+    got = k4 + k5 + k4r
+    if dh == 64:
+        got += fa.fused_attention_bwd_wg(x, g, *w[:3], H, ca)
+        want += fa.attention_bwd_wg_ref(x.float(), g.float(), *w[:3], H, ca)
+    for a, ref in zip(got, want, strict=True):
+        assert a.shape == ref.shape
+        err = rel_l2(a, ref)
+        assert err <= TOL_BWD[torch.bfloat16], err
 
 
 @pytest.mark.parametrize('B,S,D,H,ca,dtype', GEOMETRIES)
