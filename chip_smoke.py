@@ -3,7 +3,9 @@
 Drives the PyTorch port (tcow_tpu_torch) on one NVIDIA GPU and checks it:
 
   1. device line: the card's name and power limit, torch / CUDA / nvcc versions, and the
-     time to build tcow_tpu_torch/ops/csrc/fused_attention.cu (K1 to K6) with nvcc;
+     time to build tcow_tpu_torch/ops/csrc/fused_attention.cu (the attention cores of K1
+     to K6) and gemm_sm90.cu (their GEMMs and row reductions), one nvcc each, started
+     together, with each source's own build time;
   2. each kernel against its plain PyTorch version on the card, at the shapes of the
      inference and training paths (bf16), plus float32 cases; for K4 also the
      gradients of the differentiable fused_attention against autograd through the plain
@@ -49,7 +51,14 @@ Drives the PyTorch port (tcow_tpu_torch) on one NVIDIA GPU and checks it:
      tcow_attn_bwd at training 1800x30 causal, 180x301 and rope 1800x30 with frame times
      (BWD_CORE_SHAPES): attn, dq, dk and dv against the plain core in f32, the same bits
      on a second run, and timed beside the plain core, SDPA's forward and autograd
-     backward and its bound (phase attn_bwd_times).
+     backward and its bound (phase attn_bwd_times);
+ 11. the bf16 GEMMs of K1-K6 and K1r-K6r (wgmma fed by TMA) launched alone through the
+     chains' own helpers at every shape the main paths give them (GEMM_SHAPES,
+     WGRAD_SHAPES, COLSUM_SHAPES; 54,000 / 54,180 training and 18,000 / 18,060 inference
+     rows): gemm_bias, wgrad and colsum against the f32 result of the same bf16 operands,
+     the same bits on a second run, and timed beside the plain version, torch.addmm /
+     torch.mm / torch.sum and the bound, with the TFLOP/s and share of the bound reached
+     (phase gemm_times; a `gemm` sub-entry on every kernel of the kernels line).
 
 Run from the repository root: `python3 chip_smoke.py`. Prints one JSON object per phase,
 then the `{"kernels": [...]}` line, the nvidia-smi line, and last
@@ -364,14 +373,16 @@ def phase_device():
                           check=True).stdout
     nvcc_line = next((ln for ln in nvcc.splitlines() if 'release' in ln), nvcc.strip())
     t0 = time.perf_counter()
-    _build.load('fused_attention')
+    _build.build_all()
     build_s = time.perf_counter() - t0
-    log = _build.lib_path('fused_attention').with_suffix('.log')
-    ptxas = ([ln.strip() for ln in log.read_text().splitlines()
-              if 'registers' in ln or 'spill' in ln] if log.exists() else [])
+    ptxas = {}
+    for name in _build.SOURCES:
+        log = _build.lib_path(name).with_suffix('.log')
+        ptxas[name] = ([ln.strip() for ln in log.read_text().splitlines()
+                        if 'registers' in ln or 'spill' in ln] if log.exists() else [])
     emit({'phase': 'device', 'nvidia_smi': smi, 'torch': torch.__version__,
           'torch_cuda': torch.version.cuda, 'nvcc': nvcc_line, 'build_s': build_s,
-          'ptxas': ptxas})
+          'build_s_by_source': dict(_build.build_seconds), 'ptxas': ptxas})
     return smi
 
 
@@ -1379,6 +1390,144 @@ def phase_attn_bwd_times():
     return per_shape
 
 
+# ---------------------------------------------------------------------------------------
+# The GEMMs alone: gemm_bias, wgrad and colsum of K1-K6 and K1r-K6r (gemm_sm90.cu)
+# ---------------------------------------------------------------------------------------
+
+# Rows of each geometry's GEMMs (sequences x length).
+INFER_ROWS = {f'inference_{g}': R * S for g, (R, S, _) in GEOMETRIES.items()}
+TRAIN_ROWS = {f'train_{g}': R * S for g, (R, S, _) in TRAIN_GEOMETRIES.items()}
+# (name, N, K, W transposed, bias, the geometries that run it) of gemm_bias: qkv and proj
+# of the forwards, the backward's dattn = g . proj_w^T and K6's dx = dqkv . qkv_w^T.
+GEMM_SHAPES = (
+    ('qkv', 3 * D, D, False, True, {**INFER_ROWS, **TRAIN_ROWS}),
+    ('proj', D, D, False, True, {**INFER_ROWS, **TRAIN_ROWS}),
+    ('dattn', D, D, True, False, TRAIN_ROWS),
+    ('dx', D, 3 * D, True, False, TRAIN_ROWS),
+)
+# K6's weight gradients (name, K, N: f32 (K, N) = a^T . b) and bias gradients (name, N).
+WGRAD_SHAPES = (('wgrad_x_dqkv', D, 3 * D), ('wgrad_attn_g', D, D))
+COLSUM_SHAPES = (('colsum_dqkv', 3 * D), ('colsum_g', D))
+# The launches of each kernel's chain (the qkv GEMM, then the rest), at the geometries
+# of its main path.
+GEMMS_OF_KERNEL = {
+    'K1': ('qkv', 'proj'), 'K2': ('qkv', 'proj'), 'K3': ('qkv', 'proj'),
+    'K4': ('qkv', 'dattn'), 'K5': ('dattn',),
+    'K6': ('qkv', 'dattn', 'dx', 'wgrad_x_dqkv', 'colsum_dqkv', 'wgrad_attn_g', 'colsum_g'),
+}
+# wgrad vs the f32 product of the same bf16 operands: the products are exact in f32, only
+# the order of the f32 sums over 54,000 rows differs.
+TOL_WGRAD = 1e-3
+
+
+@dataclasses.dataclass
+class GemmCase:
+    '''One bf16 launch of gemm_bias, wgrad or colsum on the main paths, on seeded inputs:
+    args are (a, w f32, bias f32 or None, w_transposed), (a, b) or (a,).'''
+    op: str
+    geometry: str
+    kind: str
+    args: tuple
+    flops: int
+    nbytes: int
+    limit: float
+
+    def kernel(self):
+        '''The port's launch, as the chains make it (gemm_bias with its weight cast).'''
+        return {'gemm_bias': fa._gemm, 'wgrad': fa._wgrad, 'colsum': fa._colsum}[self.kind](
+            *self.args)
+
+    def plain(self):
+        '''The plain version: gemm_bias_ref (rounded once), wgrad_ref, an f32 sum.'''
+        if self.kind == 'gemm_bias':
+            return fa.gemm_bias_ref(*self.args)
+        if self.kind == 'wgrad':
+            return fa.wgrad_ref(*self.args)
+        return self.args[0].float().sum(0)
+
+    def want(self):
+        '''The f32 result from the same bf16 operands, not rounded.'''
+        if self.kind != 'gemm_bias':
+            return self.plain()
+        a, w, bias, wt = self.args
+        w16 = w.to(a.dtype).float()
+        out = a.float() @ (w16.T if wt else w16)
+        return out if bias is None else out + bias
+
+    def library(self):
+        '''One PyTorch call computing the same function (yardstick only).'''
+        if self.kind == 'gemm_bias':
+            a, w, bias, wt = self.args
+            w16 = w.to(a.dtype)
+            return lambda: (torch.addmm(bias.to(a.dtype), a, w16) if bias is not None
+                            else torch.mm(a, w16.T if wt else w16))
+        if self.kind == 'wgrad':
+            a, b = self.args
+            return lambda: torch.mm(a.T, b, out_dtype=torch.float32)
+        return lambda: torch.sum(self.args[0], dim=0, dtype=torch.float32)
+
+
+def gemm_cases():
+    '''Every GemmCase of GEMM_SHAPES, WGRAD_SHAPES and COLSUM_SHAPES, one at a time.'''
+    def rand(shape, seed, scale=1.0, dtype=torch.bfloat16):
+        a = np.random.RandomState(seed).randn(*shape).astype(np.float32) * scale
+        return torch.from_numpy(a).to(DEV, dtype)
+
+    for i, (name, N, K, wt, has_bias, rows) in enumerate(GEMM_SHAPES):
+        w = rand((N, K) if wt else (K, N), SEED + 700 + i, K ** -0.5, torch.float32)
+        bias = rand((N,), SEED + 710 + i, 0.02, torch.float32) if has_bias else None
+        for geom, M in rows.items():
+            yield GemmCase(name, geom, 'gemm_bias', (rand((M, K), SEED + 720 + i), w, bias, wt),
+                           2 * M * N * K, 2 * M * (K + N) + 4 * N * K + (4 * N if has_bias else 0),
+                           TOL_BF16)
+    for i, (name, K, N) in enumerate(WGRAD_SHAPES):
+        for geom, M in TRAIN_ROWS.items():
+            yield GemmCase(name, geom, 'wgrad', (rand((M, K), SEED + 730 + i),
+                                                 rand((M, N), SEED + 740 + i)),
+                           2 * M * N * K, 2 * M * (K + N) + 4 * K * N, TOL_WGRAD)
+    for i, (name, N) in enumerate(COLSUM_SHAPES):
+        for geom, M in TRAIN_ROWS.items():
+            yield GemmCase(name, geom, 'colsum', (rand((M, N), SEED + 750 + i),),
+                           M * N, 2 * M * N + 4 * N, TOL_F32)
+
+
+def phase_gemm_times():
+    '''Every bf16 gemm_bias, wgrad and colsum launch of the main paths alone, through the
+    chains' own launch helpers: against the f32 result of the same bf16 operands (rel L2
+    <= TOL_BF16 for gemm_bias, TOL_WGRAD for wgrad, TOL_F32 for colsum), the same bits on
+    a second run, and timed beside the plain version, one library call and the bound,
+    with the rate and share of the bound it reaches.'''
+    per_shape = {}
+    for case in gemm_cases():
+        first, second = case.kernel(), case.kernel()
+        torch.cuda.synchronize()
+        if not torch.equal(first, second):
+            fail(f'{case.op} {case.geometry}: other bits on a second run')
+        want = case.want()
+        e = dict(kind=case.kind, M=case.args[0].shape[0], tol_rel_l2=case.limit,
+                 rel_l2=rel_l2(first.float(), want),
+                 max_abs_err=float((first.float() - want).abs().max()))
+        del first, second, want
+        if not e['rel_l2'] <= case.limit:
+            fail(f'{case.op} {case.geometry}: kernel vs plain rel L2 {e["rel_l2"]} above '
+                 f'{case.limit}')
+        bound_ms, bound_by = bound(case.flops, case.nbytes)
+        with torch.no_grad():
+            e.update(ms=cuda_ms(case.kernel), plain_ms=cuda_ms(case.plain, iters=5),
+                     library_ms=cuda_ms(case.library()), bound_ms=bound_ms, bound_by=bound_by,
+                     flops=case.flops, bytes=case.nbytes)
+            if case.kind == 'gemm_bias':
+                w, wt = case.args[1], case.args[3]
+                e['weight_cast_ms'] = cuda_ms(lambda: fa.gemm_weight(w, wt))
+        e['tflops'] = case.flops / e['ms'] / 1e9
+        e['share_of_bound'] = bound_ms / e['ms']
+        per_shape[f'{case.op}/{case.geometry}'] = e
+        del case
+        torch.cuda.empty_cache()
+    emit({'phase': 'gemm_times', 'per_shape': per_shape, 'deterministic': True})
+    return per_shape
+
+
 def kernel_entry(name, source, replaces, launches, errs, per_geom):
     '''One item of the `kernels` line: means over the geometries of the main path (each
     is called once per block).'''
@@ -1449,6 +1598,7 @@ def main():
     rope_geom = phase_rope_times()
     core = phase_attn_core_times()
     bwd_core = phase_attn_bwd_times()
+    gemm = phase_gemm_times()
 
     def train_launches(kernel, runs=trains, prefix='train'):
         return {f'{prefix}_{m}': t['launches'][kernel] for (m, _), t in runs.items()
@@ -1483,13 +1633,23 @@ def main():
         entries.append(kernel_entry(name, source, replaces + line, launches,
                                     rope_errs[kernel], rope_geom[kernel]))
     # K1-K3 and K1r-K3r: their bf16 attention core (attn_core_mma) timed alone; K4-K6 and
-    # K4r-K6r: their bf16 backward core (attn_bwd_q_mma + attn_bwd_kv_mma).
+    # K4r-K6r: their bf16 backward core (attn_bwd_q_mma + attn_bwd_kv_mma); every kernel:
+    # its GEMMs and row reductions (gemm_sm90.cu) at the geometries of its main path.
     for kernel, entry in zip(('K1', 'K2', 'K3', 'K4', 'K5', 'K6', 'K1r', 'K2r', 'K3r', 'K4r',
                               'K5r', 'K6r'), entries, strict=True):
         if kernel in CORE_OF_KERNEL:
             entry['attn_core'] = {s: core[s] for s in CORE_OF_KERNEL[kernel]}
         if kernel in BWD_CORE_OF_KERNEL:
             entry['attn_bwd'] = {s: bwd_core[s] for s in BWD_CORE_OF_KERNEL[kernel]}
+        geoms = entry['per_geometry'].keys()
+        if kernel == 'K1':
+            geoms = [*INFER_ROWS, *TRAIN_ROWS]
+        elif kernel == 'K1r':
+            geoms = ['inference_temporal', 'train_temporal']
+        geoms = [g if g.startswith(('train_', 'inference_')) else f'train_{g}' for g in geoms]
+        entry['gemm'] = {'source': 'tcow_tpu_torch/ops/csrc/gemm_sm90.cu', **{
+            f'{op}/{g}': gemm[f'{op}/{g}'] for op in GEMMS_OF_KERNEL[kernel.rstrip('r')]
+            for g in geoms}}
     emit({'kernels': entries})
     print(smi)
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

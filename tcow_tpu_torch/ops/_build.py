@@ -1,7 +1,8 @@
 '''
 Builds the CUDA sources under csrc/ with nvcc into shared libraries with a plain C
 interface, and loads them with ctypes. Nothing is built at import: the first CUDA call
-builds (or reuses) `tcow_tpu_torch/_build/lib<name>-<hash>.so`, keyed by the source's
+builds (or reuses) `tcow_tpu_torch/_build/lib<name>-<hash>.so` for every source at once,
+one nvcc process each, all started together; each library is keyed by its source's
 content hash, so an edited source is rebuilt and concurrent builds never clash.
 '''
 
@@ -10,12 +11,17 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parent.parent / '_build'
+# The quicker build first, so that each wait's time is its own source's.
+SOURCES = ('gemm_sm90', 'fused_attention')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3', '-shared',
               '-Xcompiler', '-fPIC', '-Xptxas', '-v']
+# Seconds each source's nvcc took in this process (absent: the library was already built).
+build_seconds = {}
 
 
 def nvcc_path() -> str:
@@ -35,18 +41,38 @@ def lib_path(name: str) -> Path:
     return BUILD_DIR / f'lib{name}-{digest}.so'
 
 
+def build_all():
+    '''Compiles every source of SOURCES whose library is missing, one nvcc each, started
+    together. The compiler's output (registers, shared memory, spills from -Xptxas -v) goes
+    to <lib>.log; the seconds from the start to the end of each wait to build_seconds (for
+    a source waited on after a slower one, the slower one's time).'''
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    jobs = []
+    for name in SOURCES:
+        lib = lib_path(name)
+        if not lib.exists():
+            tmp = lib.with_name(f'{lib.name}.tmp{os.getpid()}')
+            with open(lib.with_suffix('.log'), 'w') as log:
+                jobs.append((name, lib, tmp, subprocess.Popen(
+                    [nvcc_path(), *NVCC_FLAGS, '-o', str(tmp), str(CSRC / f'{name}.cu')],
+                    stdout=log, stderr=subprocess.STDOUT)))
+    failed = []
+    for name, lib, tmp, proc in jobs:
+        proc.wait()
+        build_seconds[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f'nvcc failed on {name}.cu (rc {proc.returncode}):\n'
+                          + lib.with_suffix('.log').read_text())
+        else:
+            os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError('\n'.join(failed))
+
+
 def load(name: str) -> ctypes.CDLL:
-    '''Loads the library for csrc/<name>.cu, compiling it first if it is missing. The
-    compiler's output (registers, shared memory, spills from -Xptxas -v) goes to
-    <lib>.log.'''
+    '''Loads the library for csrc/<name>.cu, building every missing library first.'''
     lib = lib_path(name)
     if not lib.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_name(f'{lib.name}.tmp{os.getpid()}')
-        out = subprocess.run([nvcc_path(), *NVCC_FLAGS, '-o', str(tmp), str(CSRC / f'{name}.cu')],
-                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        lib.with_suffix('.log').write_text(out.stdout)
-        if out.returncode != 0:
-            raise RuntimeError(f'nvcc failed on {name}.cu (rc {out.returncode}):\n{out.stdout}')
-        os.replace(tmp, lib)
+        build_all()
     return ctypes.CDLL(str(lib))

@@ -1,7 +1,9 @@
 // Fused multi-head self-attention for Hopper (sm_90a), bound through ctypes: the forward
 // (K1) with its residual variants (K2, K3) and the backward (K4) with its variants (K5, K6),
 // one per backward mode of tcow_tpu/ops/pallas_attention.py:fused_attention (:171-199).
-// The wrappers in fused_attention.py chain the entry points below into each kernel.
+// The wrappers in fused_attention.py chain the entry points below (the attention cores)
+// and those of gemm_sm90.cu (gemm_bias, wgrad, colsum: the GEMMs and row reductions, a
+// library of their own) into each kernel.
 //
 // ---- K1, the forward ----
 //
@@ -20,8 +22,8 @@
 // (qkv 63.7, proj 21.2, scores+PV 1.7 counted over the full square) and one spatial call
 // (60 sequences of 301) ~101.9 GFLOP (63.9 + 21.3 + 16.7), against ~65 MB of compulsory
 // traffic: about 1300 FLOP per byte, so the chain is compute-bound, ~88 us and ~103 us.
-// The GEMMs use wmma bf16 tensor-core tiles without a copy pipeline; qkv and attn make a
-// round trip through HBM. wgmma, TMA and fusing the three stages are later work.
+// The GEMMs are gemm_sm90.cu's wgmma kernels fed by TMA (its source note); qkv and attn
+// make a round trip through HBM. Fusing the three stages is later work.
 //
 // attn_core alone is bytes-bound: it reads qkv once (R S 3D bf16) and writes attn (R S D)
 // and, for K3, the probabilities (R H S S), against 4 dh operations per kept (query, key)
@@ -93,8 +95,8 @@
 // operations (2.55e11 temporal, 1800 sequences of 30; 2.56e11 spatial, 180 of 301), the
 // attention 12 D per (query, key) pair the mask keeps (7.7e9 temporal, 1.50e11 spatial),
 // against ~0.5 GB of compulsory traffic: operations-bound, ~0.27 ms temporal and ~0.41 ms
-// spatial. The GEMMs are the forward's wmma tiles without a copy pipeline (wgmma + TMA
-// are later work); qkv, dattn and the statistics make a round trip through HBM. The core
+// spatial. The GEMMs are the forward's (gemm_sm90.cu: wgmma fed by TMA); qkv, dattn and
+// the statistics make a round trip through HBM. The core
 // alone reads qkv and dattn and writes attn and dqkv (16 D bytes a row in bf16, 0.66 GB
 // at the step of record's shapes) against 12 dh operations per kept pair and head:
 // ~0.2 ms at both shapes. In bf16 it is attn_bwd_q_mma + attn_bwd_kv_mma, on tensor
@@ -153,7 +155,7 @@
 // K6 replaces _fused_attention_bwd_impl(inkernel_wgrads=True) (`pallas_call` :735, body
 // :640-660), the backward of 'kernel_x_wg', which computes inside the TPU kernel what K4
 // leaves to plain products: K4's chain, then
-//   dx      = dqkv . qkv_w^T rounded to the compute dtype: gemm_bias<WT = true>, no bias
+//   dx      = dqkv . qkv_w^T rounded to the compute dtype: gemm_bias with W^T, no bias
 //   dqkv_w  = x^T . dqkv, dproj_w = attn^T . g in f32: wgrad
 //   dqkv_b, dproj_b = column sums of dqkv and g in f32: colsum
 // The weight gradients sum over all R S rows (54,000 at the step of record), across
@@ -161,8 +163,9 @@
 // are cut into runs, one block per (output tile, run) sums its run in row order, and a
 // second pass adds the runs in order: deterministic, no atomics. Bound (bf16, step of
 // record): 22 R S D^2 operations in products plus K4's attention (7.1e11 temporal, 8.5e11
-// spatial, ~0.72 / ~0.86 ms), operations-bound. What the design does about it:
-// nothing yet; wgrad uses the forward's wmma tiles without a copy pipeline.
+// spatial, ~0.72 / ~0.86 ms), operations-bound. What the design does about it: dx and
+// the weight gradients run on gemm_sm90.cu's wgmma + TMA mainloop (wgrad with both
+// operands MN-major); the bias gradients (colsum) are plain bytes-bound column sums.
 //
 // ---- K1r ... K6r: the same kernels with rope ----
 //
@@ -191,10 +194,8 @@
 //
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <math.h>
 #include <stdint.h>
-#include <type_traits>
 
 using bf16 = __nv_bfloat16;
 
@@ -207,186 +208,6 @@ template <> __device__ __forceinline__ float to_f32<bf16>(bf16 v) { return __bfl
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <> __device__ __forceinline__ bf16 from_f32<bf16>(float v) { return __float2bfloat16(v); }
-
-// ---------------------------------------------------------------------------------------
-// gemm_bias: C (M, N) = cast_T(A (M, K) . cast_T(W) + bias (N) f32), the sum and the bias in
-// f32, rounded once. W is f32, (K, N) row-major, or (N, K) row-major when WT (C = A . W^T).
-// bias may be null (no bias). Needs K % 8 == 0, N % 4 == 0 and 16-byte aligned pointers.
-// ---------------------------------------------------------------------------------------
-
-// bf16: wmma 16x16x16 tensor-core tiles. Block tile 128x128x32, 8 warps as 4 (M) x 2 (N),
-// each warp 32x64 = 2x4 accumulator fragments.
-constexpr int GB_M = 128, GB_N = 128, GB_K = 32, GB_THREADS = 256;
-constexpr int GA_LD = GB_K + 8;    // bf16 elements; rows stay 16-byte aligned
-constexpr int GW_LD = GB_N + 8;    // W tile stored [k][n]
-constexpr int GWT_LD = GB_K + 8;   // W^T tile stored [n][k], read as a column-major B
-
-template <bool WT>
-__global__ void __launch_bounds__(GB_THREADS)
-gemm_bias_bf16(const bf16* __restrict__ A, const float* __restrict__ W,
-               const float* __restrict__ bias, bf16* __restrict__ C, int M, int N, int K) {
-    using namespace nvcuda;
-    using BLayout = typename std::conditional<WT, wmma::col_major, wmma::row_major>::type;
-    __shared__ __align__(128) bf16 As[GB_M * GA_LD];
-    __shared__ __align__(128) bf16 Ws[WT ? GB_N * GWT_LD : GB_K * GW_LD];
-    __shared__ __align__(128) float Cs[GB_THREADS / 32][16 * 16];
-
-    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-    const int wm = warp / 2, wn = warp % 2;
-    const int m0 = blockIdx.y * GB_M, n0 = blockIdx.x * GB_N;
-
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-    for (int k0 = 0; k0 < K; k0 += GB_K) {
-        // A tile: 128 rows x 32 bf16, 16 bytes (8 values) per load.
-        for (int i = tid; i < GB_M * (GB_K / 8); i += GB_THREADS) {
-            const int r = i / (GB_K / 8), c = (i % (GB_K / 8)) * 8;
-            const int gr = m0 + r, gc = k0 + c;
-            uint4 v = make_uint4(0, 0, 0, 0);
-            if (gr < M && gc < K) v = *reinterpret_cast<const uint4*>(A + (size_t)gr * K + gc);
-            *reinterpret_cast<uint4*>(As + r * GA_LD + c) = v;
-        }
-        if (WT) {
-            // W^T tile: 128 rows (n) x 32 f32 (k), read as float4 along k, rounded to bf16.
-            for (int i = tid; i < GB_N * (GB_K / 4); i += GB_THREADS) {
-                const int r = i / (GB_K / 4), c = (i % (GB_K / 4)) * 4;
-                const int gn = n0 + r, gk = k0 + c;
-                float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-                if (gn < N && gk < K) v = *reinterpret_cast<const float4*>(W + (size_t)gn * K + gk);
-                __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(Ws + r * GWT_LD + c);
-                dst[0] = __floats2bfloat162_rn(v.x, v.y);
-                dst[1] = __floats2bfloat162_rn(v.z, v.w);
-            }
-        } else {
-            // W tile: 32 rows (k) x 128 f32 (n), read as float4 along n, rounded to bf16.
-            for (int i = tid; i < GB_K * (GB_N / 4); i += GB_THREADS) {
-                const int r = i / (GB_N / 4), c = (i % (GB_N / 4)) * 4;
-                const int gr = k0 + r, gc = n0 + c;
-                float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-                if (gr < K && gc < N) v = *reinterpret_cast<const float4*>(W + (size_t)gr * N + gc);
-                __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(Ws + r * GW_LD + c);
-                dst[0] = __floats2bfloat162_rn(v.x, v.y);
-                dst[1] = __floats2bfloat162_rn(v.z, v.w);
-            }
-        }
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < GB_K; kk += 16) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> b[4];
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-                wmma::load_matrix_sync(a[i], As + (wm * 32 + i * 16) * GA_LD + kk, GA_LD);
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                if (WT)
-                    wmma::load_matrix_sync(b[j], Ws + (wn * 64 + j * 16) * GWT_LD + kk, GWT_LD);
-                else
-                    wmma::load_matrix_sync(b[j], Ws + kk * GW_LD + wn * 64 + j * 16, GW_LD);
-            }
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-        }
-        __syncthreads();
-    }
-
-    // Epilogue: each warp stages one 16x16 fragment at a time, adds the bias in f32,
-    // rounds once and writes the rows that exist.
-    float* cs = Cs[warp];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            wmma::store_matrix_sync(cs, acc[i][j], 16, wmma::mem_row_major);
-            __syncwarp();
-            const int rb = m0 + wm * 32 + i * 16, cb = n0 + wn * 64 + j * 16;
-            for (int e = lane; e < 256; e += 32) {
-                const int gr = rb + e / 16, gc = cb + e % 16;
-                if (gr < M && gc < N)
-                    C[(size_t)gr * N + gc] = __float2bfloat16(cs[e] + (bias ? bias[gc] : 0.f));
-            }
-            __syncwarp();
-        }
-    }
-}
-
-// f32: CUDA-core FMA, for parity runs on the card. Block tile 64x64x16, 256 threads,
-// 4x4 outputs each.
-constexpr int GF_T = 64, GF_K = 16;
-
-template <bool WT>
-__global__ void __launch_bounds__(256)
-gemm_bias_f32(const float* __restrict__ A, const float* __restrict__ W,
-              const float* __restrict__ bias, float* __restrict__ C, int M, int N, int K) {
-    __shared__ float As[GF_K][GF_T + 4];   // transposed: As[k][m]
-    __shared__ float Ws[GF_K][GF_T + 4];   // Ws[k][n]
-    const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-    const int m0 = blockIdx.y * GF_T, n0 = blockIdx.x * GF_T;
-    float acc[4][4] = {};
-    for (int k0 = 0; k0 < K; k0 += GF_K) {
-        for (int i = tid; i < GF_T * GF_K; i += 256) {
-            const int r = i / GF_K, c = i % GF_K;
-            As[c][r] = (m0 + r < M && k0 + c < K) ? A[(size_t)(m0 + r) * K + k0 + c] : 0.f;
-            if (WT) {
-                Ws[c][r] = (k0 + c < K && n0 + r < N) ? W[(size_t)(n0 + r) * K + k0 + c] : 0.f;
-            } else {
-                const int wr = i / GF_T, wc = i % GF_T;
-                Ws[wr][wc] = (k0 + wr < K && n0 + wc < N) ? W[(size_t)(k0 + wr) * N + n0 + wc]
-                                                          : 0.f;
-            }
-        }
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < GF_K; ++kk) {
-            float a[4], b[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) b[j] = Ws[kk][tx * 4 + j];
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-        }
-        __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int gr = m0 + ty * 4 + i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const int gc = n0 + tx * 4 + j;
-            if (gr < M && gc < N) C[(size_t)gr * N + gc] = acc[i][j] + (bias ? bias[gc] : 0.f);
-        }
-    }
-}
-
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the launch.
-template <bool WT>
-cudaError_t launch_gemm_bias(int dtype, const void* A, const void* W, const void* bias, void* C,
-                             int M, int N, int K, cudaStream_t st) {
-    if (M <= 0 || N <= 0 || K <= 0) return cudaErrorInvalidValue;
-    const float* w = static_cast<const float*>(W);
-    const float* b = static_cast<const float*>(bias);
-    if (dtype == 1) {
-        dim3 grid((N + GB_N - 1) / GB_N, (M + GB_M - 1) / GB_M);
-        gemm_bias_bf16<WT><<<grid, GB_THREADS, 0, st>>>(static_cast<const bf16*>(A), w, b,
-                                                        static_cast<bf16*>(C), M, N, K);
-    } else if (dtype == 0) {
-        dim3 grid((N + GF_T - 1) / GF_T, (M + GF_T - 1) / GF_T);
-        gemm_bias_f32<WT><<<grid, 256, 0, st>>>(static_cast<const float*>(A), w, b,
-                                                static_cast<float*>(C), M, N, K);
-    } else {
-        return cudaErrorInvalidValue;
-    }
-    return cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------------------------
 // Attention core pieces. A block of AC_WARPS warps owns QT rows (RPW per warp); in the
@@ -2003,157 +1824,6 @@ cudaError_t attn_bwd_dispatch(int dtype, const AttnArgs& a, cudaStream_t st) {
 }
 
 
-// ---------------------------------------------------------------------------------------
-// K6's reductions over rows: wgrad C (K, N) f32 = A^T . B and colsum c (N) f32 = sum of the
-// rows of A, over the M rows of A (M, K) and B (M, N), row-major in the compute dtype. The
-// rows are cut into `splits` runs of `rows` rows (a multiple of 32); block z sums run z in
-// row order into part[z], and sum_splits adds the runs in split order. No atomics: the
-// result is the same bit for bit on every run.
-// ---------------------------------------------------------------------------------------
-constexpr int WG_LD = GB_M + 8;   // bf16 elements; [row][k] and [row][n] tiles of GB_K rows
-
-// bf16: wmma tiles as gemm_bias_bf16, the A tile read as a column-major operand (A^T).
-__global__ void __launch_bounds__(GB_THREADS)
-wgrad_bf16(const bf16* __restrict__ A, const bf16* __restrict__ B, float* __restrict__ part,
-           int M, int K, int N, int rows) {
-    using namespace nvcuda;
-    static_assert(GB_M == GB_N, "one load loop stages both tiles");
-    __shared__ __align__(128) bf16 As[GB_K * WG_LD];
-    __shared__ __align__(128) bf16 Bs[GB_K * WG_LD];
-    __shared__ __align__(128) float Cs[GB_THREADS / 32][16 * 16];
-
-    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-    const int wm = warp / 2, wn = warp % 2;
-    const int k0 = blockIdx.y * GB_M, n0 = blockIdx.x * GB_N;
-    const int r_begin = blockIdx.z * rows, r_end = min(M, r_begin + rows);
-
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-    for (int r0 = r_begin; r0 < r_end; r0 += GB_K) {
-        // GB_K rows x 128 columns of A and of B, 16 bytes (8 values) per load.
-        for (int i = tid; i < GB_K * (GB_M / 8); i += GB_THREADS) {
-            const int r = i / (GB_M / 8), c = (i % (GB_M / 8)) * 8;
-            const int gr = r0 + r;
-            uint4 va = make_uint4(0, 0, 0, 0), vb = make_uint4(0, 0, 0, 0);
-            if (gr < r_end && k0 + c < K) va = *reinterpret_cast<const uint4*>(A + (size_t)gr * K + k0 + c);
-            if (gr < r_end && n0 + c < N) vb = *reinterpret_cast<const uint4*>(B + (size_t)gr * N + n0 + c);
-            *reinterpret_cast<uint4*>(As + r * WG_LD + c) = va;
-            *reinterpret_cast<uint4*>(Bs + r * WG_LD + c) = vb;
-        }
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < GB_K; kk += 16) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a[2];
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[4];
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-                wmma::load_matrix_sync(a[i], As + kk * WG_LD + wm * 32 + i * 16, WG_LD);
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-                wmma::load_matrix_sync(b[j], Bs + kk * WG_LD + wn * 64 + j * 16, WG_LD);
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-        }
-        __syncthreads();
-    }
-
-    float* cs = Cs[warp];
-    float* out = part + (size_t)blockIdx.z * K * N;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            wmma::store_matrix_sync(cs, acc[i][j], 16, wmma::mem_row_major);
-            __syncwarp();
-            const int rb = k0 + wm * 32 + i * 16, cb = n0 + wn * 64 + j * 16;
-            for (int e = lane; e < 256; e += 32) {
-                const int gk = rb + e / 16, gn = cb + e % 16;
-                if (gk < K && gn < N) out[(size_t)gk * N + gn] = cs[e];
-            }
-            __syncwarp();
-        }
-    }
-}
-
-// f32: CUDA-core FMA, 64x64 output tile, GF_K rows per stage, 4x4 outputs per thread.
-__global__ void __launch_bounds__(256)
-wgrad_f32(const float* __restrict__ A, const float* __restrict__ B, float* __restrict__ part,
-          int M, int K, int N, int rows) {
-    __shared__ float As[GF_K][GF_T + 4];   // As[row][k]
-    __shared__ float Bs[GF_K][GF_T + 4];   // Bs[row][n]
-    const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-    const int k0 = blockIdx.y * GF_T, n0 = blockIdx.x * GF_T;
-    const int r_begin = blockIdx.z * rows, r_end = min(M, r_begin + rows);
-    float acc[4][4] = {};
-    for (int r0 = r_begin; r0 < r_end; r0 += GF_K) {
-        for (int i = tid; i < GF_K * GF_T; i += 256) {
-            const int r = i / GF_T, c = i % GF_T, gr = r0 + r;
-            As[r][c] = (gr < r_end && k0 + c < K) ? A[(size_t)gr * K + k0 + c] : 0.f;
-            Bs[r][c] = (gr < r_end && n0 + c < N) ? B[(size_t)gr * N + n0 + c] : 0.f;
-        }
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < GF_K; ++kk) {
-            float a[4], b[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx * 4 + j];
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-        }
-        __syncthreads();
-    }
-    float* out = part + (size_t)blockIdx.z * K * N;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int gk = k0 + ty * 4 + i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const int gn = n0 + tx * 4 + j;
-            if (gk < K && gn < N) out[(size_t)gk * N + gn] = acc[i][j];
-        }
-    }
-}
-
-// One thread per column: the column's sum over run blockIdx.y, in row order.
-template <typename T>
-__global__ void __launch_bounds__(256)
-colsum_part(const T* __restrict__ A, float* __restrict__ part, int M, int N, int rows) {
-    const int n = blockIdx.x * blockDim.x + threadIdx.x;
-    if (n >= N) return;
-    const int r_begin = blockIdx.y * rows, r_end = min(M, r_begin + rows);
-    float acc = 0.f;
-    for (int r = r_begin; r < r_end; ++r) acc += to_f32(A[(size_t)r * N + n]);
-    part[(size_t)blockIdx.y * N + n] = acc;
-}
-
-__global__ void __launch_bounds__(256)
-sum_splits(const float* __restrict__ part, float* __restrict__ out, int splits, size_t count) {
-    for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < count;
-         e += (size_t)gridDim.x * blockDim.x) {
-        float acc = 0.f;
-        for (int z = 0; z < splits; ++z) acc += part[z * count + e];
-        out[e] = acc;
-    }
-}
-
-cudaError_t launch_sum_splits(const float* part, float* out, int splits, size_t count,
-                              cudaStream_t st) {
-    size_t blocks = (count + 255) / 256;
-    if (blocks > 4096) blocks = 4096;
-    sum_splits<<<(unsigned)blocks, 256, 0, st>>>(part, out, splits, count);
-    return cudaGetLastError();
-}
-
 // Rejects what the attention launches do not take: rope tables come as a pair, and a
 // table stride is 0 (one table) or S dh/2 (one table per sequence).
 bool bad_attn(int B, int S, int H, int dh, const void* cos, const void* sin, int table_stride) {
@@ -2162,24 +1832,11 @@ bool bad_attn(int B, int S, int H, int dh, const void* cos, const void* sin, int
     return cos != nullptr && table_stride != 0 && table_stride != S * (dh / 2);
 }
 
-bool bad_split(int M, int splits, int rows) {
-    return M <= 0 || splits <= 0 || rows <= 0 || rows % 32 || (long long)splits * rows < M ||
-           (long long)(splits - 1) * rows >= M;
-}
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Each entry point returns cudaGetLastError() after
 // its launches (0 on success); the caller checks shapes, dtypes and alignment.
-
-// C = A . W + bias (w_transposed 0, W (K, N)) or C = A . W^T + bias (w_transposed 1,
-// W (N, K)); bias may be null.
-extern "C" int tcow_gemm_bias(int dtype, const void* A, const void* W, const void* bias,
-                              void* C, int M, int N, int K, int w_transposed, void* stream) {
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    return w_transposed ? (int)launch_gemm_bias<true>(dtype, A, W, bias, C, M, N, K, st)
-                        : (int)launch_gemm_bias<false>(dtype, A, W, bias, C, M, N, K, st);
-}
 
 // qkv (B, S, 3D) -> attn (B, S, D); probs, when not null, (B, H, S, S) receives the
 // probabilities in the compute dtype (K3), zero where the causal mask drops a key. With
@@ -2206,48 +1863,4 @@ extern "C" int tcow_attn_bwd(int dtype, const void* qkv, const void* dattn, void
     const AttnArgs a{qkv, dattn, attn, nullptr, dqkv, stats, cos, sin, table_stride,
                      B, S, H, dh, causal, diag, scale};
     return (int)attn_bwd_dispatch(dtype, a, static_cast<cudaStream_t>(stream));
-}
-
-// K6's weight gradient: out (K, N) f32 = A^T . B over the M rows of A (M, K) and B (M, N);
-// work holds splits * K * N f32 partial sums. rows is a multiple of 32 and the runs cover
-// M exactly (splits = ceil(M / rows)). bf16 needs K % 8 == 0 and N % 8 == 0.
-extern "C" int tcow_wgrad(int dtype, const void* A, const void* B, void* out, void* work, int M,
-                          int K, int N, int splits, int rows, void* stream) {
-    if (bad_split(M, splits, rows) || K <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    float* part = static_cast<float*>(work);
-    if (dtype == 1) {
-        if (K % 8 || N % 8) return (int)cudaErrorInvalidValue;
-        dim3 grid((N + GB_N - 1) / GB_N, (K + GB_M - 1) / GB_M, splits);
-        wgrad_bf16<<<grid, GB_THREADS, 0, st>>>(static_cast<const bf16*>(A),
-                                                static_cast<const bf16*>(B), part, M, K, N, rows);
-    } else if (dtype == 0) {
-        dim3 grid((N + GF_T - 1) / GF_T, (K + GF_T - 1) / GF_T, splits);
-        wgrad_f32<<<grid, 256, 0, st>>>(static_cast<const float*>(A),
-                                        static_cast<const float*>(B), part, M, K, N, rows);
-    } else {
-        return (int)cudaErrorInvalidValue;
-    }
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    return (int)launch_sum_splits(part, static_cast<float*>(out), splits, (size_t)K * N, st);
-}
-
-// K6's bias gradient: out (N) f32 = the sum of the M rows of A (M, N); work holds
-// splits * N f32 partial sums, runs as for tcow_wgrad.
-extern "C" int tcow_colsum(int dtype, const void* A, void* out, void* work, int M, int N,
-                           int splits, int rows, void* stream) {
-    if (bad_split(M, splits, rows) || N <= 0) return (int)cudaErrorInvalidValue;
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    float* part = static_cast<float*>(work);
-    dim3 grid((N + 255) / 256, splits);
-    if (dtype == 1)
-        colsum_part<bf16><<<grid, 256, 0, st>>>(static_cast<const bf16*>(A), part, M, N, rows);
-    else if (dtype == 0)
-        colsum_part<float><<<grid, 256, 0, st>>>(static_cast<const float*>(A), part, M, N, rows);
-    else
-        return (int)cudaErrorInvalidValue;
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    return (int)launch_sum_splits(part, static_cast<float*>(out), splits, (size_t)N, st);
 }

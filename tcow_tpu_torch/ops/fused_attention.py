@@ -21,8 +21,9 @@ and the backward never re-runs it. `fused_attention.calls[mode]` counts the forw
 computed in each mode on every device; a remat recompute counts again.
 
 A CPU tensor goes to the plain PyTorch versions beside each kernel. A CUDA tensor goes to
-the hand-written kernels built with nvcc at first use from csrc/fused_attention.cu, or the
-call raises: there is no fallback from the card to the plain version. Launch counts, a
+the hand-written kernels built with nvcc at first use from csrc/fused_attention.cu (the
+attention cores) and csrc/gemm_sm90.cu (the GEMMs and row reductions of every chain), or
+the call raises: there is no fallback from the card to the plain version. Launch counts, a
 launch with rope on `launches_rope` of the same wrapper (K1r ... K6r) and never on
 `launches`:
   K1 `fused_attention_fwd`        on `fused_attention.launches`
@@ -72,6 +73,22 @@ def _head_tables(S: int, dh: int, pos, device):
 # ---------------------------------------------------------------------------------------
 # Plain versions
 # ---------------------------------------------------------------------------------------
+
+def gemm_bias_ref(a, w, bias=None, w_transposed: bool = False):
+    '''Plain version of gemm_bias over a (..., K) in the compute dtype, w (K, N) f32 or
+    (N, K) when w_transposed, bias (N,) f32 or None -> (..., N) in a.dtype: the product
+    of a and w rounded to a.dtype, summed in f32, plus the bias in f32, rounded once, as
+    the JAX kernel's dot_general(preferred_element_type=f32) + bias + .astype (:101-104).'''
+    w = w.to(a.dtype).float()
+    out = torch.matmul(a.float(), w.T if w_transposed else w)
+    return (out if bias is None else out + bias.float()).to(a.dtype)
+
+
+def wgrad_ref(a, b):
+    '''Plain version of wgrad: a^T . b in f32 over the rows of a (M, K) and b (M, N) in the
+    compute dtype -> (K, N) f32, the JAX kernel's dot_general over rows (:655-660).'''
+    return a.float().T @ b.float()
+
 
 def attention_res_ref(x, qkv_w, qkv_b, proj_w, proj_b, num_heads: int, causal_attention: int,
                       rope: bool = False, pos=None):
@@ -247,21 +264,33 @@ def attention_bwd_res(x, g, qkv, probs, attn, qkv_w, proj_w, num_heads: int,
 # Kernel wrappers
 # ---------------------------------------------------------------------------------------
 
+_PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def _bind(lib, signatures):
+    for name, args in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = args, _I32
+    return lib
+
+
 @functools.cache
 def _lib():
-    lib = _build.load('fused_attention')
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.tcow_gemm_bias.argtypes = [i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
-    lib.tcow_attn_core.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
-                                   i32, f32, ptr]
-    lib.tcow_attn_bwd.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32,
-                                  i32, i32, i32, f32, ptr]
-    lib.tcow_wgrad.argtypes = [i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
-    lib.tcow_colsum.argtypes = [i32, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
-    for fn in (lib.tcow_gemm_bias, lib.tcow_attn_core, lib.tcow_attn_bwd, lib.tcow_wgrad,
-               lib.tcow_colsum):
-        fn.restype = i32
-    return lib
+    '''The attention cores (csrc/fused_attention.cu).'''
+    return _bind(_build.load('fused_attention'), {
+        'tcow_attn_core': [_I32, _PTR, _PTR, _PTR, _PTR, _PTR, _I32, _I32, _I32, _I32, _I32,
+                           _I32, _I32, _F32, _PTR],
+        'tcow_attn_bwd': [_I32, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I32, _I32, _I32,
+                          _I32, _I32, _I32, _I32, _F32, _PTR]})
+
+
+@functools.cache
+def _gemm_lib():
+    '''The GEMMs and row reductions (csrc/gemm_sm90.cu).'''
+    return _bind(_build.load('gemm_sm90'), {
+        'tcow_gemm_bias': [_I32, _PTR, _PTR, _PTR, _PTR, _I32, _I32, _I32, _I32, _PTR],
+        'tcow_wgrad': [_I32, _PTR, _PTR, _PTR, _PTR, _I32, _I32, _I32, _I32, _I32, _PTR],
+        'tcow_colsum': [_I32, _PTR, _PTR, _PTR, _I32, _I32, _I32, _I32, _PTR]})
 
 
 def _check(rc: int, what: str):
@@ -334,6 +363,32 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def gemm_weight(w, w_transposed: bool):
+    '''The bf16 GEMM's weight operand from an f32 weight w (K, N), or (N, K) when
+    w_transposed: a contiguous (N, K) bf16 tensor, K-major as the kernel's TMA loads it,
+    each weight rounded once to nearest even (the bits of the JAX kernel's
+    .astype(x.dtype)). One copy, under the profiler range 'gemm_weight_cast'.'''
+    with torch.profiler.record_function('gemm_weight_cast'):
+        return (w if w_transposed else w.t()).to(torch.bfloat16,
+                                                 memory_format=torch.contiguous_format)
+
+
+def _gemm(a, w, bias, w_transposed: bool, what: str = 'gemm_bias'):
+    '''gemm_bias on the card: (..., N) in a.dtype = a (..., K) . w (+ bias), rounded once;
+    w f32 (K, N) or (N, K) when w_transposed, bias f32 or None, a contiguous. bf16 runs
+    the wgmma kernel on gemm_weight(w), f32 the CUDA-core kernel on w itself.'''
+    K = a.shape[-1]
+    N = w.shape[0] if w_transposed else w.shape[1]
+    out = torch.empty((*a.shape[:-1], N), dtype=a.dtype, device=a.device)
+    code = _DTYPE_CODES[a.dtype]
+    if code == 1:
+        w, w_transposed = gemm_weight(w, w_transposed), True
+    _check(_gemm_lib().tcow_gemm_bias(code, a.data_ptr(), w.data_ptr(), _ptr(bias),
+                                      out.data_ptr(), a.numel() // K, N, K, int(w_transposed),
+                                      _stream(a)), what)
+    return out
+
+
 def _launch_forward(x, qkv_w, qkv_b, proj_w, proj_b, num_heads, causal_attention, probs,
                     what, rope=False, pos=None):
     '''K1's chain on the card: gemm_bias (qkv) -> attn_core -> gemm_bias (proj); with
@@ -349,19 +404,15 @@ def _launch_forward(x, qkv_w, qkv_b, proj_w, proj_b, num_heads, causal_attention
     with torch.cuda.device(x.device):
         stream = _stream(x)
         cos, sin, table_stride = _kernel_tables(x, S, dh, rope, pos)
-        qkv = torch.empty((B, S, 3 * D), dtype=x.dtype, device=x.device)
         attn = torch.empty_like(x)
-        out = torch.empty_like(x)
         p = (torch.empty((B, num_heads, S, S), dtype=x.dtype, device=x.device) if probs
              else None)
-        _check(lib.tcow_gemm_bias(code, x.data_ptr(), qkv_w.data_ptr(), qkv_b.data_ptr(),
-                                  qkv.data_ptr(), B * S, 3 * D, D, 0, stream), 'gemm_bias(qkv)')
+        qkv = _gemm(x, qkv_w, qkv_b, False, 'gemm_bias(qkv)')
         _check(lib.tcow_attn_core(code, qkv.data_ptr(), attn.data_ptr(), _ptr(p), _ptr(cos),
                                   _ptr(sin), table_stride, B, S, num_heads, dh,
                                   int(causal_attention > 0), _mask_diag(causal_attention),
                                   dh ** -0.5, stream), 'attn_core')
-        _check(lib.tcow_gemm_bias(code, attn.data_ptr(), proj_w.data_ptr(), proj_b.data_ptr(),
-                                  out.data_ptr(), B * S, D, D, 0, stream), 'gemm_bias(proj)')
+        out = _gemm(attn, proj_w, proj_b, False, 'gemm_bias(proj)')
     return out, qkv, p, attn
 
 
@@ -439,17 +490,12 @@ def _launch_backward(x, g, qkv_w, qkv_b, proj_w, qkv, num_heads, causal_attentio
     with torch.cuda.device(x.device):
         stream = _stream(x)
         cos, sin, table_stride = _kernel_tables(x, S, dh, rope, pos)
-        dattn = torch.empty_like(x)
         attn = torch.empty_like(x)
         dqkv = torch.empty((B, S, 3 * D), dtype=x.dtype, device=x.device)
         stats = torch.empty((3, B, num_heads, S), dtype=torch.float32, device=x.device)
         if qkv is None:
-            qkv = torch.empty((B, S, 3 * D), dtype=x.dtype, device=x.device)
-            _check(lib.tcow_gemm_bias(code, x.data_ptr(), qkv_w.data_ptr(), qkv_b.data_ptr(),
-                                      qkv.data_ptr(), B * S, 3 * D, D, 0, stream),
-                   'gemm_bias(qkv)')
-        _check(lib.tcow_gemm_bias(code, g.data_ptr(), proj_w.data_ptr(), None,
-                                  dattn.data_ptr(), B * S, D, D, 1, stream), 'gemm(g proj_w^T)')
+            qkv = _gemm(x, qkv_w, qkv_b, False, 'gemm_bias(qkv)')
+        dattn = _gemm(g, proj_w, None, True, 'gemm(g proj_w^T)')
         _check(lib.tcow_attn_bwd(code, qkv.data_ptr(), dattn.data_ptr(), attn.data_ptr(),
                                  dqkv.data_ptr(), stats.data_ptr(), _ptr(cos), _ptr(sin),
                                  table_stride, B, S, num_heads, dh, int(causal_attention > 0),
@@ -492,36 +538,38 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _row_splits(M: int, blocks_per_split: int):
+def _row_splits(M: int, blocks_per_split: int, multiple: int = 32):
     '''(splits, rows) of K6's row reductions: about two waves of 132 SMs, runs of a
-    multiple of 32 rows that cover M exactly. A function of the shapes alone, so the
-    order of every sum is fixed.'''
+    multiple of `multiple` rows (32; 64, one stage, in the bf16 wgrad) that cover M
+    exactly. A function of the shapes alone, so the order of every sum is fixed.'''
     want = max(1, min(_cdiv(264, blocks_per_split), _cdiv(M, 256)))
-    rows = _cdiv(_cdiv(M, want), 32) * 32
+    rows = _cdiv(_cdiv(M, want), multiple) * multiple
     return _cdiv(M, rows), rows
 
 
-def _launch_wgrad(lib, code, a, b, stream):
-    '''f32 (K, N) = a^T . b over the rows of a (M, K) and b (M, N): tcow_wgrad.'''
+def _wgrad(a, b):
+    '''wgrad on the card: f32 (K, N) = a^T . b over the rows of a (M, K) and b (M, N),
+    contiguous, in runs of rows fixed by the shape.'''
     M, K = a.shape
     N = b.shape[1]
-    tile = 128 if code == 1 else 64
-    splits, rows = _row_splits(M, _cdiv(K, tile) * _cdiv(N, tile))
+    code = _DTYPE_CODES[a.dtype]
+    splits, rows = (_row_splits(M, _cdiv(K, 128) * _cdiv(N, 256), 64) if code == 1
+                    else _row_splits(M, _cdiv(K, 64) * _cdiv(N, 64)))
     out = torch.empty((K, N), dtype=torch.float32, device=a.device)
     work = torch.empty((splits, K, N), dtype=torch.float32, device=a.device)
-    _check(lib.tcow_wgrad(code, a.data_ptr(), b.data_ptr(), out.data_ptr(), work.data_ptr(),
-                          M, K, N, splits, rows, stream), 'wgrad')
+    _check(_gemm_lib().tcow_wgrad(code, a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                  work.data_ptr(), M, K, N, splits, rows, _stream(a)), 'wgrad')
     return out
 
 
-def _launch_colsum(lib, code, a, stream):
-    '''f32 (N,) = the sum of the rows of a (M, N): tcow_colsum.'''
+def _colsum(a):
+    '''colsum on the card: f32 (N,) = the sum of the rows of a (M, N), contiguous.'''
     M, N = a.shape
     splits, rows = _row_splits(M, _cdiv(N, 256))
     out = torch.empty((N,), dtype=torch.float32, device=a.device)
     work = torch.empty((splits, N), dtype=torch.float32, device=a.device)
-    _check(lib.tcow_colsum(code, a.data_ptr(), out.data_ptr(), work.data_ptr(), M, N, splits,
-                           rows, stream), 'colsum')
+    _check(_gemm_lib().tcow_colsum(_DTYPE_CODES[a.dtype], a.data_ptr(), out.data_ptr(),
+                                   work.data_ptr(), M, N, splits, rows, _stream(a)), 'colsum')
     return out
 
 
@@ -539,19 +587,11 @@ def fused_attention_bwd_wg(x, g, qkv_w, qkv_b, proj_w, num_heads: int, causal_at
     _, dqkv, attn = _launch_backward(x, g, qkv_w, qkv_b, proj_w, None, num_heads,
                                      causal_attention, 'fused_attention_bwd_wg', rope, pos)
     B, S, D = x.shape
-    lib = _lib()
-    code = _DTYPE_CODES[x.dtype]
     with torch.cuda.device(x.device):
-        stream = _stream(x)
-        dx = torch.empty_like(x)
-        _check(lib.tcow_gemm_bias(code, dqkv.data_ptr(), qkv_w.data_ptr(), None, dx.data_ptr(),
-                                  B * S, D, 3 * D, 1, stream), 'gemm(dqkv qkv_w^T)')
         x2, g2 = x.view(B * S, D), g.view(B * S, D)
         dqkv2, attn2 = dqkv.view(B * S, 3 * D), attn.view(B * S, D)
-        grads = (dx, _launch_wgrad(lib, code, x2, dqkv2, stream),
-                 _launch_colsum(lib, code, dqkv2, stream),
-                 _launch_wgrad(lib, code, attn2, g2, stream),
-                 _launch_colsum(lib, code, g2, stream))
+        grads = (_gemm(dqkv, qkv_w, None, True, 'gemm(dqkv qkv_w^T)'), _wgrad(x2, dqkv2),
+                 _colsum(dqkv2), _wgrad(attn2, g2), _colsum(g2))
     _count(fused_attention_bwd_wg, rope)
     return grads
 

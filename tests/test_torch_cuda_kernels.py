@@ -11,9 +11,11 @@ launch counts of the seeker's entry points and of one train step under each pair
 backward mode with its remat policy; and the rope variants K1r ... K6r (head sizes 32,
 64 and 128, where the rotation's partner element sits in another lane or the same one,
 with row positions and per-row frame times), a rope train step per pairing, and
-run_plugin of a time-calibrated rope seeker. Every test carries the `cuda` marker and skips
-without CUDA. The file imports neither JAX nor the tests'
-conftest, so on a GPU machine without JAX it runs as:
+run_plugin of a time-calibrated rope seeker; and the bf16 GEMMs of every chain (gemm_bias
+at rows 1-1000, widths 8-2304 and depths 8-2304, W and W^T, with and without bias; wgrad
+at the same rows and 54,000), each against its f32 product and bit-equal on a rerun.
+Every test carries the `cuda` marker and skips without CUDA. The file imports neither JAX
+nor the tests' conftest, so on a GPU machine without JAX it runs as:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
 '''
@@ -191,6 +193,64 @@ def test_attn_bwd_tiles_match_plain(cuda, S, dh, ca):
         assert a.shape == ref.shape
         err = rel_l2(a, ref)
         assert err <= TOL_BWD[torch.bfloat16], err
+
+
+# The bf16 GEMMs (gemm_sm90.cu, wgmma fed by TMA): rows around the 64-row warpgroup tile
+# and the 128-row block tile, widths and depths from one 16-byte TMA row (8) through
+# ragged tiles (40, 96) to the main paths' (768, 2304).
+GEMM_M = (1, 63, 64, 65, 129, 1000)
+
+
+@pytest.mark.parametrize('bias', [True, False])
+@pytest.mark.parametrize('w_transposed', [False, True])
+@pytest.mark.parametrize('K', (8, 40, 768, 2304))
+@pytest.mark.parametrize('N', (8, 96, 768, 2304))
+@pytest.mark.parametrize('M', GEMM_M)
+def test_gemm_bias_tiles_match_plain(cuda, M, N, K, w_transposed, bias):
+    '''bf16 gemm_bias against the f32 product of the same bf16 operands (one rounding of
+    the output: ~2e-3 relative L2), the same bits on a second run.'''
+    rng = np.random.RandomState(M + 7 * N + 13 * K)
+    a = torch.from_numpy(rng.randn(M, K).astype(np.float32)).to(cuda, torch.bfloat16)
+    w = torch.from_numpy((rng.randn(*((N, K) if w_transposed else (K, N))) * K ** -0.5)
+                         .astype(np.float32)).to(cuda)
+    b = torch.from_numpy(rng.randn(N).astype(np.float32)).to(cuda) if bias else None
+    got = fa._gemm(a, w, b, w_transposed)
+    again = fa._gemm(a, w, b, w_transposed)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+    assert torch.equal(got, again)
+    w16 = w.to(torch.bfloat16).float()
+    want = a.float() @ (w16.T if w_transposed else w16)
+    if bias:
+        want += b
+    err = rel_l2(got, want)
+    assert err <= TOL[torch.bfloat16], err
+
+
+@pytest.mark.parametrize('K,N', [(64, 96), (768, 768), (768, 2304)])
+@pytest.mark.parametrize('M', GEMM_M + (54000,))
+def test_wgrad_matches_plain(cuda, M, K, N):
+    '''bf16 wgrad (both operands MN-major) against the f32 a^T . b of the same operands:
+    the products are exact, only the order of the f32 sums differs (<= 1e-3); 54,000 rows
+    run in several runs; the same bits on a second run.'''
+    rng = np.random.RandomState(M + K + N)
+    a = torch.from_numpy(rng.randn(M, K).astype(np.float32)).to(cuda, torch.bfloat16)
+    b = torch.from_numpy(rng.randn(M, N).astype(np.float32)).to(cuda, torch.bfloat16)
+    got = fa._wgrad(a, b)
+    again = fa._wgrad(a, b)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (K, N)
+    assert torch.equal(got, again)
+    err = rel_l2(got, a.float().T @ b.float())
+    assert err <= 1e-3, err
+
+
+def test_gemm_rejects_what_it_does_not_take(cuda):
+    '''A depth whose rows are not 16-byte multiples cannot be a TMA operand: the launch
+    is refused and the wrapper raises.'''
+    a = torch.ones((4, 12), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(RuntimeError, match='CUDA error'):
+        fa._gemm(a, torch.ones((12, 8), device=cuda), None, False)
 
 
 @pytest.mark.parametrize('B,S,D,H,ca,dtype', GEOMETRIES)

@@ -30,6 +30,8 @@ from tcow_tpu_torch.evaluation.inference import InferenceEngine  # noqa: E402
 from tcow_tpu_torch.models.mask_tracker import MaskTracker, seeker_config_from_args  # noqa: E402
 from tcow_tpu_torch.weights import params_to_jax  # noqa: E402
 
+# Kernel groups by substring of the kernel's name, the first match wins: the port's
+# gemm_bias_sm90 and wgrad_sm90 before the cuBLAS patterns ('gemm', 'sm90_').
 GROUPS = (('attn_core', ('attn_core',)),
           ('attn_bwd (K4 core)', ('attn_bwd',)),
           ('gemm_bias (K1-K6 GEMMs)', ('gemm_bias',)),
@@ -39,6 +41,10 @@ GROUPS = (('attn_core', ('attn_core',)),
           ('optimizer (foreach)', ('multi_tensor_apply',)),
           ('memcpy', ('memcpy', 'Memcpy')),
           ('elementwise/reduce', ('elementwise', 'reduce', 'vectorized', 'cat', 'Copy')))
+
+
+# torch.profiler.record_function ranges of the port whose device time is read apart.
+NAMED_RANGES = ('gemm_weight_cast',)
 
 
 def group_of(name):
@@ -52,7 +58,9 @@ def summarize(prof, wall_ms, tag, table_dir):
     '''One JSON-able dict of a profiled window: host wall ms, device busy ms (the union of
     the intervals of device-side events: kernels, copies, memsets) and its share of the
     wall time, and device ms per kernel group; the per-kernel table goes to
-    table_dir/torch_profile_<tag>.txt when table_dir is set.'''
+    table_dir/torch_profile_<tag>.txt when table_dir is set. The device ms of the named
+    ranges (the bf16 GEMMs' weight casts, 'gemm_weight_cast') are listed apart; their
+    kernels count in their own group too (elementwise).'''
     groups = collections.Counter()
     spans = []
     for ev in prof.events():
@@ -68,9 +76,14 @@ def summarize(prof, wall_ms, tag, table_dir):
         os.makedirs(table_dir, exist_ok=True)
         with open(os.path.join(table_dir, f'torch_profile_{tag}.txt'), 'w') as f:
             f.write(prof.key_averages().table(sort_by='self_device_time_total', row_limit=40))
+    ranges = collections.Counter()
+    for ev in prof.events():
+        if ev.name in NAMED_RANGES:
+            ranges[ev.name] += ev.device_time_total / 1e3
     return {'path': tag, 'wall_ms': wall_ms, 'device_busy_ms': busy_us / 1e3,
             'device_busy_share': busy_us / 1e3 / wall_ms,
-            'device_ms_by_group': dict(groups.most_common())}
+            'device_ms_by_group': dict(groups.most_common()),
+            'device_ms_of_named_ranges': dict(ranges)}
 
 
 def profile_call(fn, tag, plain, table_dir):
