@@ -58,7 +58,14 @@ Drives the PyTorch port (tcow_tpu_torch) on one NVIDIA GPU and checks it:
      rows): gemm_bias, wgrad and colsum against the f32 result of the same bf16 operands,
      the same bits on a second run, and timed beside the plain version, torch.addmm /
      torch.mm / torch.sum and the bound, with the TFLOP/s and share of the bound reached
-     (phase gemm_times; a `gemm` sub-entry on every kernel of the kernels line).
+     (phase gemm_times; a `gemm` sub-entry on every kernel of the kernels line);
+ 12. the device side of the training step at the step of record, on a batch carrying
+     colour-augmentation keys (phase train_device_side): the augmented rgb on the card
+     against the CPU; grad_accum=2 beside grad_accum=1 (48 K1 + 48 K4 a step, step ms,
+     peak, the bf16 gradient error against the f32 plain path); LAMB; remat_group 2 and
+     4 (launches as G = 1, gradients bit-equal to G = 1); a full train state saved after
+     one step and loaded into a fresh state, both continuing bit for bit; per-example eval
+     against B = 1 eval steps and the vis step.
 
 Run from the repository root: `python3 chip_smoke.py`. Prints one JSON object per phase,
 then the `{"kernels": [...]}` line, the nvidia-smi line, and last
@@ -69,6 +76,7 @@ available or any phase fails. Needs one GPU.
 import contextlib
 import dataclasses
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -78,7 +86,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tcow_tpu_torch.data.synthetic import synthetic_device_batch, synthetic_frame_times
+from tcow_tpu_torch.data.synthetic import (synthetic_color_augs, synthetic_device_batch,
+                                           synthetic_frame_times)
 from tcow_tpu_torch.evaluation.inference import InferenceEngine, load_networks
 from tcow_tpu_torch.models import timesformer as tsf
 from tcow_tpu_torch.models.mask_tracker import MaskTracker, seeker_config_from_args
@@ -89,7 +98,7 @@ from tcow_tpu_torch.ops import fused_attention as fa
 from tcow_tpu_torch.ops import rope as rope_lib
 from tcow_tpu_torch.train import optim
 from tcow_tpu_torch.train import step as step_lib
-from tcow_tpu_torch.train.checkpoint import save_checkpoint
+from tcow_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint, save_train_state
 from tcow_tpu_torch.weights import params_to_jax
 
 SEED = 0
@@ -919,6 +928,230 @@ def phase_train_times(train):
 
 
 # ---------------------------------------------------------------------------------------
+# The training step's device side: colour augmentation, grad_accum, LAMB, remat_group,
+# full train state in checkpoints, per-example eval and the vis step
+# ---------------------------------------------------------------------------------------
+
+# Colour augmentation of the device-side batch, per clip: jitter on both, blur on the
+# first, grayscale on the second.
+DEVICE_AUGS = dict(jitter=[1, 1], blur=[1, 0], gray=[0, 1])
+# The augmented rgb on the card against the same function on the CPU (max abs): f32
+# elementwise work, reductions (per-frame luma means) in another order.
+TOL_AUG = 1e-5
+GRAD_ACCUM = 2
+REMAT_GROUPS = (2, 4)
+# Per-example eval (one batched forward, losses per clip) against B = 1 eval steps, bf16,
+# relative per loss and metric sum, and the vis step's loss against clip 0's: equal bits,
+# as two full-width runs on the H100 read them (0.0 both).
+TOL_PER_EXAMPLE = 0.0
+
+
+def device_side_batch():
+    '''The batch of record with its colour-augmentation keys (DEVICE_AUGS), on the card.'''
+    b = train_batch()
+    augs = synthetic_color_augs(SEED, TRAIN_B, **DEVICE_AUGS)
+    b.update({k: torch.as_tensor(v, device=DEV) for k, v in augs.items()})
+    return b
+
+
+def drive_steps(what, train_step, state, batch, per_step, steps=1 + TRAIN_STEPS):
+    '''`steps` train steps (the first a warm-up), each checked for a finite loss, an
+    applied update and exactly `per_step` launches; returns (state, records, mean ms of
+    the timed steps, peak bytes). The peak is reset before the first step.'''
+    watch = 'backbone.blocks.0.attn.qkv.w'
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    recs = []
+    for i in range(steps):
+        before = state.model.state_dict()[watch].clone()
+        counts = read_launches()
+        state, aux, ms, host_ms = timed_step(train_step, state, batch)
+        got = launches_since(counts)
+        recs.append(dict(step=i, step_ms=ms, host_ms=host_ms, loss=float(aux['total_seeker']),
+                         grad_norm=float(aux['grad_norm']), launches=got))
+        if not np.isfinite(recs[-1]['loss']) or float(aux['skipped_nonfinite']) != 0.0:
+            fail(f'{what} step {i}: loss {recs[-1]["loss"]}, skipped')
+        if got != per_step:
+            fail(f'{what} step {i}: launches {got}, expected {per_step}')
+        if torch.equal(state.model.state_dict()[watch], before):
+            fail(f'{what} step {i}: parameters did not change')
+    timed = [r['step_ms'] for r in recs[1:]]
+    return state, recs, sum(timed) / len(timed), torch.cuda.max_memory_allocated()
+
+
+def accumulated_loss_and_grad(cfg, init_state, batch, plain, grad_accum):
+    '''(loss, every gradient concatenated in f32) of one make_train_step(grad_accum) step
+    from init_state, read before any update: SGD at rate 0 without clipping leaves the
+    averaged gradients in .grad and the parameters as they were.'''
+    tx = optim.make_optimizer('sgd', learn_rate=0.0, gradient_clip=0.0)
+    state = step_lib.init_train_state(SEED, cfg, tx, device=DEV)
+    state.model.load_state_dict(init_state)
+    with plain_attention() if plain else contextlib.nullcontext():
+        _, aux = step_lib.make_train_step(cfg, grad_accum=grad_accum)(state, batch,
+                                                                      TRAIN_PROGRESS)
+    grad = torch.cat([p.grad.float().flatten() for p in state.model.parameters()])
+    return float(aux['total_seeker']), grad
+
+
+def with_seeker(cfg, **kw):
+    return dataclasses.replace(cfg, seeker=dataclasses.replace(cfg.seeker, **kw))
+
+
+def phase_train_device_side(ckpt_dir):
+    '''The training step of record (kernel_x / dots_nb_out, bf16, full width) with the
+    device side of training, on a batch carrying colour-augmentation keys: (a) the
+    augmented rgb on the card against the CPU; (b) grad_accum=2 beside grad_accum=1
+    (launches, step ms, peak; the bf16 gradient error against the f32 plain path at most
+    TRAIN_BF16_ERR_RATIO x the bf16 plain path's); (c) LAMB; (d) remat_group 2 and 4
+    (launches as G = 1, gradients bit-equal to G = 1 with drop-path off); (e) a
+    full-state checkpoint round trip continuing bit for bit; (f) per-example eval
+    against B = 1 eval steps, and the vis step. Kernel launches are counted from 0 over
+    the phase.'''
+    out = {'phase': 'train_device_side'}
+    batch = device_side_batch()
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    # (a) colour augmentation.
+    rgb = step_lib.unpack_batch(batch, DEV)['rgb']
+    rgb_cpu = step_lib.unpack_batch(cpu_batch, 'cpu')['rgb']
+    err = float((rgb.cpu() - rgb_cpu).abs().max())
+    moved = float((rgb - batch['rgb']).abs().max())
+    if not err <= TOL_AUG or not moved > 0.01:
+        fail(f'device augmentation: card vs CPU {err} (limit {TOL_AUG}), change {moved}')
+    out['augs'] = dict(per_clip=DEVICE_AUGS, max_abs_card_vs_cpu=err, tol=TOL_AUG,
+                       max_abs_change=moved,
+                       ms=cuda_ms(lambda: step_lib.unpack_batch(batch, DEV), iters=5))
+    del rgb, rgb_cpu, cpu_batch
+
+    reset_launches()
+    cfg = train_config(torch.bfloat16)
+    depth = cfg.seeker.network_depth
+    one = {'K1': 2 * depth, 'K4': 2 * depth}
+    adamw = lambda: optim.make_optimizer('adamw', learn_rate=1e-4, num_epochs=70,
+                                         steps_per_epoch=1000, gradient_clip=0.3)
+    rel = lambda a, b: abs(a - b) / abs(b)
+    # (b) grad_accum 1 and 2 on the same batch.
+    steps = {}
+    for A in (1, GRAD_ACCUM):
+        state = step_lib.init_train_state(SEED, cfg, adamw(), device=DEV)
+        if A == 1:
+            init_state = {k: v.clone() for k, v in state.model.state_dict().items()}
+        per_step = {k: n * A for k, n in one.items()}
+        state, recs, ms, peak = drive_steps(f'grad_accum={A}',
+                                            step_lib.make_train_step(cfg, A), state, batch,
+                                            per_step)
+        steps[f'grad_accum_{A}'] = dict(step_ms=ms, max_memory_allocated_bytes=peak,
+                                        launches_per_step=per_step, steps=recs)
+        del state
+    plain = (STEP_OF_RECORD[0], 'full')
+    runs = {name: accumulated_loss_and_grad(train_config(dt, 0.0, pairing=pairing),
+                                            init_state, batch, is_plain, GRAD_ACCUM)
+            for name, dt, pairing, is_plain in (
+                ('plain_f32', torch.float32, plain, True),
+                ('plain_bf16', torch.bfloat16, plain, True),
+                ('kernel_bf16', torch.bfloat16, STEP_OF_RECORD, False))}
+    loss_r, grad_r = runs['plain_f32']
+    errs = {}
+    for name in ('plain_bf16', 'kernel_bf16'):
+        errs[f'loss_{name}'] = rel(runs[name][0], loss_r)
+        errs[f'grad_{name}'] = rel_l2(runs[name][1], grad_r)
+    del runs, grad_r
+    ratios = {w: errs[f'{w}_kernel_bf16'] / errs[f'{w}_plain_bf16'] for w in ('loss', 'grad')}
+    for w, r in ratios.items():
+        if not r <= TRAIN_BF16_ERR_RATIO:
+            fail(f'grad_accum={GRAD_ACCUM}: bf16 {w} error ratio {r} > {TRAIN_BF16_ERR_RATIO}')
+    steps[f'grad_accum_{GRAD_ACCUM}'].update(rel_err=errs, bf16_err_ratio=ratios)
+    # (c) LAMB.
+    tx = optim.make_optimizer('lamb', learn_rate=1e-4, num_epochs=70, steps_per_epoch=1000,
+                              gradient_clip=0.3)
+    state = step_lib.init_train_state(SEED, cfg, tx, device=DEV)
+    state, recs, ms, peak = drive_steps('lamb', step_lib.make_train_step(cfg), state, batch,
+                                        one)
+    steps['lamb'] = dict(step_ms=ms, max_memory_allocated_bytes=peak, steps=recs)
+    del state
+    # (d) remat_group: launches, step time and peak with G blocks per region; then the
+    # gradients with drop-path off against G = 1.
+    for G in REMAT_GROUPS:
+        cfg_g = with_seeker(cfg, remat_group=G)
+        state = step_lib.init_train_state(SEED, cfg_g, adamw(), device=DEV)
+        state, recs, ms, peak = drive_steps(f'remat_group={G}',
+                                            step_lib.make_train_step(cfg_g), state, batch,
+                                            one)
+        del state
+        steps[f'remat_group_{G}'] = dict(step_ms=ms, max_memory_allocated_bytes=peak,
+                                         launches_per_step=one, steps=recs)
+    grads = {}
+    for G in (1,) + REMAT_GROUPS:
+        cfg0 = with_seeker(cfg, drop_path_rate=0.0, remat_group=G)
+        grads[G] = loss_and_flat_grad(model_from(cfg0, init_state), cfg0, batch, plain=False)[1]
+    for G in REMAT_GROUPS:
+        if not torch.equal(grads[G], grads[1]):
+            fail(f'remat_group={G}: gradients differ from G = 1 '
+                 f'(rel L2 {rel_l2(grads[G], grads[1])})')
+        steps[f'remat_group_{G}']['grads_equal_g1'] = True
+    del grads
+    # (e) full train state: save after step 1, load into a fresh state, one more step.
+    train_step = step_lib.make_train_step(cfg)
+    state = step_lib.init_train_state(SEED, cfg, adamw(), device=DEV)
+    state, *_ = timed_step(train_step, state, batch)
+    path = save_train_state(str(ckpt_dir), 0, 'chip_smoke_state', state)
+    fresh = step_lib.init_train_state(SEED + 1, cfg, adamw(), device=DEV)
+    load_checkpoint(path, fresh)
+    state, *_ = timed_step(train_step, state, batch)
+    fresh, *_ = timed_step(train_step, fresh, batch)
+    pairs = list(zip(state.model.parameters(), fresh.model.parameters()))
+    same = all(torch.equal(a, b) for a, b in pairs)
+    same_moments = all(torch.equal(state.optimizer.torch_opt.state[a][k],
+                                   fresh.optimizer.torch_opt.state[b][k])
+                       for a, b in pairs for k in ('exp_avg', 'exp_avg_sq'))
+    if not (same and same_moments and fresh.step == state.step == 2):
+        fail(f'train state round trip: params equal {same}, moments equal {same_moments}, '
+             f'steps {state.step} / {fresh.step}')
+    out['checkpoint_round_trip'] = dict(params_equal=same, moments_equal=same_moments,
+                                        bytes=os.path.getsize(path))
+    del state, fresh, pairs
+    # (f) per-example eval and the vis step.
+    torch.cuda.empty_cache()
+    model = model_from(cfg, init_state)
+    per_example = step_lib.make_eval_step(cfg, per_example=True)
+    vis_step = step_lib.make_vis_step(cfg)
+    counts = read_launches()
+    got = per_example(model, batch, TRAIN_PROGRESS)
+    if launches_since(counts) != {'K1': 2 * depth}:
+        fail(f'per-example eval launched {launches_since(counts)}')
+    eval_errs, singles = {}, []
+    for b in range(TRAIN_B):
+        singles.append(step_lib.make_eval_step(cfg)(
+            model, {k: (v[b:b + 1] if v.dim() else v) for k, v in batch.items()},
+            TRAIN_PROGRESS))
+        for k in ('track', 'occl_mask', 'cont_mask', 'total_seeker'):
+            eval_errs[f'{k}_{b}'] = rel(float(got[k][b]), float(singles[b][k]))
+        for k, v in singles[b]['metric_sums'].items():
+            eval_errs[f'{k}_{b}'] = (abs(float(got['metric_sums'][k][b]) - float(v))
+                                     / max(abs(float(v)), 1.0))
+    worst = max(eval_errs.values())
+    if not worst <= TOL_PER_EXAMPLE:
+        fail(f'per-example eval vs B = 1 eval: rel error {worst} > {TOL_PER_EXAMPLE}')
+    vis = vis_step(model, batch, TRAIN_PROGRESS)
+    vis_err = rel(float(vis['total_seeker']), float(singles[0]['total_seeker']))
+    shape = tuple(batch['rgb'].shape[2:])
+    want_shapes = {'seeker_rgb': (1, 3) + shape, 'output_mask': (1, 2, 3) + shape}
+    bad = [k for k, shp in want_shapes.items()
+           if tuple(vis[k].shape) != shp or vis[k].dtype != torch.float16
+           or not bool(torch.isfinite(vis[k]).all())]
+    if bad or not vis_err <= TOL_PER_EXAMPLE:
+        fail(f'vis step: payload {bad}, loss vs B = 1 eval {vis_err}')
+    out['eval'] = dict(
+        per_example_max_rel_err=worst, tol=TOL_PER_EXAMPLE, vis_loss_rel_err=vis_err,
+        per_example_ms=cuda_ms(lambda: per_example(model, batch, TRAIN_PROGRESS), iters=3),
+        vis_ms=cuda_ms(lambda: vis_step(model, batch, TRAIN_PROGRESS), iters=3))
+    del model
+    torch.cuda.empty_cache()
+    out.update(steps=steps, launches=read_launches())
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------------------
 # The time-calibrated rope path: K1r ... K6r
 # ---------------------------------------------------------------------------------------
 
@@ -1438,12 +1671,12 @@ class GemmCase:
             *self.args)
 
     def plain(self):
-        '''The plain version: gemm_bias_ref (rounded once), wgrad_ref, an f32 sum.'''
+        '''The plain version: gemm_bias_ref (rounded once), wgrad_ref, colsum_ref.'''
         if self.kind == 'gemm_bias':
             return fa.gemm_bias_ref(*self.args)
         if self.kind == 'wgrad':
             return fa.wgrad_ref(*self.args)
-        return self.args[0].float().sum(0)
+        return fa.colsum_ref(*self.args)
 
     def want(self):
         '''The f32 result from the same bf16 operands, not rounded.'''
@@ -1577,6 +1810,10 @@ def main():
     for key in ('state', 'train_step', 'batch', 'init_state'):
         del record[key]
     torch.cuda.empty_cache()
+    try:
+        device_side = phase_train_device_side(ckpt_dir)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
 
     rope_errs = phase_rope_kernels_vs_plain()
     try:
@@ -1606,9 +1843,11 @@ def main():
 
     source = 'tcow_tpu_torch/ops/csrc/fused_attention.cu'
     replaces = 'tcow_tpu/ops/pallas_attention.py:'
+    # The device side of training runs the step of record's kernels, K1 and K4.
+    device_side_launches = lambda kernel: {'train_device_side': device_side['launches'][kernel]}
     k1 = kernel_entry('fused_attention', source, replaces + '87',
-                      {'inference': inference_launches, **train_launches('K1')},
-                      errs, per_geom)
+                      {'inference': inference_launches, **train_launches('K1'),
+                       **device_side_launches('K1')}, errs, per_geom)
     k1['per_geometry_train'] = train_geom['K1']
     entries = [k1]
     for kernel, name, line, kerrs in (
@@ -1617,8 +1856,11 @@ def main():
             ('K4', 'fused_attention_bwd', '548', k4_errs),
             ('K5', 'fused_attention_bwd_qkv', '755', new_errs['K5']),
             ('K6', 'fused_attention_bwd_wg', '735', new_errs['K6'])):
-        entries.append(kernel_entry(name, source, replaces + line, train_launches(kernel),
-                                    kerrs, train_geom[kernel]))
+        launches = train_launches(kernel)
+        if kernel == 'K4':
+            launches.update(device_side_launches('K4'))
+        entries.append(kernel_entry(name, source, replaces + line, launches, kerrs,
+                                    train_geom[kernel]))
     # The rope variants: the rotation in _kernel (:120-136) for the forwards, in
     # _bwd_kernel (:592-605, un-rotation :626-628) for the backwards.
     for kernel, name, line in (('K1r', 'fused_attention_rope', '120'),

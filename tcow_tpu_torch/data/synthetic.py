@@ -127,3 +127,42 @@ def synthetic_frame_times(seed: int, B: int, T: int, frame_stride: int = 1,
         stretch = np.float32(np.exp(rng.uniform(0.0, np.log(time_stretch_max))))
         out[b] = load[np.asarray(clip[offset:offset + T])] * stretch
     return out
+
+
+# The jitter ranges of tcow_tpu/data/augs.py:63-76 (sample_jitter_factors' defaults):
+# brightness, contrast and saturation factors U(1 -+ 0.2), hue U(-+0.1).
+JITTER_BRIGHTNESS, JITTER_CONTRAST, JITTER_SATURATION, JITTER_HUE = 0.2, 0.2, 0.2, 0.1
+
+
+def synthetic_color_augs(seed: int, B: int, jitter=None, blur=None,
+                         gray=None) -> Dict[str, np.ndarray]:
+    '''The colour-augmentation keys of a batch for the on-device augmentations
+    (ops/device_augs.py), drawn per clip as tcow_tpu/data/augs.py draws them for its
+    deferred colour chain: jitter with p 0.9, blur with p 0.2 and grayscale with p 0.05
+    (:213-215); the jitter factors in the JITTER_* ranges and a permutation of the four
+    (sample_jitter_factors :63-76); a blur sigma U(0.1, 3.5) (:331-344, uncropped, so both
+    axes take it as drawn). `jitter`, `blur` and `gray` (B bools each, or None) force an
+    outcome per clip; the draws are made all the same, so the rest of the stream does not
+    move. Returns jitter_factors (B, 5)
+    f32 (fb, fc, fs, fh, apply), jitter_order (B, 4) int32 and blur_gray (B, 3) f32
+    (sigma_y, sigma_x, grayscale), laid out as tcow_tpu/data/kubric.py:356-367 collates
+    them.'''
+    rng = np.random.default_rng(seed)
+    factors = np.tile(np.array([1, 1, 1, 0, 0], np.float32), (B, 1))
+    order = np.tile(np.arange(4, dtype=np.int32), (B, 1))
+    blur_gray = np.zeros((B, 3), np.float32)
+    for b in range(B):
+        on = [rng.random() < p for p in (0.9, 0.2, 0.05)]
+        for i, force in enumerate((jitter, blur, gray)):
+            if force is not None:
+                on[i] = bool(force[b])
+        if on[0]:
+            factors[b] = (rng.uniform(1 - JITTER_BRIGHTNESS, 1 + JITTER_BRIGHTNESS),
+                          rng.uniform(1 - JITTER_CONTRAST, 1 + JITTER_CONTRAST),
+                          rng.uniform(1 - JITTER_SATURATION, 1 + JITTER_SATURATION),
+                          rng.uniform(-JITTER_HUE, JITTER_HUE), 1.0)
+            order[b] = rng.permutation(4)
+        if on[1]:
+            blur_gray[b, :2] = rng.uniform(0.1, 3.5)
+        blur_gray[b, 2] = float(on[2])
+    return {'jitter_factors': factors, 'jitter_order': order, 'blur_gray': blur_gray}

@@ -36,6 +36,7 @@ class SeekerConfig:
     compute_dtype: torch.dtype = torch.float32
     remat: bool = False  # per-block rematerialization in the backbone
     remat_policy: str = 'full'  # what a remat block keeps (timesformer.REMAT_POLICIES)
+    remat_group: int = 1  # blocks per checkpoint region (see TimeSformerConfig)
     attention_bwd: str = 'res'  # 'res' | 'kernel_qkv' | 'kernel_x' | 'kernel_x_wg'
     temporal_rope: bool = False  # rotary (relative) time encoding on temporal attention
     rope_time_coords: bool = False  # feed true source-frame times into the rope tables
@@ -50,6 +51,7 @@ class SeekerConfig:
             raise ValueError('rope_time_coords requires temporal_rope=1 (only the rotary '
                              'encoding consumes per-frame time coordinates)')
         tsf.check_config(self.attention_type, self.remat_policy, self.attention_bwd)
+        tsf.check_remat_group(self.network_depth, self.remat_group)
 
     @property
     def input_channels(self) -> int:
@@ -65,14 +67,14 @@ class SeekerConfig:
             attention_type=self.attention_type, causal_attention=self.causal_attention,
             norm_embeddings=self.norm_embeddings, drop_path_rate=self.drop_path_rate,
             normalize_inputs=self.pretrained, compute_dtype=self.compute_dtype,
-            remat=self.remat, remat_policy=self.remat_policy,
+            remat=self.remat, remat_policy=self.remat_policy, remat_group=self.remat_group,
             attention_bwd=self.attention_bwd, temporal_rope=self.temporal_rope)
 
 
 def seeker_config_from_args(seeker_args: Dict[str, Any], **overrides) -> SeekerConfig:
     '''SeekerConfig from the seeker_args dict that checkpoints embed
     (tcow_tpu mask_tracker.py:99-127); `overrides` set any field, as the JAX package's
-    trainer sets remat, remat_policy and attention_bwd.'''
+    trainer sets remat, remat_policy, remat_group and attention_bwd.'''
     tracker_pretrained = seeker_args.get('tracker_pretrained', False)
     if isinstance(tracker_pretrained, str):
         pretrained = tracker_pretrained.lower() in ('1', 'y', 'yes', 't', 'true') \

@@ -49,6 +49,14 @@ def check_config(attention_type: str, remat_policy: str, attention_bwd: str):
                                   '(only divided_space_time)')
 
 
+def check_remat_group(depth: int, remat_group: int):
+    '''Raises ValueError unless remat_group blocks per checkpoint region tile the depth
+    (timesformer.py:784-785 of the JAX package asserts it).'''
+    if remat_group < 1 or depth % remat_group:
+        raise ValueError(f'remat_group={remat_group} must be >= 1 and divide the depth '
+                         f'{depth}')
+
+
 def remat_saved_ops(policy: str) -> list:
     '''The operators whose outputs a remat policy keeps across a block's checkpoint; the
     rest is recomputed in the backward. JAX's policies (timesformer.py:797-818) by what
@@ -93,11 +101,13 @@ class TimeSformerConfig:
     compute_dtype: torch.dtype = torch.float32
     remat: bool = False  # recompute each block in the backward pass (saves memory)
     remat_policy: str = 'full'  # what a remat block keeps (REMAT_POLICIES)
+    remat_group: int = 1  # consecutive blocks per checkpoint region under remat
     attention_bwd: str = 'res'  # 'res' | 'kernel_qkv' | 'kernel_x' | 'kernel_x_wg'
     temporal_rope: bool = False  # rope on temporal attention, no absolute time embedding
 
     def __post_init__(self):
         check_config(self.attention_type, self.remat_policy, self.attention_bwd)
+        check_remat_group(self.depth, self.remat_group)
 
     @property
     def grid_h(self) -> int:
@@ -308,6 +318,13 @@ def resize_pos_embed(pos_embed: torch.Tensor, src_grid: Tuple[int, int],
     return torch.cat([pos_embed[0:1], g.reshape(gh * gw, D)], dim=0)
 
 
+def _run_blocks(blocks, xs, cls, masks, frame_times):
+    '''The blocks in order, each with its drop-path masks (or None).'''
+    for blk, m in zip(blocks, masks):
+        xs, cls = blk(xs, cls, m, frame_times)
+    return xs, cls
+
+
 class TimeSformer(nn.Module):
     '''Dense forward: pixels (B, C, T, H, W) -> (features (B, D, T, H', W'), cls (B, D)).'''
 
@@ -341,8 +358,9 @@ class TimeSformer(nn.Module):
     def forward(self, pixels: torch.Tensor, train: bool = False,
                 generator: torch.Generator = None, frame_times: torch.Tensor = None):
         '''train with a generator and drop_path_rate > 0 draws drop-path masks from the
-        generator; with cfg.remat and gradients on, each block is recomputed in the
-        backward pass (torch.utils.checkpoint), except the outputs that cfg.remat_policy
+        generator; with cfg.remat and gradients on, each group of cfg.remat_group blocks is
+        recomputed in the backward pass (torch.utils.checkpoint), except the outputs that
+        cfg.remat_policy
         keeps (`remat_saved_ops`): under 'full' the attention forwards run again, under
         the '_out' policies they do not. frame_times (B, T): the clip's true source
         timestamps, read only under cfg.temporal_rope (None means 0..T-1).'''
@@ -386,15 +404,19 @@ class TimeSformer(nn.Module):
             kw['context_fn'] = functools.partial(
                 torch.utils.checkpoint.create_selective_checkpoint_contexts,
                 remat_saved_ops(cfg.remat_policy))
-        for blk, m in zip(self.blocks, masks):
+        G = cfg.remat_group
+        for start in range(0, cfg.depth, G):
+            group = functools.partial(_run_blocks, self.blocks[start:start + G])
+            group_masks = masks[start:start + G]
             if remat:
-                # The block draws nothing at random, so no RNG state needs restoring. The
-                # frame times go in as an input, so a recompute sees them (:841).
+                # G consecutive blocks form one checkpoint region (:780-789). The blocks
+                # draw nothing at random, so no RNG state needs restoring. The frame
+                # times go in as an input, so a recompute sees them (:841).
                 xs, cls = torch.utils.checkpoint.checkpoint(
-                    blk, xs, cls, m, frame_times, use_reentrant=False,
+                    group, xs, cls, group_masks, frame_times, use_reentrant=False,
                     preserve_rng_state=False, **kw)
             else:
-                xs, cls = blk(xs, cls, m, frame_times)
+                xs, cls = group(xs, cls, group_masks, frame_times)
 
         if cfg.norm_embeddings:
             xs = self.norm(xs)

@@ -6,8 +6,8 @@
 //   wgrad      f32 (K, N) = A^T . B summed over the M rows of A (M, K) and B (M, N).
 //   colsum     f32 (N) = the sum of the M rows of A (M, N).
 // wgrad and colsum are deterministic: the rows are cut into runs fixed by the shape, one
-// block sums a run in row order into part[run], and sum_splits adds the runs in order. No
-// atomics: the same inputs give the same bits on every run.
+// block sums a run into part[run] in an order fixed by the shape, and sum_splits adds the
+// runs in order. No atomics: the same inputs give the same bits on every run.
 //
 // Replace: the products inside the Pallas kernels of tcow_tpu/ops/pallas_attention.py.
 // gemm_bias: qkv = x . qkv_w + qkv_b (:101-104), out = attn . proj_w + proj_b (:147-150),
@@ -77,7 +77,8 @@
 //
 // gemm_bias_f32 and wgrad_f32 multiply with fmaf on the CUDA cores: the tensor cores take
 // f32 only as TF32, whose ~10 mantissa bits would miss the 1e-4 limit of the f32 runs.
-// colsum_part reads the rows with plain loads in both dtypes (bytes-bound).
+// colsum_part is bytes-bound (one add per element read) and reads 8 columns a thread
+// with 16-byte loads in both dtypes.
 //
 #include <cuda.h>            // CUtensorMap and its enums (types only, no -lcuda)
 #include <cuda_bf16.h>
@@ -87,9 +88,6 @@
 using bf16 = __nv_bfloat16;
 
 namespace {
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 
 // ---------------------------------------------------------------------------------------
 // bf16: the TMA + wgmma pieces
@@ -603,16 +601,82 @@ wgrad_f32(const float* __restrict__ A, const float* __restrict__ B, float* __res
     }
 }
 
-// One thread per column: the column's sum over run blockIdx.y, in row order.
+// colsum: one block sums a run of rows (blockIdx.y) over 256 columns (blockIdx.x). Each
+// thread owns 8 adjacent columns and reads them with 16-byte loads (one uint4 of bf16 or
+// two float4 of f32 per row), so a warp moves 512 contiguous bytes of a row; the block's
+// 8 warps take the run's rows in turn (warp w: rows w, w + 8, ...), each thread with
+// CS_BYTES bytes of loads in flight before it adds them. The warps' f32 partials are then
+// added in warp order through shared memory, one thread per column. The order of every
+// sum is fixed by (M, N, rows): in a thread by row, in a block by warp, over the runs by
+// sum_splits.
+constexpr int CS_WARPS = 8;
+constexpr int CS_COLS = CS_WARPS * 32;   // columns of a block: 32 lanes x 8
+constexpr int CS_BYTES = 128;           // bytes of loads in flight per thread
+
+template <typename T> struct Cols8;
+
+template <> struct Cols8<bf16> {
+    uint4 v;
+    __device__ __forceinline__ void load(const bf16* p) {
+        v = __ldcs(reinterpret_cast<const uint4*>(p));
+    }
+    __device__ __forceinline__ void add_to(float (&acc)[8]) const {
+        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const float2 f = __bfloat1622float2(h[i]);
+            acc[2 * i] += f.x;
+            acc[2 * i + 1] += f.y;
+        }
+    }
+};
+
+template <> struct Cols8<float> {
+    float4 a, b;
+    __device__ __forceinline__ void load(const float* p) {
+        a = __ldcs(reinterpret_cast<const float4*>(p));
+        b = __ldcs(reinterpret_cast<const float4*>(p) + 1);
+    }
+    __device__ __forceinline__ void add_to(float (&acc)[8]) const {
+        acc[0] += a.x; acc[1] += a.y; acc[2] += a.z; acc[3] += a.w;
+        acc[4] += b.x; acc[5] += b.y; acc[6] += b.z; acc[7] += b.w;
+    }
+};
+
 template <typename T>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(CS_COLS)
 colsum_part(const T* __restrict__ A, float* __restrict__ part, int M, int N, int rows) {
-    const int n = blockIdx.x * blockDim.x + threadIdx.x;
-    if (n >= N) return;
+    constexpr int UNROLL = CS_BYTES / (8 * sizeof(T));   // rows in flight per thread
+    __shared__ float red[CS_WARPS][CS_COLS];
+    const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+    const int n = blockIdx.x * CS_COLS + lane * 8;
     const int r_begin = blockIdx.y * rows, r_end = min(M, r_begin + rows);
-    float acc = 0.f;
-    for (int r = r_begin; r < r_end; ++r) acc += to_f32(A[(size_t)r * N + n]);
-    part[(size_t)blockIdx.y * N + n] = acc;
+    float acc[8] = {};
+    if (n < N) {
+        int r = r_begin + w;
+        for (; r + (UNROLL - 1) * CS_WARPS < r_end; r += UNROLL * CS_WARPS) {
+            Cols8<T> v[UNROLL];
+#pragma unroll
+            for (int i = 0; i < UNROLL; ++i) v[i].load(A + (size_t)(r + i * CS_WARPS) * N + n);
+#pragma unroll
+            for (int i = 0; i < UNROLL; ++i) v[i].add_to(acc);
+        }
+        for (; r < r_end; r += CS_WARPS) {
+            Cols8<T> v;
+            v.load(A + (size_t)r * N + n);
+            v.add_to(acc);
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) red[w][lane * 8 + j] = acc[j];
+    __syncthreads();
+    const int c = threadIdx.x, gn = blockIdx.x * CS_COLS + c;
+    if (gn < N) {
+        float s = red[0][c];
+#pragma unroll
+        for (int k = 1; k < CS_WARPS; ++k) s += red[k][c];
+        part[(size_t)blockIdx.y * N + gn] = s;
+    }
 }
 
 __global__ void __launch_bounds__(256)
@@ -692,17 +756,21 @@ extern "C" int tcow_wgrad(int dtype, const void* A, const void* B, void* out, vo
 }
 
 // K6's bias gradient: out (N) f32 = the sum of the M rows of A (M, N); work holds
-// splits * N f32 partial sums, runs as for tcow_wgrad.
+// splits * N f32 partial sums, runs as for tcow_wgrad. Needs N % 8 == 0 and A 16-byte
+// aligned (16-byte loads of 8 columns).
 extern "C" int tcow_colsum(int dtype, const void* A, void* out, void* work, int M, int N,
                            int splits, int rows, void* stream) {
-    if (bad_split(M, splits, rows) || N <= 0) return (int)cudaErrorInvalidValue;
+    if (bad_split(M, splits, rows) || N <= 0 || N % 8 || reinterpret_cast<uintptr_t>(A) % 16)
+        return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     float* part = static_cast<float*>(work);
-    dim3 grid((N + 255) / 256, splits);
+    dim3 grid((N + CS_COLS - 1) / CS_COLS, splits);
     if (dtype == 1)
-        colsum_part<bf16><<<grid, 256, 0, st>>>(static_cast<const bf16*>(A), part, M, N, rows);
+        colsum_part<bf16><<<grid, CS_COLS, 0, st>>>(static_cast<const bf16*>(A), part, M, N,
+                                                    rows);
     else if (dtype == 0)
-        colsum_part<float><<<grid, 256, 0, st>>>(static_cast<const float*>(A), part, M, N, rows);
+        colsum_part<float><<<grid, CS_COLS, 0, st>>>(static_cast<const float*>(A), part, M, N,
+                                                     rows);
     else
         return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaGetLastError();

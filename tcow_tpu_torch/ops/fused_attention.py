@@ -90,6 +90,12 @@ def wgrad_ref(a, b):
     return a.float().T @ b.float()
 
 
+def colsum_ref(a):
+    '''Plain version of colsum: the f32 sum of the rows of a (M, N) in the compute dtype ->
+    (N,) f32, the JAX kernel's bias sums (:657, :660).'''
+    return a.float().sum(dim=0)
+
+
 def attention_res_ref(x, qkv_w, qkv_b, proj_w, proj_b, num_heads: int, causal_attention: int,
                       rope: bool = False, pos=None):
     '''Plain version of K3 over (B, S, D) -> (out, qkv (B, S, 3D), probs (B, H, S, S),
@@ -202,7 +208,7 @@ def attention_bwd_wg_ref(x, g, qkv_w, qkv_b, proj_w, num_heads: int, causal_atte
     x2, g2 = x.reshape(-1, D).float(), g.reshape(-1, D).float()
     dqkv2, attn2 = dqkv.reshape(-1, 3 * D).float(), attn.reshape(-1, D).float()
     dx = torch.matmul(dqkv2, qkv_w.to(x.dtype).float().T).to(x.dtype).reshape(x.shape)
-    return dx, x2.T @ dqkv2, dqkv2.sum(dim=0), attn2.T @ g2, g2.sum(dim=0)
+    return dx, x2.T @ dqkv2, colsum_ref(dqkv2), attn2.T @ g2, colsum_ref(g2)
 
 
 def _mm_f32(a, b):
@@ -563,8 +569,14 @@ def _wgrad(a, b):
 
 
 def _colsum(a):
-    '''colsum on the card: f32 (N,) = the sum of the rows of a (M, N), contiguous.'''
+    '''colsum on the card: f32 (N,) = the sum of the rows of a (M, N), contiguous, in runs of
+    rows fixed by the shape. The kernel reads 8 columns a thread with 16-byte loads, so it
+    refuses, by raising, N % 8 != 0 and a base that is not 16-byte aligned.'''
     M, N = a.shape
+    if N % 8:
+        raise ValueError(f'colsum needs N % 8 == 0 (rows of 16-byte loads), got N={N}')
+    if a.data_ptr() % 16 or not a.is_contiguous():
+        raise ValueError('colsum needs a contiguous operand with a 16-byte aligned base')
     splits, rows = _row_splits(M, _cdiv(N, 256))
     out = torch.empty((N,), dtype=torch.float32, device=a.device)
     work = torch.empty((splits, N), dtype=torch.float32, device=a.device)

@@ -2,20 +2,25 @@
 Optimizer and learning-rate schedule: the port of tcow_tpu/train/optim.py.
 
 `make_optimizer` returns an `OptimizerSpec` (what optax's GradientTransformation is to the
-JAX package); `spec.init(params)` builds the `Optimizer` that owns the torch optimizer,
-the schedule and the count of applied updates. Global-norm clipping is written as
-optax.clip_by_global_norm writes it: g * max_norm / norm only when norm >= max_norm, with
-no epsilon (torch.nn.utils.clip_grad_norm_ divides by norm + 1e-6). The learning rate of
+JAX package); `spec.init(model.named_parameters())` builds the `Optimizer` that owns the
+torch optimizer, the schedule and the count of applied updates. Global-norm clipping is
+written as optax.clip_by_global_norm writes it: g * max_norm / norm only when norm >=
+max_norm, with no epsilon (torch.nn.utils.clip_grad_norm_ divides by norm + 1e-6). The learning rate of
 update n is schedule(n), n counting the updates actually applied, as optax counts them in
 its state (an update skipped for a non-finite loss does not advance it).
 '''
 
 import dataclasses
-from typing import Callable, Iterable, Optional
+from typing import Callable, Iterable, Optional, Tuple
 
 import torch
 
+from tcow_tpu_torch.weights import jax_leaf_name
+
 Schedule = Callable[[int], float]
+OPTIMIZERS = ('sgd', 'adam', 'adamw', 'lamb')
+# optax.lamb's defaults, which optim.py:38-39 of the JAX package keeps.
+LAMB_B1, LAMB_B2, LAMB_EPS = 0.9, 0.999, 1e-6
 
 
 def multistep_schedule(learn_rate: float, lr_decay: float, num_epochs: int,
@@ -38,7 +43,54 @@ def multistep_schedule(learn_rate: float, lr_decay: float, num_epochs: int,
 
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     '''sqrt of the sum of squares of every element, in f32 (optax.global_norm).'''
-    return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+    return torch.linalg.vector_norm(torch.stack(
+        torch._foreach_norm([t.float() for t in tensors])))
+
+
+class Lamb(torch.optim.Optimizer):
+    '''optax.lamb (optax 0.2.6; optim.py:38-39 of the JAX package builds it with its
+    defaults): Adam's bias-corrected moments with b1 LAMB_B1, b2 LAMB_B2, eps LAMB_EPS,
+    eps_root 0 and no weight decay, then each leaf's update scaled by its trust ratio
+    ||p|| / ||u|| (1 where either norm is 0, as for every bias at init), then by -lr. A
+    leaf is one param group: the tensors that JAX stacks into one array (a block parameter
+    of every block) share one ratio, from the norms over all of them. Each group is
+    updated by foreach ops. The moments and the count sit in each parameter's state under
+    torch.optim.Adam's names (exp_avg, exp_avg_sq, step), so checkpoints read both
+    optimizers alike.'''
+
+    def __init__(self, params, lr: float):
+        super().__init__(params, dict(lr=lr))
+
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            params = group['params']
+            states = [self.state[p] for p in params]
+            for p, state in zip(params, states):
+                if not state:
+                    state['step'] = torch.zeros((), dtype=torch.float32)
+                    state['exp_avg'] = torch.zeros_like(p)
+                    state['exp_avg_sq'] = torch.zeros_like(p)
+                state['step'] += 1
+            count = float(states[0]['step'])
+            grads = [p.grad for p in params]
+            mus = [s['exp_avg'] for s in states]
+            nus = [s['exp_avg_sq'] for s in states]
+            torch._foreach_mul_(mus, LAMB_B1)
+            torch._foreach_add_(mus, torch._foreach_mul(grads, 1 - LAMB_B1))
+            torch._foreach_mul_(nus, LAMB_B2)
+            torch._foreach_add_(nus, torch._foreach_mul(torch._foreach_mul(grads, grads),
+                                                        1 - LAMB_B2))
+            denom = torch._foreach_div(nus, 1 - LAMB_B2 ** count)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, LAMB_EPS)
+            updates = torch._foreach_div(torch._foreach_div(mus, 1 - LAMB_B1 ** count), denom)
+            p_norm = global_norm(params)
+            u_norm = global_norm(updates)
+            ratio = torch.where((p_norm == 0) | (u_norm == 0), torch.ones_like(p_norm),
+                                p_norm / u_norm)
+            torch._foreach_mul_(updates, ratio * -group['lr'])
+            torch._foreach_add_(params, updates)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,16 +99,20 @@ class OptimizerSpec:
     schedule: Schedule
     gradient_clip: float
 
-    def init(self, params: Iterable[torch.nn.Parameter]) -> 'Optimizer':
-        return Optimizer(self, list(params))
+    def init(self, named_params: Iterable[Tuple[str, torch.nn.Parameter]]) -> 'Optimizer':
+        return Optimizer(self, named_params)
 
 
 class Optimizer:
-    '''A torch optimizer over `params`, its schedule and its clipping.'''
+    '''A torch optimizer over the parameters of `named_params` ((name, parameter) pairs,
+    model.named_parameters()), its schedule and its clipping. The names place each
+    parameter in the JAX package's tree (weights.py): LAMB's trust ratio and the optax
+    state of a checkpoint go by them.'''
 
-    def __init__(self, spec: OptimizerSpec, params):
+    def __init__(self, spec: OptimizerSpec, named_params):
         self.spec = spec
-        self.params = params
+        self.names, self.params = map(list, zip(*named_params))
+        params = self.params
         lr = spec.schedule(0)
         if spec.name == 'sgd':
             self.torch_opt = torch.optim.SGD(params, lr=lr)
@@ -67,6 +123,11 @@ class Optimizer:
             # decay on every parameter.
             self.torch_opt = torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
                                                weight_decay=0.01)
+        elif spec.name == 'lamb':
+            leaves = {}
+            for n, p in zip(self.names, params):
+                leaves.setdefault(jax_leaf_name(n), []).append(p)
+            self.torch_opt = Lamb([{'params': ps} for ps in leaves.values()], lr=lr)
         else:
             raise ValueError(f'unknown optimizer: {spec.name}')
         self.count = 0   # updates applied
@@ -99,11 +160,9 @@ class Optimizer:
 def make_optimizer(optimizer: str = 'adamw', learn_rate: float = 1e-4, lr_decay: float = 0.3,
                    num_epochs: int = 70, steps_per_epoch: int = 1,
                    gradient_clip: float = 0.3) -> OptimizerSpec:
-    '''sgd / adam / adamw at learn_rate with the multi-step decay and global-norm clipping
-    (clipping off when gradient_clip <= 0). LAMB is not ported yet.'''
-    if optimizer == 'lamb':
-        raise NotImplementedError('the LAMB optimizer is not ported yet')
-    if optimizer not in ('sgd', 'adam', 'adamw'):
+    '''sgd / adam / adamw / lamb at learn_rate with the multi-step decay and global-norm
+    clipping (clipping off when gradient_clip <= 0).'''
+    if optimizer not in OPTIMIZERS:
         raise ValueError(f'unknown optimizer: {optimizer}')
     return OptimizerSpec(optimizer,
                          multistep_schedule(learn_rate, lr_decay, num_epochs, steps_per_epoch),

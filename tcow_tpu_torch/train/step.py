@@ -16,6 +16,8 @@ Batch schema (numpy arrays or tensors; the step moves them to the model's device
   occl_cont_dag (B, T, M, M, 3) float32
   frame_times   (B, T)          float32  optional: true source timestamps, read when
                                          seeker.rope_time_coords is set
+  jitter_factors (B, 5) float32, jitter_order (B, 4) int32, blur_gray (B, 3) float32:
+                optional on-device colour augmentation (ops/device_augs.py)
 '''
 
 import dataclasses
@@ -29,6 +31,7 @@ from tcow_tpu_torch.objectives import losses as losses_lib
 from tcow_tpu_torch.objectives import metrics as metrics_lib
 from tcow_tpu_torch.objectives import supervision
 from tcow_tpu_torch.objectives.losses import LossConfig
+from tcow_tpu_torch.ops import device_augs
 from tcow_tpu_torch.train.optim import Optimizer, OptimizerSpec, global_norm
 from tcow_tpu_torch.weights import params_from_jax
 
@@ -63,17 +66,15 @@ def init_train_state(seed: int, cfg: StepConfig, tx: OptimizerSpec,
         model.init_params_(torch.Generator().manual_seed(init_seed))
     else:
         model.load_state_dict(params_from_jax(params))
-    return TrainState(model, tx.init(model.parameters()),
+    return TrainState(model, tx.init(model.named_parameters()),
                       torch.Generator().manual_seed(drop_seed))
 
 
 def unpack_batch(batch, device) -> Dict[str, torch.Tensor]:
     '''Moves the batch to `device` and expands the compact transfer forms there:
-    bit-packed amodal masks, uint8 rgb and uint8 segm (step.py:88-113).'''
-    deferred = {'jitter_factors', 'jitter_order', 'blur_gray'} & set(batch)
-    if deferred:
-        raise NotImplementedError(f'on-device colour augmentation ({sorted(deferred)}) is '
-                                  'not ported yet')
+    bit-packed amodal masks, uint8 rgb and uint8 segm (step.py:88-100); then applies the
+    on-device colour augmentations its keys ask for, jitter first, blur and grayscale
+    second (:101-112).'''
     out = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
     if 'div_segm_packed' in out:
         packed = out.pop('div_segm_packed')                     # (B, M, T, H, W//8) uint8
@@ -84,6 +85,11 @@ def unpack_batch(batch, device) -> Dict[str, torch.Tensor]:
         out['rgb'] = out.pop('rgb_u8').float() / 255.0
     if 'segm_u8' in out:
         out['segm'] = out.pop('segm_u8').to(torch.int32)
+    if 'jitter_factors' in out:
+        out['rgb'] = device_augs.apply_color_jitter(out['rgb'], out.pop('jitter_factors'),
+                                                    out.pop('jitter_order'))
+    if 'blur_gray' in out:
+        out['rgb'] = device_augs.apply_blur_gray(out['rgb'], out.pop('blur_gray'))
     return out
 
 
@@ -116,7 +122,12 @@ def _forward_queries(model: MaskTracker, cfg: StepConfig, batch, sup, train: boo
     return out_mask, out_flags
 
 
-def _outputs_and_losses(model, cfg: StepConfig, batch, generator, progress, train: bool):
+def _outputs_and_losses(model, cfg: StepConfig, batch, generator, progress, train: bool,
+                        per_example: bool = False):
+    '''(losses, metric sums, output_mask, output_flags, supervision) of one batch; with
+    per_example the losses and metric sums of each example on its own (B = 1 slices of
+    the batched outputs, as step.py:262-274 vmaps them) stacked with a leading B axis,
+    and the snitch weights without the slice's axis of 1.'''
     device = next(model.parameters()).device
     batch = unpack_batch(batch, device)
     sup = build_supervision(cfg, batch)
@@ -125,10 +136,18 @@ def _outputs_and_losses(model, cfg: StepConfig, batch, generator, progress, trai
     B = batch['query_inds'].shape[0]
     sel_occl_fracs = batch['occl_fracs'][torch.arange(B, device=device)[:, None],
                                          batch['query_inds'].long()]
-    loss_retval = losses_lib.compute_losses(
-        cfg.loss, out_mask, sup['target_mask'], sel_occl_fracs, sup['snitch_occl_by_ptr'],
-        batch['query_time'], progress)
-    msums = metrics_lib.mask_track_metric_sums(out_mask.detach(), sup['target_mask'])
+    rows = [slice(b, b + 1) for b in range(B)] if per_example else [slice(None)]
+    per = [(losses_lib.compute_losses(
+        cfg.loss, out_mask[sl], sup['target_mask'][sl], sel_occl_fracs[sl],
+        sup['snitch_occl_by_ptr'][sl], batch['query_time'], progress),
+        metrics_lib.mask_track_metric_sums(out_mask[sl].detach(), sup['target_mask'][sl]))
+        for sl in rows]
+    if not per_example:
+        return (*per[0], out_mask, out_flags, sup)
+    loss_retval = {k: torch.stack([lr[k] for lr, _ in per]) for k in per[0][0]}
+    if 'snitch_weights' in loss_retval:
+        loss_retval['snitch_weights'] = loss_retval['snitch_weights'][:, 0]
+    msums = {k: torch.stack([ms[k] for _, ms in per]) for k in per[0][1]}
     return loss_retval, msums, out_mask, out_flags, sup
 
 
@@ -142,26 +161,68 @@ def loss_and_aux(model, cfg: StepConfig, batch, generator, progress, train: bool
     return loss_retval['total_seeker'], aux
 
 
+def split_microbatches(batch, grad_accum: int):
+    '''`grad_accum` microbatches of the batch (step.py:174-182): every leaf with a leading
+    batch axis is cut into equal consecutive slices (frame_times too), scalars
+    (query_time) are shared. Raises ValueError when the batch does not divide.'''
+    parts = [{} for _ in range(grad_accum)]
+    for k, v in batch.items():
+        if getattr(v, 'ndim', 0) > 0:
+            if v.shape[0] % grad_accum:
+                raise ValueError(f'grad_accum={grad_accum} does not divide the batch axis of '
+                                 f'{k} {tuple(v.shape)}')
+            n = v.shape[0] // grad_accum
+            for i, part in enumerate(parts):
+                part[k] = v[i * n:(i + 1) * n]
+        else:
+            for part in parts:
+                part[k] = v
+    return parts
+
+
 def make_train_step(cfg: StepConfig, grad_accum: int = 1):
     '''Returns train_step(state, batch, progress) -> (state, aux). The state is updated in
     place. aux holds the losses and metric sums of step.py:137-143 (0-d tensors, the
     losses detached), skipped_nonfinite (1.0 when the update was skipped) and grad_norm,
     the global norm of the gradients before clipping. One host read per step: whether the
-    loss is finite.'''
-    if grad_accum != 1:
-        raise NotImplementedError('grad_accum > 1 is not ported yet')
+    loss is finite.
+
+    grad_accum > 1 (step.py:163-222) runs one forward and backward per microbatch
+    (`split_microbatches`), in order, so only one microbatch's graph is live; the
+    gradients are summed in the parameters' .grad and scaled by 1/grad_accum, the losses
+    averaged and the metric sums summed, then one clip and one update, skipped when the
+    averaged loss is not finite. The drop-path masks of each microbatch are drawn from
+    the state's generator in turn.'''
+    A = int(grad_accum)
+    if A < 1:
+        raise ValueError(f'grad_accum must be >= 1, got {grad_accum}')
 
     def train_step(state: TrainState, batch, progress):
         model = state.model
         model.zero_grad(set_to_none=True)
-        loss, aux = loss_and_aux(model, cfg, batch, state.generator, progress, True)
-        loss.backward()
-        grad_norm = global_norm(p.grad for p in model.parameters() if p.grad is not None)
+        aux_sum = None
+        for part in (split_microbatches(batch, A) if A > 1 else (batch,)):
+            loss, aux = loss_and_aux(model, cfg, part, state.generator, progress, True)
+            loss.backward()
+            aux = {k: ({m: t.detach() for m, t in v.items()} if k == 'metric_sums'
+                       else v.detach()) for k, v in aux.items()}
+            aux_sum = aux if aux_sum is None else {
+                k: ({m: t + v[m] for m, t in aux_sum[k].items()} if k == 'metric_sums'
+                    else aux_sum[k] + v) for k, v in aux.items()}
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        aux = aux_sum
+        if A > 1:
+            inv = 1.0 / A
+            for g in grads:
+                g.mul_(inv)
+            # The metric sums are counts: summed over the microbatches, not averaged.
+            aux = {k: (v if k == 'metric_sums' else v * inv) for k, v in aux.items()}
+        loss = aux['total_seeker']
+        grad_norm = global_norm(grads)
         ok = bool(torch.isfinite(loss))
         if ok:
             state.optimizer.step(grad_norm)
         state.step += 1
-        aux = {k: (v.detach() if torch.is_tensor(v) else v) for k, v in aux.items()}
         aux['skipped_nonfinite'] = torch.tensor(0.0 if ok else 1.0)
         aux['grad_norm'] = grad_norm.detach()
         return state, aux
@@ -169,18 +230,23 @@ def make_train_step(cfg: StepConfig, grad_accum: int = 1):
     return train_step
 
 
-def make_eval_step(cfg: StepConfig, return_outputs: bool = False):
+def make_eval_step(cfg: StepConfig, return_outputs: bool = False, per_example: bool = False):
     '''Returns eval_step(model, batch, progress) -> dict of losses and metric sums, with no
     gradients and no drop-path. With return_outputs the dict also carries output_mask,
-    output_flags, target_mask, seeker_query_mask and snitch_weights.'''
+    output_flags, target_mask, seeker_query_mask and snitch_weights.
+
+    per_example (implies return_outputs, step.py:225-289): one batched forward, then the
+    losses and metric sums of each example computed on its own B = 1 slice, so that each
+    is what a forward of that clip alone gives; every loss and metric sum has a leading
+    B axis.'''
 
     def eval_step(model, batch, progress):
         with torch.no_grad():
             loss_retval, msums, out_mask, out_flags, sup = _outputs_and_losses(
-                model, cfg, batch, None, progress, False)
+                model, cfg, batch, None, progress, False, per_example)
         out = {k: loss_retval[k] for k in ('track', 'occl_mask', 'cont_mask', 'total_seeker')}
         out['metric_sums'] = msums
-        if return_outputs:
+        if return_outputs or per_example:
             out.update(output_mask=out_mask, output_flags=out_flags,
                        target_mask=sup['target_mask'],
                        seeker_query_mask=sup['seeker_query_mask'],
@@ -188,3 +254,30 @@ def make_eval_step(cfg: StepConfig, return_outputs: bool = False):
         return out
 
     return eval_step
+
+
+def make_vis_step(cfg: StepConfig, max_queries: int = 2):
+    '''Returns vis_step(model, batch, progress) -> the compact payload of train-time
+    overlays (step.py:292-322): example 0 is sliced before the forward, unpacked (colour
+    augmentations included) and evaluated; the payload holds its losses and metric sums,
+    the rgb the model saw (seeker_rgb) and the first `max_queries` queries of
+    output_mask, target_mask, seeker_query_mask and snitch_weights, all float16.'''
+    eval_step = make_eval_step(cfg, return_outputs=True)
+
+    def vis_step(model, batch, progress):
+        batch = {k: (v[0:1] if getattr(v, 'ndim', 0) > 0 else v) for k, v in batch.items()}
+        batch = unpack_batch(batch, next(model.parameters()).device)
+        out = eval_step(model, batch, progress)
+        f16 = lambda x: None if x is None else x[0:1, :max_queries].to(torch.float16)
+        return {
+            'track': out['track'], 'occl_mask': out['occl_mask'],
+            'cont_mask': out['cont_mask'], 'total_seeker': out['total_seeker'],
+            'metric_sums': out['metric_sums'],
+            'seeker_rgb': batch['rgb'][0:1].to(torch.float16),
+            'output_mask': f16(out['output_mask']),
+            'target_mask': f16(out['target_mask']),
+            'seeker_query_mask': f16(out['seeker_query_mask']),
+            'snitch_weights': f16(out['snitch_weights']),
+        }
+
+    return vis_step

@@ -25,6 +25,13 @@ def _flatten(tree, prefix=''):
             yield f'{prefix}{k}', v
 
 
+def jax_leaf_name(key: str) -> str:
+    '''The JAX tree leaf a state_dict key belongs to, dot-joined: the block index dropped
+    ('backbone.blocks.3.attn.qkv.w' -> 'backbone.blocks.attn.qkv.w').'''
+    m = _BLOCK_KEY.match(key)
+    return f'{m.group(1)}.{m.group(3)}' if m else key
+
+
 def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     '''JAX-layout tree of numpy arrays -> state_dict of float32 CPU tensors.'''
     state = {}
@@ -46,7 +53,7 @@ def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         arr = t.detach().to('cpu', torch.float32).numpy()
         m = _BLOCK_KEY.match(key)
         if m:
-            stacks.setdefault(f'{m.group(1)}.{m.group(3)}', {})[int(m.group(2))] = arr
+            stacks.setdefault(jax_leaf_name(key), {})[int(m.group(2))] = arr
         else:
             flat[key] = arr
     for key, per_block in stacks.items():

@@ -13,7 +13,10 @@ backward mode with its remat policy; and the rope variants K1r ... K6r (head siz
 with row positions and per-row frame times), a rope train step per pairing, and
 run_plugin of a time-calibrated rope seeker; and the bf16 GEMMs of every chain (gemm_bias
 at rows 1-1000, widths 8-2304 and depths 8-2304, W and W^T, with and without bias; wgrad
-at the same rows and 54,000), each against its f32 product and bit-equal on a rerun.
+at the same rows and 54,000; colsum at 1 to 54,181 rows in bf16 and f32, and its refusal of
+unaligned rows), each against its f32 result and bit-equal on a rerun; and the device side
+of training at a tiny width (the colour augmentations against the CPU, the launches of a
+grad_accum=2, LAMB and remat_group=2 step).
 Every test carries the `cuda` marker and skips without CUDA. The file imports neither JAX
 nor the tests' conftest, so on a GPU machine without JAX it runs as:
 
@@ -24,7 +27,8 @@ import numpy as np
 import pytest
 import torch
 
-from tcow_tpu_torch.data.synthetic import synthetic_device_batch, synthetic_frame_times
+from tcow_tpu_torch.data.synthetic import (synthetic_color_augs, synthetic_device_batch,
+                                           synthetic_frame_times)
 from tcow_tpu_torch.evaluation.inference import InferenceEngine
 from tcow_tpu_torch.models import timesformer as tsf
 from tcow_tpu_torch.models.mask_tracker import MaskTracker, SeekerConfig, seeker_config_from_args
@@ -245,6 +249,34 @@ def test_wgrad_matches_plain(cuda, M, K, N):
     assert err <= 1e-3, err
 
 
+@pytest.mark.parametrize('N', (8, 96, 768, 2304))
+@pytest.mark.parametrize('dtype', (torch.bfloat16, torch.float32))
+@pytest.mark.parametrize('M', (1, 7, 63, 1001, 54000, 54181))
+def test_colsum_matches_plain(cuda, M, N, dtype):
+    '''colsum (16-byte loads, warps interleaved over a run's rows) against the f32 sum of
+    the rows: only the order of the f32 sums differs (<= 1e-4 relative L2), odd and ragged
+    row counts included; the same bits on a second run.'''
+    rng = np.random.RandomState(M + N)
+    a = torch.from_numpy(rng.randn(M, N).astype(np.float32)).to(cuda, dtype)
+    got = fa._colsum(a)
+    again = fa._colsum(a)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (N,)
+    assert torch.equal(got, again)
+    err = rel_l2(got, fa.colsum_ref(a))
+    assert err <= TOL[torch.float32], err
+
+
+def test_colsum_refuses_unaligned_rows(cuda):
+    '''A width that is not a multiple of 8 columns, or a base that is not 16-byte aligned,
+    cannot be read with 16-byte loads: the wrapper raises and launches nothing.'''
+    with pytest.raises(ValueError, match='N % 8'):
+        fa._colsum(torch.ones((64, 12), dtype=torch.bfloat16, device=cuda))
+    buf = torch.ones(64 * 16 + 1, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match='aligned'):
+        fa._colsum(buf[1:].view(64, 16))
+
+
 def test_gemm_rejects_what_it_does_not_take(cuda):
     '''A depth whose rows are not 16-byte multiples cannot be a TMA operand: the launch
     is refused and the wrapper raises.'''
@@ -344,20 +376,22 @@ def test_fused_attention_is_differentiable_on_the_card(cuda, dtype, mode):
         assert err <= TOL_BWD[dtype], err
 
 
-def tiny_train_step(monkeypatch, **seeker_kw):
+def tiny_train_step(monkeypatch, grad_accum=1, optimizer='adamw', augs=False, **seeker_kw):
     '''Launches and changed parameters of one train step at width 64, depth 2 (with
-    frame times in the batch).'''
+    frame times in the batch, and with augs colour-augmentation keys).'''
     monkeypatch.setitem(tsf.DEPTH_PRESETS, 2, (64, 4))
     seeker = SeekerConfig(num_total_frames=4, frame_height=32, frame_width=48,
                           causal_attention=1, network_depth=2, drop_path_rate=0.1,
                           compute_dtype=torch.bfloat16, **seeker_kw)
     cfg = step_lib.StepConfig(seeker=seeker, loss=LossConfig(), num_queries=2)
-    state = step_lib.init_train_state(0, cfg, optim.make_optimizer(), device='cuda')
+    state = step_lib.init_train_state(0, cfg, optim.make_optimizer(optimizer), device='cuda')
     batch = synthetic_device_batch(0, B=2, Q=2, T=4, H=32, W=48, M=8, K=4)
     batch['frame_times'] = synthetic_frame_times(0, B=2, T=4, frame_stride=2)
+    if augs:
+        batch.update(synthetic_color_augs(0, 2, jitter=[1, 1], blur=[1, 0], gray=[0, 1]))
     before = {k: v.clone() for k, v in state.model.state_dict().items()}
     counts = launches()
-    state, aux = step_lib.make_train_step(cfg)(state, batch, 0.1)
+    state, aux = step_lib.make_train_step(cfg, grad_accum)(state, batch, 0.1)
     torch.cuda.synchronize()
     assert np.isfinite(float(aux['total_seeker'])) and float(aux['skipped_nonfinite']) == 0
     changed = [k for k, v in state.model.state_dict().items() if not torch.equal(v, before[k])]
@@ -381,6 +415,30 @@ def test_train_step_pairing_launches(cuda, monkeypatch, mode, policy):
     forward kernel re-run in the backward only under 'res' / 'dots_nb'.'''
     got = tiny_train_step(monkeypatch, remat=True, remat_policy=policy, attention_bwd=mode)
     assert got == {k: 4 * n for k, n in PAIRINGS[mode, policy].items()}
+
+
+@pytest.mark.parametrize('grad_accum,optimizer,remat_group', [(2, 'adamw', 1), (1, 'lamb', 1),
+                                                              (1, 'adamw', 2)])
+def test_device_side_train_step_launches(cuda, monkeypatch, grad_accum, optimizer,
+                                         remat_group):
+    '''The step of record's pairing on a batch with colour-augmentation keys: K1 and K4
+    once per attention call and microbatch; LAMB and two blocks per checkpoint region
+    launch as the plain step does.'''
+    got = tiny_train_step(monkeypatch, grad_accum, optimizer, augs=True, remat=True,
+                          remat_policy='dots_nb_out', attention_bwd='kernel_x',
+                          remat_group=remat_group)
+    assert got == {'k1': 4 * grad_accum, 'k4': 4 * grad_accum}
+
+
+def test_device_augs_on_the_card_match_the_cpu(cuda):
+    '''Jitter, blur and grayscale of a uint8 clip unpacked on the card and on the CPU:
+    the same f32 operations, the per-frame means summed in another order (<= 1e-5).'''
+    rgb = np.random.RandomState(0).randint(0, 256, (2, 3, 4, 32, 48)).astype(np.uint8)
+    batch = {'rgb_u8': rgb, **synthetic_color_augs(1, 2, jitter=[1, 1], blur=[1, 0],
+                                                   gray=[0, 1])}
+    got = step_lib.unpack_batch(batch, cuda)['rgb'].cpu()
+    want = step_lib.unpack_batch(batch, 'cpu')['rgb']
+    assert float((got - want).abs().max()) <= 1e-5
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):

@@ -3,8 +3,9 @@ The plain versions of the port's GEMM kernels (csrc/gemm_sm90.cu) against the JA
 kernel's products on the CPU: the bf16 weight operand the wrapper hands the wgmma kernel
 (`gemm_weight`: transpose + one rounding), `gemm_bias_ref` against
 jax.lax.dot_general(..., preferred_element_type=f32) + bias + .astype, and `wgrad_ref`
-against the dot over rows of pallas_attention.py:655-660; and the runs of rows of the bf16
-weight gradient (`_row_splits` in multiples of 64). The kernels themselves run only on the card
+against the dot over rows of pallas_attention.py:655-660, `colsum_ref` against its bias
+sums (:657, :660); and the runs of rows of the bf16 weight gradient (`_row_splits` in
+multiples of 64). The kernels themselves run only on the card
 (tests/test_torch_cuda_kernels.py).
 '''
 
@@ -87,6 +88,20 @@ def test_wgrad_ref_matches_jax(dtype):
     want = jax.lax.dot_general(jnp.asarray(a).astype(jdt), jnp.asarray(b).astype(jdt),
                                (((0,), (0,)), ((), ())), preferred_element_type=jnp.float32)
     assert got.dtype == torch.float32 and tuple(got.shape) == (24, 40)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize('M,N', [(1, 8), (150, 40), (1001, 2304)])
+@pytest.mark.parametrize('dtype', list(DTYPES))
+def test_colsum_ref_matches_jax(dtype, M, N):
+    '''The f32 sum of the rows, as the JAX kernel's jnp.sum(x.astype(f32), axis=0) bias
+    gradients (pallas_attention.py:657, :660): exact inputs in bf16, the order of the f32
+    sums differing only.'''
+    tdt, jdt = DTYPES[dtype]
+    a = np.random.RandomState(M + N).randn(M, N).astype(np.float32)
+    got = fa.colsum_ref(torch.from_numpy(a).to(tdt))
+    want = jnp.sum(jnp.asarray(a).astype(jdt), axis=0, dtype=jnp.float32)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (N,)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
 
 

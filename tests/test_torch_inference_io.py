@@ -101,8 +101,8 @@ def test_import_without_jax_or_tcow_tpu():
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "named = {'tcow_tpu_torch.' + m for m in ('train.step', 'train.optim',\n"
-        "            'objectives.losses', 'objectives.supervision', 'data.synthetic',\n"
-        "            'ops.rope')}\n"
+        "            'train.checkpoint', 'objectives.losses', 'objectives.supervision',\n"
+        "            'data.synthetic', 'ops.rope', 'ops.device_augs')}\n"
         "assert named <= set(mods), named - set(mods)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'tcow_tpu' or m.startswith('tcow_tpu.')]\n"

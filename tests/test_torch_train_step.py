@@ -6,6 +6,8 @@ weights, plus the port's own guarantees (NaN skip, drop-path under remat, unpack
 '''
 
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -78,6 +80,15 @@ def configs(loss_kw=None, seeker_kw=None):
 
 def batch(seed=0):
     return jsyn.synthetic_device_batch(seed, **BATCH_KW)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_train_step(optimizer, grad_accum=1):
+    '''The JAX package's train step at configs() and OPT_KW, jitted once per
+    (optimizer, grad_accum), so that tests taking the same step share its compile.'''
+    jcfg, _ = configs()
+    tx = joptim.make_optimizer(optimizer, **OPT_KW)
+    return jax.jit(jstep.make_train_step(jcfg, tx, grad_accum=grad_accum))
 
 
 def grads_to_jax(model):
@@ -179,12 +190,18 @@ def test_multistep_schedule_matches_optax(num_epochs, steps_per_epoch):
                                    err_msg=str(count))
 
 
-def test_unported_optimizer_and_accumulation_raise():
-    with pytest.raises(NotImplementedError):
-        poptim.make_optimizer('lamb')
+def test_lamb_and_accumulation_build_and_bad_settings_raise(tiny_preset):
+    '''LAMB and grad_accum=2 build; an unknown optimizer raises, and so does a grad_accum
+    that does not divide the batch, when the step splits it.'''
+    assert poptim.make_optimizer('lamb').name == 'lamb'
     _, pcfg = configs()
-    with pytest.raises(NotImplementedError):
-        pstep.make_train_step(pcfg, grad_accum=2)
+    assert callable(pstep.make_train_step(pcfg, grad_accum=2))
+    with pytest.raises(ValueError, match='unknown optimizer'):
+        poptim.make_optimizer('adagrad')
+    state = pstep.init_train_state(0, pcfg, poptim.make_optimizer('lamb', **OPT_KW),
+                                   device='cpu')
+    with pytest.raises(ValueError, match='does not divide'):
+        pstep.make_train_step(pcfg, grad_accum=3)(state, batch(), PROGRESS)
 
 
 def test_unpack_batch_expands_compact_forms():
@@ -198,8 +215,14 @@ def test_unpack_batch_expands_compact_forms():
     np.testing.assert_array_equal(got['segm'].numpy(), b['segm'])
     assert got['segm'].dtype == torch.int32
     np.testing.assert_allclose(got['rgb'].numpy(), compact['rgb_u8'] / 255.0, rtol=1e-6)
-    with pytest.raises(NotImplementedError, match='colour'):
-        pstep.unpack_batch({**b, 'jitter_factors': np.zeros((2, 4), np.float32)}, 'cpu')
+    # Colour keys are consumed on the device: a brightness of 0.5 applied to example 0
+    # only (its apply flag), the order starting with brightness.
+    factors = np.array([[0.5, 1, 1, 0, 1], [0.5, 1, 1, 0, 0]], np.float32)
+    order = np.tile(np.arange(4, dtype=np.int32), (2, 1))
+    got = pstep.unpack_batch({**b, 'jitter_factors': factors, 'jitter_order': order}, 'cpu')
+    assert not {'jitter_factors', 'jitter_order'} & set(got)
+    np.testing.assert_allclose(got['rgb'][0].numpy(), b['rgb'][0] * 0.5, rtol=1e-6)
+    np.testing.assert_array_equal(got['rgb'][1].numpy(), b['rgb'][1])
 
 
 def test_seeker_args_carry_drop_path_rate():
@@ -239,7 +262,7 @@ def test_train_steps_match_jax(jax_params):
     jcfg, pcfg = configs()
     tx = joptim.make_optimizer('adamw', **OPT_KW)
     jstate = jstep.init_train_state(jax.random.key(0), jcfg, tx, params=jax_params)
-    jtrain = jax.jit(jstep.make_train_step(jcfg, tx))
+    jtrain = jax_train_step('adamw')
     state = pstep.init_train_state(0, pcfg, poptim.make_optimizer('adamw', **OPT_KW),
                                    params=jax_params, device='cpu')
     ptrain = pstep.make_train_step(pcfg)

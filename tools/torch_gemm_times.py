@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
 '''
-Times the wmma bf16 GEMMs of an older fused_attention.cu (weights in f32, converted per
-tile) at every shape chip_smoke.py's phase gemm_times gives the port's kernels (its
-gemm_cases: gemm_bias for qkv, proj, dattn = g . proj_w^T and dx = dqkv . qkv_w^T, wgrad
-for x^T . dqkv and attn^T . g, colsum of dqkv and g). Run it in the same call as
-chip_smoke.py to read the two side by side on one card.
+Times the GEMMs and row reductions of an older source at every shape chip_smoke.py's phase
+gemm_times gives the port's kernels (its gemm_cases: gemm_bias for qkv, proj, dattn =
+g . proj_w^T and dx = dqkv . qkv_w^T, wgrad for x^T . dqkv and attn^T . g, colsum of dqkv
+and g): the wmma GEMMs of an older fused_attention.cu (weights in f32, converted per
+tile), or with `--kinds colsum` the colsum of an older gemm_sm90.cu. Run it in the same
+call as chip_smoke.py to read the two side by side on one card.
 
 Each shape prints one JSON line: ms, the relative L2 error against the f32 result of the
 same bf16 operands, and whether two runs gave the same bits.
 
 Run from the repository root:
-`python3 tools/torch_gemm_times.py OLD/tcow_tpu_torch/ops/csrc/fused_attention.cu [--out OUT.json]`.
+`python3 tools/torch_gemm_times.py OLD/tcow_tpu_torch/ops/csrc/fused_attention.cu [--out OUT.json]`
+or `python3 tools/torch_gemm_times.py OLD/tcow_tpu_torch/ops/csrc/gemm_sm90.cu --kinds colsum`.
 '''
 
 import argparse
@@ -73,8 +75,11 @@ def run_wmma(lib, case):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.strip().splitlines()[0])
-    ap.add_argument('wmma_source', help='an older fused_attention.cu with the wmma GEMMs')
+    ap.add_argument('wmma_source', help='an older fused_attention.cu with the wmma GEMMs, '
+                    'or an older gemm_sm90.cu with --kinds colsum')
     ap.add_argument('--out', default=None, help='also write every line into this JSON file')
+    ap.add_argument('--kinds', default='gemm_bias,wgrad,colsum',
+                    help='comma-separated kinds of launch to time (gemm_bias, wgrad, colsum)')
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print('needs an NVIDIA GPU', file=sys.stderr)
@@ -85,7 +90,10 @@ def main():
     lib = load_wmma(args.wmma_source)
     lines = [{'device': smi, 'torch': torch.__version__}]
     print(json.dumps(lines[0]), flush=True)
+    kinds = set(args.kinds.split(','))
     for case in cs.gemm_cases():
+        if case.kind not in kinds:
+            continue
         first, second = run_wmma(lib, case), run_wmma(lib, case)
         want = case.want()
         lines.append({'op': case.op, 'geometry': case.geometry, 'kind': case.kind,

@@ -7,15 +7,16 @@ Builds the training step of chip_smoke.py (2 clips x 3 queries, ViT-B/16, depth 
 attention-backward mode and a remat policy, by default the step of record (kernel_x with
 dots_nb_out: K1 forward, K4 backward), with --rope the time-calibrated rope step
 (temporal_rope, rope_time_coords, frame times in the batch: K1r/K4r on the temporal calls),
+with --device_augs colour augmentation in the batch and with --grad_accum A microbatches,
 and, for the kernel path and the plain attention path, runs one warm-up step and profiles
 one step with torch.profiler. Prints one JSON line each: host wall time of the step,
 device busy time and its share of the wall time, and device time per kernel group. With
 --table_dir DIR the per-kernel tables go to
-DIR/torch_profile_train_<mode>_<policy>[_rope]_<path>.txt.
+DIR/torch_profile_train_<mode>_<policy>[_rope][_augs][_ga<A>]_<path>.txt.
 
 Run from the repository root:
 `python3 tools/torch_profile_train.py [--attention_bwd MODE] [--remat_policy POLICY]
-[--rope] [--table_dir DIR]`.
+[--rope] [--device_augs] [--grad_accum A] [--table_dir DIR]`.
 '''
 
 import argparse
@@ -42,6 +43,10 @@ def main():
                     help='per-block remat policy (default: the step of record\'s)')
     ap.add_argument('--rope', action='store_true',
                     help='the time-calibrated rope step (rope256 configuration)')
+    ap.add_argument('--grad_accum', type=int, default=1,
+                    help='microbatches per step (make_train_step(grad_accum=))')
+    ap.add_argument('--device_augs', action='store_true',
+                    help='colour augmentation keys in the batch (chip_smoke.DEVICE_AUGS)')
     ap.add_argument('--table_dir', default=None,
                     help='write the per-kernel profiler tables into this directory')
     args = ap.parse_args()
@@ -54,12 +59,15 @@ def main():
                           rope=args.rope)
     tx = optim.make_optimizer('adamw', learn_rate=1e-4, num_epochs=70, steps_per_epoch=1000)
     state = step_lib.init_train_state(cs.SEED, cfg, tx, device='cuda')
-    train_step = step_lib.make_train_step(cfg)
+    train_step = step_lib.make_train_step(cfg, args.grad_accum)
     batch = cs.train_batch(args.rope)
-    rope = '_rope' if args.rope else ''
+    if args.device_augs:
+        batch = {**cs.device_side_batch(), **batch}
+    extra = ('_rope' if args.rope else '') + ('_augs' if args.device_augs else '') + (
+        f'_ga{args.grad_accum}' if args.grad_accum > 1 else '')
     for tag in ('kernel', 'plain'):
         profile_call(lambda: train_step(state, batch, cs.TRAIN_PROGRESS),
-                     f'train_{args.attention_bwd}_{args.remat_policy}{rope}_{tag}',
+                     f'train_{args.attention_bwd}_{args.remat_policy}{extra}_{tag}',
                      tag == 'plain', args.table_dir)
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
