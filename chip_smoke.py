@@ -65,7 +65,19 @@ Drives the PyTorch port (tcow_tpu_torch) on one NVIDIA GPU and checks it:
      peak, the bf16 gradient error against the f32 plain path); LAMB; remat_group 2 and
      4 (launches as G = 1, gradients bit-equal to G = 1); a full train state saved after
      one step and loaded into a fresh state, both continuing bit for bit; per-example eval
-     against B = 1 eval steps and the vis step.
+     against B = 1 eval steps and the vis step;
+ 13. the training path's host side (phase train_driver): a synthetic Kubric dataset
+     written by the port (8 train + 2 val scenes of 36 frames at 240x320, 8 objects;
+     4 scenes of 71 frames for rope256), item times uncached and cached, one batch's
+     host->device copy pinned and pageable, _H2DPrefetcher against unpack_batch bit for
+     bit; then `python train_torch.py` at the step of record as a subprocess: run 1, 2
+     epochs of 4 steps with both val phases (24 K1 + 24 K4 per train step, 24 K1 per val
+     step, finite losses, a full checkpoint per epoch); run 2, SIGTERM during step 2 of
+     epoch 0 (a full mid-epoch checkpoint with 2 steps done); run 3, --resume of run 2,
+     ending with run 1's parameters and AdamW moments (bit for bit, or within TOL_RESUME);
+     run 4, rope256 through train_torch.main (12 K1r + 12 K1 and 12 K4r + 12 K4 per step,
+     the temporal attention rotated by the batch's frame_times). Per run: the host wall
+     time of each step, the driver's loader-wait accounting and peak memory.
 
 Run from the repository root: `python3 chip_smoke.py`. Prints one JSON object per phase,
 then the `{"kernels": [...]}` line, the nvidia-smi line, and last
@@ -73,11 +85,14 @@ then the `{"kernels": [...]}` line, the nvidia-smi line, and last
 available or any phase fails. Needs one GPU.
 '''
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import json
 import os
+import re
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -86,8 +101,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tcow_tpu_torch import config as config_lib
+from tcow_tpu_torch.data import factory
+from tcow_tpu_torch.data import kubric as kubric_lib
 from tcow_tpu_torch.data.synthetic import (synthetic_color_augs, synthetic_device_batch,
-                                           synthetic_frame_times)
+                                           synthetic_frame_times,
+                                           write_synthetic_kubric_scene)
 from tcow_tpu_torch.evaluation.inference import InferenceEngine, load_networks
 from tcow_tpu_torch.models import timesformer as tsf
 from tcow_tpu_torch.models.mask_tracker import MaskTracker, seeker_config_from_args
@@ -96,9 +115,11 @@ from tcow_tpu_torch.objectives.metrics import METRIC_KEYS
 from tcow_tpu_torch.ops import _build
 from tcow_tpu_torch.ops import fused_attention as fa
 from tcow_tpu_torch.ops import rope as rope_lib
+from tcow_tpu_torch.train import driver as train_driver
 from tcow_tpu_torch.train import optim
 from tcow_tpu_torch.train import step as step_lib
-from tcow_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint, save_train_state
+from tcow_tpu_torch.train.checkpoint import (load_checkpoint, peek_meta, save_checkpoint,
+                                             save_train_state)
 from tcow_tpu_torch.weights import params_to_jax
 
 SEED = 0
@@ -139,9 +160,7 @@ PAIRINGS = {
 STEP_OF_RECORD = ('kernel_x', 'dots_nb_out')
 # The wrapper of each kernel, which counts its launches: `launches` without rope (K1 ...
 # K6), `launches_rope` with it (K1r ... K6r).
-KERNELS = {'K1': fa.fused_attention, 'K2': fa.fused_attention_fwd_qkv,
-           'K3': fa.fused_attention_fwd_res, 'K4': fa.fused_attention_bwd,
-           'K5': fa.fused_attention_bwd_qkv, 'K6': fa.fused_attention_bwd_wg}
+KERNELS = fa.KERNEL_COUNTERS
 # The time-calibrated rope configuration the JAX package trained for 36 epochs
 # (docs/campaign_r4/rope256/args_train.txt: temporal_rope 1, rope_time_coords 1, rope time
 # stretch 4). Its frame times are drawn per clip as the augmentations draw them, here at
@@ -305,11 +324,7 @@ def reset_launches():
         wrapper.launches_rope = 0
 
 
-def read_launches():
-    '''Every counter: K1 ... K6, then K1r ... K6r.'''
-    out = {name: wrapper.launches for name, wrapper in KERNELS.items()}
-    out.update({f'{name}r': wrapper.launches_rope for name, wrapper in KERNELS.items()})
-    return out
+read_launches = fa.read_launches
 
 
 def launches_since(counts):
@@ -1152,6 +1167,395 @@ def phase_train_device_side(ckpt_dir):
 
 
 # ---------------------------------------------------------------------------------------
+# The training path's host side: the Kubric loader, the epoch driver and train_torch.py
+# ---------------------------------------------------------------------------------------
+
+# A synthetic Kubric-format dataset written by the port: (split, scenes, first seed).
+# Frames: T = 30 plus kubric_max_delay 6 at 240x320; 8 objects with rich events keep Q = 3
+# sampleable (an object hidden at the query frame is unsampleable).
+DRIVER_SPLITS = (('train', 8, SEED), ('val', 2, SEED + 100))
+DRIVER_MAX_DELAY = 6
+DRIVER_FRAMES = SEEKER_ARGS['num_total_frames'] + DRIVER_MAX_DELAY
+# The rope256 run loads every second frame: 36 load indices reach frame 70.
+ROPE_DRIVER_SCENES = 4
+ROPE_DRIVER_FRAMES = (DRIVER_FRAMES - 1) * ROPE_FRAME_STRIDE + 1
+DRIVER_EPOCHS = 2
+# Steps per epoch: 8 train scenes and 2 val scenes in batches of TRAIN_B; rope256's 4.
+DRIVER_TRAIN_STEPS = 4
+DRIVER_VAL_STEPS = 1
+ROPE_DRIVER_STEPS = 2
+# The driver runs its vis step at every 16th global train step (utils/logvis.py:
+# MyLogger.step_interval of a train run), so at step 0 of these short runs.
+DRIVER_VIS_EVERY = 16
+# Launches per step through the driver: the step of record, its val and vis steps (a
+# forward, no backward), and rope256 (the temporal half of each kind rotated).
+DRIVER_PER_STEP = {'train': {'K1': 24, 'K4': 24}, 'val_aug': {'K1': 24},
+                   'val_noaug': {'K1': 24}, 'vis': {'K1': 24}}
+DRIVER_PER_ROPE_STEP = {'train': {'K1': 12, 'K1r': 12, 'K4': 12, 'K4r': 12},
+                        'vis': {'K1': 12, 'K1r': 12}}
+# A driver log must hold none of these: a step the driver tolerated and skipped leaves a
+# traceback, a failed vis step a warning, a non-finite loss a skipped update.
+DRIVER_LOG_FAULTS = ('Traceback', 'visualization failed', 'loss = NaN')
+# SIGTERM lands during this step of epoch 0 (1-based): the mid-epoch checkpoint then holds
+# this many completed steps.
+PREEMPT_STEPS_DONE = 2
+# If the resumed run is not bit-equal to the uninterrupted one: relative L2 limit over the
+# final parameters and over each AdamW moment.
+TOL_RESUME = 1e-2
+RUN_TIMEOUT_S = 300
+STEP_STATS = re.compile(r'step_stats (\{.*\})')
+ACCOUNTING = re.compile(r'\[(\w+)\] epoch (\d+) wall ([\d.]+)s over (\d+) steps: loader '
+                        r'wait ([\d.]+)s')
+
+
+def driver_argv(root, workdir, name, *extra):
+    return ['--name', name, '--data_path', str(root),
+            '--checkpoint_root', str(workdir / 'checkpoints'),
+            '--log_root', str(workdir / 'logs'),
+            '--batch_size', str(TRAIN_B), '--num_queries', str(TRAIN_Q),
+            '--num_frames', str(SEEKER_ARGS['num_total_frames']),
+            '--frame_height', str(SEEKER_ARGS['frame_height']),
+            '--frame_width', str(SEEKER_ARGS['frame_width']), '--device', DEV,
+            '--kubric_max_delay', str(DRIVER_MAX_DELAY), '--max_objects', str(TRAIN_M),
+            '--causal_attention', '1', '--compute_dtype', 'bfloat16',
+            '--drop_path_rate', '0.1', '--optimizer', 'adamw', '--learn_rate', '1e-4',
+            '--gradient_clip', '0.3', '--num_epochs', str(DRIVER_EPOCHS),
+            '--val_every', '1', '--do_val_aug', '1', '--do_val_noaug', '1',
+            '--checkpoint_every', '1', '--num_workers', '4', '--avoid_wandb', '2',
+            '--tracker_pretrained', SEEKER_ARGS['tracker_pretrained'],
+            '--seed', str(SEED), '--log_level', 'debug', *extra]
+
+
+def write_dataset(root, splits, frames):
+    '''Writes the scenes with the port's writer, one thread per scene (zlib and numpy
+    release the interpreter lock); returns (seconds, bytes on disk).'''
+    t0 = time.perf_counter()
+    jobs = [(str(root / split / f'{split}_scn{i:05d}'), seed + i)
+            for split, n, seed in splits for i in range(n)]
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        list(pool.map(lambda job: write_synthetic_kubric_scene(
+            job[0], job[1], T=frames, H=SEEKER_ARGS['frame_height'],
+            W=SEEKER_ARGS['frame_width'], K=TRAIN_K, rich_events=True), jobs))
+    seconds = time.perf_counter() - t0
+    nbytes = sum(f.stat().st_size for f in root.rglob('*') if f.is_file())
+    return seconds, nbytes
+
+
+def parse_steps(log_text):
+    return [json.loads(m.group(1)) for m in STEP_STATS.finditer(log_text)]
+
+
+def driver_records(epochs, steps=DRIVER_TRAIN_STEPS, start_step=0, stop_after=None,
+                   val=True):
+    '''The (phase, epoch, step) of every step_stats line a driver run must log, in order:
+    train steps from start_step of epoch 0, each followed by its vis step where one runs,
+    then both val phases; with stop_after = (epoch, step), the run ends there (SIGTERM).'''
+    out = []
+    for epoch in range(epochs):
+        for step in range(start_step if epoch == 0 else 0, steps):
+            out.append(('train', epoch, step))
+            if (epoch * steps + step) % DRIVER_VIS_EVERY == 0:
+                out.append(('vis', epoch, step))
+            if stop_after == (epoch, step):
+                return out
+        if val:
+            out += [(phase, epoch, step) for phase in ('val_aug', 'val_noaug')
+                    for step in range(DRIVER_VAL_STEPS)]
+    return out
+
+
+def check_steps(name, text, want, per_step):
+    '''A driver run's log: exactly the step_stats lines of `want`, each with the launches
+    per_step gives its phase, and none of DRIVER_LOG_FAULTS. Returns the records.'''
+    faults = [f for f in DRIVER_LOG_FAULTS if f in text]
+    if faults:
+        print(text[-4000:], file=sys.stderr)
+        fail(f'{name}: the driver log holds {faults}')
+    steps = parse_steps(text)
+    got = [(r['phase'], r['epoch'], r['step']) for r in steps]
+    if got != want:
+        fail(f'{name}: steps {got}, expected {want}')
+    for r in steps:
+        if r['launches'] != per_step[r['phase']]:
+            fail(f'{name}: {r["phase"]} epoch {r["epoch"]} step {r["step"]} launched '
+                 f'{r["launches"]}, expected {per_step[r["phase"]]}')
+    return steps
+
+
+def epoch_stats(steps, log_text):
+    '''Per phase and epoch: the host wall ms of each step, their median after the first,
+    the loader-wait share of the steps after the first (wait / (wait + step)), and the
+    driver's own accounting line.'''
+    acct = {(m.group(1), int(m.group(2))): dict(
+        wall_s=float(m.group(3)), steps=int(m.group(4)), loader_wait_s=float(m.group(5)))
+        for m in ACCOUNTING.finditer(log_text)}
+    out = {}
+    steps = [r for r in steps if r['phase'] != 'vis']
+    for key in sorted({(r['phase'], r['epoch']) for r in steps}):
+        recs = [r for r in steps if (r['phase'], r['epoch']) == key]
+        walls = [r['wall_ms'] for r in recs]
+        later = recs[1:]
+        wait = sum(r['wait_ms'] for r in later)
+        busy = sum(r['wall_ms'] for r in later)
+        out[f'{key[0]}_e{key[1]}'] = dict(
+            step_wall_ms=walls, first_wait_ms=recs[0]['wait_ms'],
+            median_wall_ms_after_first=float(np.median(walls[1:])) if later else None,
+            loader_wait_share_after_first=wait / (wait + busy) if later else None,
+            accounting=acct.get(key))
+    return out
+
+
+def run_driver(argv, log_fp, sigterm_after_step=None):
+    '''python train_torch.py argv as a subprocess (real argv, real signals), its output to
+    log_fp; with sigterm_after_step=k, SIGTERM is sent once train step k of epoch 0
+    (0-based) has logged: step k + 1 is then in flight or waiting for its batch. Returns
+    (log text, wall seconds); fails on a non-zero exit or after RUN_TIMEOUT_S.'''
+    t0 = time.perf_counter()
+    with open(log_fp, 'w') as log:
+        proc = subprocess.Popen([sys.executable, 'train_torch.py', *argv], stdout=log,
+                                stderr=subprocess.STDOUT,
+                                cwd=os.path.dirname(os.path.abspath(__file__)))
+        try:
+            while proc.poll() is None:
+                if time.perf_counter() - t0 > RUN_TIMEOUT_S:
+                    fail(f'train_torch.py {argv[1]} took over {RUN_TIMEOUT_S} s')
+                if sigterm_after_step is not None and any(
+                        r['phase'] == 'train' and r['epoch'] == 0
+                        and r['step'] == sigterm_after_step
+                        for r in parse_steps(log_fp.read_text())):
+                    time.sleep(0.1)   # past that step's own preemption check
+                    proc.send_signal(signal.SIGTERM)
+                    sigterm_after_step = None
+                time.sleep(0.05)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    text = log_fp.read_text()
+    if proc.returncode != 0:
+        print(text[-4000:], file=sys.stderr)
+        fail(f'train_torch.py {argv[1]} exited {proc.returncode}')
+    return text, time.perf_counter() - t0
+
+
+def checkpoint_arrays(path):
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files if k != '__meta__'}
+
+
+def compare_final_states(want_fp, got_fp):
+    '''Run 3's final checkpoint against run 1's: bit-equal, or the relative L2 of the
+    parameters and of each AdamW moment, held to TOL_RESUME.'''
+    want, got = checkpoint_arrays(want_fp), checkpoint_arrays(got_fp)
+    if set(want) != set(got):
+        fail(f'resumed checkpoint keys differ: {sorted(set(want) ^ set(got))[:5]}')
+    differ = sorted(k for k in want if not np.array_equal(want[k], got[k]))
+    out = {'bit_equal': not differ, 'arrays': len(want), 'arrays_differing': len(differ),
+           'first_differing': differ[:5]}
+    if differ:
+        for group, prefix in (('params', 'params'), ('mu', 'opt_state[1][0].mu'),
+                              ('nu', 'opt_state[1][0].nu')):
+            keys = [k for k in want if k.startswith(prefix)]
+            w = torch.cat([torch.from_numpy(want[k]).double().flatten() for k in keys])
+            g = torch.cat([torch.from_numpy(got[k]).double().flatten() for k in keys])
+            out[f'rel_l2_{group}'] = float((g - w).norm() / w.norm())
+        worst = max(out[f'rel_l2_{g}'] for g in ('params', 'mu', 'nu'))
+        if not worst <= TOL_RESUME:
+            fail(f'resumed run vs uninterrupted run: rel L2 {worst} > {TOL_RESUME}')
+    return out
+
+
+def host_checks(root):
+    '''Item times (uncached: decode + preprocess + cache write; cached), one collated
+    batch's host->device copy from pinned and from pageable memory, and one batch through
+    _H2DPrefetcher against the same batch through unpack_batch(device='cuda'), bit for
+    bit.'''
+    args = config_lib.train_args(driver_argv(root, root, '')[2:])
+    ds = kubric_lib.KubricQueryDataset(str(root), None, 'train', seed=SEED,
+                                       **factory.kubric_dset_args(args))
+    t0 = time.perf_counter()
+    items = [ds[0]]
+    uncached_s = time.perf_counter() - t0
+    cached = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        items.append(ds[0])
+        cached.append(time.perf_counter() - t0)
+    host = factory.make_kubric_collate(TRAIN_Q, 'train', SEED)(items[-TRAIN_B:])['device']
+
+    def copy_ms(pinned):
+        src = {k: torch.from_numpy(np.array(v)) for k, v in host.items()}
+        if pinned:
+            src = {k: v.pin_memory() for k, v in src.items()}
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = {k: v.to(DEV, non_blocking=pinned) for k, v in src.items()}
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            del out
+        return float(np.median(times))
+
+    pf = train_driver._H2DPrefetcher(iter([{'device': host, 'meta': {}}]), DEV)
+    _, dev = next(iter(pf))
+    pf.close()
+    a = step_lib.unpack_batch(dev, torch.device(DEV))
+    b = step_lib.unpack_batch(host, torch.device(DEV))
+    unequal = sorted(k for k in b if a[k].dtype != b[k].dtype or not torch.equal(a[k], b[k]))
+    if set(a) != set(b) or unequal:
+        fail(f'_H2DPrefetcher batch differs from unpack_batch: {unequal}')
+    return dict(item_uncached_s=uncached_s, item_cached_s=cached,
+                batch_bytes=sum(int(np.asarray(v).nbytes) for v in host.values()),
+                batch_bytes_by_key={k: int(np.asarray(v).nbytes) for k, v in host.items()},
+                h2d_pinned_ms=copy_ms(True), h2d_pageable_ms=copy_ms(False),
+                prefetcher_equals_unpack=True)
+
+
+def rope_driver_run(root, workdir):
+    '''Run 4, in this process through train_torch.main: rope256 (temporal_rope,
+    rope_time_coords, frame stride 2), 1 epoch of 2 steps, no val. Records the frame
+    times of every batch the seeker runs on (the 2 steps' and the vis step's) and the
+    positions of every rope attention call after it (forward and remat recompute): they
+    must be equal (per query), and the batch's times the clip's load indices (multiples of
+    the stride).'''
+    import train_torch
+    records = []   # (frame_times of a batch, [positions of each rope call on it])
+    real_forward, real_attention = step_lib._forward_queries, tsf.Attention.forward
+
+    def forward_queries(model, cfg, batch, *a, **kw):
+        records.append((batch['frame_times'].detach().cpu().clone(), []))
+        return real_forward(model, cfg, batch, *a, **kw)
+
+    def attention(self, x, causal_attention, rope=False, pos=None):
+        if rope:
+            records[-1][1].append(pos.detach().cpu().clone())
+        return real_attention(self, x, causal_attention, rope, pos)
+
+    argv = driver_argv(root, workdir, 'rope4', '--temporal_rope', '1', '--rope_time_coords',
+                       '1', '--kubric_frame_stride', str(ROPE_FRAME_STRIDE),
+                       '--num_epochs', '1', '--do_val_aug', '0', '--do_val_noaug', '0')
+    log_fp = workdir / 'rope4.log'
+    step_lib._forward_queries, tsf.Attention.forward = forward_queries, attention
+    t0 = time.perf_counter()
+    try:
+        with open(log_fp, 'w') as log, contextlib.redirect_stdout(log):
+            train_torch.main(argv)
+    finally:
+        step_lib._forward_queries, tsf.Attention.forward = real_forward, real_attention
+    wall_s = time.perf_counter() - t0
+    text = log_fp.read_text()
+    steps = check_steps('rope4', text, driver_records(1, ROPE_DRIVER_STEPS, val=False),
+                        DRIVER_PER_ROPE_STEP)
+    train_batches = [times for times, _ in records if times.shape[0] == TRAIN_B]
+    if len(train_batches) != 2 or any(not calls for _, calls in records):
+        fail(f'rope driver run: {len(train_batches)} train batches, rope calls per batch '
+             f'{[len(calls) for _, calls in records]}')
+    for i, (times, calls) in enumerate(records):
+        B, T = times.shape
+        want = times[:, None].expand(B, TRAIN_Q, T).reshape(B * TRAIN_Q, T)
+        for pos in calls:
+            if not (torch.equal(pos[:, 0], want)
+                    and torch.equal(pos, pos[:, :1].expand_as(pos))):
+                fail(f'rope driver run batch {i}: the temporal attention got other times '
+                     'than the batch frame_times')
+        if bool((times % ROPE_FRAME_STRIDE).any()) or float(times.max()) >= ROPE_DRIVER_FRAMES:
+            fail(f'rope driver run batch {i}: frame_times {times} are not load indices')
+    return dict(wall_s=wall_s, steps=steps,
+                rope_calls_per_batch=[len(calls) for _, calls in records],
+                frame_times=[t.tolist() for t in train_batches],
+                epochs=epoch_stats(steps, text),
+                peak_bytes=max(r.get('max_memory_allocated', 0) for r in steps))
+
+
+def sum_launches(steps):
+    out = {}
+    for r in steps:
+        for k, n in r['launches'].items():
+            out[k] = out.get(k, 0) + n
+    return out
+
+
+# The step_stats lines each driver run must log: run 2 is stopped by SIGTERM during the
+# step after train step PREEMPT_STEPS_DONE - 2 of epoch 0, run 3 resumes it there.
+DRIVER_RUN_RECORDS = {
+    'run1': driver_records(DRIVER_EPOCHS),
+    'run2': driver_records(DRIVER_EPOCHS, stop_after=(0, PREEMPT_STEPS_DONE - 1)),
+    'run3': driver_records(DRIVER_EPOCHS, start_step=PREEMPT_STEPS_DONE)}
+
+
+def check_run(name, text, workdir):
+    '''A driver run's steps and launches (check_steps against DRIVER_RUN_RECORDS) and,
+    by run, its checkpoints and losses.'''
+    steps = check_steps(name, text, DRIVER_RUN_RECORDS[name], DRIVER_PER_STEP)
+    out = dict(steps=steps, epochs=epoch_stats(steps, text),
+               peak_bytes=max(r.get('max_memory_allocated', 0) for r in steps))
+    ckpt = workdir / 'checkpoints' / ('run2' if name == 'run3' else name)
+    if name in ('run1', 'run3'):
+        for e in range(DRIVER_EPOCHS):
+            meta = peek_meta(str(ckpt / f'model_{e}.npz'))
+            if not meta['opt_restored'] or meta['partial'] or meta['epoch'] != e:
+                fail(f'{name}: model_{e}.npz is not a full checkpoint of epoch {e}')
+        rows = [json.loads(ln) for ln in (workdir / 'logs' / ckpt.name / 'scalars.jsonl')
+                .read_text().splitlines()]
+        losses = [v for r in rows for k, v in r.items() if '/loss_' in k]
+        if not losses or not np.all(np.isfinite(losses)):
+            fail(f'{name}: losses in scalars.jsonl {losses}')
+        out['losses_logged'] = len(losses)
+    if name == 'run2':
+        meta = peek_meta(str(ckpt / 'checkpoint.npz'))
+        if not (meta['partial'] and meta['epoch'] == 0 and meta['opt_restored']
+                and meta['steps_done_in_epoch'] == PREEMPT_STEPS_DONE):
+            fail(f'run2: mid-epoch checkpoint {meta}')
+        out['preempt_checkpoint'] = {k: meta[k] for k in (
+            'epoch', 'partial', 'steps_done_in_epoch', 'opt_restored')}
+    return out
+
+
+def phase_train_driver(workdir):
+    '''The training path's host side at the step of record: a synthetic Kubric dataset
+    written by the port (DRIVER_SPLITS), then train_torch.py as a subprocess: run 1 trains
+    2 epochs of 4 steps with both val phases; run 2 is run 1 under another name, sent
+    SIGTERM during step PREEMPT_STEPS_DONE of epoch 0; run 3 resumes run 2 and must end
+    where run 1 ended; run 4 is rope256 through train_torch.main in this process. Every
+    step's launches are checked (DRIVER_PER_*), every loss finite, every epoch's
+    checkpoint full. Prints item times, the host->device copy of a batch, per-step host
+    times, the loader-wait share and peak memory of each run.'''
+    out = {'cpu_count': os.cpu_count()}
+    shutil.rmtree(workdir, ignore_errors=True)
+    root, rope_root = workdir / 'kubric', workdir / 'kubric_rope'
+    out['dataset_write_s'], out['dataset_bytes'] = write_dataset(root, DRIVER_SPLITS,
+                                                                 DRIVER_FRAMES)
+    out['rope_dataset_write_s'], out['rope_dataset_bytes'] = write_dataset(
+        rope_root, (('train', ROPE_DRIVER_SCENES, SEED + 200),), ROPE_DRIVER_FRAMES)
+    out.update(host_checks(root))
+    emit({'phase': 'train_driver_host', **out})
+
+    runs = {}
+    for name, extra, sig in (('run1', (), None),
+                             ('run2', (), PREEMPT_STEPS_DONE - 2),
+                             ('run3', ('--resume', 'run2'), None)):
+        argv = driver_argv(root, workdir, 'run2' if name == 'run3' else name, *extra)
+        text, wall_s = run_driver(argv, workdir / f'{name}.log', sig)
+        runs[name] = dict(wall_s=wall_s, **check_run(name, text, workdir))
+        emit({'phase': f'train_driver_{name}',
+              **{k: v for k, v in runs[name].items() if k != 'steps'}})
+    resume = compare_final_states(workdir / 'checkpoints' / 'run1' / 'checkpoint.npz',
+                                  workdir / 'checkpoints' / 'run2' / 'checkpoint.npz')
+    emit({'phase': 'train_driver_resume', **resume})
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()   # run 4 shares this process with every phase
+    runs['rope4'] = rope_driver_run(rope_root, workdir)
+    emit({'phase': 'train_driver_rope4',
+          **{k: v for k, v in runs['rope4'].items() if k != 'steps'}})
+    launches = sum_launches([r for n in ('run1', 'run2', 'run3') for r in runs[n]['steps']])
+    rope_launches = sum_launches(runs['rope4']['steps'])
+    emit({'phase': 'train_driver', 'launches': launches, 'rope_launches': rope_launches,
+          'resume_bit_equal': resume['bit_equal']})
+    return {'launches': launches, 'rope_launches': rope_launches}
+
+
+# ---------------------------------------------------------------------------------------
 # The time-calibrated rope path: K1r ... K6r
 # ---------------------------------------------------------------------------------------
 
@@ -1814,6 +2218,11 @@ def main():
         device_side = phase_train_device_side(ckpt_dir)
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
+    driver_dir = _build.BUILD_DIR / 'chip_smoke_driver'
+    try:
+        driver = phase_train_driver(driver_dir)
+    finally:
+        shutil.rmtree(driver_dir, ignore_errors=True)
 
     rope_errs = phase_rope_kernels_vs_plain()
     try:
@@ -1843,8 +2252,12 @@ def main():
 
     source = 'tcow_tpu_torch/ops/csrc/fused_attention.cu'
     replaces = 'tcow_tpu/ops/pallas_attention.py:'
-    # The device side of training runs the step of record's kernels, K1 and K4.
-    device_side_launches = lambda kernel: {'train_device_side': device_side['launches'][kernel]}
+    # The device side of training runs the step of record's kernels, K1 and K4, and so
+    # does the driver (train_torch.py); its rope256 run K1, K1r, K4 and K4r.
+    def device_side_launches(kernel):
+        return {'train_device_side': device_side['launches'][kernel],
+                'train_driver': driver['launches'].get(kernel, 0),
+                'train_driver_rope': driver['rope_launches'].get(kernel, 0)}
     k1 = kernel_entry('fused_attention', source, replaces + '87',
                       {'inference': inference_launches, **train_launches('K1'),
                        **device_side_launches('K1')}, errs, per_geom)
@@ -1872,6 +2285,8 @@ def main():
         launches = train_launches(kernel, rope_trains, 'rope_train')
         if kernel == 'K1r':
             launches = {'rope_inference': rope_inference_launches, **launches}
+        if kernel in ('K1r', 'K4r'):
+            launches['train_driver_rope'] = driver['rope_launches'].get(kernel, 0)
         entries.append(kernel_entry(name, source, replaces + line, launches,
                                     rope_errs[kernel], rope_geom[kernel]))
     # K1-K3 and K1r-K3r: their bf16 attention core (attn_core_mma) timed alone; K4-K6 and

@@ -1,0 +1,274 @@
+'''
+The training flags of the port: a copy of tcow_tpu/config.py (the shared and train flags
+:26-204, verify_args :232-302, args_to_dict, build_seeker_args :303-331), so the JAX
+package's train commands run unchanged against train_torch.py.
+
+--device defaults to cuda and accepts cpu. Flags of what the port does not run raise
+NotImplementedError from verify_args, naming the ROADMAP.md item that holds them:
+--mesh_devices > 1, --seq_shards, --tp_shards or --pp_stages > 1, --multihost and
+--device_augs 0. Every other flag parses and behaves as in the JAX package.
+'''
+
+import argparse
+import multiprocessing as mp
+import os
+from typing import Any, Dict
+
+from tcow_tpu_torch.train import checkpoint as ckpt_lib
+
+
+def _str2bool(v):
+    if isinstance(v, bool):
+        return v
+    if v.lower() in ('yes', 'true', 't', 'y', '1'):
+        return True
+    if v.lower() in ('no', 'false', 'f', 'n', '0'):
+        return False
+    raise argparse.ArgumentTypeError('Boolean value expected.')
+
+
+def shared_args(parser: argparse.ArgumentParser):
+    parser.add_argument('--seed', default=900, type=int)
+    parser.add_argument('--log_level', default='info', type=str,
+                        choices=['debug', 'info', 'warn'])
+    parser.add_argument('--device', default='cuda', type=str, choices=['cuda', 'cpu'],
+                        help='Where the model runs: the GPU, or the CPU (tests).')
+    parser.add_argument('--batch_size', default=4, type=int)
+    parser.add_argument('--num_workers', default=-1, type=int)
+    parser.add_argument('--worker_mode', default='thread', type=str,
+                        choices=['thread', 'process'],
+                        help='Data-loader workers: "thread" (few-core hosts / CI) or '
+                             '"process" (a forkserver pool; scales item loading with '
+                             'cores).')
+    parser.add_argument('--checkpoint_root', default='checkpoints/', type=str)
+    parser.add_argument('--log_root', default='logs/', type=str)
+    parser.add_argument('--name', '--tag', default='', type=str)
+    parser.add_argument('--resume', '--checkpoint_name', default='', type=str)
+    parser.add_argument('--epoch', default=-1, type=int)
+    parser.add_argument('--avoid_wandb', default=0, type=int)
+    parser.add_argument('--log_rarely', default=0, type=int)
+    parser.add_argument('--data_path', required=True, type=str, nargs='+')
+    parser.add_argument('--use_data_frac', default=1.0, type=float)
+    parser.add_argument('--num_queries', default=1, type=int)
+    # Automatically inferred options (do not assign).
+    parser.add_argument('--is_debug', default=False, type=_str2bool)
+    parser.add_argument('--checkpoint_path', default='', type=str)
+    parser.add_argument('--train_log_path', default='', type=str)
+    parser.add_argument('--log_path', default='', type=str)
+    parser.add_argument('--wandb_group', default='group', type=str)
+    # Resource options. The port runs one device: the parallel layouts (mesh, sequence,
+    # tensor, pipeline, multi-host) parse and raise in verify_args.
+    parser.add_argument('--mesh_devices', default=-1, type=int,
+                        help='Number of devices in the mesh; -1 = all (one in the port).')
+    parser.add_argument('--seq_shards', default=1, type=int,
+                        help='Sequence-parallel shards (second mesh axis).')
+    parser.add_argument('--tp_shards', default=1, type=int,
+                        help='Tensor-parallel shards (model mesh axis); not ported.')
+    parser.add_argument('--grad_accum', default=1, type=int,
+                        help='Gradient accumulation: split the batch into this many '
+                             'microbatches, run forward+backward per microbatch in turn, '
+                             'average gradients, apply ONE optimizer update. Must divide '
+                             'batch_size.')
+    parser.add_argument('--pp_stages', default=1, type=int,
+                        help='Pipeline-parallel stages (pipe mesh axis); not ported.')
+    parser.add_argument('--pp_microbatches', default=0, type=int,
+                        help='Microbatches for pipeline parallelism (with --pp_stages).')
+    parser.add_argument('--pp_manual', default=0, type=int,
+                        help='Manual pipeline schedule (with --pp_stages).')
+    parser.add_argument('--compute_dtype', default='bfloat16', type=str,
+                        choices=['bfloat16', 'float32'])
+    parser.add_argument('--profile_dir', default='', type=str,
+                        help='If set, capture a torch.profiler trace of a few train steps '
+                             'into this directory (a Chrome trace JSON).')
+    parser.add_argument('--device_augs', default=-1, type=int,
+                        help='Colour augmentation on the device inside the step: -1 auto '
+                             '(on) or 1; 0 (the host colour path) is not ported.')
+    parser.add_argument('--multihost', default=False, type=_str2bool,
+                        help='Multi-host execution; not ported.')
+    parser.add_argument('--h2d_prefetch', default=True, type=_str2bool,
+                        help='Copy the NEXT batch to the device on a side stream while '
+                             'the current step executes (one-deep double buffering from '
+                             'pinned memory; costs one extra device-resident batch).')
+
+
+def train_args(argv=None):
+    parser = argparse.ArgumentParser()
+    shared_args(parser)
+    parser.add_argument('--num_epochs', default=70, type=int)
+    parser.add_argument('--checkpoint_every', default=2, type=int)
+    parser.add_argument('--save_every', default=1, type=int,
+                        help='Epoch interval for updating the latest checkpoint.')
+    parser.add_argument('--preempt_save', default=True, type=_str2bool,
+                        help='On SIGTERM (preemption/timeout), finish the current step, '
+                             'write a FULL mid-epoch checkpoint, and exit cleanly; '
+                             '--resume continues that epoch at the exact step.')
+    parser.add_argument('--checkpoint_light', default=False, type=_str2bool,
+                        help='Per-epoch saves write model params ONLY (about 1/3 of '
+                             'the bytes); the full resumable state (optimizer/rng/step) is '
+                             'still written every checkpoint_every epochs and at the end. '
+                             'Resuming from a light checkpoint reinitializes the optimizer.')
+    parser.add_argument('--allow_opt_reinit', default=False, type=_str2bool,
+                        help='Permit resuming training from a checkpoint WITHOUT optimizer '
+                             'state (a --checkpoint_light save), reinitializing the AdamW '
+                             'moments/LR step. Off by default: the driver instead falls '
+                             'back to the newest full-state model_{e}.npz snapshot in the '
+                             'same directory, or refuses.')
+    parser.add_argument('--learn_rate', default=1e-4, type=float)
+    parser.add_argument('--lr_decay', default=0.3, type=float)
+    parser.add_argument('--do_val_aug', default=True, type=_str2bool)
+    parser.add_argument('--do_val_noaug', default=False, type=_str2bool)
+    parser.add_argument('--val_every', default=2, type=int)
+    parser.add_argument('--num_frames', default=24, type=int)
+    parser.add_argument('--frame_height', default=240, type=int)
+    parser.add_argument('--frame_width', default=320, type=int)
+    parser.add_argument('--augs_2d', default=True, type=_str2bool)
+    parser.add_argument('--kubric_frame_rate', default=12, type=int)
+    parser.add_argument('--kubric_frame_stride', default=1, type=int)
+    parser.add_argument('--kubric_max_delay', default=6, type=int)
+    parser.add_argument('--kubric_reverse_prob', default=0.1, type=float)
+    parser.add_argument('--kubric_palindrome_prob', default=0.1, type=float)
+    parser.add_argument('--tracker_pretrained', default='1', type=str)
+    parser.add_argument('--attention_type', default='divided_space_time', type=str,
+                        choices=['divided_space_time', 'joint_space_time'])
+    parser.add_argument('--patch_size', default=16, type=int)
+    parser.add_argument('--causal_attention', default=1, type=int)
+    parser.add_argument('--temporal_rope', default=0, type=int,
+                        help='1: rotary (relative) time encoding on temporal attention; '
+                             'requires training with the flag on.')
+    parser.add_argument('--rope_time_coords', default=0, type=int,
+                        help='1 (with --temporal_rope): feed TRUE source-frame timestamps '
+                             'into the rotary tables (time-calibrated rope) — strided / '
+                             'subsampled clips (stride augs, plugin usage modes) carry '
+                             'their real temporal spacing instead of pretending to be '
+                             'contiguous. Stored in seeker_args.')
+    parser.add_argument('--rope_time_stretch', default=1.0, type=float,
+                        help='> 1 (train, with --rope_time_coords): scale each example\'s '
+                             'rope time coordinates by a random log-uniform factor in '
+                             '[1, S] — a pure coordinate augmentation exercising LONG '
+                             'relative offsets for far-past-horizon streaming.')
+    parser.add_argument('--norm_embeddings', default=False, type=_str2bool)
+    parser.add_argument('--drop_path_rate', default=0.1, type=float)
+    parser.add_argument('--network_depth', default=12, type=int)
+    parser.add_argument('--seeker_frames', default=[-1], type=int, nargs='+')
+    parser.add_argument('--seeker_query_time', default=0.0, type=float)
+    parser.add_argument('--gradient_clip', default=0.3, type=float)
+    parser.add_argument('--optimizer', default='adamw', type=str,
+                        choices=['sgd', 'adam', 'adamw', 'lamb'])
+    parser.add_argument('--track_lw', default=1.0, type=float)
+    parser.add_argument('--occl_mask_lw', default=0.5, type=float)
+    parser.add_argument('--cont_mask_lw', default=0.5, type=float)
+    parser.add_argument('--occluded_weight', default=5.0, type=float)
+    parser.add_argument('--occl_cont_zero_weight', default=0.02, type=float)
+    parser.add_argument('--class_balancing', default=True, type=_str2bool)
+    parser.add_argument('--focal_loss', default=False, type=_str2bool)
+    parser.add_argument('--aot_loss', default=0.8, type=float)
+    parser.add_argument('--hard_negative_factor', default=3.0, type=float)
+    parser.add_argument('--front_occl_thres', default=0.95, type=float)
+    parser.add_argument('--outer_cont_thres', default=0.75, type=float)
+    parser.add_argument('--max_objects', default=36, type=int,
+                        help='Static instance-axis pad M (36 = the Kubric datasets\' '
+                             'bound). Datasets with fewer instances can run a smaller M: '
+                             'the batch ships B*M*T*H*W/8 packed mask bytes, so M=12 cuts '
+                             'that transfer (and the collate memset) 3x. Scenes with more '
+                             'than M instances are rejected at load time.')
+    parser.add_argument('--remat', default=True, type=_str2bool,
+                        help='Per-block rematerialization in the backward pass.')
+    parser.add_argument('--remat_group', default=1, type=int,
+                        help='Transformer blocks per checkpoint region (1 = per-block; '
+                             'larger trades activation memory for less recompute).')
+    args = parser.parse_args(argv)
+    verify_args(args)
+    return args
+
+
+def _refuse_unported(args):
+    unported = [
+        (args.mesh_devices > 1, '--mesh_devices > 1', 7),
+        (args.seq_shards > 1, '--seq_shards > 1', 7),
+        (args.tp_shards > 1, '--tp_shards > 1', 7),
+        (args.pp_stages > 1, '--pp_stages > 1', 7),
+        (bool(args.multihost), '--multihost', 7),
+        (args.device_augs == 0, '--device_augs 0 (the host colour path)', 2),
+    ]
+    for bad, flag, item in unported:
+        if bad:
+            raise NotImplementedError(f'{flag} is not ported to tcow_tpu_torch '
+                                      f'(ROADMAP.md section 1 item {item})')
+
+
+def resolve_resume_path(checkpoint_root: str, resume: str, epoch: int = -1) -> str:
+    '''--resume <name or file> -> the .npz to load: a file as given, else the
+    experiment directory under checkpoint_root (model_{epoch}.npz when epoch >= 0, else
+    checkpoint.npz). A torch .pth raises: its import is ROADMAP.md section 1 item 6.'''
+    path = resume if os.path.isfile(resume) else os.path.join(checkpoint_root, resume)
+    if path.endswith('.pth') or (os.path.isdir(path) and not any(
+            f.endswith('.npz') for f in os.listdir(path)) and any(
+            f.endswith('.pth') for f in os.listdir(path))):
+        raise NotImplementedError(f'{path}: resuming from a torch .pth checkpoint is not '
+                                  'ported (ROADMAP.md section 1 item 6)')
+    return ckpt_lib.resolve_checkpoint_path(path, epoch)
+
+
+def verify_args(args):
+    '''Post-parse derivation of the train flags (tcow_tpu/config.py:232-302): the
+    experiment name of a bare --resume, the debug flag, the worker count, the resolved
+    resume path and the experiment's checkpoint and log directories.'''
+    _refuse_unported(args)
+    if args.resume != '' and args.name == '':
+        # Continue the SAME experiment: under the resumed run's own name, or for a
+        # checkpoint FILE path under its directory's basename.
+        if os.path.isfile(args.resume):
+            args.name = os.path.basename(os.path.dirname(os.path.abspath(
+                args.resume))) or 'resume'
+        else:
+            args.name = args.resume
+    args.is_debug = args.name.startswith('d')
+    args.wandb_group = 'train' + ('_debug' if args.is_debug else '')
+    if not args.occl_cont_zero_weight < 0.5:
+        raise ValueError('--occl_cont_zero_weight must be < 0.5')
+
+    if args.num_workers < 0:
+        frac = 0.30 if args.is_debug else 0.45
+        sub = 4 if args.is_debug else 6
+        args.num_workers = min(max(int(mp.cpu_count() * frac) - sub, 4), 80)
+    args.num_workers = int(args.num_workers)
+
+    if args.name != '':
+        if args.resume != '':
+            args.resume = resolve_resume_path(args.checkpoint_root, args.resume, args.epoch)
+        args.checkpoint_path = os.path.join(args.checkpoint_root, args.name)
+        args.train_log_path = os.path.join(args.log_root, args.name)
+        os.makedirs(args.checkpoint_path, exist_ok=True)
+        os.makedirs(args.train_log_path, exist_ok=True)
+        args.log_path = args.train_log_path
+
+
+def args_to_dict(args) -> Dict[str, Any]:
+    return {k: v for k, v in vars(args).items()}
+
+
+def build_seeker_args(args) -> Dict[str, Any]:
+    '''The seeker_args dict embedded in checkpoints.'''
+    max_seeker_frames = max(args.seeker_frames)
+    if max_seeker_frames < 0 or max_seeker_frames > args.num_frames:
+        max_seeker_frames = args.num_frames
+    return dict(
+        num_total_frames=args.num_frames,
+        num_visible_frames=max_seeker_frames,
+        frame_height=args.frame_height,
+        frame_width=args.frame_width,
+        tracker_pretrained=args.tracker_pretrained,
+        attention_type=args.attention_type,
+        patch_size=args.patch_size,
+        causal_attention=args.causal_attention,
+        temporal_rope=int(getattr(args, 'temporal_rope', 0)),
+        rope_time_coords=int(getattr(args, 'rope_time_coords', 0)),
+        norm_embeddings=args.norm_embeddings,
+        drop_path_rate=args.drop_path_rate,
+        network_depth=args.network_depth,
+        track_map_stride=4,
+        track_map_resize='bilinear',
+        query_channels=1,
+        output_channels=3,
+        flag_channels=3,
+    )

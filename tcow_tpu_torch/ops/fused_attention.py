@@ -36,7 +36,7 @@ launch with rope on `launches_rope` of the same wrapper (K1r ... K6r) and never 
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -733,7 +733,17 @@ def fused_attention(x, qkv_w, qkv_b, proj_w, proj_b, num_heads: int, causal_atte
 
 
 fused_attention.calls = dict.fromkeys(BWD_MODES, 0)
-for _wrapper in (fused_attention, fused_attention_fwd_qkv, fused_attention_fwd_res,
-                 fused_attention_bwd, fused_attention_bwd_qkv, fused_attention_bwd_wg):
+# Each kernel's counters by its name in the module docstring.
+KERNEL_COUNTERS = {'K1': fused_attention, 'K2': fused_attention_fwd_qkv,
+                   'K3': fused_attention_fwd_res, 'K4': fused_attention_bwd,
+                   'K5': fused_attention_bwd_qkv, 'K6': fused_attention_bwd_wg}
+for _wrapper in KERNEL_COUNTERS.values():
     _wrapper.launches = _wrapper.launches_rope = 0
 del _wrapper
+
+
+def read_launches() -> Dict[str, int]:
+    '''Every kernel's launch count: K1 ... K6, then K1r ... K6r.'''
+    out = {name: c.launches for name, c in KERNEL_COUNTERS.items()}
+    out.update({f'{name}r': c.launches_rope for name, c in KERNEL_COUNTERS.items()})
+    return out

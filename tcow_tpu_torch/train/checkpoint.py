@@ -127,7 +127,8 @@ def save_checkpoint(checkpoint_dir: str, epoch: int, name: str, params,
                     step: Optional[int] = None,
                     generator_state: Optional[np.ndarray] = None,
                     checkpoint_every: int = 2, is_debug: bool = False,
-                    steps_done: Optional[int] = None) -> str:
+                    steps_done: Optional[int] = None,
+                    loader_state: Optional[Dict[str, Any]] = None) -> str:
     '''Writes checkpoint.npz (and a model_{epoch}.npz snapshot every checkpoint_every
     epochs) with the sidecars; returns the main checkpoint's path. `params` is the
     JAX-layout tree of numpy arrays (weights.params_to_jax); `opt_state` the flat optax
@@ -158,6 +159,8 @@ def save_checkpoint(checkpoint_dir: str, epoch: int, name: str, params,
         'steps_done_in_epoch': int(steps_done) if steps_done is not None else 0,
         'format_version': 1,
     }
+    if loader_state is not None:
+        meta['loader_state'] = loader_state
     payload['__meta__'] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
     path = os.path.join(checkpoint_dir, 'checkpoint.npz')
     snapshot_epoch = epoch % checkpoint_every == 0 or epoch < 0

@@ -16,7 +16,8 @@ at rows 1-1000, widths 8-2304 and depths 8-2304, W and W^T, with and without bia
 at the same rows and 54,000; colsum at 1 to 54,181 rows in bf16 and f32, and its refusal of
 unaligned rows), each against its f32 result and bit-equal on a rerun; and the device side
 of training at a tiny width (the colour augmentations against the CPU, the launches of a
-grad_accum=2, LAMB and remat_group=2 step).
+grad_accum=2, LAMB and remat_group=2 step); and the training driver's host side (a Kubric
+batch through _H2DPrefetcher bit-equal to unpack_batch, one driver epoch on the card).
 Every test carries the `cuda` marker and skips without CUDA. The file imports neither JAX
 nor the tests' conftest, so on a GPU machine without JAX it runs as:
 
@@ -629,3 +630,71 @@ def test_rope_kernel_rejects_bad_positions(cuda):
             fa.fused_attention_fwd(x, *w, 2, 1, True, bad)
         with pytest.raises(ValueError, match='pos'):
             fa.fused_attention_bwd(x, g, *w[:3], 2, 1, True, bad)
+
+
+def test_h2d_prefetcher_batch_equals_unpack_batch(cuda, tmp_path):
+    '''A collated Kubric batch copied by the driver's _H2DPrefetcher (pinned memory, side
+    stream, event) and expanded by unpack_batch on the card is the batch unpack_batch
+    makes from the host arrays, bit for bit (colour augmentations included).'''
+    from tcow_tpu_torch.data import factory
+    from tcow_tpu_torch.data import kubric
+    from tcow_tpu_torch.data.synthetic import write_synthetic_kubric_dataset
+    from tcow_tpu_torch.train import driver
+    write_synthetic_kubric_dataset(str(tmp_path / 'train'), num_scenes=2, seed=3, T=8, H=48,
+                                   W=64, K=6, rich_events=True)
+    ds = kubric.KubricQueryDataset(str(tmp_path), None, 'train', num_frames=6,
+                                   frame_height=64, frame_width=96, max_delay=2,
+                                   num_queries=2, max_objects=8, seed=1)
+    host = factory.make_kubric_collate(2, 'train', 1)([ds[0], ds[1]])
+    pf = driver._H2DPrefetcher(iter([host]), 'cuda')
+    _, dev = next(iter(pf))
+    pf.close()
+    got = step_lib.unpack_batch(dev, torch.device('cuda'))
+    want = step_lib.unpack_batch(host['device'], torch.device('cuda'))
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]), k
+
+
+def test_driver_step_on_the_card(cuda, tmp_path, monkeypatch):
+    '''train_torch's driver on the card at a tiny width: one epoch of one step and one
+    val step, kernel_x / dots_nb_out chosen by the driver, 2 K1 + 2 K4 per block a train
+    step and 2 K1 per block a val step, a finite loss and a full checkpoint.'''
+    from tcow_tpu_torch import config
+    from tcow_tpu_torch.data.synthetic import write_synthetic_kubric_dataset
+    from tcow_tpu_torch.train import checkpoint, driver
+    from tcow_tpu_torch.utils.logvis import MyLogger
+    monkeypatch.setitem(tsf.DEPTH_PRESETS, 2, (64, 4))
+    for split, seed in (('train', 3), ('val', 9)):
+        write_synthetic_kubric_dataset(str(tmp_path / 'kub' / split), num_scenes=2,
+                                       seed=seed, T=8, H=48, W=64, K=6, rich_events=True)
+    args = config.train_args([
+        '--name', 'gpu1', '--data_path', str(tmp_path / 'kub'),
+        '--checkpoint_root', str(tmp_path / 'ck'), '--log_root', str(tmp_path / 'logs'),
+        '--batch_size', '2', '--num_queries', '2', '--num_frames', '6',
+        '--frame_height', '32', '--frame_width', '48', '--kubric_max_delay', '2',
+        '--num_epochs', '1', '--val_every', '1', '--network_depth', '2',
+        '--tracker_pretrained', '0', '--num_workers', '2', '--avoid_wandb', '2'])
+    steps = []
+    real = driver._log_step_scalars
+
+    def record(logger, phase, epoch, cur_step, steps_total, aux):
+        steps.append((phase, float(aux['total_seeker'])))
+        return real(logger, phase, epoch, cur_step, steps_total, aux)
+
+    monkeypatch.setattr(driver, '_log_step_scalars', record)
+    counts = fa.read_launches()
+    logger = MyLogger(args, context='train')
+    try:
+        state = driver.main(args, logger)
+    finally:
+        logger.close()
+    torch.cuda.synchronize()
+    launches = {k: n - counts[k] for k, n in fa.read_launches().items() if n != counts[k]}
+    # One train step (4 K1 + 4 K4), the vis step at step 0 (4 K1), one val step (4 K1).
+    assert launches == {'K1': 12, 'K4': 4}
+    assert state.step == 1 and [p for p, _ in steps] == ['train', 'val_aug']
+    assert all(np.isfinite(loss) for _, loss in steps)
+    assert state.model.backbone.blocks[0].attn.bwd_mode == 'kernel_x'
+    meta = checkpoint.peek_meta(str(tmp_path / 'ck' / 'gpu1' / 'checkpoint.npz'))
+    assert meta['opt_restored'] and meta['epoch'] == 0

@@ -92,9 +92,12 @@ def test_params_from_jax_round_trips(jax_params, tiny_preset):
 
 
 def test_import_without_jax_or_tcow_tpu():
+    '''Every module of the port, chip_smoke.py and train_torch.py import with jax, optax,
+    cv2, PIL and matplotlib made unimportable, and none of them pulls in tcow_tpu.'''
     code = (
         "import importlib, pkgutil, sys\n"
-        "sys.modules['jax'] = None; sys.modules['optax'] = None\n"
+        "for m in ('jax', 'optax', 'cv2', 'PIL', 'matplotlib'):\n"
+        "    sys.modules[m] = None\n"
         "import tcow_tpu_torch\n"
         "mods = [m.name for m in\n"
         "        pkgutil.walk_packages(tcow_tpu_torch.__path__, 'tcow_tpu_torch.')]\n"
@@ -102,9 +105,12 @@ def test_import_without_jax_or_tcow_tpu():
         "    importlib.import_module(m)\n"
         "named = {'tcow_tpu_torch.' + m for m in ('train.step', 'train.optim',\n"
         "            'train.checkpoint', 'objectives.losses', 'objectives.supervision',\n"
-        "            'data.synthetic', 'ops.rope', 'ops.device_augs')}\n"
+        "            'data.synthetic', 'ops.rope', 'ops.device_augs', 'native',\n"
+        "            'data.png', 'data.vis_codec', 'data.geometry', 'data.query_sampling',\n"
+        "            'data.data_utils', 'data.augs', 'data.kubric', 'data.factory',\n"
+        "            'config', 'utils.logvis', 'train.driver')}\n"
         "assert named <= set(mods), named - set(mods)\n"
-        "import chip_smoke\n"
+        "import chip_smoke, train_torch\n"
         "bad = [m for m in sys.modules if m == 'tcow_tpu' or m.startswith('tcow_tpu.')]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
