@@ -76,8 +76,20 @@ Drives the PyTorch port (tcow_tpu_torch) on one NVIDIA GPU and checks it:
      epoch 0 (a full mid-epoch checkpoint with 2 steps done); run 3, --resume of run 2,
      ending with run 1's parameters and AdamW moments (bit for bit, or within TOL_RESUME);
      run 4, rope256 through train_torch.main (12 K1r + 12 K1 and 12 K4r + 12 K4 per step,
-     the temporal attention rotated by the batch's frame_times). Per run: the host wall
-     time of each step, the driver's loader-wait accounting and peak memory.
+     the temporal attention rotated by the batch's frame_times); run 5, --device_augs 0
+     (colour augmentation on the host), 2 steps of 24 K1 + 24 K4. Run 1's vis-step overlay
+     videos are decoded back with cv2. Per run: the host wall time of each step, the
+     driver's loader-wait accounting and peak memory;
+ 14. the evaluation path (phase eval): a seeded checkpoint of the configuration of record
+     (query at 0.2 of the clip), a Kubric test set written by the port (6 scenes of 36
+     frames at 240x320) and demo/rollball.mp4 through `python eval_torch.py` as a
+     subprocess: 2 Kubric device steps (4 clips and a tail of 2) and 1 plugin step (the
+     video's two usage modes), 24 K1 each and no other kernel; the itemized CSV (8 rows,
+     the plugin clips' friendly names, finite numbers, no self-check error), every overlay
+     video decoded back; pick_represent on the results; InferenceEngine.run_kubric on the
+     first Kubric batch against the plain attention. Per device step: host wall time, the
+     time rendering overlays, peak memory; clips/s per source, the media time and the
+     video container written.
 
 Run from the repository root: `python3 chip_smoke.py`. Prints one JSON object per phase,
 then the `{"kernels": [...]}` line, the nvidia-smi line, and last
@@ -87,6 +99,7 @@ available or any phase fails. Needs one GPU.
 
 import concurrent.futures
 import contextlib
+import csv
 import dataclasses
 import json
 import os
@@ -325,10 +338,7 @@ def reset_launches():
 
 
 read_launches = fa.read_launches
-
-
-def launches_since(counts):
-    return {k: n - counts[k] for k, n in read_launches().items() if n != counts[k]}
+launches_since = fa.launches_since
 
 
 def plain_fused_attention(x, qkv_w, qkv_b, proj_w, proj_b, num_heads, ca, bwd_mode,
@@ -1194,8 +1204,15 @@ DRIVER_PER_STEP = {'train': {'K1': 24, 'K4': 24}, 'val_aug': {'K1': 24},
 DRIVER_PER_ROPE_STEP = {'train': {'K1': 12, 'K1r': 12, 'K4': 12, 'K4r': 12},
                         'vis': {'K1': 12, 'K1r': 12}}
 # A driver log must hold none of these: a step the driver tolerated and skipped leaves a
-# traceback, a failed vis step a warning, a non-finite loss a skipped update.
-DRIVER_LOG_FAULTS = ('Traceback', 'visualization failed', 'loss = NaN')
+# traceback, a failed vis step or overlay a warning, a non-finite loss a skipped update.
+DRIVER_LOG_FAULTS = ('Traceback', 'visualization failed', 'overlay rendering failed',
+                     'loss = NaN')
+# The overlay videos of a train vis step (logvis.py:_save_query_overlays): the first two
+# queries of example 0, each with input, heat map, three channels and loss weights.
+VIS_VIDEOS = tuple(f'e0_ptrain_s0_q{q}_{kind}' for q in (0, 1)
+                   for kind in ('in', 'out_sn', 'out_oc', 'slw'))
+# Run 5: --device_augs 0, the host colour path, 1 epoch of 2 steps (half the train scenes).
+HOST_AUGS_STEPS = 2
 # SIGTERM lands during this step of epoch 0 (1-based): the mid-epoch checkpoint then holds
 # this many completed steps.
 PREEMPT_STEPS_DONE = 2
@@ -1484,9 +1501,42 @@ DRIVER_RUN_RECORDS = {
     'run3': driver_records(DRIVER_EPOCHS, start_step=PREEMPT_STEPS_DONE)}
 
 
+def decoded_frames(fp):
+    '''The frames cv2 decodes from a video file.'''
+    import cv2
+    cap = cv2.VideoCapture(str(fp))
+    n = 0
+    while cap.read()[0]:
+        n += 1
+    cap.release()
+    return n
+
+
+def find_video(vis_dir, stem):
+    '''The one video written for stem: stem.webm (VP8) or stem.mp4 (mp4v).'''
+    found = [vis_dir / (stem + ext) for ext in ('.webm', '.mp4')
+             if (vis_dir / (stem + ext)).exists()]
+    if len(found) != 1:
+        fail(f'{vis_dir}: {len(found)} videos for {stem}')
+    return found[0]
+
+
+def check_vis_videos(log_dir, frames):
+    '''A train run's vis-step videos: each present and decoding to `frames` frames (the
+    input video holds its query frame three times). Returns {stem: container}.'''
+    out = {}
+    for stem in VIS_VIDEOS:
+        fp = find_video(log_dir / 'visuals', stem)
+        want = frames + 2 if stem.endswith('_in') else frames
+        if decoded_frames(fp) != want:
+            fail(f'{fp} decodes to {decoded_frames(fp)} frames, expected {want}')
+        out[stem] = fp.suffix
+    return out
+
+
 def check_run(name, text, workdir):
     '''A driver run's steps and launches (check_steps against DRIVER_RUN_RECORDS) and,
-    by run, its checkpoints and losses.'''
+    by run, its checkpoints, losses and vis-step videos.'''
     steps = check_steps(name, text, DRIVER_RUN_RECORDS[name], DRIVER_PER_STEP)
     out = dict(steps=steps, epochs=epoch_stats(steps, text),
                peak_bytes=max(r.get('max_memory_allocated', 0) for r in steps))
@@ -1502,6 +1552,9 @@ def check_run(name, text, workdir):
         if not losses or not np.all(np.isfinite(losses)):
             fail(f'{name}: losses in scalars.jsonl {losses}')
         out['losses_logged'] = len(losses)
+    if name == 'run1':
+        out['vis_videos'] = check_vis_videos(workdir / 'logs' / name,
+                                             SEEKER_ARGS['num_total_frames'])
     if name == 'run2':
         meta = peek_meta(str(ckpt / 'checkpoint.npz'))
         if not (meta['partial'] and meta['epoch'] == 0 and meta['opt_restored']
@@ -1512,15 +1565,38 @@ def check_run(name, text, workdir):
     return out
 
 
+def host_augs_run(root, workdir):
+    '''Run 5: train_torch.py with --device_augs 0, the colour augmentations applied by
+    the loader on the host: 1 epoch of HOST_AUGS_STEPS steps on half the train scenes, no
+    val; each step's launches, a finite loss, the loader-wait share.'''
+    argv = driver_argv(root, workdir, 'host5', '--device_augs', '0', '--num_epochs', '1',
+                       '--use_data_frac', '0.5', '--do_val_aug', '0', '--do_val_noaug', '0')
+    text, wall_s = run_driver(argv, workdir / 'host5.log')
+    steps = check_steps('host5', text, driver_records(1, HOST_AUGS_STEPS, val=False),
+                        DRIVER_PER_STEP)
+    ckpt = load_checkpoint(str(workdir / 'checkpoints' / 'host5' / 'checkpoint.npz'))
+    if ckpt['dset_args']['kubric']['device_color_jitter'] is not False:
+        fail(f'host5: dset_args {ckpt["dset_args"]}')
+    rows = [json.loads(ln) for ln in (workdir / 'logs' / 'host5' / 'scalars.jsonl')
+            .read_text().splitlines()]
+    losses = [v for r in rows for k, v in r.items() if k == 'train/loss_total_seeker']
+    if len(losses) != 1 or not np.all(np.isfinite(losses)):
+        fail(f'host5: losses in scalars.jsonl {losses}')
+    return dict(wall_s=wall_s, steps=steps, loss=losses[0],
+                epochs=epoch_stats(steps, text),
+                peak_bytes=max(r.get('max_memory_allocated', 0) for r in steps))
+
+
 def phase_train_driver(workdir):
     '''The training path's host side at the step of record: a synthetic Kubric dataset
     written by the port (DRIVER_SPLITS), then train_torch.py as a subprocess: run 1 trains
     2 epochs of 4 steps with both val phases; run 2 is run 1 under another name, sent
     SIGTERM during step PREEMPT_STEPS_DONE of epoch 0; run 3 resumes run 2 and must end
-    where run 1 ended; run 4 is rope256 through train_torch.main in this process. Every
-    step's launches are checked (DRIVER_PER_*), every loss finite, every epoch's
-    checkpoint full. Prints item times, the host->device copy of a batch, per-step host
-    times, the loader-wait share and peak memory of each run.'''
+    where run 1 ended; run 5 trains 2 steps with --device_augs 0 (the host colour path);
+    run 4 is rope256 through train_torch.main in this process. Every step's launches are
+    checked (DRIVER_PER_*), every loss finite, every epoch's checkpoint full, run 1's
+    vis-step videos decoded. Prints item times, the host->device copy of a batch,
+    per-step host times, the loader-wait share and peak memory of each run.'''
     out = {'cpu_count': os.cpu_count()}
     shutil.rmtree(workdir, ignore_errors=True)
     root, rope_root = workdir / 'kubric', workdir / 'kubric_rope'
@@ -1543,16 +1619,243 @@ def phase_train_driver(workdir):
     resume = compare_final_states(workdir / 'checkpoints' / 'run1' / 'checkpoint.npz',
                                   workdir / 'checkpoints' / 'run2' / 'checkpoint.npz')
     emit({'phase': 'train_driver_resume', **resume})
+    runs['host5'] = host_augs_run(root, workdir)
+    emit({'phase': 'train_driver_host5',
+          **{k: v for k, v in runs['host5'].items() if k != 'steps'}})
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()   # run 4 shares this process with every phase
     runs['rope4'] = rope_driver_run(rope_root, workdir)
     emit({'phase': 'train_driver_rope4',
           **{k: v for k, v in runs['rope4'].items() if k != 'steps'}})
-    launches = sum_launches([r for n in ('run1', 'run2', 'run3') for r in runs[n]['steps']])
+    launches = sum_launches([r for n in ('run1', 'run2', 'run3', 'host5')
+                             for r in runs[n]['steps']])
     rope_launches = sum_launches(runs['rope4']['steps'])
     emit({'phase': 'train_driver', 'launches': launches, 'rope_launches': rope_launches,
           'resume_bit_equal': resume['bit_equal']})
     return {'launches': launches, 'rope_launches': rope_launches}
+
+
+# ---------------------------------------------------------------------------------------
+# The evaluation path: eval_torch.py, the test driver, overlay media and pick_represent
+# ---------------------------------------------------------------------------------------
+
+# A Kubric test set written by the port (36 frames at 240x320, K = 8): at
+# --test_device_batch 4 one full batch and a tail of 2. The bundled demo video (200
+# frames at 240x320, annotations beside it): with the query at 0.2 of a 30-frame clip its
+# usage modes are (9, 1) and (3, 2), one chunk of --plugin_batch 4.
+EVAL_SCENES = 6
+EVAL_DEVICE_BATCH = 4
+EVAL_QUERY_TIME = 0.2
+EVAL_DEMO = 'demo/rollball.mp4'
+EVAL_PLUGIN_NAMES = ('rollball_i0_f9_s1', 'rollball_i1_f3_s2')
+# eval_stats lines: 2 Kubric device steps and 1 plugin step, each one forward (24 K1).
+EVAL_STEPS = (('kubric', 0, 4), ('kubric', 1, 2), ('plugin', 0, 2))
+EVAL_PER_STEP = {'K1': 24}
+EVAL_LOG_FAULTS = ('Traceback', 'overlay rendering failed', 'does not match')
+EVAL_STATS = re.compile(r'eval_stats (\{.*\})')
+EVAL_TIMEOUT_S = 300
+
+
+def eval_checkpoint(ckpt_dir):
+    '''A seeded seeker of the configuration of record saved as a train run would save it:
+    its train args and Kubric dataset arguments (the query at EVAL_QUERY_TIME).'''
+    args = config_lib.train_args([
+        '--data_path', 'unused', '--num_frames', str(SEEKER_ARGS['num_total_frames']),
+        '--frame_height', str(SEEKER_ARGS['frame_height']),
+        '--frame_width', str(SEEKER_ARGS['frame_width']),
+        '--seeker_query_time', str(EVAL_QUERY_TIME), '--max_objects', str(TRAIN_M),
+        '--device', DEV])
+    model = MaskTracker(seeker_config_from_args(SEEKER_ARGS))
+    model.init_params_(torch.Generator().manual_seed(SEED))
+    save_checkpoint(str(ckpt_dir), 0, 'eval1', params_to_jax(model.state_dict()),
+                    train_args=config_lib.args_to_dict(args),
+                    dset_args={'kubric': factory.kubric_dset_args(args)},
+                    seeker_args=SEEKER_ARGS)
+    del model
+
+
+def eval_argv(workdir, kubric_root):
+    return ['--resume', 'eval1', '--name', 'ev', '--data_path', str(kubric_root), EVAL_DEMO,
+            '--checkpoint_root', str(workdir / 'checkpoints'),
+            '--log_root', str(workdir / 'logs'), '--num_queries', '1', '--avoid_wandb', '2',
+            '--test_device_batch', str(EVAL_DEVICE_BATCH), '--plugin_batch', '4',
+            '--num_workers', '4', '--device', DEV, '--seed', str(SEED),
+            '--log_level', 'debug']
+
+
+def run_eval(argv, log_fp):
+    '''python eval_torch.py argv as a subprocess, its output to log_fp; fails on a
+    non-zero exit or after EVAL_TIMEOUT_S. Returns (log text, wall seconds).'''
+    t0 = time.perf_counter()
+    with open(log_fp, 'w') as log:
+        try:
+            proc = subprocess.run([sys.executable, 'eval_torch.py', *argv], stdout=log,
+                                  stderr=subprocess.STDOUT, timeout=EVAL_TIMEOUT_S,
+                                  cwd=os.path.dirname(os.path.abspath(__file__)))
+        except subprocess.TimeoutExpired:
+            fail(f'eval_torch.py took over {EVAL_TIMEOUT_S} s')
+    text = log_fp.read_text()
+    if proc.returncode != 0:
+        print(text[-4000:], file=sys.stderr)
+        fail(f'eval_torch.py exited {proc.returncode}')
+    return text, time.perf_counter() - t0
+
+
+def check_eval_csv(csv_fp):
+    '''The itemized CSV: one row per clip, Kubric then plugin, finite numbers.'''
+    with open(csv_fp, newline='') as f:
+        rows = list(csv.DictReader(f))
+    if len(rows) != EVAL_SCENES + len(EVAL_PLUGIN_NAMES):
+        fail(f'{csv_fp}: {len(rows)} rows')
+    names = [r['friendly_short_name'] for r in rows]
+    if tuple(names[EVAL_SCENES:]) != EVAL_PLUGIN_NAMES:
+        fail(f'{csv_fp}: plugin clips {names[EVAL_SCENES:]}')
+    for r in rows:
+        for k, v in r.items():
+            if k.startswith(('mean_', 'count_')) or (k.startswith('loss_') and v != ''):
+                if not np.isfinite(float(v)):
+                    fail(f'{csv_fp}: {r["friendly_short_name"]} {k} = {v}')
+    return rows
+
+
+def check_eval_videos(log_dir, rows, frames):
+    '''Every clip's overlay videos decode to their frame count: input (its query frame
+    held three times), heat map, three channels, and the ground truth where the clip has
+    a target (it must where any metric counted a frame; a plugin clip whose frames hold
+    no annotation has none). Returns {stem: container}.'''
+    out = {}
+    for r in rows:
+        name = r['friendly_short_name']
+        counted = any(int(v) > 0 for k, v in r.items() if k.startswith('count_'))
+        for kind, n in (('in', frames + 2), ('out_sn', frames), ('out_oc', frames),
+                        ('gt', frames)):
+            stem = f'{name}_q0_{kind}'
+            present = [ext for ext in ('.webm', '.mp4')
+                       if (log_dir / 'visuals' / (stem + ext)).exists()]
+            if kind == 'gt' and not present:
+                if counted:
+                    fail(f'{name}: metrics counted frames but no ground-truth video')
+                continue
+            fp = find_video(log_dir / 'visuals', stem)
+            if decoded_frames(fp) != n:
+                fail(f'{fp} decodes to {decoded_frames(fp)} frames, expected {n}')
+            out[stem] = fp.suffix
+    return out
+
+
+def eval_step_stats(text):
+    '''The eval_stats lines: each device step's launches exactly EVAL_PER_STEP, in the
+    order of EVAL_STEPS, then the media wait.'''
+    stats = [json.loads(m.group(1)) for m in EVAL_STATS.finditer(text)]
+    steps = [r for r in stats if r['phase'] != 'media_wait']
+    got = tuple((r['phase'], r['step'], r['clips']) for r in steps)
+    if got != EVAL_STEPS:
+        fail(f'eval device steps {got}, expected {EVAL_STEPS}')
+    for r in steps:
+        if r['launches'] != EVAL_PER_STEP:
+            fail(f'eval {r["phase"]} step {r["step"]} launched {r["launches"]}, '
+                 f'expected {EVAL_PER_STEP}')
+    media = [r for r in stats if r['phase'] == 'media_wait']
+    return steps, media[0]['wall_ms'] if media else None
+
+
+def eval_kernel_vs_plain(workdir, kubric_root):
+    '''In this process: the first Kubric test batch through InferenceEngine.run_kubric,
+    the kernel path against the same engine with the plain attention (bf16 both): the
+    output masks within TOL_SEEKER_BF16, and 24 K1 launches for the kernel path.'''
+    test_args = config_lib.test_args(eval_argv(workdir, kubric_root)[:-2]
+                                     + ['--name', 'ev_inproc'])
+    params, cfg, train_args, dset_args, *_ = load_networks(
+        test_args.resume, None, compute_dtype=torch.bfloat16, device=DEV)
+    loader, _ = factory.create_test_data_loader(train_args, test_args, dset_args, None,
+                                                data_path=str(kubric_root))
+    batch = next(iter(loader))['device']
+    engine = InferenceEngine(params, cfg, LossConfig(), 1, device=DEV)
+    counts = read_launches()
+    kernel = engine.run_kubric(batch)
+    torch.cuda.synchronize()
+    launched = launches_since(counts)
+    with plain_attention():
+        plain = engine.run_kubric(batch)
+    if launched != EVAL_PER_STEP:
+        fail(f'run_kubric launched {launched}, expected {EVAL_PER_STEP}')
+    t = lambda res: torch.from_numpy(np.concatenate([m['output_mask'] for m, _ in res]))
+    err = rel_l2(t(kernel), t(plain))
+    if not err <= TOL_SEEKER_BF16:
+        fail(f'run_kubric kernel vs plain: rel L2 {err} > {TOL_SEEKER_BF16}')
+    loss_err = max(abs(k['total_seeker'] - p['total_seeker']) / max(abs(p['total_seeker']),
+                                                                     1e-12)
+                   for (_, k), (_, p) in zip(kernel, plain))
+    del engine, params
+    torch.cuda.empty_cache()
+    return dict(clips=len(kernel), launches=launched, mask_rel_l2=err,
+                total_seeker_max_rel_diff=loss_err, tol_rel_l2=TOL_SEEKER_BF16)
+
+
+def phase_eval(workdir):
+    '''The evaluation path at full width: a seeded checkpoint of the configuration of
+    record, a Kubric test set written by the port and the demo video through
+    `python eval_torch.py` as a subprocess (2 Kubric device steps and 1 plugin step, 24 K1
+    each and no other kernel; 8 CSV rows, the rollball clips' friendly names, finite
+    metrics, no self-check error, traceback or overlay warning; every overlay video
+    decoded back), then pick_represent on its results, then run_kubric kernel vs plain in
+    this process. Prints per-step host times, clips/s per source, the media time, peak
+    memory and the video container written.'''
+    shutil.rmtree(workdir, ignore_errors=True)
+    kubric_root = workdir / 'kubric_test'
+    out = {}
+    out['dataset_write_s'], out['dataset_bytes'] = write_dataset(
+        kubric_root, (('test', EVAL_SCENES, SEED + 300),), DRIVER_FRAMES)
+    eval_checkpoint(workdir / 'checkpoints' / 'eval1')
+    text, out['wall_s'] = run_eval(eval_argv(workdir, kubric_root), workdir / 'eval.log')
+    faults = [f for f in EVAL_LOG_FAULTS if f in text]
+    if faults:
+        print(text[-4000:], file=sys.stderr)
+        fail(f'eval log holds {faults}')
+    steps, media_wait_ms = eval_step_stats(text)
+    log_dir = workdir / 'logs' / 'eval1' / 'test_ev_e0'
+    rows = check_eval_csv(log_dir / 'itemized_results.csv')
+    videos = check_eval_videos(log_dir, rows, SEEKER_ARGS['num_total_frames'])
+    containers = sorted(set(videos.values()))
+
+    guide = workdir / 'eval_rollball.txt'
+    guide.write_text('# both usage modes of the demo video at T = 30\nrollball_i\n')
+    rep_dir = workdir / 'represent'
+    proc = subprocess.run(
+        [sys.executable, '-m', 'tcow_tpu_torch.evaluation.pick_represent', '--testres_path',
+         str(log_dir), '--represent_guide', 'rep_lists/demo_rollball.txt', str(guide),
+         '--output_dir', str(rep_dir)], capture_output=True, text=True, timeout=120,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+        print(proc.stdout[-2000:], proc.stderr[-2000:], file=sys.stderr)
+        fail(f'pick_represent exited {proc.returncode}')
+    with open(rep_dir / '_autosmr_0.csv', newline='') as f:
+        summary = list(csv.DictReader(f))
+    if len(summary) != 1 or summary[0]['num_examples'] != str(len(EVAL_PLUGIN_NAMES)):
+        fail(f'pick_represent summary {summary}')
+
+    by_source = {}
+    for r in steps:
+        agg = by_source.setdefault(r['phase'], {'clips': 0, 'wall_ms': 0.0, 'render_ms': 0.0})
+        agg['clips'] += r['clips']
+        agg['wall_ms'] += r['wall_ms']
+        agg['render_ms'] += r['render_ms']
+    for agg in by_source.values():
+        agg['clips_per_s'] = agg['clips'] / (agg['wall_ms'] / 1e3)
+    out.update(
+        steps=[{k: r.get(k) for k in ('phase', 'step', 'clips', 'wall_ms', 'wait_ms',
+                                      'render_ms', 'launches', 'max_memory_allocated')}
+               for r in steps],
+        by_source=by_source, media_wait_ms=media_wait_ms,
+        media_ms=sum(r['render_ms'] for r in steps) + (media_wait_ms or 0.0),
+        peak_bytes=max(r.get('max_memory_allocated', 0) for r in steps),
+        videos=len(videos), containers=containers, csv_rows=len(rows),
+        plugin_names=[r['friendly_short_name'] for r in rows[EVAL_SCENES:]],
+        pick_represent={k: summary[0][k] for k in ('guide', 'num_examples')})
+    out['kernel_vs_plain'] = eval_kernel_vs_plain(workdir, kubric_root)
+    launches = sum_launches(steps)
+    emit({'phase': 'eval', 'launches': launches, **out})
+    return {'launches': launches}
 
 
 # ---------------------------------------------------------------------------------------
@@ -2223,6 +2526,11 @@ def main():
         driver = phase_train_driver(driver_dir)
     finally:
         shutil.rmtree(driver_dir, ignore_errors=True)
+    eval_dir = _build.BUILD_DIR / 'chip_smoke_eval'
+    try:
+        evaluation = phase_eval(eval_dir)
+    finally:
+        shutil.rmtree(eval_dir, ignore_errors=True)
 
     rope_errs = phase_rope_kernels_vs_plain()
     try:
@@ -2260,7 +2568,8 @@ def main():
                 'train_driver_rope': driver['rope_launches'].get(kernel, 0)}
     k1 = kernel_entry('fused_attention', source, replaces + '87',
                       {'inference': inference_launches, **train_launches('K1'),
-                       **device_side_launches('K1')}, errs, per_geom)
+                       **device_side_launches('K1'),
+                       'eval': evaluation['launches'].get('K1', 0)}, errs, per_geom)
     k1['per_geometry_train'] = train_geom['K1']
     entries = [k1]
     for kernel, name, line, kerrs in (

@@ -1,12 +1,13 @@
 '''
-The training flags of the port: a copy of tcow_tpu/config.py (the shared and train flags
-:26-204, verify_args :232-302, args_to_dict, build_seeker_args :303-331), so the JAX
-package's train commands run unchanged against train_torch.py.
+The flags of the port: a copy of tcow_tpu/config.py (the shared, train and test flags,
+verify_args, args_to_dict, build_seeker_args), so the JAX package's train and eval
+commands run unchanged against train_torch.py and eval_torch.py.
 
 --device defaults to cuda and accepts cpu. Flags of what the port does not run raise
 NotImplementedError from verify_args, naming the ROADMAP.md item that holds them:
---mesh_devices > 1, --seq_shards, --tp_shards or --pp_stages > 1, --multihost and
---device_augs 0. Every other flag parses and behaves as in the JAX package.
+--mesh_devices > 1, --seq_shards, --tp_shards or --pp_stages > 1 and --multihost (item 7),
+--stream_window > 0 (item 4) and a .pth checkpoint (item 6). Every other flag parses and
+behaves as in the JAX package.
 '''
 
 import argparse
@@ -82,7 +83,8 @@ def shared_args(parser: argparse.ArgumentParser):
                              'into this directory (a Chrome trace JSON).')
     parser.add_argument('--device_augs', default=-1, type=int,
                         help='Colour augmentation on the device inside the step: -1 auto '
-                             '(on) or 1; 0 (the host colour path) is not ported.')
+                             '(on for a CUDA run, host-side on the CPU), 0 forces the '
+                             'host colour path, 1 the device.')
     parser.add_argument('--multihost', default=False, type=_str2bool,
                         help='Multi-host execution; not ported.')
     parser.add_argument('--h2d_prefetch', default=True, type=_str2bool,
@@ -177,7 +179,31 @@ def train_args(argv=None):
                         help='Transformer blocks per checkpoint region (1 = per-block; '
                              'larger trades activation memory for less recompute).')
     args = parser.parse_args(argv)
-    verify_args(args)
+    verify_args(args, is_train=True)
+    return args
+
+
+def test_args(argv=None):
+    parser = argparse.ArgumentParser()
+    shared_args(parser)
+    parser.add_argument('--gpu_id', default=0, type=int)  # accepted, unused
+    parser.add_argument('--plugin_frame_rate', default=30, type=int)
+    parser.add_argument('--plugin_prefer_frame_stride', default=3, type=int)
+    parser.add_argument('--center_crop', default=True, type=_str2bool)
+    parser.add_argument('--store_results', default=False, type=_str2bool)
+    parser.add_argument('--annots_must_exist', default=False, type=_str2bool)
+    parser.add_argument('--extra_visuals', default=False, type=_str2bool)
+    parser.add_argument('--stream_window', default=0, type=int,
+                        help='>0: evaluate plugin videos by windowed streaming over every '
+                             'frame; not ported.')
+    parser.add_argument('--plugin_batch', default=4, type=int,
+                        help='Usage modes evaluated per device step for plugin videos.')
+    parser.add_argument('--test_device_batch', default=4, type=int,
+                        help='Kubric test clips scored per device step (one batched '
+                             'forward; per-clip losses, metrics and CSV rows).')
+    parser.add_argument('--test_log_path', default='', type=str)
+    args = parser.parse_args(argv)
+    verify_args(args, is_train=False)
     return args
 
 
@@ -188,7 +214,8 @@ def _refuse_unported(args):
         (args.tp_shards > 1, '--tp_shards > 1', 7),
         (args.pp_stages > 1, '--pp_stages > 1', 7),
         (bool(args.multihost), '--multihost', 7),
-        (args.device_augs == 0, '--device_augs 0 (the host colour path)', 2),
+        (int(getattr(args, 'stream_window', 0) or 0) > 0, '--stream_window > 0 (streaming '
+         'evaluation)', 4),
     ]
     for bad, flag, item in unported:
         if bad:
@@ -209,12 +236,13 @@ def resolve_resume_path(checkpoint_root: str, resume: str, epoch: int = -1) -> s
     return ckpt_lib.resolve_checkpoint_path(path, epoch)
 
 
-def verify_args(args):
-    '''Post-parse derivation of the train flags (tcow_tpu/config.py:232-302): the
-    experiment name of a bare --resume, the debug flag, the worker count, the resolved
-    resume path and the experiment's checkpoint and log directories.'''
+def verify_args(args, is_train: bool = False):
+    '''Post-parse derivation (tcow_tpu/config.py:verify_args): the experiment name of a
+    bare --resume (train), the debug flag, the test batch from --test_device_batch, the
+    worker count, the resolved resume path, and the checkpoint and log directories; a
+    test run logs under <log_root>/<resumed experiment>/test_<name>_e<epoch>.'''
     _refuse_unported(args)
-    if args.resume != '' and args.name == '':
+    if is_train and args.resume != '' and args.name == '':
         # Continue the SAME experiment: under the resumed run's own name, or for a
         # checkpoint FILE path under its directory's basename.
         if os.path.isfile(args.resume):
@@ -223,24 +251,49 @@ def verify_args(args):
         else:
             args.name = args.resume
     args.is_debug = args.name.startswith('d')
-    args.wandb_group = 'train' + ('_debug' if args.is_debug else '')
-    if not args.occl_cont_zero_weight < 0.5:
-        raise ValueError('--occl_cont_zero_weight must be < 0.5')
+    args.wandb_group = ('train' if is_train else 'test') + ('_debug' if args.is_debug else '')
+
+    if is_train:
+        if not args.occl_cont_zero_weight < 0.5:
+            raise ValueError('--occl_cont_zero_weight must be < 0.5')
+    else:
+        # K clips share one device step; losses and metrics stay per clip.
+        args.batch_size = max(1, int(getattr(args, 'test_device_batch', 4)))
 
     if args.num_workers < 0:
-        frac = 0.30 if args.is_debug else 0.45
-        sub = 4 if args.is_debug else 6
-        args.num_workers = min(max(int(mp.cpu_count() * frac) - sub, 4), 80)
+        if is_train:
+            frac = 0.30 if args.is_debug else 0.45
+            sub = 4 if args.is_debug else 6
+            args.num_workers = max(int(mp.cpu_count() * frac) - sub, 4)
+        else:
+            args.num_workers = 4
+        args.num_workers = min(args.num_workers, 80)
     args.num_workers = int(args.num_workers)
 
     if args.name != '':
+        resume_name = args.resume
         if args.resume != '':
             args.resume = resolve_resume_path(args.checkpoint_root, args.resume, args.epoch)
-        args.checkpoint_path = os.path.join(args.checkpoint_root, args.name)
-        args.train_log_path = os.path.join(args.log_root, args.name)
-        os.makedirs(args.checkpoint_path, exist_ok=True)
-        os.makedirs(args.train_log_path, exist_ok=True)
-        args.log_path = args.train_log_path
+        if is_train:
+            args.checkpoint_path = os.path.join(args.checkpoint_root, args.name)
+            args.train_log_path = os.path.join(args.log_root, args.name)
+            os.makedirs(args.checkpoint_path, exist_ok=True)
+            os.makedirs(args.train_log_path, exist_ok=True)
+            args.log_path = args.train_log_path
+        else:
+            if args.resume == '':
+                raise ValueError('a test run needs --resume')
+            if os.path.isfile(resume_name):
+                # --resume may be a checkpoint file: log under its directory's name.
+                resume_name = os.path.basename(os.path.dirname(os.path.abspath(
+                    resume_name))) or 'resume'
+            args.checkpoint_path = os.path.join(args.checkpoint_root, resume_name)
+            args.train_log_path = os.path.join(args.log_root, resume_name)
+            os.makedirs(args.train_log_path, exist_ok=True)
+            args.name += f'_e{ckpt_lib.get_checkpoint_epoch(args.resume)}'
+            args.test_log_path = os.path.join(args.train_log_path, 'test_' + args.name)
+            args.log_path = args.test_log_path
+            os.makedirs(args.test_log_path, exist_ok=True)
 
 
 def args_to_dict(args) -> Dict[str, Any]:

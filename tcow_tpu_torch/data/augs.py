@@ -1,21 +1,23 @@
 '''
-Data augmentation pipeline, host side: the port's copy of tcow_tpu/data/augs.py
-(:63-76, :112-148, :150-385) in its deferred-colour mode.
+Data augmentation pipeline, host side: the port's copy of tcow_tpu/data/augs.py.
 
   - temporal: palindrome p, reverse p (0.35 inside palindrome), frame-stride doubling
     p=0.35 inside palindrome, random clip offset within the loaded window;
-  - colour (train only): the jitter (p 0.9), blur (p 0.2) and grayscale (p 0.05) keys are
-    DRAWN here from the same RNG stream as the JAX package draws them, and APPLIED on the
-    device (ops/device_augs.py). The host colour path (defer_color_jitter=False) is not
-    ported: it raises NotImplementedError;
+  - colour (train only): jitter(0.2, 0.2, 0.2, 0.1) p 0.9, gaussian blur(5, sigma
+    0.1-3.5) p 0.2, grayscale p 0.05. With defer_color_jitter (the default, --device_augs
+    on) the keys are DRAWN here from the same RNG stream as the JAX package draws them and
+    APPLIED on the device (ops/device_augs.py); without it (--device_augs 0, the host
+    colour path) they are applied here in float32 with cv2 (HSV hue shift, Gaussian blur),
+    the JAX package's calls, so the pixels are the same;
   - spatial (train only, augs_2d): horizontal flip p=0.5, random crop of 0-20% per side;
   - test-time center crop to the training aspect ratio;
-  - final resize: nearest for segmentation-like modalities; for uint8 rgb the smooth
-    resize of cv2.resize, written in integer numpy to its arithmetic (`resize_u8`):
-    INTER_LINEAR (11-bit fixed point) to upsample, INTER_AREA to downsample.
+  - final resize: nearest for segmentation-like modalities; smooth otherwise, INTER_AREA
+    to reduce the height, else INTER_LINEAR: for uint8 rgb written in integer numpy to
+    cv2.resize's arithmetic (`resize_u8`), for float frames cv2.resize itself.
 
-Randomness is drawn from an explicit numpy Generator, so an item is a pure function of
-its seed.
+cv2 is imported inside the functions of the host colour path and the float resize, never
+at load. Randomness is drawn from an explicit numpy Generator, so an item is a pure
+function of its seed.
 '''
 
 from typing import Dict, Optional
@@ -26,6 +28,33 @@ import numpy as np
 RESIZE_COEF_BITS = 11
 RESIZE_COEF_SCALE = 1 << RESIZE_COEF_BITS
 _DBL_EPS = np.finfo(np.float64).eps
+
+
+def _rgb_to_gray(img: np.ndarray) -> np.ndarray:
+    '''(..., 3, H, W) -> (..., 1, H, W), ITU-R 601 weights like torchvision.'''
+    w = np.array([0.299, 0.587, 0.114], img.dtype)
+    return np.einsum('c,...chw->...hw', w, img)[..., None, :, :]
+
+
+def _blend(a, b, factor):
+    '''a*factor + b*(1-factor), clipped to [0,1], in place on a (the same per-element
+    values and order of operations as the out-of-place expression).'''
+    a *= factor
+    a += b * (1.0 - factor)
+    np.clip(a, 0.0, 1.0, out=a)
+    return a
+
+
+def _shift_hue(frames_tchw: np.ndarray, fh: float) -> np.ndarray:
+    '''Hue rotation through cv2's float32 HSV. All T frames are stacked into one
+    (T*H, W, 3) image, so the round trip is two cvtColor calls (cvtColor is per pixel).'''
+    import cv2
+    T, C, H, W = frames_tchw.shape
+    hwc = np.clip(frames_tchw.transpose(0, 2, 3, 1), 0, 1).astype(
+        np.float32).reshape(T * H, W, C)
+    hsv = cv2.cvtColor(hwc, cv2.COLOR_RGB2HSV)
+    hsv[..., 0] = (hsv[..., 0] + fh * 360.0) % 360.0
+    return cv2.cvtColor(hsv, cv2.COLOR_HSV2RGB).reshape(T, H, W, C).transpose(0, 3, 1, 2)
 
 
 def sample_jitter_factors(rng: np.random.Generator, brightness=0.2, contrast=0.2,
@@ -39,6 +68,42 @@ def sample_jitter_factors(rng: np.random.Generator, brightness=0.2, contrast=0.2
         'fh': rng.uniform(-hue, hue),
         'order': rng.permutation(4).astype(np.int32),
     }
+
+
+def color_jitter(frames: np.ndarray, rng: np.random.Generator, brightness=0.2, contrast=0.2,
+                 saturation=0.2, hue=0.1, factors: Optional[Dict] = None) -> np.ndarray:
+    '''torchvision.ColorJitter semantics on (T, 3, H, W) float frames: factors sampled once
+    per video, the four adjustments applied in a random order.'''
+    if factors is None:
+        factors = sample_jitter_factors(rng, brightness, contrast, saturation, hue)
+    fb, fc, fs, fh = factors['fb'], factors['fc'], factors['fs'], factors['fh']
+    out = frames.astype(np.float32)
+    for op in factors['order']:
+        if op == 0:
+            out *= fb
+            np.clip(out, 0.0, 1.0, out=out)
+        elif op == 1:
+            mean = _rgb_to_gray(out).mean(axis=(-3, -2, -1), keepdims=True)
+            out = _blend(out, mean, fc)
+        elif op == 2:
+            gray = _rgb_to_gray(out)
+            out = _blend(out, gray, fs)
+        else:
+            out = _shift_hue(out, fh)
+    return out
+
+
+def gaussian_blur(frames: np.ndarray, rng: np.random.Generator, ksize=5,
+                  sigma_range=(0.1, 3.5), sigma: Optional[float] = None) -> np.ndarray:
+    '''cv2.GaussianBlur of each (3, H, W) frame of (T, 3, H, W), one sigma per video.'''
+    import cv2
+    if sigma is None:
+        sigma = float(rng.uniform(*sigma_range))
+    out = np.empty_like(frames)
+    for t in range(frames.shape[0]):
+        img = frames[t].transpose(1, 2, 0)
+        out[t] = cv2.GaussianBlur(img, (ksize, ksize), sigma).transpose(2, 0, 1)
+    return out
 
 
 def nearest_gather_inds(dst: int, src: int) -> np.ndarray:
@@ -181,9 +246,9 @@ def resize_u8(img: np.ndarray, height: int, width: int, area: bool) -> np.ndarra
 
 def resize_frames(frames: np.ndarray, height: int, width: int, nearest: bool) -> np.ndarray:
     '''(C, T, H, W) -> (C, T, height, width). nearest: one gather with cv2.INTER_NEAREST's
-    indices, any dtype. Smooth: uint8 only (the deferred colour path keeps rgb uint8
-    through the resize), cv2's INTER_AREA to reduce the height, else INTER_LINEAR, on
-    images of at most 4 channels as cv2 takes them.'''
+    indices, any dtype. Smooth: cv2's INTER_AREA to reduce the height, else INTER_LINEAR,
+    on images of at most 4 channels as cv2 takes them (instance-mask stacks go up to
+    K = 36 channels): uint8 in integer numpy (resize_u8), float by cv2.resize.'''
     C, T, H, W = frames.shape
     if (H, W) == (height, width):
         # Contiguous copy so no caller ever receives a view pinning the full-res buffer.
@@ -193,12 +258,28 @@ def resize_frames(frames: np.ndarray, height: int, width: int, nearest: bool) ->
         xi = nearest_gather_inds(width, W)
         return frames[:, :, yi[:, None], xi]
     if frames.dtype != np.uint8:
-        raise NotImplementedError('the smooth resize of float frames belongs to the host '
-                                  'colour path, which the port does not run')
+        return _resize_float(frames, height, width)
     out = np.empty((C, T, height, width), np.uint8)
     for c0 in range(0, C, 4):
         imgs = frames[c0:c0 + 4].transpose(1, 2, 3, 0)            # (T, H, W, <=4)
         out[c0:c0 + 4] = resize_u8(imgs, height, width, area=height < H).transpose(3, 0, 1, 2)
+    return out
+
+
+def _resize_float(frames: np.ndarray, height: int, width: int) -> np.ndarray:
+    '''The smooth resize of float (C, T, H, W) frames, one cv2.resize per frame and group
+    of at most 4 channels.'''
+    import cv2
+    C, T, H, W = frames.shape
+    interp = cv2.INTER_AREA if height < H else cv2.INTER_LINEAR
+    out = np.empty((C, T, height, width), frames.dtype)
+    for t in range(T):
+        for c0 in range(0, C, 4):
+            img = np.ascontiguousarray(frames[c0:c0 + 4, t].transpose(1, 2, 0))
+            r = cv2.resize(img, (width, height), interpolation=interp)
+            if r.ndim == 2:
+                r = r[..., None]
+            out[c0:c0 + 4, t] = r.transpose(2, 0, 1)
     return out
 
 
@@ -211,14 +292,10 @@ class AugmentationPipeline:
         # defer_color_jitter: sample the colour-chain parameters here (same RNG stream)
         # and leave all the pixel math (jitter + blur + grayscale) to the device
         # (ops/device_augs.py); the keys land in params['jitter_factors'] and
-        # params['blur_sigmas'] (resize-ratio-scaled). The port runs only this mode.
+        # params['blur_sigmas'] (resize-ratio-scaled). Without it the host applies them.
         # time_stretch_max > 1 (train + rope_time_coords only): scale each example's rope
         # time coordinates by a random log-uniform factor in [1, max], a pure coordinate
         # augmentation that exercises long relative offsets.
-        if not defer_color_jitter:
-            raise NotImplementedError(
-                'the host colour path (--device_augs 0) is not ported; colour '
-                'augmentation runs on the device (ROADMAP.md section 1 item 2)')
         self.defer_color_jitter = defer_color_jitter
         self.time_stretch_max = time_stretch_max
         self.num_frames_load = num_frames_load
@@ -338,9 +415,10 @@ class AugmentationPipeline:
                              params: Dict) -> Dict[str, np.ndarray]:
         '''
         :param modalities: maps name (rgb / segm / div_segm / mask...) to (C|K, Tv, H, W)
-            arrays; rgb uint8.
-        :return dict of (C|K, Tc, frame_height, frame_width) arrays; rgb stays uint8, and
-            params gains the colour keys the device applies.
+            arrays; rgb uint8 or float.
+        :return dict of (C|K, Tc, frame_height, frame_width) arrays. With
+            defer_color_jitter, uint8 rgb stays uint8 and params gains the colour keys the
+            device applies; without, rgb comes back float32 with the colours applied.
         '''
         rng = np.random.default_rng()
         if '_rng_state' in params:
@@ -374,7 +452,7 @@ class AugmentationPipeline:
                     y0 = (H - ch) // 2
                     x = x[..., y0:y0 + ch, :]
 
-            if 'rgb' in modality:
+            if 'rgb' in modality and self.defer_color_jitter:
                 # The host only SAMPLES the colour chain (consuming exactly the draws the
                 # host ops would); jitter + blur + grayscale run on the device post-resize.
                 if params['color_jitter']:
@@ -393,6 +471,20 @@ class AugmentationPipeline:
                         cw = max(1, int(x2 * Wc) - int(x1 * Wc))
                     params['blur_sigmas'] = (sigma * self.frame_height / ch,
                                              sigma * self.frame_width / cw)
+            elif 'rgb' in modality:
+                # The host colour path, at source resolution before the crop and resize.
+                # uint8 input converts to float only when a colour op runs (frame select,
+                # crop and flip are index ops that commute with the /255), else just
+                # before the resize.
+                if x.dtype == np.uint8 and (params['color_jitter'] or params['rgb_blur']
+                                            or params['rgb_grayscale']):
+                    x = x.astype(np.float32) / 255.0
+                if params['color_jitter']:
+                    x = color_jitter(x, rng)
+                if params['rgb_blur']:
+                    x = gaussian_blur(x, rng)
+                if params['rgb_grayscale']:
+                    x = np.repeat(_rgb_to_gray(x), 3, axis=1)   # (T, 1, H, W) -> (T, 3, H, W)
 
             if params['horz_flip']:
                 x = x[..., ::-1]
@@ -405,5 +497,8 @@ class AugmentationPipeline:
 
             nearest = ('segm' in modality or 'mask' in modality)
             x = x.transpose(1, 0, 2, 3)               # (C, T, H, W) view
+            if 'rgb' in modality and x.dtype == np.uint8 and not self.defer_color_jitter:
+                x = x.astype(np.float32)  # the same pixels as converting up front
+                x /= 255.0
             out[modality] = resize_frames(x, self.frame_height, self.frame_width, nearest)
         return out

@@ -1,10 +1,12 @@
 '''
 Host-side data utilities: occlusion fractions, the occlusion/containment DAG, padding,
-temporal usage modes, and path expansion. The port's copy of tcow_tpu/data/data_utils.py
-(:20-195): vectorized numpy, with the overlap counts and the painter's reconstruction in
-the native library (tcow_tpu_torch/native) unless TCOW_NO_NATIVE=1 selects numpy.
+temporal usage modes, path expansion and frame-directory reading. The port's copy of
+tcow_tpu/data/data_utils.py: vectorized numpy (cv2 imported to read frame images), with
+the overlap counts and the painter's reconstruction in the native library
+(tcow_tpu_torch/native) unless TCOW_NO_NATIVE=1 selects numpy.
 '''
 
+import glob
 import os
 import pathlib
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -193,3 +195,39 @@ def get_data_paths_from_args(given_data_paths: Sequence[str]) -> List[str]:
         else:
             actual.append(dp)
     return actual
+
+
+def read_all_images(src_dp: str, exclude_patterns=None, count_only: bool = False,
+                    stack: bool = False, early_resize_height: Optional[int] = None,
+                    convert_float: bool = True):
+    '''Reads all jpg/png frames in a directory, sorted, as (H, W, 3) RGB: float32 in
+    [0, 1] (convert_float) or uint8; frames taller than early_resize_height are resized
+    to it (INTER_LINEAR).'''
+    import cv2
+    src_fps = sorted(glob.glob(os.path.join(src_dp, '*.jpg')) +
+                     glob.glob(os.path.join(src_dp, '*.png')))
+    if count_only:
+        return len(src_fps)
+    if exclude_patterns is not None:
+        if not isinstance(exclude_patterns, list):
+            exclude_patterns = [exclude_patterns]
+        for pattern in exclude_patterns:
+            src_fps = [fp for fp in src_fps if pattern not in fp]
+    frames = []
+    for fp in src_fps:
+        frame = cv2.imread(fp, cv2.IMREAD_UNCHANGED)
+        if frame.ndim == 3:
+            frame = frame[..., [2, 1, 0]] if frame.shape[-1] == 3 else frame[..., [2, 1, 0, 3]]
+            frame = frame[..., :3]
+        else:
+            frame = np.repeat(frame[..., None], 3, axis=-1)
+        if convert_float:
+            frame = (frame / 255.0).astype(np.float32)
+        if early_resize_height is not None and early_resize_height > 0:
+            H1, W1 = frame.shape[:2]
+            if H1 > early_resize_height:
+                H2 = early_resize_height
+                W2 = int(round(early_resize_height * W1 / H1))
+                frame = cv2.resize(frame, (W2, H2), interpolation=cv2.INTER_LINEAR)
+        frames.append(frame)
+    return np.stack(frames) if stack else frames

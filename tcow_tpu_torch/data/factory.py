@@ -1,7 +1,10 @@
 '''
-Dataset / loader factory for training: the port's copy of tcow_tpu/data/factory.py
-(:55-292): the bounded-prefetch batcher and the train / val_aug / val_noaug Kubric loaders.
-Any directory that is not a plugin video source is read as Kubric-format.
+Dataset / loader factory: the port's copy of tcow_tpu/data/factory.py. Source sniffing
+(Kubric vs plugin video by path), the bounded-prefetch batcher, the train / val_aug /
+val_noaug Kubric loaders, and one test loader per data path: Kubric scenes with the
+train dset_args and the test overrides (use_data_frac, augs_2d off, num_queries), or a
+plugin video with the test flags (prefetch, center_crop). Any directory that is not a
+plugin video source is read as Kubric-format.
 
 The loader's workers are threads ('thread', the default) or processes ('process', one
 pool per epoch, so item loading scales with cores where the numpy item pipeline would
@@ -18,8 +21,10 @@ import zlib
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
+import torch
 
 from tcow_tpu_torch.data import kubric as kubric_lib
+from tcow_tpu_torch.data import plugin as plugin_lib
 
 # Process workers are forked from a forkserver, never from the trainer: the trainer has
 # touched CUDA and runs threads by the time a pool starts, and a child forked from it
@@ -30,6 +35,11 @@ _FORKSERVER_PRELOAD = ['tcow_tpu_torch.data.kubric']
 
 # The dataset bound in a process worker by the pool initializer.
 _WORKER_DATASET = None
+
+
+def is_kubric_source(p: str) -> bool:
+    pl = p.lower()
+    return 'kubcon' in pl or 'kubbench' in pl or 'kubric' in pl
 
 
 def is_plugin_source(p: str) -> bool:
@@ -199,11 +209,19 @@ class PrefetchLoader:
         return q, stop
 
 
+def device_color_jitter(args) -> bool:
+    '''--device_augs: 0 / 1 force the host / device colour path; -1 (auto) colours on the
+    device for a CUDA run and on the host on the CPU, as the JAX package colours on the
+    device on its accelerator and on the host elsewhere.'''
+    v = int(getattr(args, 'device_augs', -1))
+    if v >= 0:
+        return bool(v)
+    return torch.device(getattr(args, 'device', 'cuda')).type == 'cuda'
+
+
 def kubric_dset_args(args) -> Dict[str, Any]:
-    # Colour augmentation always runs on the device in the port (config.py refuses
-    # --device_augs 0, the host colour path).
     return dict(
-        device_color_jitter=True,
+        device_color_jitter=device_color_jitter(args),
         num_frames=args.num_frames, frame_height=args.frame_height,
         frame_width=args.frame_width, frame_rate=args.kubric_frame_rate,
         frame_stride=args.kubric_frame_stride, max_delay=args.kubric_max_delay,
@@ -281,3 +299,58 @@ class KubricCollate:
 
 def make_kubric_collate(num_queries: int, phase: str, seed: int) -> KubricCollate:
     return KubricCollate(num_queries, phase, seed)
+
+
+def _plugin_collate(items: List[Dict]) -> Dict[str, Any]:
+    device = {
+        'rgb': np.stack([it['rgb'] for it in items]),
+        'query': np.stack([it['query'] for it in items]),
+        'target': np.stack([it['target'] for it in items]),
+    }
+    meta = {k: [it[k] for it in items]
+            for k in ('source_name', 'src_path', 'dset_idx', 'scene_idx', 'usage_mode_idx',
+                      'frame_start', 'frame_stride', 'target_coverage',
+                      'match_prefer_fstride')}
+    meta['source_name'] = 'plugin'
+    return {'device': device, 'meta': meta}
+
+
+def create_test_data_loader(train_args: Dict[str, Any], test_args,
+                            train_dset_args_sources: Dict[str, Any], logger,
+                            data_path: Optional[str] = None):
+    '''Builds ONE test loader for one data path (the test driver builds one at a time to
+    bound memory). Returns (loader, test_dset_args_sources).'''
+    cur_data_path = data_path if data_path is not None else test_args.data_path[0]
+    if 'kubric' not in train_dset_args_sources:
+        train_dset_args_sources = {'kubric': train_dset_args_sources}
+    test_dset_args_sources = {}
+
+    if is_kubric_source(cur_data_path) or not is_plugin_source(cur_data_path):
+        test_dset_args = dict(train_dset_args_sources['kubric'])
+        test_dset_args.pop('load_full_segm', None)
+        test_dset_args['use_data_frac'] = test_args.use_data_frac
+        test_dset_args['augs_2d'] = False
+        test_dset_args['num_queries'] = test_args.num_queries
+        # dset_args without the key colour on the host, the JAX dataset's default.
+        ds = kubric_lib.KubricQueryDataset(
+            cur_data_path, logger, 'test', seed=test_args.seed,
+            **{'device_color_jitter': False, **test_dset_args})
+        collate = make_kubric_collate(test_args.num_queries, 'test', test_args.seed)
+        test_dset_args_sources['kubric'] = test_dset_args
+    else:
+        ka = train_dset_args_sources['kubric']
+        test_dset_args = dict(
+            num_clip_frames=ka['num_frames'], frame_height=ka['frame_height'],
+            frame_width=ka['frame_width'], frame_rate=test_args.plugin_frame_rate,
+            prefer_frame_stride=test_args.plugin_prefer_frame_stride,
+            query_time=ka['query_time'], annots_must_exist=test_args.annots_must_exist,
+            prefetch=True, center_crop=test_args.center_crop)
+        ds = plugin_lib.PluginVideoDataset(cur_data_path, logger, 'test', **test_dset_args)
+        collate = _plugin_collate
+        test_dset_args_sources['plugin'] = test_dset_args
+
+    loader = PrefetchLoader(ds, test_args.batch_size, collate, shuffle=False,
+                            drop_last=False, num_workers=min(test_args.num_workers, 4),
+                            seed=test_args.seed,
+                            worker_mode=getattr(test_args, 'worker_mode', 'thread'))
+    return loader, test_dset_args_sources

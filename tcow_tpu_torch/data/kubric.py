@@ -8,7 +8,7 @@ PNGs through data/png.py:
     files keyed by the loaded frame window, published atomically;
   - temporal + 2D augmentations via data/augs.py, with occlusion fractions recomputed
     post-augmentation and the DAG subsampled on the clip frames; the colour keys drawn
-    for the device;
+    for the device (device_color_jitter, the default) or applied on the host;
   - desirability scoring + instance-axis padding to max_objects;
   - retry-with-resample on bad scenes (<= 8) and the cache self-healing retry;
   - sanity checks incl. the [SkipCache] insufficient-valid-queries protocol.
@@ -303,8 +303,9 @@ class KubricQueryDataset:
         K = int(pre['num_valo_instances'])
         frame_inds_clip = augs_params['frame_inds_clip']
 
-        # rgb stays uint8 through the whole host chain (the colour math runs on the
-        # device); the smooth resize works on uint8 as cv2 does.
+        # With the colour math on the device, rgb stays uint8 through the whole host
+        # chain and the smooth resize works on uint8 as cv2 does; the host colour path
+        # (device_color_jitter off) turns it to float32.
         modalities = {'rgb': pre['pv_rgb_u8'].transpose(3, 0, 1, 2)}    # (3, Tv, H, W) u8
 
         # Fast path: the segm/div augmentations are pure per-axis index gathers
@@ -385,7 +386,9 @@ class KubricQueryDataset:
         # copies, a large memcpy per item on the hot loader path).
         return {
             **item_extra,
-            'rgb': rgb_tf,                            # (3, Tc, Hf, Wf) uint8
+            # uint8 when the colour chain is deferred (device_color_jitter); float32
+            # otherwise. The collate handles both.
+            'rgb': rgb_tf if rgb_tf.dtype == np.uint8 else np.asarray(rgb_tf, np.float32),
             'segm': segm_tf[0],                       # (Tc, Hf, Wf) int32
             # UNPADDED (K, Tc, Hf, Wf): the M zero-pad happens in the collate AFTER
             # bit-packing (the packed pad is 8x smaller and packbits runs on K rows).

@@ -1,11 +1,12 @@
 '''
-Batched inference: network loading from self-describing .npz checkpoints and the plugin
-(usage-mode) forward with per-example metrics. The port of
-tcow_tpu/evaluation/inference.py (:25-81, :184-213).
+Batched inference: network loading from self-describing .npz checkpoints, the Kubric test
+step and the plugin (usage-mode) forward, each with per-example losses and metrics. The
+port of tcow_tpu/evaluation/inference.py (:25-126, :184-213); the streaming evaluation
+(run_plugin_stream) is not ported.
 '''
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -13,7 +14,9 @@ import torch
 from tcow_tpu_torch import resolve_device
 from tcow_tpu_torch.models.mask_tracker import MaskTracker, SeekerConfig, seeker_config_from_args
 from tcow_tpu_torch.objectives import metrics as metrics_lib
+from tcow_tpu_torch.objectives.losses import LossConfig
 from tcow_tpu_torch.train import checkpoint as ckpt_lib
+from tcow_tpu_torch.train import step as step_lib
 from tcow_tpu_torch.weights import params_from_jax
 
 
@@ -41,14 +44,64 @@ def load_networks(checkpoint_path: str, logger=None, epoch: int = -1, compute_dt
 
 
 class InferenceEngine:
-    '''The seeker on one device, answering batched plugin requests.'''
+    '''The seeker on one device, answering batched Kubric test batches and plugin
+    requests. loss_cfg and num_queries configure the Kubric test step (losses and query
+    count); plugin requests use neither.'''
 
-    def __init__(self, params, cfg: SeekerConfig, device='cuda'):
+    def __init__(self, params, cfg: SeekerConfig, loss_cfg: Optional[LossConfig] = None,
+                 num_queries: int = 1, device='cuda'):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model = MaskTracker(cfg, device=self.device)
         self.model.load_state_dict(params_from_jax(params))
         self.model.eval()
+        step_cfg = step_lib.StepConfig(seeker=cfg, loss=loss_cfg or LossConfig(),
+                                       num_queries=num_queries)
+        self._kubric_step = step_lib.make_eval_step(step_cfg, return_outputs=True,
+                                                    per_example=True)
+
+    def run_kubric(self, device_batch: Dict[str, Any], progress: float = 1.0,
+                   valid: int = -1):
+        '''One Kubric test batch of B clips (the loader's device batch), ONE batched
+        forward -> a list of B per-clip (model_retval, loss_retval) in the JAX package's
+        schema. Each clip's losses and metrics come from its own B = 1 slice of the
+        outputs (make_eval_step(per_example=True)), so they are what a forward of that
+        clip alone gives. `valid` truncates the list (a padded tail batch).'''
+        with torch.inference_mode():
+            aux = self._kubric_step(self.model, device_batch, progress)
+            host = lambda t: None if t is None else t.float().cpu().numpy()
+            aux = {k: ({m: host(v) for m, v in t.items()} if k == 'metric_sums' else host(t))
+                   for k, t in aux.items()}
+        if 'rgb' in device_batch:
+            seeker_input = np.asarray(device_batch['rgb'])
+        else:
+            seeker_input = np.asarray(device_batch['rgb_u8']).astype(np.float32) / 255.0
+        B = seeker_input.shape[0]
+        n = B if valid < 0 else min(valid, B)
+        results = []
+        for b in range(n):
+            sl = slice(b, b + 1)
+            model_retval = {
+                'seeker_input': seeker_input[sl],
+                'output_mask': aux['output_mask'][sl],
+                'output_flags': (None if aux['output_flags'] is None
+                                 else aux['output_flags'][sl]),
+                'target_mask': aux['target_mask'][sl],
+                'seeker_query_mask': aux['seeker_query_mask'][sl],
+                'snitch_weights': (None if aux['snitch_weights'] is None
+                                   else aux['snitch_weights'][sl]),
+                'sel_query_inds': np.asarray(device_batch['query_inds'])[sl],
+            }
+            loss_retval = {
+                'track': float(aux['track'][b]),
+                'occl_mask': float(aux['occl_mask'][b]),
+                'cont_mask': float(aux['cont_mask'][b]),
+                'total_seeker': float(aux['total_seeker'][b]),
+                'metrics': metrics_lib.finalize_metric_sums(
+                    {k: v[b] for k, v in aux['metric_sums'].items()}),
+            }
+            results.append((model_retval, loss_retval))
+        return results
 
     def run_plugin(self, rgb: np.ndarray, query: np.ndarray, target: np.ndarray,
                    frame_times: Optional[np.ndarray] = None):

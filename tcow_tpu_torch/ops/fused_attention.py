@@ -747,3 +747,9 @@ def read_launches() -> Dict[str, int]:
     out = {name: c.launches for name, c in KERNEL_COUNTERS.items()}
     out.update({f'{name}r': c.launches_rope for name, c in KERNEL_COUNTERS.items()})
     return out
+
+
+def launches_since(counts: Dict[str, int]) -> Dict[str, int]:
+    '''The launches of each kernel since read_launches() returned `counts`, kernels that
+    did not launch left out.'''
+    return {k: n - counts[k] for k, n in read_launches().items() if n != counts[k]}

@@ -20,7 +20,8 @@ TPU. At log level debug every step logs one `step_stats` line of JSON at the end
 iteration, just before the preemption check: its host wall time, its wait for the batch,
 the kernel launches it made and, on the GPU, the peak of torch.cuda.max_memory_allocated
 so far. A vis step that ran logs a line of its own after its step's (phase 'vis': its
-host wall time and launches).
+host wall time, the overlay rendering included, and launches); its videos are encoded on
+the logger's threads and waited for at the end of the epoch.
 '''
 
 import json
@@ -467,7 +468,7 @@ def _run_one_epoch(args, logger, device, state, train_step, eval_step, loader, p
                         torch.cuda.synchronize(device)
                         stats['max_memory_allocated'] = torch.cuda.max_memory_allocated(device)
                     stats.update(wall_ms=(time.time() - t_step) * 1e3, wait_ms=wait * 1e3,
-                                 launches=_launches_since(counts))
+                                 launches=fa.launches_since(counts))
                 # Log with a one-step lag, as the JAX driver does.
                 if pending_aux is not None:
                     _log_step_scalars(logger, phase, epoch, pending_step, len(loader),
@@ -475,20 +476,21 @@ def _run_one_epoch(args, logger, device, state, train_step, eval_step, loader, p
                 pending_aux, pending_step = aux, cur_step
                 rng_after = batch.get('meta', {}).get('collate_rng_after')
                 # The vis step every step_interval GLOBAL steps: its losses and metrics
-                # on the console (the overlay videos wait, ROADMAP.md section 1 item 2).
+                # on the console and its overlay videos.
                 if is_train and vis_step is not None \
                         and total_step % logger.step_interval == 0:
                     counts, t_vis = fa.read_launches() if debug else None, time.time()
                     try:
-                        _log_vis_step(logger, phase, epoch, cur_step, steps_per_epoch,
-                                      state, vis_step, device_batch, progress)
+                        _log_vis_step(logger, args, phase, epoch, cur_step, total_step,
+                                      steps_per_epoch, state, vis_step, batch,
+                                      device_batch, progress)
                     except Exception as e:  # noqa: BLE001 — must never kill training
                         logger.warning(f'train-step visualization failed: {e}')
                     else:
                         if debug:
                             vis_stats = {'phase': 'vis', 'epoch': epoch, 'step': cur_step,
                                          'wall_ms': (time.time() - t_vis) * 1e3,
-                                         'launches': _launches_since(counts)}
+                                         'launches': fa.launches_since(counts)}
             except Exception as e:  # noqa: BLE001 — the tolerated-exception budget
                 num_exceptions += 1
                 if num_exceptions >= MAX_EXCEPTIONS_PER_EPOCH:
@@ -532,10 +534,6 @@ def _run_one_epoch(args, logger, device, state, train_step, eval_step, loader, p
     return state, steps_done, rng_after
 
 
-def _launches_since(counts: Dict[str, int]) -> Dict[str, int]:
-    return {k: n - counts[k] for k, n in fa.read_launches().items() if n != counts[k]}
-
-
 def _start_profiler(device):
     activities = [torch.profiler.ProfilerActivity.CPU]
     if device.type == 'cuda':
@@ -554,17 +552,30 @@ def _stop_profiler(profiler, profile_dir, logger):
     logger.info(f'torch.profiler trace stopped -> {path}')
 
 
-def _log_vis_step(logger, phase, epoch, cur_step, steps_per_epoch, state, vis_step,
-                  device_batch, progress):
-    '''Runs the compact visualization forward on the current batch and logs its losses
-    and metrics through MyLogger.handle_train_step.'''
+def _log_vis_step(logger, args, phase, epoch, cur_step, total_step, steps_per_epoch, state,
+                  vis_step, batch, device_batch, progress):
+    '''Runs the compact visualization forward on the current batch and hands the result
+    to MyLogger.handle_train_step (tcow_tpu/train/driver.py:_render_train_overlays): its
+    losses and metrics on the console, and its float16 slices (example 0, the first two
+    queries) as overlay videos. seeker_rgb is the rgb the model saw, after the device's
+    colour augmentations.'''
     vis = vis_step(state.model, device_batch, progress)
+    host = lambda t: None if t is None else t.cpu().numpy()
+    model_retval = {
+        'seeker_input': host(vis['seeker_rgb']).astype(np.float32),
+        'output_mask': host(vis['output_mask']),
+        'target_mask': host(vis['target_mask']),
+        'seeker_query_mask': host(vis['seeker_query_mask']),
+    }
+    if vis.get('snitch_weights') is not None:
+        model_retval['snitch_weights'] = host(vis['snitch_weights'])
     loss_retval = {
         'total_seeker': float(vis['total_seeker']),
         'track': float(vis['track']),
         'metrics': metrics_lib.finalize_metric_sums(vis['metric_sums']),
     }
-    logger.handle_train_step(epoch, phase, cur_step, steps_per_epoch, loss_retval)
+    logger.handle_train_step(epoch, phase, cur_step, total_step, steps_per_epoch,
+                             batch.get('meta', {}), model_retval, loss_retval, args)
 
 
 def _log_step_scalars(logger, phase, epoch, cur_step, steps_total, aux):

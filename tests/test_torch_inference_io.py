@@ -92,11 +92,12 @@ def test_params_from_jax_round_trips(jax_params, tiny_preset):
 
 
 def test_import_without_jax_or_tcow_tpu():
-    '''Every module of the port, chip_smoke.py and train_torch.py import with jax, optax,
-    cv2, PIL and matplotlib made unimportable, and none of them pulls in tcow_tpu.'''
+    '''Every module of the port, chip_smoke.py, train_torch.py and eval_torch.py import
+    with jax, optax, cv2, PIL, matplotlib and pandas made unimportable, and none of them
+    pulls in tcow_tpu.'''
     code = (
         "import importlib, pkgutil, sys\n"
-        "for m in ('jax', 'optax', 'cv2', 'PIL', 'matplotlib'):\n"
+        "for m in ('jax', 'optax', 'cv2', 'PIL', 'matplotlib', 'pandas'):\n"
         "    sys.modules[m] = None\n"
         "import tcow_tpu_torch\n"
         "mods = [m.name for m in\n"
@@ -108,9 +109,11 @@ def test_import_without_jax_or_tcow_tpu():
         "            'data.synthetic', 'ops.rope', 'ops.device_augs', 'native',\n"
         "            'data.png', 'data.vis_codec', 'data.geometry', 'data.query_sampling',\n"
         "            'data.data_utils', 'data.augs', 'data.kubric', 'data.factory',\n"
-        "            'config', 'utils.logvis', 'train.driver')}\n"
+        "            'config', 'utils.logvis', 'train.driver', 'utils.visualization',\n"
+        "            'data.plugin', 'evaluation.inference', 'evaluation.test_driver',\n"
+        "            'evaluation.pick_represent')}\n"
         "assert named <= set(mods), named - set(mods)\n"
-        "import chip_smoke, train_torch\n"
+        "import chip_smoke, train_torch, eval_torch\n"
         "bad = [m for m in sys.modules if m == 'tcow_tpu' or m.startswith('tcow_tpu.')]\n"
         "assert not bad, bad\n"
         "print('ok')\n")

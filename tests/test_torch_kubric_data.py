@@ -244,8 +244,18 @@ def test_resize_frames_and_index_maps_match_jax():
         np.testing.assert_array_equal(pp.frame_times(got), jp.frame_times(want))
         for g, w in zip(pp.nearest_index_maps(got, 50, 90), jp.nearest_index_maps(want, 50, 90)):
             np.testing.assert_array_equal(g, w)
-    with pytest.raises(NotImplementedError, match='device_augs 0'):
-        paugs.AugmentationPipeline(**{**kw, 'defer_color_jitter': False})
+    # The host colour path (defer_color_jitter off): the colour ops on the host, then
+    # the float resize, as the JAX package runs them.
+    host = {**kw, 'defer_color_jitter': False}
+    jh, ph = jaugs.AugmentationPipeline(**host), paugs.AugmentationPipeline(**host)
+    rgb = rng.integers(0, 256, (3, 8, 40, 60)).astype(np.uint8)
+    for seed in range(6):
+        want = jh.apply_augs_2d_frames({'rgb': rgb}, jh.sample_augs_params(
+            np.random.default_rng(seed)))['rgb']
+        got = ph.apply_augs_2d_frames({'rgb': rgb}, ph.sample_augs_params(
+            np.random.default_rng(seed)))['rgb']
+        assert got.dtype == want.dtype == np.float32
+        np.testing.assert_array_equal(got, want)
 
 
 # ---------------------------------------------------------------------------------------
@@ -401,5 +411,7 @@ def test_loader_factory_phases_and_refusals(jax_root):
     assert dset_args['kubric']['device_color_jitter'] is True
     batch = next(iter(val_noaug))
     assert batch['device']['rgb_u8'].shape == (2, 3, 6, 32, 48)
-    with pytest.raises(NotImplementedError, match='device_augs 0'):
-        pconfig.train_args(argv + ['--device_augs', '0'])
+    # --device_augs 0 and the default on the CPU colour on the host.
+    for extra in (['--device_augs', '0'], ['--device', 'cpu']):
+        args = pconfig.train_args(argv + extra)
+        assert pfactory.kubric_dset_args(args)['device_color_jitter'] is False

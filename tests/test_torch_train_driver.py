@@ -141,6 +141,13 @@ def test_port_driver_trains_validates_and_resumes(synth_root, tmp_path, tiny, mo
         ('train', 0, 0), ('vis', 0, 0), ('train', 0, 1), *[(p, 0, s) for p, s in val],
         ('train', 1, 0), ('train', 1, 1), *[(p, 1, s) for p, s in val]]
     assert all(r['launches'] == {} and r['wall_ms'] > 0 for r in stats)
+    # The vis step's overlay videos: input, heat map, three channels, loss weights and,
+    # where the query has a target, the ground truth, for each of the 2 queries.
+    videos = sorted(f.name for f in (log_dir / 'visuals').iterdir())
+    for q in (0, 1):
+        for kind in ('in', 'out_sn', 'out_oc', 'slw'):
+            assert any(v.startswith(f'e0_ptrain_s0_q{q}_{kind}.') for v in videos), videos
+    assert 'overlay rendering failed' not in (log_dir / 'train.log').read_text()
 
     # Resume under the same name: the schedule is done, nothing runs.
     state2 = run(make_args(synth_root, tmp_path, resume='pdrv1'))
@@ -252,10 +259,25 @@ def test_port_exception_budget_and_ba_save(synth_root, tmp_path, tiny, monkeypat
 
 @pytest.mark.parametrize('flags', [['--mesh_devices', '2'], ['--seq_shards', '2'],
                                    ['--tp_shards', '2'], ['--pp_stages', '2'],
-                                   ['--multihost', '1'], ['--device_augs', '0']])
+                                   ['--multihost', '1']])
 def test_port_unported_flags_raise(synth_root, tmp_path, flags):
     with pytest.raises(NotImplementedError, match='ROADMAP.md section 1 item'):
         make_args(synth_root, tmp_path, extra=flags)
+
+
+def test_port_driver_trains_with_host_colour_augs(synth_root, tmp_path, tiny):
+    '''--device_augs 0, the host colour path: one epoch of two steps, colour applied by
+    the loader, finite losses, and the dataset arguments in the checkpoint say so.'''
+    args = make_args(synth_root, tmp_path, name='phost',
+                     extra=['--device_augs', '0', '--num_epochs', '1', '--do_val_aug', '0'])
+    state = run(args)
+    assert state.step == 2 and state.optimizer.count == 2
+    ckpt = pckpt.load_checkpoint(str(tmp_path / 'checkpoints' / 'phost' / 'checkpoint.npz'))
+    assert ckpt['dset_args']['kubric']['device_color_jitter'] is False
+    rows = [json.loads(line) for line in
+            (tmp_path / 'logs' / 'phost' / 'scalars.jsonl').read_text().splitlines()]
+    losses = [r['train/loss_total_seeker'] for r in rows if 'train/loss_total_seeker' in r]
+    assert len(losses) == 1 and np.all(np.isfinite(losses))
 
 
 def test_port_pth_resume_and_pretrained_path_raise(synth_root, tmp_path, tiny):
