@@ -89,7 +89,25 @@ Drives the PyTorch port (tcow_tpu_torch) on one NVIDIA GPU and checks it:
      video decoded back; pick_represent on the results; InferenceEngine.run_kubric on the
      first Kubric batch against the plain attention. Per device step: host wall time, the
      time rendering overlays, peak memory; clips/s per source, the media time and the
-     video container written.
+     video container written;
+ 15. streaming (phase stream): the seeded checkpoint of the configuration of record
+     through load_networks, demo/rollball.mp4 from its query (frame 15, 185 frames) through
+     stream_step at window 30 with 1 pinned frame, 12 K1 a frame (the spatial attention
+     over 301 tokens) and no other kernel: per-frame latency (median, p90), peak memory
+     and profiled windows of B = 1 steps and of 4-session stream_step_multi steps (device
+     busy share, device events, the weight casts' device time); the 2 clips
+     of plugin_request streamed unbounded against the batch forward and against the stream
+     with the plain attention (bf16), and f32 at depth 2 against the f32 batch forward;
+     K1 at 1 x 301 and 4 x 301 against its plain version (bf16, f32), the bits of one
+     sequence alone and in a batch of 4, timed beside its plain version, addmm + SDPA +
+     addmm and its bound; then `python eval_torch.py --stream_window 30` on the demo video
+     as a subprocess: one CSV row, 12 K1 a frame and nothing else;
+ 16. the tracking server (phase serve) in this process on 127.0.0.1: batch_slots 1, then
+     4, each with 4 concurrent clients streaming 60 frames of the demo video at window 30:
+     dedicated replies the direct stream's bits, batched ones within 1e-2 rel L2, 12 K1 a
+     step; frames/s, round trips, mean sessions per step, peak; then a reload with
+     migrate_sessions=True that a live session survives, its next frames against a stream
+     under the new weights fed the frames the window retains.
 
 Run from the repository root: `python3 chip_smoke.py`. Prints one JSON object per phase,
 then the `{"kernels": [...]}` line, the nvidia-smi line, and last
@@ -101,6 +119,7 @@ import concurrent.futures
 import contextlib
 import csv
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -108,6 +127,7 @@ import shutil
 import signal
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -115,12 +135,15 @@ import torch
 import torch.nn.functional as F
 
 from tcow_tpu_torch import config as config_lib
+from tcow_tpu_torch import serving
 from tcow_tpu_torch.data import factory
 from tcow_tpu_torch.data import kubric as kubric_lib
+from tcow_tpu_torch.data.plugin import PluginVideoDataset
 from tcow_tpu_torch.data.synthetic import (synthetic_color_augs, synthetic_device_batch,
                                            synthetic_frame_times,
                                            write_synthetic_kubric_scene)
 from tcow_tpu_torch.evaluation.inference import InferenceEngine, load_networks
+from tcow_tpu_torch.models import streaming
 from tcow_tpu_torch.models import timesformer as tsf
 from tcow_tpu_torch.models.mask_tracker import MaskTracker, seeker_config_from_args
 from tcow_tpu_torch.objectives.losses import LossConfig
@@ -1859,6 +1882,475 @@ def phase_eval(workdir):
 
 
 # ---------------------------------------------------------------------------------------
+# Streaming and serving: K1 on every frame's spatial attention
+# ---------------------------------------------------------------------------------------
+
+# The stream of record: window 30 with 1 pinned frame over demo/rollball.mp4 from its
+# query at frame 15 (185 frames), as tools/torch_serve.py's demo client streams it.
+STREAM_WINDOW = 30
+STREAM_PINNED = 1
+STREAM_QUERY_FRAME = 15
+STREAM_QUERY = 'demo/rollball_15_query.png'
+STREAM_EVAL_NAME = 'rollball_i0_f15_s0'
+# K1 per stream frame and per server tick: one spatial attention call per block, over the
+# frame's N = 300 patches and the cls token.
+K1_PER_FRAME = {'K1': SEEKER_ARGS['network_depth']}
+S_SPATIAL = GEOMETRIES['spatial'][1]
+# K1 at the stream's shapes: 1 sequence of N + 1 = 301 (a stream, a dedicated session)
+# and 4 (a tick of the batched server with 4 sessions), not causal.
+STREAM_K1_SEQS = (1, 4)
+STREAM_PROFILE_FRAMES = 10
+# The f32 stream against the f32 batch forward, at depth 2 and full width.
+STREAM_F32_DEPTH = 2
+# Batched serve replies against the direct stream (float16 on the wire): the batched
+# step runs cuBLAS at another M than the B = 1 stream, which may round differently.
+TOL_SERVE_BATCHED = 1e-2
+SERVE_CLIENTS = 4
+SERVE_FRAMES = 60
+SERVE_SLOTS = (1, 4)
+SERVE_MIGRATE_AFTER = 35   # frames before the reload: the ring has wrapped
+SERVE_TIMEOUT_S = 120
+
+
+def percentile(xs, q):
+    return float(np.percentile(np.asarray(xs, np.float64), q))
+
+
+def stream_model(params, cfg):
+    '''The seeker of an InferenceEngine on the card, as the stream's users build it.'''
+    return InferenceEngine(params, cfg, device=DEV).model
+
+
+def stream_clips(model, rgb, query, window=None):
+    '''A stream over clips (B, 3, T, H, W) on the card, one stream_step per frame ->
+    (masks (B, C, T, H, W), flags (B, T, F)) f32.'''
+    B, T = rgb.shape[0], rgb.shape[2]
+    state = streaming.init_stream(model, B, max_frames=None if window else T, window=window,
+                                  pinned_frames=STREAM_PINNED)
+    masks, flags = [], []
+    for t in range(T):
+        state, m, f = streaming.stream_step(model, state, rgb[:, :, t], query[:, :, t],
+                                            window=window, pinned_frames=STREAM_PINNED)
+        masks.append(m)
+        flags.append(f)
+    return torch.stack(masks, 2), torch.stack(flags, 1)
+
+
+def stream_demo_example():
+    '''demo/rollball.mp4 as the streaming evaluation reads it (every frame from the query
+    on, at 240x320), and its frames (N, 3, H, W) and queries (N, 1, H, W) pinned.'''
+    ds = PluginVideoDataset(EVAL_DEMO, None, 'test', num_clip_frames=SEEKER_ARGS[
+        'num_total_frames'], frame_height=SEEKER_ARGS['frame_height'],
+        frame_width=SEEKER_ARGS['frame_width'], query_time=EVAL_QUERY_TIME, prefetch=True,
+        center_crop=True)
+    ex = ds.get_streaming_example()
+    pin = lambda a: torch.from_numpy(np.ascontiguousarray(a.transpose(1, 0, 2, 3))).pin_memory()
+    return ex, pin(ex['rgb']), pin(ex['query'])
+
+
+def stream_k1_times():
+    '''K1 at 1 x 301 and 4 x 301 (the stream's and a 4-session tick's spatial call), bf16
+    and f32, against its plain version in f32 from the same inputs; whether a sequence's
+    output is the same bits alone and inside a batch of 4; and timed beside the plain
+    version, addmm + SDPA + addmm and the bound.'''
+    S = S_SPATIAL
+    out = {}
+    with torch.inference_mode():
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).replace('torch.', '')
+            for i, B in enumerate(STREAM_K1_SEQS):
+                x, w = attn_inputs(B, S, dtype, SEED + 900 + i)
+                got = fa.fused_attention(x, *w, HEADS, 0)
+                want = fa.attention_ref(x.float(), *w, HEADS, 0)
+                tol = TOL_BF16 if dtype == torch.bfloat16 else TOL_F32
+                e = dict(B=B, S=S, ca=0, dtype=name, tol_rel_l2=tol,
+                         rel_l2_err=rel_l2(got.float(), want),
+                         max_abs_err=float((got.float() - want).abs().max()))
+                if not e['rel_l2_err'] <= tol:
+                    fail(f'K1 {B}x{S} {name}: kernel vs plain rel L2 {e["rel_l2_err"]} > {tol}')
+                if B > 1:
+                    alone = fa.fused_attention(x[1:2].contiguous(), *w, HEADS, 0)
+                    e['seq_bits_equal_alone_and_in_batch'] = bool(torch.equal(alone, got[1:2]))
+                if dtype == torch.bfloat16:
+                    w16 = [a.to(dtype) for a in w]
+                    bound_ms, bound_by = bound(k1_flops(B, S, 0), k1_bytes(B, S, 2))
+                    e.update(ms=cuda_ms(lambda: fa.fused_attention(x, *w, HEADS, 0)),
+                             plain_ms=cuda_ms(lambda: fa.attention_ref(x, *w, HEADS, 0)),
+                             library_ms=cuda_ms(lambda: library_attention(x, w16, 0)),
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             flops=k1_flops(B, S, 0), bytes=k1_bytes(B, S, 2))
+                out[f'{name}_{B}x{S}'] = e
+    return out
+
+
+def profile_stream_frames(step, n=STREAM_PROFILE_FRAMES):
+    '''n calls of step(t) (one stream step each) under torch.profiler: host wall and
+    device busy ms per step (the union of the device events), the busy share, the device
+    events per step and the device ms per step of the bf16 weight casts (the
+    'gemm_weight_cast' range).'''
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for t in range(n):
+            step(t)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    spans, cast_ms = [], 0.0
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            spans.append((ev.time_range.start, ev.time_range.end))
+        elif ev.name == 'gemm_weight_cast':
+            cast_ms += ev.device_time_total / 1e3
+    busy_us, end = 0.0, float('-inf')
+    for s, e in sorted(spans):
+        if e > end:
+            busy_us += e - max(s, end)
+            end = e
+    return dict(steps=n, wall_ms_per_step=wall_ms / n, device_busy_ms_per_step=busy_us / 1e3 / n,
+                device_busy_share=busy_us / 1e3 / wall_ms, device_events_per_step=len(spans) / n,
+                weight_cast_ms_per_step=cast_ms / n)
+
+
+def profile_stream(model, state, frames, queries):
+    '''The profiled window of the B = 1 stream (continuing `state`), then of a
+    multi-session state of the 4 sessions a batched server step serves (all active).'''
+    up = lambda a, t: a[t:t + 1].to(DEV, non_blocking=True)
+    out = {'b1': profile_stream_frames(lambda t: streaming.stream_step(
+        model, state, up(frames, t), up(queries, t), window=STREAM_WINDOW,
+        pinned_frames=STREAM_PINNED))}
+    B = SERVE_CLIENTS
+    multi = streaming.init_stream_multi(model, B, window=STREAM_WINDOW,
+                                        pinned_frames=STREAM_PINNED)
+    active = torch.ones(B, dtype=torch.bool, device=DEV)
+    out[f'b{B}_multi'] = profile_stream_frames(lambda t: streaming.stream_step_multi(
+        model, multi, up(frames, t).expand(B, -1, -1, -1), up(queries, t).expand(B, -1, -1, -1),
+        active, window=STREAM_WINDOW, pinned_frames=STREAM_PINNED))
+    return out
+
+
+def stream_eval_argv(workdir):
+    return ['--resume', 'eval1', '--name', 'st', '--data_path', EVAL_DEMO,
+            '--checkpoint_root', str(workdir / 'checkpoints'),
+            '--log_root', str(workdir / 'logs'), '--num_queries', '1', '--avoid_wandb', '2',
+            '--num_workers', '1', '--device', DEV, '--seed', str(SEED), '--log_level', 'debug',
+            '--stream_window', str(STREAM_WINDOW)]
+
+
+def stream_eval_run(workdir):
+    '''`python eval_torch.py --stream_window 30` on the demo video as a subprocess: one
+    device step of phase plugin_stream over every frame from the query on, 12 K1 a frame
+    and no other kernel, one CSV row with the streaming friendly name and finite metrics.'''
+    text, wall_s = run_eval(stream_eval_argv(workdir), workdir / 'stream_eval.log')
+    faults = [f for f in EVAL_LOG_FAULTS if f in text]
+    if faults:
+        print(text[-4000:], file=sys.stderr)
+        fail(f'stream eval log holds {faults}')
+    stats = [json.loads(m.group(1)) for m in EVAL_STATS.finditer(text)]
+    steps = [r for r in stats if r['phase'] != 'media_wait']
+    if [(r['phase'], r['clips']) for r in steps] != [('plugin_stream', 1)]:
+        fail(f'stream eval device steps {steps}')
+    step = steps[0]
+    want = {k: n * step['frames'] for k, n in K1_PER_FRAME.items()}
+    if step['launches'] != want:
+        fail(f'stream eval launched {step["launches"]}, expected {want}')
+    with open(workdir / 'logs' / 'eval1' / 'test_st_e0' / 'itemized_results.csv',
+              newline='') as f:
+        rows = list(csv.DictReader(f))
+    if len(rows) != 1 or rows[0]['friendly_short_name'] != STREAM_EVAL_NAME:
+        fail(f'stream eval CSV rows {[r.get("friendly_short_name") for r in rows]}')
+    for k, v in rows[0].items():
+        if k.startswith(('mean_', 'count_')) and not np.isfinite(float(v)):
+            fail(f'stream eval CSV {k} = {v}')
+    return dict(wall_s=wall_s, frames=step['frames'], launches=step['launches'],
+                step_wall_ms=step['wall_ms'], ms_per_frame=step['wall_ms'] / step['frames'],
+                render_ms=step['render_ms'], peak_bytes=step.get('max_memory_allocated'),
+                csv_row={k: rows[0][k] for k in ('friendly_short_name', 'count_snitch_iou',
+                                                 'mean_snitch_iou')})
+
+
+def phase_stream(workdir):
+    '''The stream at full width (the configuration of record, bf16, from a seeded
+    checkpoint through load_networks): demo/rollball.mp4 through stream_step at window 30
+    frame by frame (the main path: 12 K1 a frame and no other kernel; per-frame latency,
+    peak, a profiled window); the 2 clips of plugin_request streamed unbounded against the
+    batch forward and against the stream with the plain attention; f32 at depth 2 against
+    the f32 batch forward; K1 at 1 x 301 and 4 x 301; then eval_torch.py --stream_window.'''
+    shutil.rmtree(workdir, ignore_errors=True)
+    eval_checkpoint(workdir / 'checkpoints' / 'eval1')
+    params, cfg, *_ = load_networks(str(workdir / 'checkpoints' / 'eval1'), None,
+                                    compute_dtype=torch.bfloat16, device=DEV)
+    model = stream_model(params, cfg)
+    ex, frames, queries = stream_demo_example()
+    N = frames.shape[0]
+    out = {'frames': N, 'annotated': ex['annotated_inds'].tolist()}
+
+    # The main path, counted alone.
+    with torch.inference_mode():
+        state = streaming.init_stream(model, 1, window=STREAM_WINDOW,
+                                      pinned_frames=STREAM_PINNED)
+        torch.cuda.synchronize()
+        allocated_before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        frame_ms, masks = [], []
+        for t in range(N):
+            t0 = time.perf_counter()
+            state, m, _ = streaming.stream_step(
+                model, state, frames[t:t + 1].to(DEV, non_blocking=True),
+                queries[t:t + 1].to(DEV, non_blocking=True), window=STREAM_WINDOW,
+                pinned_frames=STREAM_PINNED)
+            torch.cuda.synchronize()
+            frame_ms.append(1e3 * (time.perf_counter() - t0))
+            masks.append(m)
+        launches = {k: n for k, n in read_launches().items() if n}
+        peak = torch.cuda.max_memory_allocated()
+        if launches != {k: n * N for k, n in K1_PER_FRAME.items()}:
+            fail(f'the stream launched {launches} over {N} frames, expected '
+                 f'{K1_PER_FRAME} a frame')
+        masks = torch.cat(masks)
+        if masks.shape != (N, 3, SEEKER_ARGS['frame_height'], SEEKER_ARGS['frame_width']) \
+                or not torch.isfinite(masks).all():
+            fail(f'stream masks {tuple(masks.shape)}, finite {bool(torch.isfinite(masks).all())}')
+        out['profile'] = profile_stream(model, state, frames, queries)
+    out.update(launches=launches, frame_ms_median=percentile(frame_ms[1:], 50),
+               frame_ms_p90=percentile(frame_ms[1:], 90), frame_ms_first=frame_ms[0],
+               frames_per_s=1e3 / percentile(frame_ms[1:], 50), peak_bytes=peak,
+               allocated_before_bytes=allocated_before,
+               cache_bytes=2 * cfg.network_depth * (S_SPATIAL - 1) * D * 2 * STREAM_WINDOW)
+    del masks, state
+
+    # The 2 clips of a plugin request, unbounded: against the batch forward, the plain
+    # attention, and f32 at depth 2.
+    rgb, query, _ = (torch.as_tensor(a, device=DEV) for a in plugin_request(SEED))
+    with torch.inference_mode():
+        counts = read_launches()
+        s_mask, s_flags = stream_clips(model, rgb, query)
+        clip_launches = launches_since(counts)
+        b_mask, b_flags = model(rgb, query)
+        with plain_attention():
+            p_mask, p_flags = stream_clips(model, rgb, query)
+        with depth_preset(STREAM_F32_DEPTH, (D, HEADS)):
+            cfg32 = seeker_config_from_args(SEEKER_ARGS, network_depth=STREAM_F32_DEPTH,
+                                            compute_dtype=torch.float32)
+            m32 = MaskTracker(cfg32, device=DEV)
+            m32.init_params_(torch.Generator().manual_seed(SEED + 1))
+            m32.eval()
+            s32, _ = stream_clips(m32, rgb, query)
+            b32, _ = m32(rgb, query)
+            del m32
+    T = rgb.shape[2]
+    if clip_launches != {k: n * T for k, n in K1_PER_FRAME.items()}:
+        fail(f'streaming 2 clips launched {clip_launches}')
+    errs = {'stream_vs_batch_bf16': rel_l2(s_mask, b_mask),
+            'stream_flags_vs_batch_bf16': rel_l2(s_flags, b_flags),
+            'stream_kernel_vs_plain_bf16': rel_l2(s_mask, p_mask),
+            'stream_flags_kernel_vs_plain_bf16': rel_l2(s_flags, p_flags),
+            'stream_vs_batch_f32_depth2': rel_l2(s32, b32)}
+    for key, tol in (('stream_vs_batch_bf16', TOL_SEEKER_BF16),
+                     ('stream_flags_vs_batch_bf16', TOL_SEEKER_BF16),
+                     ('stream_kernel_vs_plain_bf16', TOL_SEEKER_BF16),
+                     ('stream_flags_kernel_vs_plain_bf16', TOL_SEEKER_BF16),
+                     ('stream_vs_batch_f32_depth2', TOL_SEEKER_F32)):
+        if not errs[key] <= tol:
+            fail(f'{key}: rel L2 {errs[key]} > {tol}')
+    out.update(clip_launches=clip_launches, rel_l2=errs,
+               tol_rel_l2={'bf16': TOL_SEEKER_BF16, 'f32': TOL_SEEKER_F32})
+    del s_mask, b_mask, p_mask, s32, b32, model
+    torch.cuda.empty_cache()
+
+    out['k1'] = stream_k1_times()
+    out['eval'] = stream_eval_run(workdir)
+    emit({'phase': 'stream', **out})
+    return {'launches': launches, 'clip_launches': clip_launches,
+            'eval_launches': out['eval']['launches'], 'k1': out['k1'], 'params': params,
+            'cfg': cfg}
+
+
+def serve_frames():
+    '''demo/rollball.mp4 as tools/torch_serve.py's client sends it: uint8 (F, H, W, 3)
+    frames from the query frame on and the query mask (H, W) bool.'''
+    import cv2
+    H, W = SEEKER_ARGS['frame_height'], SEEKER_ARGS['frame_width']
+    cap = cv2.VideoCapture(EVAL_DEMO)
+    frames = []
+    while True:
+        ok, bgr = cap.read()
+        if not ok:
+            break
+        frames.append(cv2.resize(bgr[..., ::-1], (W, H)).astype(np.uint8))
+    cap.release()
+    q = cv2.imread(STREAM_QUERY, cv2.IMREAD_GRAYSCALE)
+    if not frames or q is None:
+        fail('could not read the demo video or its query mask')
+    q = cv2.resize(q, (W, H), interpolation=cv2.INTER_NEAREST) > 127
+    return np.stack(frames[STREAM_QUERY_FRAME:]), q
+
+
+def serve_reference(model, frames, q):
+    '''The direct stream of one session on the card from the server's wire inputs (uint8
+    normalised on the device, the query > 127 at the first frame) -> float16 masks.'''
+    state = streaming.init_stream(model, 1, window=STREAM_WINDOW, pinned_frames=STREAM_PINNED)
+    q8 = torch.from_numpy(q.astype(np.uint8) * 255)[None, None].to(DEV)
+    masks = []
+    for i, frame in enumerate(frames):
+        f = torch.from_numpy(np.ascontiguousarray(frame.transpose(2, 0, 1))[None]).to(DEV)
+        qm = (q8 > 127).float() if i == 0 else torch.zeros_like(q8, dtype=torch.float32)
+        state, m, _ = streaming.stream_step(model, state, f.float() / 255.0, qm,
+                                            window=STREAM_WINDOW, pinned_frames=STREAM_PINNED)
+        masks.append(m[0].to(torch.float16))
+    return torch.stack(masks).cpu().numpy()
+
+
+def serve_clients(addr, frames, q):
+    '''SERVE_CLIENTS concurrent clients, client k streaming frames k .. k + SERVE_FRAMES
+    - 1 with the query at its first frame -> (float16 masks per client, round-trip ms
+    per client, wall s).'''
+    masks = [[] for _ in range(SERVE_CLIENTS)]
+    rtt = [[] for _ in range(SERVE_CLIENTS)]
+    errors = []
+
+    def run(k):
+        try:
+            c = serving.TrackerClient(*addr, timeout=SERVE_TIMEOUT_S)
+            c.open(window=STREAM_WINDOW)
+            for i in range(SERVE_FRAMES):
+                t0 = time.perf_counter()
+                m, _, t = c.track(frames[k + i], query_mask=q if i == 0 else None)
+                rtt[k].append(1e3 * (time.perf_counter() - t0))
+                if t != i:
+                    raise RuntimeError(f'client {k}: reply t {t} for frame {i}')
+                masks[k].append(m)
+            c.close()
+        except Exception as e:   # noqa: BLE001 — reported below
+            errors.append((k, repr(e)))
+
+    threads = [threading.Thread(target=run, args=(k,)) for k in range(SERVE_CLIENTS)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=SERVE_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if any(th.is_alive() for th in threads) or errors:
+        fail(f'serve clients: errors {errors}, hung {[th.is_alive() for th in threads]}')
+    return [np.stack(m) for m in masks], rtt, wall
+
+
+def phase_serve(params, cfg):
+    '''The tracking server in this process on 127.0.0.1: batch_slots 1 (dedicated
+    sessions), then 4 (continuous batching), each with SERVE_CLIENTS concurrent clients
+    streaming SERVE_FRAMES frames of the demo video at window 30: dedicated replies the
+    direct stream's bits, batched within TOL_SERVE_BATCHED, 12 K1 per frame or per tick
+    and no other kernel; frames/s, round trips, mean sessions per tick and peak; then a
+    reload with migrate_sessions=True that a live session survives.'''
+    frames, q = serve_frames()
+    ref_model = stream_model(params, cfg)
+    with torch.inference_mode():
+        refs = [serve_reference(ref_model, frames[k:k + SERVE_FRAMES], q)
+                for k in range(SERVE_CLIENTS)]
+    out = {}
+    launches_by_run = {}
+    for slots in SERVE_SLOTS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        server = serving.TrackerServer(params, cfg, batch_slots=slots, device=DEV)
+        addr = server.start()
+        try:
+            torch.cuda.synchronize()
+            allocated_before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            masks, rtt, wall = serve_clients(addr, frames, q)
+            launches = {k: n for k, n in read_launches().items() if n}
+            peak = torch.cuda.max_memory_allocated()
+            groups = list(server._groups.values())
+        finally:
+            server.stop()
+        n = SERVE_CLIENTS * SERVE_FRAMES
+        steps = groups[0].steps if groups else n
+        if launches != {k: v * steps for k, v in K1_PER_FRAME.items()}:
+            fail(f'serve batch_slots={slots}: {launches} over {steps} steps, expected '
+                 f'{K1_PER_FRAME} a step')
+        errs = [rel_l2(torch.from_numpy(m.astype(np.float32)),
+                       torch.from_numpy(r.astype(np.float32))) for m, r in zip(masks, refs)]
+        r = dict(batch_slots=slots, frames=n, steps=steps, launches=launches, wall_s=wall,
+                 frames_per_s=n / wall, sessions_per_step=n / steps,
+                 rtt_ms_median=percentile([x for c in rtt for x in c[1:]], 50),
+                 rtt_ms_p90=percentile([x for c in rtt for x in c[1:]], 90),
+                 rel_l2_vs_direct=errs, peak_bytes=peak,
+                 allocated_before_bytes=allocated_before)
+        if slots == 1:
+            r['bits_equal_direct'] = all(np.array_equal(m, ref) for m, ref in zip(masks, refs))
+            if not r['bits_equal_direct']:
+                fail(f'dedicated serve replies differ from the direct stream: rel L2 {errs}')
+        elif not max(errs) <= TOL_SERVE_BATCHED:
+            fail(f'batched serve replies vs the direct stream: rel L2 {max(errs)} > '
+                 f'{TOL_SERVE_BATCHED}')
+        out[f'slots_{slots}'] = r
+        launches_by_run[f'serve_slots_{slots}'] = launches.get('K1', 0)
+        del server, groups
+    out['reload_migration'] = serve_reload(params, cfg, frames, q)
+    del ref_model
+    torch.cuda.empty_cache()
+    emit({'phase': 'serve', **out})
+    return {'launches': launches_by_run}
+
+
+def serve_reload(params, cfg, frames, q):
+    '''A batched server with migrate_sessions=True: one session streams SERVE_MIGRATE_AFTER
+    frames, a reload swaps in other seeded weights, the session streams on with a
+    continuous t; its next frames against a direct stream under the new weights fed the
+    frames the window retains (pinned frame 0 and the last 29), within TOL_SERVE_BATCHED.'''
+    model_b = MaskTracker(cfg, device=DEV)
+    model_b.init_params_(torch.Generator().manual_seed(SEED + 7))
+    model_b.eval()
+    params_b = params_to_jax(model_b.state_dict())
+    server = serving.TrackerServer(params, cfg, batch_slots=SERVE_CLIENTS, device=DEV,
+                                   migrate_sessions=True, params_loader=lambda _: params_b)
+    addr = server.start()
+    after = 3
+    try:
+        c = serving.TrackerClient(*addr, timeout=SERVE_TIMEOUT_S)
+        c.open(window=STREAM_WINDOW)
+        for i in range(SERVE_MIGRATE_AFTER):
+            c.track(frames[i], query_mask=q if i == 0 else None)
+        admin = serving.TrackerClient(*addr, timeout=SERVE_TIMEOUT_S)
+        t0 = time.perf_counter()
+        epoch = admin.reload('seeded_b')
+        reload_ms = 1e3 * (time.perf_counter() - t0)
+        got, ts = [], []
+        t0 = time.perf_counter()
+        for i in range(SERVE_MIGRATE_AFTER, SERVE_MIGRATE_AFTER + after):
+            m, _, t = c.track(frames[i])
+            got.append(m)
+            ts.append(t)
+            if i == SERVE_MIGRATE_AFTER:
+                migrate_ms = 1e3 * (time.perf_counter() - t0)
+        stats = c.stats()
+        c.close()
+        admin.close()
+    finally:
+        server.stop()
+    keep = [0] + list(range(SERVE_MIGRATE_AFTER - (STREAM_WINDOW - STREAM_PINNED),
+                            SERVE_MIGRATE_AFTER))
+    sub = np.concatenate([frames[keep], frames[SERVE_MIGRATE_AFTER:SERVE_MIGRATE_AFTER + after]])
+    with torch.inference_mode():
+        want = serve_reference(model_b, sub, q)[len(keep):]
+    err = rel_l2(torch.from_numpy(np.stack(got).astype(np.float32)),
+                 torch.from_numpy(want.astype(np.float32)))
+    if ts != list(range(SERVE_MIGRATE_AFTER, SERVE_MIGRATE_AFTER + after)) or epoch != 1 \
+            or stats['migrations'] != 1:
+        fail(f'reload: t {ts}, params epoch {epoch}, migrations {stats["migrations"]}')
+    if not err <= TOL_SERVE_BATCHED:
+        fail(f'migrated session vs the new weights\' stream: rel L2 {err} > {TOL_SERVE_BATCHED}')
+    del model_b
+    return dict(frames_before=SERVE_MIGRATE_AFTER, replayed=len(keep), reload_ms=reload_ms,
+                migrated_frame_ms=migrate_ms, rel_l2_vs_new_weights=err,
+                migrations=stats['migrations'])
+
+
+# ---------------------------------------------------------------------------------------
 # The time-calibrated rope path: K1r ... K6r
 # ---------------------------------------------------------------------------------------
 
@@ -2531,6 +3023,13 @@ def main():
         evaluation = phase_eval(eval_dir)
     finally:
         shutil.rmtree(eval_dir, ignore_errors=True)
+    stream_dir = _build.BUILD_DIR / 'chip_smoke_stream'
+    try:
+        stream = phase_stream(stream_dir)
+    finally:
+        shutil.rmtree(stream_dir, ignore_errors=True)
+    serve = phase_serve(stream.pop('params'), stream.pop('cfg'))
+    torch.cuda.empty_cache()
 
     rope_errs = phase_rope_kernels_vs_plain()
     try:
@@ -2569,8 +3068,14 @@ def main():
     k1 = kernel_entry('fused_attention', source, replaces + '87',
                       {'inference': inference_launches, **train_launches('K1'),
                        **device_side_launches('K1'),
-                       'eval': evaluation['launches'].get('K1', 0)}, errs, per_geom)
+                       'eval': evaluation['launches'].get('K1', 0),
+                       'stream': stream['launches']['K1'],
+                       'stream_clips': stream['clip_launches']['K1'],
+                       'stream_eval': stream['eval_launches']['K1'],
+                       **serve['launches']}, errs, per_geom)
     k1['per_geometry_train'] = train_geom['K1']
+    # The stream's spatial call (1 x 301) and a 4-session server tick's (4 x 301).
+    k1['per_geometry_stream'] = stream['k1']
     entries = [k1]
     for kernel, name, line, kerrs in (
             ('K2', 'fused_attention_fwd_qkv', '293', new_errs['K2']),

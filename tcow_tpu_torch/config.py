@@ -5,9 +5,8 @@ commands run unchanged against train_torch.py and eval_torch.py.
 
 --device defaults to cuda and accepts cpu. Flags of what the port does not run raise
 NotImplementedError from verify_args, naming the ROADMAP.md item that holds them:
---mesh_devices > 1, --seq_shards, --tp_shards or --pp_stages > 1 and --multihost (item 7),
---stream_window > 0 (item 4) and a .pth checkpoint (item 6). Every other flag parses and
-behaves as in the JAX package.
+--mesh_devices > 1, --seq_shards, --tp_shards or --pp_stages > 1 and --multihost (item 7)
+and a .pth checkpoint (item 6). Every other flag parses and behaves as in the JAX package.
 '''
 
 import argparse
@@ -195,7 +194,7 @@ def test_args(argv=None):
     parser.add_argument('--extra_visuals', default=False, type=_str2bool)
     parser.add_argument('--stream_window', default=0, type=int,
                         help='>0: evaluate plugin videos by windowed streaming over every '
-                             'frame; not ported.')
+                             'frame, with a cache of this many frames.')
     parser.add_argument('--plugin_batch', default=4, type=int,
                         help='Usage modes evaluated per device step for plugin videos.')
     parser.add_argument('--test_device_batch', default=4, type=int,
@@ -214,8 +213,6 @@ def _refuse_unported(args):
         (args.tp_shards > 1, '--tp_shards > 1', 7),
         (args.pp_stages > 1, '--pp_stages > 1', 7),
         (bool(args.multihost), '--multihost', 7),
-        (int(getattr(args, 'stream_window', 0) or 0) > 0, '--stream_window > 0 (streaming '
-         'evaluation)', 4),
     ]
     for bad, flag, item in unported:
         if bad:

@@ -10,8 +10,8 @@ with sparse annotations. The port's copy of tcow_tpu/data/plugin.py:
     ratio; the float frames go through AugmentationPipeline's smooth resize (cv2).
 
 Frames and masks are decoded by cv2 (VideoCapture, imread), imported inside the functions
-that read them. The streaming example (the JAX package's get_streaming_example) belongs
-to streaming evaluation and is not ported here.
+that read them. get_streaming_example gives the streaming evaluation (--stream_window)
+every frame of the video from the first query on.
 '''
 
 import os
@@ -220,6 +220,60 @@ class PluginVideoDataset:
             'rgb': aug['rgb'],                                  # (3, T, Hf, Wf)
             'query': aug['query_mask'].astype(np.float32),      # (1, T, Hf, Wf)
             'target': aug['target_mask'].astype(np.float32),    # (3, T, Hf, Wf)
+        }
+
+    def get_streaming_example(self) -> Dict:
+        '''Full-rate arrays for the streaming evaluation (plugin.py:219-275 of the JAX
+        package): EVERY video frame from the first annotated query on, resized to the
+        model's resolution by the float smooth resize, the query at position 0 and sparse
+        targets (-1 = unannotated) at their true timestamps, with no usage-mode
+        subsampling.'''
+        raw_frames = self.raw_frames if self.prefetch else self._get_raw_frames()
+        Hf, Wf = self.frame_height, self.frame_width
+        query_frame = min(self.raw_query_frames.keys())
+        inds = list(range(query_frame, self.num_video_frames))
+
+        def crop(img):
+            if not self.center_crop:
+                return img
+            H1, W1 = img.shape[:2]
+            want_ar = Wf / Hf
+            if W1 / H1 > want_ar:
+                cw = int(H1 * want_ar)
+                x0 = (W1 - cw) // 2
+                return img[:, x0:x0 + cw]
+            ch = int(W1 / want_ar)
+            y0 = (H1 - ch) // 2
+            return img[y0:y0 + ch]
+
+        rgb = np.stack([crop(raw_frames[t]) for t in inds]).astype(np.float32)
+        if rgb.max() > 1.5:
+            rgb = rgb / 255.0
+        rgb = augs_lib.resize_frames(rgb.transpose(3, 0, 1, 2), Hf, Wf, nearest=False)
+
+        N = len(inds)
+        query = np.zeros((1, N, Hf, Wf), np.float32)
+        qraw = crop(self.raw_query_frames[query_frame])[..., 0:1]
+        query[0, 0] = augs_lib.resize_frames(
+            qraw.transpose(2, 0, 1)[:, None].astype(np.float32), Hf, Wf, nearest=True)[0, 0]
+        target = -np.ones((3, N, Hf, Wf), np.float32)
+        annotated = set()
+        for c, frames in enumerate((self.raw_snitch_frames, self.raw_occl_frames,
+                                    self.raw_cont_frames)):
+            for t, v in frames.items():
+                if query_frame <= t < self.num_video_frames:
+                    m = crop(v)[..., 0:1].transpose(2, 0, 1)[:, None].astype(np.float32)
+                    target[c, t - query_frame] = augs_lib.resize_frames(
+                        m, Hf, Wf, nearest=True)[0, 0]
+                    annotated.add(t - query_frame)
+        return {
+            'source_name': 'plugin', 'src_path': self.src_path, 'dset_idx': 0,
+            'scene_idx': 0, 'frame_start': query_frame, 'frame_stride': 1,
+            'query_frame': query_frame, 'num_frames': N,
+            'rgb': rgb,                    # (3, N, Hf, Wf) float32
+            'query': query,                # (1, N, Hf, Wf), the query at position 0
+            'target': target,              # (3, N, Hf, Wf), -1 = unannotated
+            'annotated_inds': np.asarray(sorted(annotated), np.int32),
         }
 
     def _get_raw_frames(self):

@@ -1,8 +1,7 @@
 '''
 Batched inference: network loading from self-describing .npz checkpoints, the Kubric test
-step and the plugin (usage-mode) forward, each with per-example losses and metrics. The
-port of tcow_tpu/evaluation/inference.py (:25-126, :184-213); the streaming evaluation
-(run_plugin_stream) is not ported.
+step, the plugin (usage-mode) forward and the streaming evaluation of a whole plugin video,
+each with per-example losses and metrics. The port of tcow_tpu/evaluation/inference.py.
 '''
 
 import dataclasses
@@ -12,6 +11,7 @@ import numpy as np
 import torch
 
 from tcow_tpu_torch import resolve_device
+from tcow_tpu_torch.models import streaming
 from tcow_tpu_torch.models.mask_tracker import MaskTracker, SeekerConfig, seeker_config_from_args
 from tcow_tpu_torch.objectives import metrics as metrics_lib
 from tcow_tpu_torch.objectives.losses import LossConfig
@@ -102,6 +102,58 @@ class InferenceEngine:
             }
             results.append((model_retval, loss_retval))
         return results
+
+    def run_plugin_stream(self, ex: Dict[str, Any], window: int, pinned_frames: int = 1):
+        '''Windowed streaming over a whole video of any length (inference.py:128-182 of
+        the JAX package): one stream_step per frame, scored at the annotated frames. `ex`
+        is PluginVideoDataset.get_streaming_example(). The frames go to the card from
+        pinned memory, and the masks of the annotated frames stay there until the video
+        ends, so no frame waits for the device. Returns (model_retval, loss_retval) in the
+        plugin schema, restricted to the annotated frames.'''
+        if self.cfg.causal_attention != 1:
+            raise ValueError('streaming evaluation requires a causal_attention=1 '
+                             f'checkpoint (got {self.cfg.causal_attention})')
+        ann = [int(t) for t in ex['annotated_inds']]
+        if not ann:
+            raise ValueError('streaming evaluation needs at least one annotated target '
+                             'frame (found none after the query frame)')
+        rgb, query, target = ex['rgb'], ex['query'], ex['target']
+        # (N, C, H, W) on the host, pinned once on the GPU: each frame is a contiguous
+        # slice that copies without a staging buffer.
+        frames = torch.from_numpy(np.ascontiguousarray(rgb.transpose(1, 0, 2, 3)))
+        queries = torch.from_numpy(np.ascontiguousarray(query.transpose(1, 0, 2, 3)))
+        if self.device.type == 'cuda':
+            frames, queries = frames.pin_memory(), queries.pin_memory()
+        ann_set = set(ann)
+        outs, flags = [], []
+        with torch.inference_mode():
+            state = streaming.init_stream(self.model, 1, window=window,
+                                          pinned_frames=pinned_frames)
+            for t in range(frames.shape[0]):
+                f = frames[t:t + 1].to(self.device, non_blocking=True)
+                q = queries[t:t + 1].to(self.device, non_blocking=True)
+                state, m, fl = streaming.stream_step(self.model, state, f, q, window=window,
+                                                     pinned_frames=pinned_frames)
+                if t in ann_set:
+                    outs.append(m[0])
+                    flags.append(None if fl is None else fl[0])
+            out_dev = torch.stack(outs, dim=1)[None]                     # (1, C, F, H, W)
+            tgt = np.stack([target[:, t] for t in ann], axis=1)[None]    # (1, 3, F, H, W)
+            sums = metrics_lib.mask_track_metric_sums(
+                out_dev[:, None], torch.as_tensor(tgt, device=self.device)[:, None])
+            sums = {k: v.cpu().numpy() for k, v in sums.items()}
+            out_mask = out_dev.cpu().numpy()
+            out_flags = None if flags[0] is None else torch.stack(flags)[None].cpu().numpy()
+        model_retval = {
+            'seeker_input': np.stack([rgb[:, t] for t in ann], axis=1)[None],
+            'output_mask': out_mask,
+            'output_flags': out_flags,
+            'target_mask': tgt,
+            'seeker_query_mask': np.stack([query[:, t] for t in ann], axis=1)[None],
+            'annotated_inds': np.asarray(ann, np.int32),
+        }
+        loss_retval = {'metrics': metrics_lib.finalize_metric_sums(sums)}
+        return model_retval, loss_retval
 
     def run_plugin(self, rgb: np.ndarray, query: np.ndarray, target: np.ndarray,
                    frame_times: Optional[np.ndarray] = None):

@@ -14,8 +14,10 @@ overlays, the kernel launches it made and, on the GPU, the peak of
 torch.cuda.max_memory_allocated so far; the end of the run logs one with phase
 'media_wait', the time spent waiting for the videos still being written.
 
-The streaming evaluation of plugin videos (--stream_window) is not ported (config.py
-raises for it).
+With --stream_window W > 0 a plugin video is scored by streaming instead: every frame from
+the first query on through a windowed cache of W frames (InferenceEngine.run_plugin_stream),
+one CSV row per video whose friendly name carries frame stride 0; its eval_stats line has
+phase 'plugin_stream' and the frames streamed.
 '''
 
 import csv
@@ -275,6 +277,37 @@ def _test_inner_plugin(all_args, engine, dataset, logger, step_offset):
     return retvals
 
 
+def _test_inner_plugin_stream(all_args, engine, dataset, logger, step_offset, window: int):
+    '''Streaming evaluation of a plugin video (test_driver.py:130-150 of the JAX
+    package): windowed cached inference over EVERY frame, scored at the annotated frames,
+    one retval per video.'''
+    t_load = time.time()
+    ex = dataset.get_streaming_example()
+    t_step = time.time()
+    counts = fa.read_launches() if logger.debug_enabled() else None
+    model_retval, loss_retval = engine.run_plugin_stream(ex, window=window)
+    t_render = time.time()
+    retval = {
+        'source_name': 'plugin',
+        'dset_idx': 0,
+        'scene_idx': 0,
+        'loss_retval': loss_retval,
+    }
+    data_retval = {k: ex[k] for k in ('source_name', 'src_path', 'dset_idx', 'scene_idx',
+                                      'frame_start', 'frame_stride')}
+    data_retval['frame_stride'] = 0  # marks the streaming protocol in friendly names
+    retval['friendly_short_name'] = logger.handle_test_step(
+        step_offset, data_retval, model_retval, loss_retval)
+    if all_args['test'].store_results:
+        logger.save_pickle(retval, f'results/inference_retval_s{step_offset}.p')
+    _log_eval_stats(logger, {'phase': 'plugin_stream', 'step': 0, 'clips': 1,
+                             'frames': int(ex['num_frames']),
+                             'wait_ms': (t_step - t_load) * 1e3,
+                             'render_ms': (time.time() - t_render) * 1e3},
+                    counts, engine.device, t_step)
+    return [retval]
+
+
 def _test_postprocess(inference_retvals, logger):
     '''Aggregation, the CSV export and the self-check that recomputes both aggregates
     from the CSV as written.'''
@@ -354,7 +387,11 @@ def main(test_args, logger):
             train_args, test_args, train_dset_args, logger, data_path=cur_data_path)
         if outer_step == 0:
             logger.info('Final (first) test dataset args: ' + str(test_dset_args))
-        if 'plugin' in test_dset_args:
+        stream_window = int(getattr(test_args, 'stream_window', 0) or 0)
+        if 'plugin' in test_dset_args and stream_window > 0:
+            cur = _test_inner_plugin_stream(all_args, engine, loader.dataset, logger,
+                                            step_offset, stream_window)
+        elif 'plugin' in test_dset_args:
             cur = _test_inner_plugin(all_args, engine, loader.dataset, logger, step_offset)
         else:
             cur = _test_inner_kubric(all_args, engine, loader, logger, step_offset)

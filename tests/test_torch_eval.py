@@ -365,8 +365,9 @@ def test_csv_writer_matches_pandas(tmp_path, case):
 
 def test_unported_eval_options_raise(ckpt_root, tmp_path):
     argv = eval_argv(ckpt_root, tmp_path, [DEMO], 'ur')
-    with pytest.raises(NotImplementedError, match='item 4'):
-        pconfig.test_args(argv + ['--stream_window', '1'])
+    assert pconfig.test_args(argv + ['--stream_window', '1']).stream_window == 1
+    with pytest.raises(NotImplementedError, match='item 7'):
+        pconfig.test_args(argv + ['--mesh_devices', '2'])
     pth = tmp_path / 'ck' / 'pth1' / 'checkpoint.pth'
     pth.parent.mkdir(parents=True)
     pth.write_bytes(b'')

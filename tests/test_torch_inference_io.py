@@ -92,9 +92,9 @@ def test_params_from_jax_round_trips(jax_params, tiny_preset):
 
 
 def test_import_without_jax_or_tcow_tpu():
-    '''Every module of the port, chip_smoke.py, train_torch.py and eval_torch.py import
-    with jax, optax, cv2, PIL, matplotlib and pandas made unimportable, and none of them
-    pulls in tcow_tpu.'''
+    '''Every module of the port, chip_smoke.py, train_torch.py, eval_torch.py and
+    tools/torch_serve.py import with jax, optax, cv2, PIL, matplotlib and pandas made
+    unimportable, and none of them pulls in tcow_tpu.'''
     code = (
         "import importlib, pkgutil, sys\n"
         "for m in ('jax', 'optax', 'cv2', 'PIL', 'matplotlib', 'pandas'):\n"
@@ -111,9 +111,11 @@ def test_import_without_jax_or_tcow_tpu():
         "            'data.data_utils', 'data.augs', 'data.kubric', 'data.factory',\n"
         "            'config', 'utils.logvis', 'train.driver', 'utils.visualization',\n"
         "            'data.plugin', 'evaluation.inference', 'evaluation.test_driver',\n"
-        "            'evaluation.pick_represent')}\n"
+        "            'evaluation.pick_represent', 'models.streaming', 'serving')}\n"
         "assert named <= set(mods), named - set(mods)\n"
         "import chip_smoke, train_torch, eval_torch\n"
+        "sys.path.insert(0, 'tools')\n"
+        "import torch_serve\n"
         "bad = [m for m in sys.modules if m == 'tcow_tpu' or m.startswith('tcow_tpu.')]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
