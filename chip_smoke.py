@@ -107,7 +107,24 @@ Drives the PyTorch port (tcow_tpu_torch) on one NVIDIA GPU and checks it:
      dedicated replies the direct stream's bits, batched ones within 1e-2 rel L2, 12 K1 a
      step; frames/s, round trips, mean sessions per step, peak; then a reload with
      migrate_sessions=True that a live session survives, its next frames against a stream
-     under the new weights fed the frames the window retains.
+     under the new weights fed the frames the window retains;
+ 17. reference .pth checkpoints (phase pth): a reference-layout TCOW checkpoint of the
+     configuration of record from seeded weights, loaded by file through load_networks
+     (the tree bit-equal to the numpy tree it was written from; one run_plugin request,
+     24 K1, finite outputs), as a .pth-only experiment directory through `python
+     eval_torch.py --resume` (the demo video, 24 K1), and a seeded random ViT-B/16 state
+     dict through `python train_torch.py --tracker_pretrained` for one step (the weights
+     before training the inflated file over the init, bit for bit);
+ 18. K1-K6 alone at S = 9001 (joint space-time attention: 1 + 300 x 30 tokens, not
+     causal, bf16; phase joint_kernels) at the joint path's rows (K1 at 2 and 6, K2 and
+     K4-K6 at 6, K3 at 4; K4 and K5 also the five gradients of the differentiable call):
+     every row against its plain version in f32 run on that row alone, the weight and
+     bias gradients against the sum of the rows' plain gradients; then timed there beside
+     the bound and one library call, and beside the plain version at 1 row;
+ 19. the joint seeker (phase joint): run_plugin at B = 2 (12 K1 a request, masks against
+     the plain attention in bf16), one warm-up and one timed training step under every
+     pairing (12 launches a step of each of the pairing's kernels, 24 K3 for res) with
+     peak memory, and the kernel_x gradient parity against the f32 plain step.
 
 Run from the repository root: `python3 chip_smoke.py`. Prints one JSON object per phase,
 then the `{"kernels": [...]}` line, the nvidia-smi line, and last
@@ -115,12 +132,14 @@ then the `{"kernels": [...]}` line, the nvidia-smi line, and last
 available or any phase fails. Needs one GPU.
 '''
 
+import argparse
 import concurrent.futures
 import contextlib
 import csv
 import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -143,7 +162,7 @@ from tcow_tpu_torch.data.synthetic import (synthetic_color_augs, synthetic_devic
                                            synthetic_frame_times,
                                            write_synthetic_kubric_scene)
 from tcow_tpu_torch.evaluation.inference import InferenceEngine, load_networks
-from tcow_tpu_torch.models import streaming
+from tcow_tpu_torch.models import streaming, torch_import
 from tcow_tpu_torch.models import timesformer as tsf
 from tcow_tpu_torch.models.mask_tracker import MaskTracker, seeker_config_from_args
 from tcow_tpu_torch.objectives.losses import LossConfig
@@ -154,8 +173,8 @@ from tcow_tpu_torch.ops import rope as rope_lib
 from tcow_tpu_torch.train import driver as train_driver
 from tcow_tpu_torch.train import optim
 from tcow_tpu_torch.train import step as step_lib
-from tcow_tpu_torch.train.checkpoint import (load_checkpoint, peek_meta, save_checkpoint,
-                                             save_train_state)
+from tcow_tpu_torch.train.checkpoint import (flatten_with_paths, load_checkpoint, peek_meta,
+                                             save_checkpoint, save_train_state)
 from tcow_tpu_torch.weights import params_to_jax
 
 SEED = 0
@@ -698,16 +717,18 @@ def depth_preset(depth, width_heads):
         del tsf.DEPTH_PRESETS[depth]
 
 
-def train_config(dtype, drop_path_rate=0.1, depth=12, pairing=STEP_OF_RECORD, rope=False):
+def train_config(dtype, drop_path_rate=0.1, depth=12, pairing=STEP_OF_RECORD, rope=False,
+                 joint=False, queries=TRAIN_Q):
     '''ViT-B/16, T=30 at 240x320, causal 1, per-block remat under the pairing's
     (attention_bwd, remat_policy); the step of record by default; with rope the rope256
-    configuration.'''
+    configuration, with joint joint space-time attention.'''
     mode, policy = pairing
-    seeker = seeker_config_from_args(ROPE_ARGS if rope else SEEKER_ARGS,
+    seeker_args = ROPE_ARGS if rope else JOINT_ARGS if joint else SEEKER_ARGS
+    seeker = seeker_config_from_args(seeker_args,
                                      drop_path_rate=drop_path_rate,
                                      compute_dtype=dtype, remat=True, network_depth=depth,
                                      attention_bwd=mode, remat_policy=policy)
-    return step_lib.StepConfig(seeker=seeker, loss=LossConfig(), num_queries=TRAIN_Q)
+    return step_lib.StepConfig(seeker=seeker, loss=LossConfig(), num_queries=queries)
 
 
 def train_batch(rope=False):
@@ -921,6 +942,37 @@ def library_attention_bwd(x, w16, ca, g, qkv=None, wgrads=False, cs=None):
     return run
 
 
+# Each kernel's (operations, bytes) as functions of (B, S, ca) and (B, S, itemsize).
+KERNEL_COST = {'K1': (k1_flops, k1_bytes), 'K2': (k1_flops, k2_bytes),
+               'K3': (k1_flops, k3_bytes), 'K4': (k4_flops, k4_bytes),
+               'K5': (k5_flops, k5_bytes), 'K6': (k6_flops, k6_bytes)}
+
+
+def attention_calls(x, g, qkv, w, w16, ca):
+    '''Each kernel's (kernel call, plain call, library call) on x, g (B, S, D) and the
+    saved qkv (B, S, 3D), as thunks.'''
+    return {
+        'K1': (lambda: fa.fused_attention_fwd(x, *w, HEADS, ca),
+               lambda: fa.attention_ref(x, *w, HEADS, ca),
+               lambda: library_attention(x, w16, ca)),
+        'K2': (lambda: fa.fused_attention_fwd_qkv(x, *w, HEADS, ca),
+               lambda: fa.attention_qkv_ref(x, *w, HEADS, ca),
+               lambda: library_attention(x, w16, ca)),
+        'K3': (lambda: fa.fused_attention_fwd_res(x, *w, HEADS, ca),
+               lambda: fa.attention_res_ref(x, *w, HEADS, ca),
+               lambda: library_attention_probs(x, w16, ca)),
+        'K4': (lambda: fa.fused_attention_bwd(x, g, *w[:3], HEADS, ca),
+               lambda: fa.attention_bwd_ref(x, g, *w[:3], HEADS, ca),
+               library_attention_bwd(x, w16, ca, g)),
+        'K5': (lambda: fa.fused_attention_bwd_qkv(qkv, g, w[2], HEADS, ca),
+               lambda: fa.attention_bwd_qkv_ref(qkv, g, w[2], HEADS, ca),
+               library_attention_bwd(x, w16, ca, g, qkv=qkv)),
+        'K6': (lambda: fa.fused_attention_bwd_wg(x, g, *w[:3], HEADS, ca),
+               lambda: fa.attention_bwd_wg_ref(x, g, *w[:3], HEADS, ca),
+               library_attention_bwd(x, w16, ca, g, wgrads=True)),
+    }
+
+
 def phase_train_times(train):
     '''Every kernel per call at the training geometries beside its plain version, its
     library yardstick and its bound; then a kernel-path step of record against a
@@ -932,34 +984,11 @@ def phase_train_times(train):
         w16 = [a.to(torch.bfloat16) for a in w]
         with torch.no_grad():
             qkv = fa.fused_attention_fwd_qkv(x, *w, HEADS, ca)[1]
-        calls = {
-            'K1': (lambda: fa.fused_attention_fwd(x, *w, HEADS, ca),
-                   lambda: fa.attention_ref(x, *w, HEADS, ca),
-                   lambda: library_attention(x, w16, ca),
-                   k1_flops(B, S, ca), k1_bytes(B, S, 2)),
-            'K2': (lambda: fa.fused_attention_fwd_qkv(x, *w, HEADS, ca),
-                   lambda: fa.attention_qkv_ref(x, *w, HEADS, ca),
-                   lambda: library_attention(x, w16, ca),
-                   k1_flops(B, S, ca), k2_bytes(B, S, 2)),
-            'K3': (lambda: fa.fused_attention_fwd_res(x, *w, HEADS, ca),
-                   lambda: fa.attention_res_ref(x, *w, HEADS, ca),
-                   lambda: library_attention_probs(x, w16, ca),
-                   k1_flops(B, S, ca), k3_bytes(B, S, 2)),
-            'K4': (lambda: fa.fused_attention_bwd(x, g, *w[:3], HEADS, ca),
-                   lambda: fa.attention_bwd_ref(x, g, *w[:3], HEADS, ca),
-                   library_attention_bwd(x, w16, ca, g),
-                   k4_flops(B, S, ca), k4_bytes(B, S, 2)),
-            'K5': (lambda: fa.fused_attention_bwd_qkv(qkv, g, w[2], HEADS, ca),
-                   lambda: fa.attention_bwd_qkv_ref(qkv, g, w[2], HEADS, ca),
-                   library_attention_bwd(x, w16, ca, g, qkv=qkv),
-                   k5_flops(B, S, ca), k5_bytes(B, S, 2)),
-            'K6': (lambda: fa.fused_attention_bwd_wg(x, g, *w[:3], HEADS, ca),
-                   lambda: fa.attention_bwd_wg_ref(x, g, *w[:3], HEADS, ca),
-                   library_attention_bwd(x, w16, ca, g, wgrads=True),
-                   k6_flops(B, S, ca), k6_bytes(B, S, 2)),
-        }
+        calls = attention_calls(x, g, qkv, w, w16, ca)
         with torch.no_grad():
-            for kernel, (run, plain, library, flops, nbytes) in calls.items():
+            for kernel, (run, plain, library) in calls.items():
+                flops_fn, bytes_fn = KERNEL_COST[kernel]
+                flops, nbytes = flops_fn(B, S, ca), bytes_fn(B, S, 2)
                 bound_ms, bound_by = bound(flops, nbytes)
                 per_geom[kernel][name] = dict(
                     B=B, S=S, ca=ca, ms=cuda_ms(run, iters=10),
@@ -1679,15 +1708,21 @@ EVAL_STATS = re.compile(r'eval_stats (\{.*\})')
 EVAL_TIMEOUT_S = 300
 
 
-def eval_checkpoint(ckpt_dir):
-    '''A seeded seeker of the configuration of record saved as a train run would save it:
-    its train args and Kubric dataset arguments (the query at EVAL_QUERY_TIME).'''
-    args = config_lib.train_args([
+def record_train_args():
+    '''The train args a run of the configuration of record writes into its checkpoints
+    (the query at EVAL_QUERY_TIME).'''
+    return config_lib.train_args([
         '--data_path', 'unused', '--num_frames', str(SEEKER_ARGS['num_total_frames']),
         '--frame_height', str(SEEKER_ARGS['frame_height']),
         '--frame_width', str(SEEKER_ARGS['frame_width']),
         '--seeker_query_time', str(EVAL_QUERY_TIME), '--max_objects', str(TRAIN_M),
         '--device', DEV])
+
+
+def eval_checkpoint(ckpt_dir):
+    '''A seeded seeker of the configuration of record saved as a train run would save it:
+    its train args and Kubric dataset arguments (the query at EVAL_QUERY_TIME).'''
+    args = record_train_args()
     model = MaskTracker(seeker_config_from_args(SEEKER_ARGS))
     model.init_params_(torch.Generator().manual_seed(SEED))
     save_checkpoint(str(ckpt_dir), 0, 'eval1', params_to_jax(model.state_dict()),
@@ -2960,6 +2995,515 @@ def phase_gemm_times():
     return per_shape
 
 
+# ---------------------------------------------------------------------------------------
+# Reference .pth checkpoints: by file, by a .pth-only experiment directory, and as the
+# bootstrap of a training run
+# ---------------------------------------------------------------------------------------
+
+PTH_EPOCH = 4
+# The bootstrap run: one train step (2 scenes in one batch of TRAIN_B), no val phase, a
+# name holding 'ba' so the driver saves model_-1.npz before training.
+PTH_TRAIN_SCENES = 2
+PTH_RUN = 'pth_ba'
+# ViT-B/16 at 224x224 as timm lays it out: 14 x 14 patches, a 1000-way classifier head.
+VIT_PATCHES = 196
+
+
+def imagenet_vit_b16(seed):
+    '''A seeded random ViT-B/16 state dict in timm's layout (0.02 x normal, LayerNorm
+    gains near 1), the file an ImageNet bootstrap reads.'''
+    rng = np.random.default_rng(seed)
+    r = lambda *s: torch.from_numpy(0.02 * rng.standard_normal(s, dtype=np.float32))
+    sd = {'patch_embed.proj.weight': r(D, 3, 16, 16), 'patch_embed.proj.bias': r(D),
+          'cls_token': r(1, 1, D), 'pos_embed': r(1, VIT_PATCHES + 1, D),
+          'norm.weight': 1.0 + r(D), 'norm.bias': r(D),
+          'head.weight': r(1000, D), 'head.bias': r(1000)}
+    for i in range(12):
+        for name, shape in (('norm1', (D,)), ('attn.qkv', (3 * D, D)), ('attn.proj', (D, D)),
+                            ('norm2', (D,)), ('mlp.fc1', (4 * D, D)), ('mlp.fc2', (D, 4 * D))):
+            sd[f'blocks.{i}.{name}.weight'] = r(*shape) + (1.0 if len(shape) == 1 else 0.0)
+            sd[f'blocks.{i}.{name}.bias'] = r(shape[0])
+    return sd
+
+
+def trees_equal(a, b):
+    '''Two nested dicts of arrays hold the same keys and the same bits.'''
+    flat_a, flat_b = flatten_with_paths(a), flatten_with_paths(b)
+    return flat_a.keys() == flat_b.keys() and all(np.array_equal(flat_a[k], flat_b[k])
+                                                  for k in flat_a)
+
+
+def phase_pth(workdir):
+    '''A reference-layout TCOW checkpoint (.pth: net_seeker with
+    tracker_backbone.timesformer.model.*, tracker_post_linear.*, flag_post_linear.*, and
+    seeker_args, an argparse train_args, dset_args, epoch) of the configuration of record
+    from seeded weights, loaded three ways: (1) by file through load_networks, the tree
+    bit-equal to the one it was written from (so the engine gets the numpy tree's weights
+    bit for bit), and one run_plugin request on it: 24 K1, finite masks and flags; (2) as
+    a .pth-only experiment directory through `python eval_torch.py --resume` (the demo
+    video's two usage modes, one plugin step of 24 K1, finite CSV rows); (3) a seeded
+    random ViT-B/16 state dict as `python train_torch.py --tracker_pretrained` for one
+    step (24 K1 + 24 K4, and its vis step): the weights saved before training are the
+    inflated file applied over the init, bit for bit.'''
+    shutil.rmtree(workdir, ignore_errors=True)
+    out = {}
+    cfg0 = seeker_config_from_args(SEEKER_ARGS)
+    model = MaskTracker(cfg0)
+    model.init_params_(torch.Generator().manual_seed(SEED + 7))
+    tree = params_to_jax(model.state_dict())
+    del model
+    exp = workdir / 'checkpoints' / 'pthexp'
+    exp.mkdir(parents=True)
+    pth = exp / 'checkpoint.pth'
+    args = record_train_args()
+    t0 = time.perf_counter()
+    torch.save({'epoch': PTH_EPOCH, 'net_seeker': torch_import.seeker_state_dict_to_torch(
+                    tree, cfg0),
+                'seeker_args': dict(SEEKER_ARGS),
+                'train_args': argparse.Namespace(**config_lib.args_to_dict(args)),
+                'dset_args': {'kubric': factory.kubric_dset_args(args)}}, pth)
+    out['pth_write_s'], out['pth_bytes'] = time.perf_counter() - t0, pth.stat().st_size
+
+    # (1) By file.
+    t0 = time.perf_counter()
+    params, cfg, _, _, _, epoch = load_networks(str(pth), None, compute_dtype=torch.bfloat16,
+                                                device=DEV)
+    out['load_s'] = time.perf_counter() - t0
+    if epoch != PTH_EPOCH or not trees_equal(params, tree):
+        fail(f'.pth by file: epoch {epoch} or a tree other than the one written')
+    cfg = dataclasses.replace(cfg, attention_bwd='res', remat_policy='full')
+    rgb, query, target = plugin_request(SEED + 7)
+
+    counts = read_launches()
+    res = InferenceEngine(params, cfg, device=DEV).run_plugin(rgb, query, target)
+    torch.cuda.synchronize()
+    launched = launches_since(counts)
+    got = [np.concatenate([m[k] for m, _ in res]) for k in ('output_mask', 'output_flags')]
+    if launched != {'K1': 2 * cfg.network_depth}:
+        fail(f'.pth by file: run_plugin launched {launched}')
+    out['by_file'] = dict(launches=launched, tree_bit_equal=True,
+                          mask_shape=list(got[0].shape),
+                          finite=bool(np.isfinite(got[0]).all() and np.isfinite(got[1]).all()))
+    if got[0].shape != (BATCH, 3) + rgb.shape[2:] or not out['by_file']['finite']:
+        fail(f'.pth by file: run_plugin outputs {out["by_file"]}')
+    del params, res, got
+    torch.cuda.empty_cache()
+
+    # (2) A .pth-only experiment directory through eval_torch.py --resume.
+    argv = ['--resume', 'pthexp', '--name', 'pe', '--data_path', EVAL_DEMO,
+            '--checkpoint_root', str(workdir / 'checkpoints'),
+            '--log_root', str(workdir / 'logs'), '--num_queries', '1', '--avoid_wandb', '2',
+            '--plugin_batch', '4', '--num_workers', '4', '--device', DEV,
+            '--seed', str(SEED), '--log_level', 'debug']
+    text, wall_s = run_eval(argv, workdir / 'eval.log')
+    faults = [f for f in EVAL_LOG_FAULTS if f in text]
+    if faults or f'Loading weights from: {pth}' not in text:
+        print(text[-4000:], file=sys.stderr)
+        fail(f'eval_torch.py --resume of a .pth-only directory: faults {faults} or not '
+             f'loaded from {pth}')
+    steps = [json.loads(m.group(1)) for m in EVAL_STATS.finditer(text)]
+    steps = [r for r in steps if r['phase'] != 'media_wait']
+    if [(r['phase'], r['clips'], r['launches']) for r in steps] != [
+            ('plugin', len(EVAL_PLUGIN_NAMES), EVAL_PER_STEP)]:
+        fail(f'eval_torch.py on the .pth: device steps {steps}')
+    with open(workdir / 'logs' / 'pthexp' / f'test_pe_e{PTH_EPOCH}' / 'itemized_results.csv',
+              newline='') as f:
+        rows = list(csv.DictReader(f))
+    if tuple(r['friendly_short_name'] for r in rows) != EVAL_PLUGIN_NAMES or not all(
+            np.isfinite(float(v)) for r in rows for k, v in r.items()
+            if k.startswith(('mean_', 'count_'))):
+        fail(f'eval_torch.py on the .pth: CSV rows {rows}')
+    out['eval_dir'] = dict(wall_s=wall_s, rows=len(rows), step_wall_ms=steps[0]['wall_ms'],
+                           launches=steps[0]['launches'])
+
+    # (3) train_torch.py --tracker_pretrained <ViT-B/16 .pth>, one step.
+    root = workdir / 'kubric'
+    out['dataset_write_s'], _ = write_dataset(root, (('train', PTH_TRAIN_SCENES, SEED + 400),),
+                                              DRIVER_FRAMES)
+    vit = imagenet_vit_b16(SEED + 8)
+    vit_fp = workdir / 'vit_b16.pth'
+    torch.save({'model': vit}, vit_fp)
+    argv = driver_argv(root, workdir, PTH_RUN, '--tracker_pretrained', str(vit_fp),
+                       '--num_epochs', '1', '--do_val_aug', '0', '--do_val_noaug', '0')
+    text, wall_s = run_driver(argv, workdir / 'pth_train.log')
+    if 'Bootstrapping backbone from pretrained weights' not in text:
+        fail('train_torch.py --tracker_pretrained: no bootstrap in the log')
+    steps = check_steps(PTH_RUN, text, driver_records(1, steps=1, val=False), DRIVER_PER_STEP)
+    ba = load_checkpoint(str(workdir / 'checkpoints' / PTH_RUN / 'model_-1.npz'))['params']
+    bb_cfg = cfg0.backbone_config()
+    inflated = torch_import.inflate_imagenet_vit_state_dict(
+        vit, in_chans=cfg0.input_channels, num_patches=bb_cfg.num_patches,
+        num_frames=bb_cfg.num_frames)
+    applied = torch_import.apply_pretrained_to_params(ba['backbone'], inflated, bb_cfg)
+    if not trees_equal(applied, ba['backbone']):
+        fail('train_torch.py --tracker_pretrained: the weights before training are not the '
+             'inflated ViT-B/16 over the init')
+    final = load_checkpoint(str(workdir / 'checkpoints' / PTH_RUN / 'checkpoint.npz'))
+    out['bootstrap'] = dict(wall_s=wall_s, steps=[{k: r.get(k) for k in (
+        'phase', 'step', 'wall_ms', 'launches', 'max_memory_allocated')} for r in steps],
+        epoch=final['epoch'], vit_bytes=vit_fp.stat().st_size, pretrained_bit_equal=True)
+    launches = sum_launches(steps + [{'launches': launched}, out['eval_dir']])
+    emit({'phase': 'pth', 'launches': launches, **out})
+    return {'launches': launches}
+
+
+# ---------------------------------------------------------------------------------------
+# Joint space-time attention: K1-K6 at S = 1 + N T = 9001
+# ---------------------------------------------------------------------------------------
+
+# --attention_type joint_space_time: one attention per block over the cls token and every
+# patch of every frame (1 + 300 x 30 tokens), never causal; no temporal weights.
+JOINT_ARGS = dict(SEEKER_ARGS, attention_type='joint_space_time')
+JOINT_S = 1 + 300 * SEEKER_ARGS['num_total_frames']
+# Kernel geometries (rows, S, causal) of the joint path: inference (B clips) and training.
+JOINT_GEOMETRIES = {'joint_inference': (BATCH, JOINT_S, 0),
+                    'joint_train': (TRAIN_B * TRAIN_Q, JOINT_S, 0)}
+# (B clips, Q queries) of each joint training step. 'res' keeps K3's (rows, 12, S, S) bf16
+# probabilities and its torch-op backward makes f32 copies of them, ~18.6 GB a row on an
+# H100 80GB: 2 x 3 does not fit, 2 x 2 (4 rows, ~76 GB) is the largest batch that does.
+JOINT_TRAIN_BATCH = {('res', 'dots_nb'): (2, 2)}
+# The rows K3 runs at on the joint path.
+JOINT_RES_ROWS = math.prod(JOINT_TRAIN_BATCH[('res', 'dots_nb')])
+# The plain versions in f32 hold (rows, 12, S, S) f32 logits and probabilities, 3.9 GB
+# each a row (K4's several such): they run one row at a time, and are timed (with K3's
+# library call) at this many rows.
+JOINT_CHECK_ROWS = 1
+# Gradient parity of the kernel_x step: the f32 plain step holds several (rows, 12, S, S)
+# f32 tensors in each block's backward (~16 GB a row), so 1 clip of the 3 queries.
+JOINT_PARITY_BATCH = (1, 3)
+JOINT_ITERS = 5
+# Elements a piece when a kernel's output is compared with its plain version in float64.
+ERR_CHUNK = 1 << 27
+
+
+def joint_kernel_errs():
+    '''K1-K6 at the joint path's shapes (bf16, S = 9001, not causal): K1 at the inference
+    batch (2 rows); K1, K2 and K4-K6 at the training rows (6); K3 at the `res` pairing's
+    rows (4). Each is held against its plain version in f32 from the same bf16 inputs, run
+    on one row at a time (the rows are independent, and one row's plain call already holds
+    (1, 12, S, S) f32 tensors): every row's out, qkv, probabilities, attn, dqkv and dx
+    against that row's plain result, and the weight and bias gradients (K6, and the
+    differentiable calls of K4 (kernel_x) and K5 (kernel_qkv)) against the sum of the rows'
+    plain gradients. Rel L2 and max abs error are over the whole tensor, summed piece by
+    piece. Returns {kernel: {case: errors}}.'''
+    errs = {k: {} for k in ('K1', 'K2', 'K3', 'K4', 'K5', 'K6')}
+    grad_names = ('dx', 'dqkv_w', 'dqkv_b', 'dproj_w', 'dproj_b')
+
+    def check(kernel, case, got, plain_row, names, summed=()):
+        '''got: the kernel's outputs over B rows; plain_row(r): the plain outputs of row r
+        alone (a batch of 1), whose first len(names) outputs are compared. The outputs
+        named in `summed` reduce over rows.'''
+        if len(got) != len(names):
+            fail(f'{case}: {kernel} returned {len(got)} outputs, expected {names}')
+        tol = TOL_BF16 if kernel in ('K1', 'K2', 'K3') else TOL_K4_BF16
+        B = got[0].shape[0]
+        acc = {n: [0.0, 0.0, 0.0] for n in names}          # sum diff^2, sum want^2, max |diff|
+        sums = {n: None for n in summed}
+
+        def add(n, a, b):
+            if a.shape != b.shape:
+                fail(f'{case}: {kernel} {n} shape {tuple(a.shape)}, plain {tuple(b.shape)}')
+            for pa, pb in zip(a.reshape(-1).split(ERR_CHUNK), b.reshape(-1).split(ERR_CHUNK)):
+                d = pa.double() - pb.double()
+                acc[n][0] += float(d.square().sum())
+                acc[n][1] += float(pb.double().square().sum())
+                acc[n][2] = max(acc[n][2], float(d.abs().max()))
+
+        for r in range(B):
+            want = plain_row(r)
+            for n, a, b in zip(names, got, want):
+                if n in sums:
+                    sums[n] = b.double() if sums[n] is None else sums[n] + b.double()
+                else:
+                    add(n, a[r], b[0])
+            del want
+            torch.cuda.empty_cache()
+        for n, total in sums.items():
+            add(n, got[names.index(n)], total)
+        e = dict(B=B, S=JOINT_S, ca=0, dtype='bfloat16', tol_rel_l2=tol, rows_checked=B,
+                 summed_over_rows=list(summed),
+                 max_abs_err=max(v[2] for v in acc.values()))
+        e.update({f'rel_l2_{n}': math.sqrt(v[0] / v[1]) for n, v in acc.items()})
+        errs[kernel][case] = e
+        bad = {k: v for k, v in e.items() if k.startswith('rel_l2') and not v <= tol}
+        if bad:
+            fail(f'{case}: {kernel} vs plain rel L2 above {tol}: {bad}')
+        torch.cuda.empty_cache()
+
+    x, w = attn_inputs(BATCH, JOINT_S, torch.bfloat16, SEED + 500)
+    row = lambda t, r: t[r:r + 1].float()
+    check('K1', 'joint_inference', (fa.fused_attention_fwd(x, *w, HEADS, 0),),
+          lambda r: (fa.attention_ref(row(x, r), *w, HEADS, 0),), ('out',))
+
+    B = TRAIN_B * TRAIN_Q
+    x, w = attn_inputs(B, JOINT_S, torch.bfloat16, SEED + 501)
+    g = grad_input(B, JOINT_S, torch.bfloat16, SEED + 502)
+    res_row = lambda r: fa.attention_res_ref(row(x, r), *w, HEADS, 0)
+    check('K1', 'joint_train', (fa.fused_attention_fwd(x, *w, HEADS, 0),), res_row, ('out',))
+    k2 = fa.fused_attention_fwd_qkv(x, *w, HEADS, 0)
+    check('K2', 'joint_train', k2, res_row, ('out', 'qkv'))
+    check('K3', 'joint_train_res', fa.fused_attention_fwd_res(x[:JOINT_RES_ROWS], *w, HEADS, 0),
+          res_row, ('out', 'qkv', 'probs', 'attn'))
+    check('K4', 'joint_train', fa.fused_attention_bwd(x, g, *w[:3], HEADS, 0),
+          lambda r: fa.attention_bwd_ref(row(x, r), row(g, r), *w[:3], HEADS, 0),
+          ('dqkv', 'attn'))
+    qkv = k2[1]
+    del k2
+    check('K5', 'joint_train', fa.fused_attention_bwd_qkv(qkv, g, w[2], HEADS, 0),
+          lambda r: fa.attention_bwd_qkv_ref(row(qkv, r), row(g, r), w[2], HEADS, 0),
+          ('dqkv', 'attn'))
+    check('K6', 'joint_train', fa.fused_attention_bwd_wg(x, g, *w[:3], HEADS, 0),
+          lambda r: fa.attention_bwd_wg_ref(row(x, r), row(g, r), *w[:3], HEADS, 0),
+          grad_names, grad_names[1:])
+
+    def autograd_row(r):
+        '''Every gradient of attention_ref in f32 on row r alone.'''
+        leaves = [row(x, r).requires_grad_()] + [a.clone().requires_grad_() for a in w]
+        fa.attention_ref(*leaves, HEADS, 0).backward(row(g, r))
+        return [t.grad for t in leaves]
+
+    # The differentiable calls of K4 (kernel_x) and K5 (kernel_qkv): every gradient.
+    for kernel, mode in (('K4', 'kernel_x'), ('K5', 'kernel_qkv')):
+        leaves = [x.clone().requires_grad_()] + [a.clone().requires_grad_() for a in w]
+        fa.fused_attention(*leaves, HEADS, 0, mode).backward(g)
+        check(kernel, 'joint_train_grads', [t.grad for t in leaves], autograd_row, grad_names,
+              grad_names[1:])
+        del leaves
+    return errs
+
+
+def joint_kernel_times():
+    '''Every kernel per call at the joint path's rows (K1 at both geometries, K2 and
+    K4-K6 at training's, K3 at the `res` pairing's), beside its bound and one library call
+    there, and the plain version (and the kernel again) at JOINT_CHECK_ROWS; K3's library
+    call (matmul + softmax + matmul) at JOINT_CHECK_ROWS too, as its S x S probabilities
+    are the plain version's.'''
+    per_geom = {k: {} for k in KERNEL_COST}
+    timed = lambda fn: cuda_ms(fn, iters=JOINT_ITERS, warmup=1)
+    b = JOINT_CHECK_ROWS
+    for i, (name, (B0, S, ca)) in enumerate(JOINT_GEOMETRIES.items()):
+        x, w = attn_inputs(B0, S, torch.bfloat16, SEED + 510 + i)
+        g = grad_input(B0, S, torch.bfloat16, SEED + 520 + i)
+        w16 = [a.to(torch.bfloat16) for a in w]
+        with torch.no_grad():
+            qkv = fa.fused_attention_fwd_qkv(x, *w, HEADS, ca)[1]
+        full = attention_calls(x, g, qkv, w, w16, ca)
+        res = attention_calls(*(t[:JOINT_RES_ROWS] for t in (x, g, qkv)), w, w16, ca)
+        rows = attention_calls(*(t[:b].contiguous() for t in (x, g, qkv)), w, w16, ca)
+        with torch.no_grad():
+            for kernel in (('K1',) if name == 'joint_inference' else KERNEL_COST):
+                B, calls = (JOINT_RES_ROWS, res) if kernel == 'K3' else (B0, full)
+                flops_fn, bytes_fn = KERNEL_COST[kernel]
+                flops, nbytes = flops_fn(B, S, ca), bytes_fn(B, S, 2)
+                bound_ms, bound_by = bound(flops, nbytes)
+                e = dict(B=B, S=S, ca=ca, ms=timed(calls[kernel][0]), bound_ms=bound_ms,
+                         bound_by=bound_by, flops=flops, bytes=nbytes, plain_rows=b,
+                         ms_at_plain_rows=timed(rows[kernel][0]),
+                         plain_ms=timed(rows[kernel][1]))
+                torch.cuda.empty_cache()
+                library_rows = b if kernel == 'K3' else B
+                e.update(library_rows=library_rows, library_ms=timed(
+                    (rows if kernel == 'K3' else calls)[kernel][2]))
+                e['share_of_bound'] = bound_ms / e['ms']
+                per_geom[kernel][name] = e
+                torch.cuda.empty_cache()
+        del x, g, qkv, full, res, rows
+        torch.cuda.empty_cache()
+    return {k: v for k, v in per_geom.items() if v}
+
+
+def phase_joint_kernels():
+    '''K1-K6 alone at S = 9001, D = 768, 12 heads, not causal, bf16: each against its
+    plain version (joint_kernel_errs), then timed (joint_kernel_times).'''
+    t0 = time.perf_counter()
+    errs = joint_kernel_errs()
+    per_geom = joint_kernel_times()
+    emit({'phase': 'joint_kernels', 'cases': errs, 'per_call': per_geom,
+          'wall_s': time.perf_counter() - t0})
+    return errs, per_geom
+
+
+def joint_batch(B, Q):
+    T, H, W = (SEEKER_ARGS[k] for k in ('num_total_frames', 'frame_height', 'frame_width'))
+    b = synthetic_device_batch(0, B=B, Q=Q, T=T, H=H, W=W, M=TRAIN_M, K=TRAIN_K)
+    return {k: torch.as_tensor(v, device=DEV) for k, v in b.items()}
+
+
+def joint_inference():
+    '''The joint seeker of the configuration of record (seeded) through
+    InferenceEngine.run_plugin, B = 2 clips in bf16: 12 K1 a request at 2 x 9001 and no
+    other kernel; masks and flags within TOL_SEEKER_BF16 of the same engine with the plain
+    attention (bf16); request times and peak memory.'''
+    cfg = seeker_config_from_args(JOINT_ARGS, compute_dtype=torch.bfloat16)
+    model = MaskTracker(cfg)
+    model.init_params_(torch.Generator().manual_seed(SEED + 9))
+    params = params_to_jax(model.state_dict())
+    del model
+    engine = InferenceEngine(params, cfg, device=DEV)
+    rgb, query, target = plugin_request(SEED + 9)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counts = read_launches()
+    req_ms, results = [], None
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = engine.run_plugin(rgb, query, target)
+        torch.cuda.synchronize()
+        req_ms.append(1e3 * (time.perf_counter() - t0))
+    launches = launches_since(counts)
+    peak = torch.cuda.max_memory_allocated()
+    if launches != {'K1': 2 * cfg.network_depth}:
+        fail(f'joint inference: 2 requests launched {launches}, expected '
+             f'{2 * cfg.network_depth} K1')
+    mask = np.concatenate([m['output_mask'] for m, _ in results])
+    flags = np.concatenate([m['output_flags'] for m, _ in results])
+    if mask.shape != (BATCH, 3) + rgb.shape[2:] or not (np.isfinite(mask).all()
+                                                        and np.isfinite(flags).all()):
+        fail(f'joint inference: outputs {mask.shape}, finite {np.isfinite(mask).all()}')
+    with plain_attention():
+        plain = engine.run_plugin(rgb, query, target)
+    t = lambda a: torch.from_numpy(a)
+    errs = {'mask_kernel_vs_plain_bf16': rel_l2(t(mask), t(np.concatenate(
+                [m['output_mask'] for m, _ in plain]))),
+            'flags_kernel_vs_plain_bf16': rel_l2(t(flags), t(np.concatenate(
+                [m['output_flags'] for m, _ in plain])))}
+    for key, v in errs.items():
+        if not v <= TOL_SEEKER_BF16:
+            fail(f'joint inference {key}: rel L2 {v} > {TOL_SEEKER_BF16}')
+    del engine, plain, results
+    torch.cuda.empty_cache()
+    return dict(clips=BATCH, launches_per_request=launches.get('K1', 0) // 2, request_ms=req_ms,
+                clips_per_s=BATCH / (req_ms[-1] / 1e3), max_memory_allocated_bytes=peak,
+                rel_l2=errs, tol_rel_l2=TOL_SEEKER_BF16), launches.get('K1', 0)
+
+
+def joint_train(pairing):
+    '''One warm-up and one timed training step of the joint seeker under the pairing
+    (bf16, remat, drop-path 0.1, AdamW, clip 0.3) at JOINT_TRAIN_BATCH's batch (B = 2 x
+    Q = 3 by default): a finite loss, changed parameters, per step the pairing's kernels
+    once per block (12 K1 + 12 K4 for kernel_x); step ms and peak memory.'''
+    B, Q = JOINT_TRAIN_BATCH.get(pairing, (TRAIN_B, TRAIN_Q))
+    cfg = train_config(torch.bfloat16, pairing=pairing, joint=True, queries=Q)
+    tx = optim.make_optimizer('adamw', learn_rate=1e-4, num_epochs=70, steps_per_epoch=1000,
+                              gradient_clip=0.3)
+    state = step_lib.init_train_state(SEED, cfg, tx, device=DEV)
+    train_step = step_lib.make_train_step(cfg)
+    batch = joint_batch(B, Q)
+    depth = cfg.seeker.network_depth
+    per_step = {k: 0 for k in read_launches()}
+    per_step.update({k: n * depth for k, n in PAIRINGS[pairing].items()})
+    watch = 'backbone.blocks.0.attn.qkv.w'
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for i in range(2):
+        before = state.model.state_dict()[watch].clone()
+        counts = read_launches()
+        state, aux, ms, host_ms = timed_step(train_step, state, batch)
+        rec = dict(step=i, step_ms=ms, host_ms=host_ms, loss=float(aux['total_seeker']),
+                   skipped_nonfinite=float(aux['skipped_nonfinite']),
+                   launches={k: n - counts[k] for k, n in read_launches().items()})
+        steps.append(rec)
+        if not np.isfinite(rec['loss']) or rec['skipped_nonfinite'] != 0.0:
+            fail(f'joint {pairing} step {i}: loss {rec["loss"]}, skipped '
+                 f'{rec["skipped_nonfinite"]}')
+        if rec['launches'] != per_step:
+            fail(f'joint {pairing} step {i}: launches {rec["launches"]}, expected {per_step}')
+        if torch.equal(state.model.state_dict()[watch], before):
+            fail(f'joint {pairing} step {i}: parameters did not change')
+    peak = torch.cuda.max_memory_allocated()
+    flops = 3 * joint_forward_flops(B * Q)
+    out = dict(attention_bwd=pairing[0], remat_policy=pairing[1], clips=B, queries=Q,
+               rows=B * Q, steps=steps, step_ms=steps[-1]['step_ms'],
+               clips_per_s=B / (steps[-1]['step_ms'] / 1e3), max_memory_allocated_bytes=peak,
+               launches_per_step={k: n for k, n in per_step.items() if n},
+               step_matmul_flops=flops, step_bound_ms=1e3 * flops / PEAK_BF16_FLOPS)
+    del state, train_step, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def joint_forward_flops(rows):
+    '''Matmul operations of one joint seeker forward over `rows` clips.'''
+    T, p = JOINT_ARGS['num_total_frames'], JOINT_ARGS['patch_size']
+    N = (JOINT_ARGS['frame_height'] // p) * (JOINT_ARGS['frame_width'] // p)
+    block = k1_flops(rows, JOINT_S, 0) + 2 * 2 * rows * JOINT_S * D * 4 * D
+    heads = 2 * rows * T * N * D * (3 * p * p + 3)
+    return 2 * rows * T * N * p * p * 4 * D + 12 * block + heads
+
+
+def joint_parity():
+    '''The kernel_x step's first-step gradient with drop-path off at JOINT_PARITY_BATCH:
+    the bf16 kernel path and the bf16 plain path against the f32 plain path; the kernel
+    path's error may be at most TRAIN_BF16_ERR_RATIO x the plain path's.'''
+    B, Q = JOINT_PARITY_BATCH
+    batch = joint_batch(B, Q)
+    rel = lambda a, b: abs(a - b) / abs(b)
+    plain = (STEP_OF_RECORD[0], 'full')
+    cfg16, cfg32 = (train_config(dt, 0.0, pairing=plain, joint=True, queries=Q)
+                    for dt in (torch.bfloat16, torch.float32))
+    model = MaskTracker(cfg32.seeker, device=DEV)
+    model.init_params_(torch.Generator().manual_seed(SEED + 11))
+    init_state = {k: v.clone() for k, v in model.state_dict().items()}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    loss_r, grad_r = loss_and_flat_grad(model, cfg32, batch, plain=True)
+    peak_f32_plain = torch.cuda.max_memory_allocated()
+    del model
+    model = model_from(cfg16, init_state)
+    loss_p, grad_p = loss_and_flat_grad(model, cfg16, batch, plain=True)
+    del model
+    cfg = train_config(torch.bfloat16, 0.0, pairing=STEP_OF_RECORD, joint=True, queries=Q)
+    model = model_from(cfg, init_state)
+    counts = read_launches()
+    loss_k, grad_k = loss_and_flat_grad(model, cfg, batch, plain=False)
+    launched = launches_since(counts)
+    del model
+    errs = {'loss_plain_bf16': rel(loss_p, loss_r), 'grad_plain_bf16': rel_l2(grad_p, grad_r),
+            'loss_kernel_bf16': rel(loss_k, loss_r), 'grad_kernel_bf16': rel_l2(grad_k, grad_r)}
+    del grad_r, grad_p, grad_k
+    torch.cuda.empty_cache()
+    ratio = errs['grad_kernel_bf16'] / errs['grad_plain_bf16']
+    if launched != {'K1': 12, 'K4': 12}:
+        fail(f'joint parity: the kernel_x loss and backward launched {launched}')
+    if not ratio <= TRAIN_BF16_ERR_RATIO:
+        fail(f'joint parity (kernel_x): bf16 gradient error of the kernel path '
+             f'{errs["grad_kernel_bf16"]} > {TRAIN_BF16_ERR_RATIO} x the plain path\'s '
+             f'{errs["grad_plain_bf16"]}')
+    return dict(clips=B, queries=Q, rows=B * Q, losses={'plain_f32': loss_r,
+                'plain_bf16': loss_p, 'kernel_bf16': loss_k}, rel_err=errs,
+                grad_err_ratio=ratio, grad_err_ratio_limit=TRAIN_BF16_ERR_RATIO,
+                max_memory_allocated_f32_plain_bytes=peak_f32_plain), launched
+
+
+def phase_joint():
+    '''Joint space-time attention through the main paths at the configuration of record:
+    inference through run_plugin (joint_inference), one timed step of every pairing
+    (joint_train), and the kernel_x gradient parity (joint_parity); each part's wall
+    seconds. Returns each kernel's launches by path.'''
+    out = {}
+    t0 = time.perf_counter()
+    out['inference'], inference_launches = joint_inference()
+    out['inference_wall_s'] = time.perf_counter() - t0
+    launches = {'K1': {'joint_inference': inference_launches}}
+    out['train'] = []
+    for pairing in PAIRINGS:
+        t0 = time.perf_counter()
+        rec = joint_train(pairing)
+        rec['wall_s'] = time.perf_counter() - t0
+        out['train'].append(rec)
+        for k, n in rec['launches_per_step'].items():
+            launches.setdefault(k, {})[f'joint_train_{pairing[0]}'] = 2 * n
+    t0 = time.perf_counter()
+    out['parity'], parity_launches = joint_parity()
+    out['parity_wall_s'] = time.perf_counter() - t0
+    for k, n in parity_launches.items():
+        launches.setdefault(k, {})['joint_parity'] = n
+    emit({'phase': 'joint', **out})
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, errs, per_geom):
     '''One item of the `kernels` line: means over the geometries of the main path (each
     is called once per block).'''
@@ -3023,6 +3567,11 @@ def main():
         evaluation = phase_eval(eval_dir)
     finally:
         shutil.rmtree(eval_dir, ignore_errors=True)
+    pth_dir = _build.BUILD_DIR / 'chip_smoke_pth'
+    try:
+        pth = phase_pth(pth_dir)
+    finally:
+        shutil.rmtree(pth_dir, ignore_errors=True)
     stream_dir = _build.BUILD_DIR / 'chip_smoke_stream'
     try:
         stream = phase_stream(stream_dir)
@@ -3052,6 +3601,9 @@ def main():
     core = phase_attn_core_times()
     bwd_core = phase_attn_bwd_times()
     gemm = phase_gemm_times()
+    torch.cuda.empty_cache()
+    joint_errs, joint_geom = phase_joint_kernels()
+    joint_launches = phase_joint()
 
     def train_launches(kernel, runs=trains, prefix='train'):
         return {f'{prefix}_{m}': t['launches'][kernel] for (m, _), t in runs.items()
@@ -3064,7 +3616,8 @@ def main():
     def device_side_launches(kernel):
         return {'train_device_side': device_side['launches'][kernel],
                 'train_driver': driver['launches'].get(kernel, 0),
-                'train_driver_rope': driver['rope_launches'].get(kernel, 0)}
+                'train_driver_rope': driver['rope_launches'].get(kernel, 0),
+                'pth': pth['launches'].get(kernel, 0)}
     k1 = kernel_entry('fused_attention', source, replaces + '87',
                       {'inference': inference_launches, **train_launches('K1'),
                        **device_side_launches('K1'),
@@ -3072,7 +3625,7 @@ def main():
                        'stream': stream['launches']['K1'],
                        'stream_clips': stream['clip_launches']['K1'],
                        'stream_eval': stream['eval_launches']['K1'],
-                       **serve['launches']}, errs, per_geom)
+                       **serve['launches'], **joint_launches['K1']}, errs, per_geom)
     k1['per_geometry_train'] = train_geom['K1']
     # The stream's spatial call (1 x 301) and a 4-session server tick's (4 x 301).
     k1['per_geometry_stream'] = stream['k1']
@@ -3086,6 +3639,7 @@ def main():
         launches = train_launches(kernel)
         if kernel == 'K4':
             launches.update(device_side_launches('K4'))
+        launches.update(joint_launches.get(kernel, {}))
         entries.append(kernel_entry(name, source, replaces + line, launches, kerrs,
                                     train_geom[kernel]))
     # The rope variants: the rotation in _kernel (:120-136) for the forwards, in
@@ -3112,6 +3666,13 @@ def main():
             entry['attn_core'] = {s: core[s] for s in CORE_OF_KERNEL[kernel]}
         if kernel in BWD_CORE_OF_KERNEL:
             entry['attn_bwd'] = {s: bwd_core[s] for s in BWD_CORE_OF_KERNEL[kernel]}
+        if kernel in joint_errs:
+            # The same kernel at S = 9001 (joint space-time attention).
+            entry['joint'] = {'launches': {p: n for p, n in entry['launches_by_path'].items()
+                                           if p.startswith('joint')},
+                              'max_abs_err': max(e['max_abs_err']
+                                                 for e in joint_errs[kernel].values()),
+                              'cases': joint_errs[kernel], 'per_geometry': joint_geom[kernel]}
         geoms = entry['per_geometry'].keys()
         if kernel == 'K1':
             geoms = [*INFER_ROWS, *TRAIN_ROWS]

@@ -5,8 +5,9 @@ commands run unchanged against train_torch.py and eval_torch.py.
 
 --device defaults to cuda and accepts cpu. Flags of what the port does not run raise
 NotImplementedError from verify_args, naming the ROADMAP.md item that holds them:
---mesh_devices > 1, --seq_shards, --tp_shards or --pp_stages > 1 and --multihost (item 7)
-and a .pth checkpoint (item 6). Every other flag parses and behaves as in the JAX package.
+--mesh_devices > 1, --seq_shards, --tp_shards or --pp_stages > 1 and --multihost (item 7).
+Every other flag parses and behaves as in the JAX package; --resume and
+--tracker_pretrained take a reference .pth too (models/torch_import.py).
 '''
 
 import argparse
@@ -221,15 +222,10 @@ def _refuse_unported(args):
 
 
 def resolve_resume_path(checkpoint_root: str, resume: str, epoch: int = -1) -> str:
-    '''--resume <name or file> -> the .npz to load: a file as given, else the
-    experiment directory under checkpoint_root (model_{epoch}.npz when epoch >= 0, else
-    checkpoint.npz). A torch .pth raises: its import is ROADMAP.md section 1 item 6.'''
+    '''--resume <name or file> -> the checkpoint to load: a file as given, else the
+    experiment directory under checkpoint_root, preferring .npz to a reference .pth
+    (model_{epoch} when epoch >= 0, else checkpoint; checkpoint.resolve_checkpoint_path).'''
     path = resume if os.path.isfile(resume) else os.path.join(checkpoint_root, resume)
-    if path.endswith('.pth') or (os.path.isdir(path) and not any(
-            f.endswith('.npz') for f in os.listdir(path)) and any(
-            f.endswith('.pth') for f in os.listdir(path))):
-        raise NotImplementedError(f'{path}: resuming from a torch .pth checkpoint is not '
-                                  'ported (ROADMAP.md section 1 item 6)')
     return ckpt_lib.resolve_checkpoint_path(path, epoch)
 
 

@@ -1,7 +1,8 @@
 '''
-Batched inference: network loading from self-describing .npz checkpoints, the Kubric test
-step, the plugin (usage-mode) forward and the streaming evaluation of a whole plugin video,
-each with per-example losses and metrics. The port of tcow_tpu/evaluation/inference.py.
+Batched inference: network loading from self-describing checkpoints (.npz, or a
+reference .pth), the Kubric test step, the plugin (usage-mode) forward and the streaming
+evaluation of a whole plugin video, each with per-example losses and metrics. The port
+of tcow_tpu/evaluation/inference.py.
 '''
 
 import dataclasses
@@ -11,7 +12,7 @@ import numpy as np
 import torch
 
 from tcow_tpu_torch import resolve_device
-from tcow_tpu_torch.models import streaming
+from tcow_tpu_torch.models import streaming, torch_import
 from tcow_tpu_torch.models.mask_tracker import MaskTracker, SeekerConfig, seeker_config_from_args
 from tcow_tpu_torch.objectives import metrics as metrics_lib
 from tcow_tpu_torch.objectives.losses import LossConfig
@@ -22,25 +23,34 @@ from tcow_tpu_torch.weights import params_from_jax
 
 def load_networks(checkpoint_path: str, logger=None, epoch: int = -1, compute_dtype=None,
                   device='cuda') -> Tuple[Dict, SeekerConfig, Dict, Dict, Dict, int]:
-    '''(params, seeker_cfg, train_args, dset_args, seeker_args, epoch) from a .npz
-    checkpoint file or experiment directory. params is the JAX-layout tree of numpy
+    '''(params, seeker_cfg, train_args, dset_args, seeker_args, epoch) from a checkpoint
+    file or experiment directory: the port's .npz or a reference .pth
+    (models/torch_import.py), as JAX's :28-60. params is the JAX-layout tree of numpy
     arrays. `device` is the one the networks will run on: without CUDA it raises unless
     the caller asks for the CPU. There is no kernel switch to turn on (the counterpart of
     :56-58): on CUDA every attention call launches the fused kernel.'''
     print_fn = logger.info if logger is not None else print
     resolve_device(device)
-    if checkpoint_path.endswith('.pth'):
-        raise NotImplementedError('.pth checkpoints are not ported yet; use .npz')
     checkpoint_path = ckpt_lib.resolve_checkpoint_path(checkpoint_path, epoch)
     print_fn('Loading weights from: ' + checkpoint_path)
-    loaded = ckpt_lib.load_checkpoint(checkpoint_path)
-    seeker_args = loaded['seeker_args']
-    cfg = seeker_config_from_args(seeker_args)
+    if checkpoint_path.endswith('.pth'):
+        params, cfg, ckpt = torch_import.load_tcow_checkpoint(checkpoint_path)
+        train_args = ckpt.get('train_args', {})
+        if not isinstance(train_args, dict):
+            train_args = vars(train_args)
+        dset_args = ckpt.get('dset_args', {})
+        seeker_args = dict(ckpt.get('seeker_args', {}))
+        epoch = int(ckpt.get('epoch', -1))
+    else:
+        loaded = ckpt_lib.load_checkpoint(checkpoint_path)
+        params, seeker_args = loaded['params'], loaded['seeker_args']
+        train_args, dset_args = loaded['train_args'], loaded['dset_args']
+        cfg = seeker_config_from_args(seeker_args)
+        epoch = int(loaded['epoch'])
     if compute_dtype is not None:
         cfg = dataclasses.replace(cfg, compute_dtype=compute_dtype)
-    epoch = int(loaded['epoch'])
     print_fn('=> Loaded epoch (1-based): ' + str(epoch + 1))
-    return loaded['params'], cfg, loaded['train_args'], loaded['dset_args'], seeker_args, epoch
+    return params, cfg, train_args, dset_args, seeker_args, epoch
 
 
 class InferenceEngine:

@@ -42,8 +42,8 @@ class SeekerConfig:
     rope_time_coords: bool = False  # feed true source-frame times into the rope tables
 
     def __post_init__(self):
-        '''Raises as the JAX config does (mask_tracker.py:74-79), then as the port does
-        for what it does not run yet (timesformer.check_config).'''
+        '''Raises ValueError as the JAX config does (mask_tracker.py:74-79), and for
+        unknown names (timesformer.check_config).'''
         if self.temporal_rope and self.attention_type != 'divided_space_time':
             raise ValueError('temporal_rope requires attention_type=divided_space_time '
                              '(joint attention has no separate temporal axis to rotate)')

@@ -8,6 +8,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from tcow_tpu_torch import resolve_device
+from tcow_tpu_torch.models import torch_import
 from tcow_tpu_torch.models.mask_tracker import MaskTracker, SeekerConfig, seeker_config_from_args
 from tcow_tpu_torch.train import checkpoint as ckpt_lib
 from tcow_tpu_torch.weights import params_from_jax
@@ -34,8 +35,10 @@ class Seeker:
 
     @classmethod
     def from_checkpoint(cls, path: str, device='cuda') -> 'Seeker':
+        '''A port .npz or a reference .pth (models/torch_import.py), as JAX's :31-39.'''
         if path.endswith('.pth'):
-            raise NotImplementedError('.pth checkpoints are not ported yet; use .npz')
+            params, cfg, _ = torch_import.load_tcow_checkpoint(path)
+            return cls(cfg, params, device=device)
         state = ckpt_lib.load_checkpoint(path)
         return cls(seeker_config_from_args(state['seeker_args']), state['params'],
                    device=device)

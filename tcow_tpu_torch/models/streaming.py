@@ -54,6 +54,18 @@ def _param_device(model: MaskTracker) -> torch.device:
     return model.backbone.cls_token.device
 
 
+def check_streamable(cfg):
+    '''Raises ValueError unless a seeker or backbone config can stream: divided
+    space-time attention (the cache is the temporal attention's; a joint model has no
+    temporal weights) with causal_attention == 1.'''
+    if cfg.attention_type != 'divided_space_time':
+        raise ValueError(f'streaming requires attention_type=divided_space_time, got '
+                         f'{cfg.attention_type}')
+    if cfg.causal_attention != 1:
+        raise ValueError(f'streaming requires causal_attention == 1, got '
+                         f'{cfg.causal_attention}')
+
+
 @torch.inference_mode()
 def init_stream(model: MaskTracker, batch_size: int, max_frames: Optional[int] = None,
                 window: Optional[int] = None, pinned_frames: int = 1) -> StreamState:
@@ -62,9 +74,7 @@ def init_stream(model: MaskTracker, batch_size: int, max_frames: Optional[int] =
     holds S slots: `pinned_frames` permanent ones and a ring of S - pinned_frames, for
     videos of any length (streaming.py:52-73 of the JAX package).'''
     bb = model.cfg.backbone_config()
-    if bb.causal_attention != 1:
-        raise ValueError(f'streaming requires causal_attention == 1, got '
-                         f'{bb.causal_attention}')
+    check_streamable(bb)
     if window is not None:
         if not window > pinned_frames >= 1:
             raise ValueError(f'need window > pinned_frames >= 1, got window={window} '

@@ -1,8 +1,8 @@
 '''
-Divided space-time TimeSformer backbone in PyTorch: the port of
-tcow_tpu/models/timesformer.py (forward :713-862, _divided_block :388-450), with
-stochastic depth (drop_path :325-337) and per-block rematerialization under JAX's remat
-policies (:797-818) for training.
+TimeSformer backbone in PyTorch: the port of tcow_tpu/models/timesformer.py (forward
+:713-862), divided space-time (_divided_block :388-450) or joint space-time
+(_joint_block :453-466), with stochastic depth (drop_path :325-337) and per-block
+rematerialization under JAX's remat policies (:797-818) for training.
 
 Under temporal_rope the temporal attention rotates q and k by each frame's position
 (time-calibrated with `frame_times`, :406-411) and the absolute time embedding is skipped
@@ -16,7 +16,7 @@ two. Master weights stay float32 and are cast to the compute dtype at use.
 import dataclasses
 import functools
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,18 +35,18 @@ DEPTH_PRESETS = {12: (768, 12), 18: (896, 14), 24: (1024, 16)}
 
 REMAT_POLICIES = ('full', 'dots', 'dots_nb', 'dots_nb_attn', 'attn_res', 'dots_nb_out',
                   'dots_nb_out_qkv')
+ATTENTION_TYPES = ('divided_space_time', 'joint_space_time')
 
 
 def check_config(attention_type: str, remat_policy: str, attention_bwd: str):
-    '''Raises ValueError for unknown names and NotImplementedError for the
-    configurations this port does not run yet.'''
+    '''Raises ValueError for unknown names.'''
     if remat_policy not in REMAT_POLICIES:
         raise ValueError(f'unknown remat_policy {remat_policy!r}; one of {REMAT_POLICIES}')
     if attention_bwd not in BWD_MODES:
         raise ValueError(f'unknown attention_bwd {attention_bwd!r}; one of {BWD_MODES}')
-    if attention_type != 'divided_space_time':
-        raise NotImplementedError(f'attention_type={attention_type!r} is not ported yet '
-                                  '(only divided_space_time)')
+    if attention_type not in ATTENTION_TYPES:
+        raise ValueError(f'unknown attention_type {attention_type!r}; one of '
+                         f'{ATTENTION_TYPES}')
 
 
 def check_remat_group(depth: int, remat_group: int):
@@ -124,6 +124,10 @@ class TimeSformerConfig:
     @property
     def mlp_dim(self) -> int:
         return int(self.embed_dim * self.mlp_ratio)
+
+    @property
+    def divided(self) -> bool:
+        return self.attention_type == 'divided_space_time'
 
 
 # ---------------------------------------------------------------------------
@@ -221,27 +225,32 @@ def drop_path(x, mask, keep):
 class DropPathMasks:
     '''One block's drop-path draws for a folded batch of B clips: keep probability (scalar
     f32 tensor) and masks over (B, N) for temporal attention, (B, T) for spatial attention
-    and (B,) for the MLP, shared by the tokens and the cls token (:412, :425, :445-449).'''
+    and (B,) for the MLP, shared by the tokens and the cls token (:412, :425, :445-449).
+    A joint block has no temporal mask, and its spatial mask is (B,): one per clip over
+    the whole space-time sequence (:463-465).'''
     keep: torch.Tensor
-    temporal: torch.Tensor
+    temporal: Optional[torch.Tensor]
     spatial: torch.Tensor
     mlp: torch.Tensor
 
 
 def draw_drop_path_masks(generator: torch.Generator, rate: float, depth: int, B: int, N: int,
-                         T: int, device) -> list:
+                         T: int, device, divided: bool = True) -> list:
     '''Every block's masks for one forward, drawn up front from `generator` (as JAX splits
     the block keys before the scan, :769-771) and moved to `device` once. Drawing outside
     the blocks keeps them fixed when a rematerialized block is recomputed in the backward
     pass. Per-block rates are linspace(0, rate, depth) (:767); a row survives when its
-    uniform draw is below keep = 1 - rate.'''
+    uniform draw is below keep = 1 - rate. divided=False draws a joint block's masks.'''
     keep = 1.0 - torch.linspace(0.0, rate, depth, dtype=torch.float32)
     draw = lambda *shape: (torch.rand((depth,) + shape, generator=generator,
                                       device=generator.device)
                            < keep.to(generator.device).reshape((depth,) + (1,) * len(shape)))
-    drawn = [keep, draw(B, N), draw(B, T), draw(B)]
-    keep, temporal, spatial, mlp = (t.to(device) for t in drawn)
-    return [DropPathMasks(keep[i], temporal[i], spatial[i], mlp[i]) for i in range(depth)]
+    if divided:
+        keep, temporal, spatial, mlp = (t.to(device) for t in (keep, draw(B, N), draw(B, T),
+                                                               draw(B)))
+        return [DropPathMasks(keep[i], temporal[i], spatial[i], mlp[i]) for i in range(depth)]
+    keep, spatial, mlp = (t.to(device) for t in (keep, draw(B), draw(B)))
+    return [DropPathMasks(keep[i], None, spatial[i], mlp[i]) for i in range(depth)]
 
 
 class DividedBlock(nn.Module):
@@ -296,6 +305,34 @@ class DividedBlock(nn.Module):
         return tokens, cls2
 
 
+class JointBlock(nn.Module):
+    '''One joint space-time block (timesformer.py:453-466): a single attention over the
+    cls token and every patch of every frame, 1 + N*T tokens in the reference's order
+    b (h w t) m, never causal (JAX passes no causal_attention there, :460-462), then the
+    MLP over the whole sequence. It has no temporal parameters.'''
+
+    def __init__(self, cfg: TimeSformerConfig, device=None):
+        super().__init__()
+        D = cfg.embed_dim
+        self.norm1 = LayerNorm(D, cfg.ln_eps, device)
+        self.attn = Attention(D, cfg.num_heads, cfg.attention_bwd, device)
+        self.norm2 = LayerNorm(D, cfg.ln_eps, device)
+        self.mlp = Mlp(D, cfg.mlp_dim, device)
+
+    def forward(self, xs, cls, masks: DropPathMasks = None, frame_times=None):
+        '''xs (B, N, T, D), cls (B, D), drop-path masks or None -> updated (xs, cls).
+        frame_times is unused: rope needs the divided temporal axis.'''
+        B, N, T, D = xs.shape
+
+        def dp(x, which):
+            return x if masks is None else drop_path(x, getattr(masks, which), masks.keep)
+
+        flat = torch.cat([cls[:, None, :], xs.reshape(B, N * T, D)], dim=1)
+        flat = flat + dp(self.attn(self.norm1(flat), 0), 'spatial')
+        flat = flat + dp(self.mlp(self.norm2(flat)), 'mlp')
+        return flat[:, 1:].reshape(B, N, T, D), flat[:, 0]
+
+
 def nearest_resize_1d(emb: torch.Tensor, new_len: int, dim: int = 0) -> torch.Tensor:
     '''torch F.interpolate(mode=nearest) semantics: src = floor(dst * in/out).'''
     n_in = emb.shape[dim]
@@ -337,11 +374,13 @@ class TimeSformer(nn.Module):
         self.pos_embed = nn.Parameter(torch.zeros(cfg.num_patches + 1, D, device=device))
         self.time_embed = nn.Parameter(torch.zeros(cfg.num_frames, D, device=device))
         self.norm = LayerNorm(D, cfg.ln_eps, device)
-        self.blocks = nn.ModuleList(DividedBlock(cfg, device) for _ in range(cfg.depth))
+        block = DividedBlock if cfg.divided else JointBlock
+        self.blocks = nn.ModuleList(block(cfg, device) for _ in range(cfg.depth))
 
     def init_params_(self, generator: torch.Generator):
         '''Random init of tcow_tpu timesformer.init_params (:149-188): trunc-normal(0.02)
-        linears and embeddings, zero biases, unit LayerNorm, temporal_fc zero for blocks > 0.'''
+        linears and embeddings, zero biases, unit LayerNorm, temporal_fc zero for blocks > 0
+        (divided blocks; joint blocks have none).'''
         for name, prm in self.named_parameters():
             leaf = name.rsplit('.', 1)[-1]
             with torch.no_grad():
@@ -351,9 +390,10 @@ class TimeSformer(nn.Module):
                     prm.fill_(1.0)
                 else:
                     prm.zero_()
-        with torch.no_grad():
-            for blk in self.blocks[1:]:
-                blk.temporal_fc.w.zero_()
+        if self.cfg.divided:
+            with torch.no_grad():
+                for blk in self.blocks[1:]:
+                    blk.temporal_fc.w.zero_()
 
     def forward(self, pixels: torch.Tensor, train: bool = False,
                 generator: torch.Generator = None, frame_times: torch.Tensor = None):
@@ -397,7 +437,7 @@ class TimeSformer(nn.Module):
         masks = [None] * cfg.depth
         if train and cfg.drop_path_rate > 0.0 and generator is not None:
             masks = draw_drop_path_masks(generator, cfg.drop_path_rate, cfg.depth, B, N, T,
-                                         x.device)
+                                         x.device, cfg.divided)
         remat = cfg.remat and torch.is_grad_enabled()
         kw = {}
         if cfg.remat_policy != 'full':

@@ -350,7 +350,7 @@ class TrackerServer:
 
     :param params: seeker params, the JAX-layout tree of numpy arrays (load_networks);
         the server builds one MaskTracker from them on `device`.
-    :param cfg: mask_tracker.SeekerConfig (must have causal_attention == 1).
+    :param cfg: mask_tracker.SeekerConfig (divided attention, causal_attention == 1).
     :param port: 0 picks an ephemeral port (see .address after start()).
     :param default_max_frames: cache slots for unbounded (window=0) sessions.
     :param batch_slots: >1 turns on continuous batching: sessions with the same
@@ -368,8 +368,7 @@ class TrackerServer:
                  max_groups: int = 4, params_loader=None,
                  max_cache_bytes: int = 8 << 30, migrate_sessions: bool = False,
                  device='cuda'):
-        if cfg.causal_attention != 1:
-            raise ValueError('serving requires causal_attention == 1')
+        streaming.check_streamable(cfg)
         if batch_slots < 1:
             raise ValueError(f'batch_slots must be >= 1, got {batch_slots}')
         self.device = resolve_device(device)

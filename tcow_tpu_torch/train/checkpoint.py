@@ -30,6 +30,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from tcow_tpu_torch.models import torch_import
 from tcow_tpu_torch.weights import params_from_jax, params_to_jax
 
 GENERATOR_KEY = 'torch_generator'
@@ -262,23 +263,24 @@ def find_full_snapshot(checkpoint_path: str) -> Optional[str]:
 
 def get_checkpoint_epoch(checkpoint_path: str) -> int:
     '''The epoch of a checkpoint: its directory's checkpoint_epoch.txt, else the payload's
-    meta (checkpoint.py:223-234; a reference .pth is not read by the port).'''
+    (checkpoint.py:223-234): an .npz's meta or a reference .pth's `epoch`.'''
     epoch_file = os.path.join(os.path.dirname(checkpoint_path), 'checkpoint_epoch.txt')
     if os.path.exists(epoch_file):
         return int(np.loadtxt(epoch_file, dtype=np.int32))
+    if checkpoint_path.endswith('.pth'):
+        return int(torch_import.load_torch_file(checkpoint_path).get('epoch', -1))
     return int(peek_meta(checkpoint_path)['epoch'])
 
 
 def resolve_checkpoint_path(path: str, epoch: int = -1) -> str:
-    '''A checkpoint file as given, or inside an experiment directory: model_{epoch}.npz
-    when epoch >= 0 and present, else checkpoint.npz (tcow_tpu resolve_resume_path).'''
+    '''A checkpoint file as given, or inside an experiment directory: model_{epoch}.npz,
+    else model_{epoch}.pth, when epoch >= 0 and present; else checkpoint.npz, else a
+    reference checkpoint.pth (tcow_tpu resolve_resume_path, checkpoint.py:205-220).'''
     if os.path.isfile(path):
         return path
-    if epoch >= 0:
-        snap = os.path.join(path, f'model_{epoch}.npz')
-        if os.path.exists(snap):
-            return snap
-    main = os.path.join(path, 'checkpoint.npz')
-    if os.path.exists(main):
-        return main
-    raise FileNotFoundError(f'no .npz checkpoint found at {path}')
+    names = ([f'model_{epoch}{ext}' for ext in ('.npz', '.pth')] if epoch >= 0 else [])
+    for name in names + ['checkpoint.npz', 'checkpoint.pth']:
+        candidate = os.path.join(path, name)
+        if os.path.exists(candidate):
+            return candidate
+    raise FileNotFoundError(f'no checkpoint found at {path}')

@@ -8,7 +8,9 @@ find_full_snapshot).
 Kept from the JAX driver: seeds; the epoch and validation cadence (val_every, do_val_aug,
 do_val_noaug) with the val loaders started ahead; at most 20 tolerated exceptions per
 epoch; the '*ba*' save before training; checkpoint writes on a thread that never stacks,
---checkpoint_light with the full-snapshot fallback and --allow_opt_reinit;
+--checkpoint_light with the full-snapshot fallback and --allow_opt_reinit; a reference
+.pth as --resume (parameters only, with --allow_opt_reinit) or as --tracker_pretrained (a
+TCOW checkpoint, or an ImageNet ViT inflated to the video backbone);
 --preempt_save (SIGTERM finishes the step, writes a full mid-epoch checkpoint, and
 --resume continues at that step); the one-step-lagged scalar log; the loader-wait
 accounting line and loader_wait_frac.
@@ -37,13 +39,14 @@ import torch
 from tcow_tpu_torch import config as config_lib
 from tcow_tpu_torch import resolve_device
 from tcow_tpu_torch.data import factory
+from tcow_tpu_torch.models import torch_import
 from tcow_tpu_torch.models.mask_tracker import SeekerConfig, seeker_config_from_args
 from tcow_tpu_torch.objectives import metrics as metrics_lib
 from tcow_tpu_torch.objectives.losses import LossConfig
 from tcow_tpu_torch.ops import fused_attention as fa
 from tcow_tpu_torch.train import checkpoint as ckpt_lib
 from tcow_tpu_torch.train import optim, step as step_lib
-from tcow_tpu_torch.weights import params_to_jax
+from tcow_tpu_torch.weights import params_from_jax, params_to_jax
 
 MAX_EXCEPTIONS_PER_EPOCH = 20
 
@@ -74,16 +77,35 @@ def build_seeker_config(args, seeker_args: Dict[str, Any],
         attention_bwd='kernel_x' if on_card else 'res')
 
 
-def check_pretrained(cfg: SeekerConfig, seeker_args: Dict[str, Any], logger):
-    '''Random init: there is no network to fetch ImageNet weights from, and bootstrapping
-    from a local torch .pth is not ported.'''
-    tp = seeker_args.get('tracker_pretrained', False)
-    if isinstance(tp, str) and len(tp) > 5 and tp.lower() not in ('false', 'true'):
-        raise NotImplementedError(f'--tracker_pretrained {tp}: bootstrapping from a torch '
-                                  '.pth is not ported (ROADMAP.md section 1 item 6)')
-    if cfg.pretrained:
-        logger.warning('tracker_pretrained requested but no local weight file given; '
-                       'there is no network to fetch one -> random init.')
+def init_seeker_params(model, cfg: SeekerConfig, seeker_args: Dict[str, Any], logger):
+    '''Bootstraps the randomly initialised `model` in place from the local .pth that
+    --tracker_pretrained names (tcow_tpu/train/driver.py:130-157): a TCOW checkpoint
+    (`net_seeker`) loads whole; any other state dict (or its `model` entry) is an image
+    ViT, inflated to the video backbone and applied over the init, which keeps what the
+    file lacks. There is no network to fetch ImageNet weights from, so a truthy flag
+    without a file keeps the random init.'''
+    path = seeker_args.get('tracker_pretrained', False)
+    if not (isinstance(path, str) and len(path) > 5 and path.lower() not in ('false', 'true')):
+        if cfg.pretrained:
+            logger.warning('tracker_pretrained requested but no local weight file given; '
+                           'there is no network to fetch one -> random init. Pass a local '
+                           '.pth path via --tracker_pretrained to bootstrap.')
+        return
+    logger.info(f'Bootstrapping backbone from pretrained weights: {path}')
+    sd = torch_import.load_torch_file(path)
+    if 'net_seeker' in sd:
+        params = torch_import.seeker_params_from_torch(sd['net_seeker'], cfg)
+    else:
+        if 'model' in sd:
+            sd = sd['model']
+        bb_cfg = cfg.backbone_config()
+        inflated = torch_import.inflate_imagenet_vit_state_dict(
+            sd, in_chans=cfg.input_channels, num_patches=bb_cfg.num_patches,
+            num_frames=bb_cfg.num_frames, attention_type=cfg.attention_type)
+        params = params_to_jax(model.state_dict())
+        params['backbone'] = torch_import.apply_pretrained_to_params(
+            params['backbone'], inflated, bb_cfg)
+    model.load_state_dict(params_from_jax(params))
 
 
 def _host_state(state: step_lib.TrainState, full: bool, copy: bool):
@@ -127,7 +149,12 @@ def main(args, logger):
     logger.info(f'Attention backward {cfg.attention_bwd}, remat policy {cfg.remat_policy}')
     step_cfg = step_lib.StepConfig(seeker=cfg, loss=loss_config_from_args(args),
                                    num_queries=args.num_queries)
-    check_pretrained(cfg, seeker_args, logger)
+    allow_opt_reinit = bool(getattr(args, 'allow_opt_reinit', False))
+    if args.resume.endswith('.pth') and not allow_opt_reinit:
+        raise ValueError(
+            'Resuming training from a torch .pth checkpoint reinitializes the '
+            'optimizer/LR-schedule state (cross-framework resume cannot translate '
+            'torch optimizer state). Pass --allow_opt_reinit 1 to accept that.')
 
     start_time = time.time()
     train_loader, val_aug_loader, val_noaug_loader, dset_args = \
@@ -138,13 +165,22 @@ def main(args, logger):
     tx = optim.make_optimizer(args.optimizer, args.learn_rate, args.lr_decay,
                               args.num_epochs, steps_per_epoch, args.gradient_clip)
     state = step_lib.init_train_state(args.seed, step_cfg, tx, device=device)
+    init_seeker_params(state.model, cfg, seeker_args, logger)
     n_params = sum(p.numel() for p in state.model.parameters())
     logger.info(f'Seeker parameter count: {int(np.round(n_params / 1e6))}M')
 
     start_epoch = 0
     start_step = 0   # mid-epoch resume point (preemption checkpoints)
-    allow_opt_reinit = bool(getattr(args, 'allow_opt_reinit', False))
-    if args.resume:
+    loaded = {}
+    if args.resume.endswith('.pth'):
+        # A reference checkpoint: its parameters, with a fresh optimizer (checked above).
+        logger.info('Loading weights from: ' + args.resume)
+        params, _, ckpt = torch_import.load_tcow_checkpoint(args.resume)
+        state.model.load_state_dict(params_from_jax(params))
+        start_epoch = int(ckpt.get('epoch', -1)) + 1
+        logger.warning('Resuming from a torch .pth checkpoint: parameters restored, '
+                       'optimizer/LR-schedule state REINITIALIZED (--allow_opt_reinit).')
+    elif args.resume:
         # A --checkpoint_light save carries no optimizer state; training on from it would
         # silently reset the AdamW moments. Fall back to the newest FULL model_{e}.npz in
         # the same directory, or refuse.

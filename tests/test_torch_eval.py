@@ -368,9 +368,10 @@ def test_unported_eval_options_raise(ckpt_root, tmp_path):
     assert pconfig.test_args(argv + ['--stream_window', '1']).stream_window == 1
     with pytest.raises(NotImplementedError, match='item 7'):
         pconfig.test_args(argv + ['--mesh_devices', '2'])
+    # A reference .pth is no longer refused: a .pth-only directory resolves to it.
     pth = tmp_path / 'ck' / 'pth1' / 'checkpoint.pth'
     pth.parent.mkdir(parents=True)
-    pth.write_bytes(b'')
-    with pytest.raises(NotImplementedError, match='item 6'):
-        pconfig.test_args(argv[2:] + ['--resume', 'pth1', '--checkpoint_root',
-                                      str(tmp_path / 'ck')])
+    torch.save({'epoch': 3}, pth)
+    args = pconfig.test_args(argv[2:] + ['--resume', 'pth1', '--checkpoint_root',
+                                         str(tmp_path / 'ck')])
+    assert args.resume == str(pth) and args.name.endswith('_e3')

@@ -111,7 +111,8 @@ def test_import_without_jax_or_tcow_tpu():
         "            'data.data_utils', 'data.augs', 'data.kubric', 'data.factory',\n"
         "            'config', 'utils.logvis', 'train.driver', 'utils.visualization',\n"
         "            'data.plugin', 'evaluation.inference', 'evaluation.test_driver',\n"
-        "            'evaluation.pick_represent', 'models.streaming', 'serving')}\n"
+        "            'evaluation.pick_represent', 'models.streaming', 'serving',\n"
+        "            'models.torch_import')}\n"
         "assert named <= set(mods), named - set(mods)\n"
         "import chip_smoke, train_torch, eval_torch\n"
         "sys.path.insert(0, 'tools')\n"
@@ -144,11 +145,17 @@ def test_cuda_default_raises_without_cuda(tmp_path, jax_params):
 def test_unported_configs_raise(tiny_preset, args):
     '''rope_time_coords without temporal_rope raises ValueError, as JAX does when it builds
     the backbone config; both rope keys build a config with both fields set, as in JAX;
-    joint attention is not ported yet.'''
+    joint attention builds the backbone config JAX builds (joint blocks, no temporal
+    weights).'''
     full = {**SEEKER_ARGS, **args}
     if 'attention_type' in args:
-        with pytest.raises(NotImplementedError):
-            pmt.seeker_config_from_args(full)
+        bb, jbb = (m.seeker_config_from_args(full).backbone_config() for m in (pmt, mt))
+        assert bb.attention_type == jbb.attention_type == 'joint_space_time'
+        assert not bb.divided and not jbb.divided
+        assert (bb.depth, bb.embed_dim, bb.num_heads, bb.causal_attention) == (
+            jbb.depth, jbb.embed_dim, jbb.num_heads, jbb.causal_attention)
+        assert not any('temporal' in k for k in pmt.MaskTracker(
+            pmt.seeker_config_from_args(full)).state_dict())
     elif 'temporal_rope' in args:
         cfg, jcfg = pmt.seeker_config_from_args(full), mt.seeker_config_from_args(full)
         assert (cfg.temporal_rope, cfg.rope_time_coords) == (True, True)
@@ -239,8 +246,8 @@ def test_seeker_facade_on_cpu(tmp_path, jax_params):
     np.testing.assert_allclose(flags.numpy(), np.asarray(want_flags), rtol=RTOL, atol=ATOL)
     fresh = Seeker.from_seeker_args(SEEKER_ARGS, seed=7, device='cpu')
     assert fresh(rgb, query)[0].shape == (1, 3, 6, 32, 48)
-    with pytest.raises(NotImplementedError):
-        Seeker.from_checkpoint('weights.pth', device='cpu')
+    with pytest.raises(FileNotFoundError):
+        Seeker.from_checkpoint(str(tmp_path / 'absent.pth'), device='cpu')
 
 
 @pytest.mark.parametrize('entry', ['from_checkpoint', 'from_seeker_args', 'engine'])

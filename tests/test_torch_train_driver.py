@@ -10,6 +10,7 @@ of two steps on the same dataset, per-step losses, gradient norms and final para
 
 import json
 import os
+import pickle
 import signal
 import sys
 import time
@@ -281,16 +282,22 @@ def test_port_driver_trains_with_host_colour_augs(synth_root, tmp_path, tiny):
 
 
 def test_port_pth_resume_and_pretrained_path_raise(synth_root, tmp_path, tiny):
+    '''A reference .pth resolves as --resume (by directory or file) and then needs
+    --allow_opt_reinit, as in JAX; a --tracker_pretrained file that is no torch
+    checkpoint raises from torch.load.'''
     pth = tmp_path / 'checkpoints' / 'pth1' / 'checkpoint.pth'
     pth.parent.mkdir(parents=True)
-    pth.write_bytes(b'')
-    with pytest.raises(NotImplementedError, match='item 6'):
-        make_args(synth_root, tmp_path, name='pth2', resume='pth1')
-    with pytest.raises(NotImplementedError, match='item 6'):
-        make_args(synth_root, tmp_path, name='pth2', resume=str(pth))
+    torch.save({'epoch': 0}, pth)
+    for resume in ('pth1', str(pth)):
+        args = make_args(synth_root, tmp_path, name='pth2', resume=resume)
+        assert args.resume == str(pth)
+        with pytest.raises(ValueError, match='--allow_opt_reinit 1'):
+            run(args)
+    junk = tmp_path / 'junk.pth'
+    junk.write_bytes(b'not a checkpoint')
     args = make_args(synth_root, tmp_path, name='pth3',
-                     extra=['--tracker_pretrained', str(pth)])
-    with pytest.raises(NotImplementedError, match='item 6'):
+                     extra=['--tracker_pretrained', str(junk)])
+    with pytest.raises(pickle.UnpicklingError):
         run(args)
 
 
