@@ -69,6 +69,12 @@ def finalize_metric_sums(sums: Dict[str, object]) -> Dict[str, float]:
     return out
 
 
+def calculate_metrics_mask_track(output_mask: torch.Tensor, target_mask: torch.Tensor
+                                 ) -> Dict[str, float]:
+    '''The reference-format dict of one batch (metrics.py:81-83 of the JAX package).'''
+    return finalize_metric_sums(mask_track_metric_sums(output_mask, target_mask))
+
+
 def calculate_weighted_averages(metrics_retvals: List[Dict[str, float]]) -> Dict[str, float]:
     '''Frame-weighted aggregation across batches.'''
     final = {}

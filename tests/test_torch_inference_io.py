@@ -92,11 +92,11 @@ def test_params_from_jax_round_trips(jax_params, tiny_preset):
 
 
 def test_import_without_jax_or_tcow_tpu():
-    '''Every module of the port, chip_smoke.py, train_torch.py, eval_torch.py and
-    tools/torch_serve.py import with jax, optax, cv2, PIL, matplotlib and pandas made
+    '''Every module of the port, chip_smoke.py, train_torch.py, eval_torch.py and every
+    tools/torch_*.py import with jax, optax, cv2, PIL, matplotlib and pandas made
     unimportable, and none of them pulls in tcow_tpu.'''
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, os, pkgutil, sys\n"
         "for m in ('jax', 'optax', 'cv2', 'PIL', 'matplotlib', 'pandas'):\n"
         "    sys.modules[m] = None\n"
         "import tcow_tpu_torch\n"
@@ -112,11 +112,18 @@ def test_import_without_jax_or_tcow_tpu():
         "            'config', 'utils.logvis', 'train.driver', 'utils.visualization',\n"
         "            'data.plugin', 'evaluation.inference', 'evaluation.test_driver',\n"
         "            'evaluation.pick_represent', 'models.streaming', 'serving',\n"
-        "            'models.torch_import')}\n"
+        "            'models.torch_import', 'models.resnet', 'utils.misc')}\n"
         "assert named <= set(mods), named - set(mods)\n"
         "import chip_smoke, train_torch, eval_torch\n"
         "sys.path.insert(0, 'tools')\n"
-        "import torch_serve\n"
+        "tools = sorted(f[:-3] for f in os.listdir('tools')\n"
+        "               if f.startswith('torch_') and f.endswith('.py'))\n"
+        "assert {'torch_serve', 'torch_vitl_probe', 'torch_stream_eval',\n"
+        "        'torch_stream_bench', 'torch_serve_bench', 'torch_stream_demo',\n"
+        "        'torch_warm_cache', 'torch_validate_dataset',\n"
+        "        'torch_profile_item'} <= set(tools), tools\n"
+        "for m in tools:\n"
+        "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m == 'tcow_tpu' or m.startswith('tcow_tpu.')]\n"
         "assert not bad, bad\n"
         "print('ok')\n")

@@ -9,7 +9,9 @@ dots_nb_out: K1 forward, K4 backward), with --rope the time-calibrated rope step
 (temporal_rope, rope_time_coords, frame times in the batch: K1r/K4r on the temporal calls),
 with --joint joint space-time attention (one call over 9001 tokens a block, K1 and K4;
 the kernel path alone, as the plain path's (6, 12, 9001, 9001) f32 probabilities do not
-fit), with --device_augs colour augmentation in the batch and with --grad_accum A
+fit), with --vitl the ViT-L stretch rung of tools/torch_vitl_probe.py (depth 24, D = 1024,
+16 heads, one clip and one query at T = 60, 480x640; the kernel path alone), with
+--device_augs colour augmentation in the batch and with --grad_accum A
 microbatches, and, for the kernel path and the plain attention path, runs one warm-up step
 and profiles one step with torch.profiler. Prints one JSON line each: host wall time of the step,
 device busy time and its share of the wall time, and device time per kernel group. With
@@ -18,7 +20,8 @@ DIR/torch_profile_train_<mode>_<policy>[_rope][_joint][_augs][_ga<A>]_<path>.txt
 
 Run from the repository root:
 `python3 tools/torch_profile_train.py [--attention_bwd MODE] [--remat_policy POLICY]
-[--rope | --joint] [--device_augs] [--grad_accum A] [--table_dir DIR]`.
+[--rope | --joint | --vitl] [--device_augs] [--grad_accum A] [--table_dir DIR]`; the
+stretch rung as the probe runs it: `--vitl --remat_policy full`.
 '''
 
 import argparse
@@ -31,7 +34,10 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke as cs  # noqa: E402
 from torch_profile_inference import profile_call  # noqa: E402
+from tcow_tpu_torch.data.synthetic import synthetic_device_batch  # noqa: E402
+from tcow_tpu_torch.models.mask_tracker import seeker_config_from_args  # noqa: E402
 from tcow_tpu_torch.models.timesformer import REMAT_POLICIES  # noqa: E402
+from tcow_tpu_torch.objectives.losses import LossConfig  # noqa: E402
 from tcow_tpu_torch.ops.fused_attention import BWD_MODES  # noqa: E402
 from tcow_tpu_torch.train import optim  # noqa: E402
 from tcow_tpu_torch.train import step as step_lib  # noqa: E402
@@ -48,6 +54,9 @@ def main():
                        help='the time-calibrated rope step (rope256 configuration)')
     group.add_argument('--joint', action='store_true',
                        help='joint space-time attention (the kernel path alone)')
+    group.add_argument('--vitl', action='store_true',
+                       help='the ViT-L stretch rung, 1 clip x 1 query at T=60, 480x640 '
+                            '(the kernel path alone)')
     ap.add_argument('--grad_accum', type=int, default=1,
                     help='microbatches per step (make_train_step(grad_accum=))')
     ap.add_argument('--device_augs', action='store_true',
@@ -60,18 +69,30 @@ def main():
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = cs.train_config(torch.bfloat16, pairing=(args.attention_bwd, args.remat_policy),
-                          rope=args.rope, joint=args.joint)
+    if args.vitl:
+        # tools/torch_vitl_probe.py's step at its stretch rung.
+        seeker = seeker_config_from_args(cs.VITL_ARGS, drop_path_rate=0.1,
+                                         compute_dtype=torch.bfloat16, remat=True,
+                                         attention_bwd=args.attention_bwd,
+                                         remat_policy=args.remat_policy)
+        cfg = step_lib.StepConfig(seeker=seeker, loss=LossConfig(), num_queries=1)
+        batch = {k: torch.as_tensor(v, device='cuda') for k, v in synthetic_device_batch(
+            0, B=1, Q=1, T=seeker.num_total_frames, H=seeker.frame_height,
+            W=seeker.frame_width, M=12, K=6).items()}
+    else:
+        cfg = cs.train_config(torch.bfloat16, pairing=(args.attention_bwd, args.remat_policy),
+                              rope=args.rope, joint=args.joint)
+        batch = cs.train_batch(args.rope)
     tx = optim.make_optimizer('adamw', learn_rate=1e-4, num_epochs=70, steps_per_epoch=1000)
     state = step_lib.init_train_state(cs.SEED, cfg, tx, device='cuda')
     train_step = step_lib.make_train_step(cfg, args.grad_accum)
-    batch = cs.train_batch(args.rope)
     if args.device_augs:
         batch = {**cs.device_side_batch(), **batch}
     extra = ('_rope' if args.rope else '') + ('_joint' if args.joint else '') + (
+        '_vitl' if args.vitl else '') + (
         '_augs' if args.device_augs else '') + (
         f'_ga{args.grad_accum}' if args.grad_accum > 1 else '')
-    for tag in ('kernel',) if args.joint else ('kernel', 'plain'):
+    for tag in ('kernel',) if args.joint or args.vitl else ('kernel', 'plain'):
         profile_call(lambda: train_step(state, batch, cs.TRAIN_PROGRESS),
                      f'train_{args.attention_bwd}_{args.remat_policy}{extra}_{tag}',
                      tag == 'plain', args.table_dir)
