@@ -146,7 +146,20 @@ Drives the PyTorch port (tcow_tpu_torch) on one NVIDIA GPU and checks it:
      160 in this process), 12 K1 a frame or server step, finite numbers, no traceback;
  23. ResNet-50 (phase resnet; models/resnet.py, cuDNN convolutions) on 60 frames at
      240x320: the card against the CPU in f32 in eval and train mode, bf16 against f32,
-     ms and peak.
+     ms and peak;
+ 24. data parallelism (phases dp and dp_nccl after train_times, dp_driver on a thread
+     beside the phases of item 2, on train_driver's dataset): the step of record's global
+     batch split over two ranks, subprocesses that share the card as two "hosts" (gloo,
+     asserted), each pairing's launches per rank and step, the replicas bit-identical, the
+     all-reduced first-step gradients against the one-process ones of train_parity (bf16
+     ratio, f32 at depth 2), per rank step ms, peak and the gradient all-reduce's ms; the
+     step at world size 1 on NCCL bit-equal to one process; `python train_torch.py
+     --multihost 1` as two ranks: a SIGTERM to rank 0 stops both after the same step with
+     one mid-epoch checkpoint, and the resume ends bit-equal to an uninterrupted two-rank
+     run.
+
+The Kubric datasets are written on a thread while the kernels build; the inputs of the
+kernel comparisons and timings are drawn on the card.
 
 Run from the repository root: `python3 chip_smoke.py`. Prints one JSON object per phase,
 then the `{"kernels": [...]}` line, the nvidia-smi line, and last
@@ -165,6 +178,7 @@ import io
 import json
 import math
 import os
+import pathlib
 import re
 import shutil
 import signal
@@ -194,6 +208,7 @@ from tcow_tpu_torch.objectives.metrics import METRIC_KEYS
 from tcow_tpu_torch.ops import _build
 from tcow_tpu_torch.ops import fused_attention as fa
 from tcow_tpu_torch.ops import rope as rope_lib
+from tcow_tpu_torch.parallel import mesh as mesh_lib
 from tcow_tpu_torch.train import driver as train_driver
 from tcow_tpu_torch.train import optim
 from tcow_tpu_torch.train import step as step_lib
@@ -284,8 +299,17 @@ def fail(msg):
 T0 = time.perf_counter()
 
 
+# Phases on other threads (start_dp_driver) print through emit too, and stop their
+# subprocesses once ABORT is set.
+EMIT_LOCK = threading.Lock()
+ABORT = threading.Event()
+
+
 def emit(obj):
-    print(json.dumps({**obj, 'script_s': time.perf_counter() - T0}), flush=True)
+    line = json.dumps({**obj, 'script_s': time.perf_counter() - T0}) + '\n'
+    with EMIT_LOCK:
+        sys.stdout.write(line)
+        sys.stdout.flush()
 
 
 def rel_l2(a, b):
@@ -399,21 +423,20 @@ def seeker_forward_flops(cfg, B, width=None):
 
 
 def attn_inputs(B, S, dtype, seed, width=None):
-    '''x and weights from a numpy seed; weight scales give peaked softmax rows. width:
-    (D, heads), the record's by default.'''
+    '''x and weights drawn on the card from a seeded generator; weight scales give peaked
+    softmax rows. width: (D, heads), the record's by default.'''
     d, _ = width or (D, HEADS)
-    rng = np.random.RandomState(seed)
-    x = torch.from_numpy(rng.randn(B, S, d).astype(np.float32)).to(DEV, dtype)
-    w = [torch.from_numpy(a.astype(np.float32)).to(DEV) for a in (
-        rng.randn(d, 3 * d) * 0.06, rng.randn(3 * d) * 0.02,
-        rng.randn(d, d) * 0.03, rng.randn(d) * 0.02)]
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    x = torch.randn(B, S, d, generator=gen, device=DEV).to(dtype)
+    w = [torch.randn(shape, generator=gen, device=DEV) * scale for shape, scale in (
+        ((d, 3 * d), 0.06), ((3 * d,), 0.02), ((d, d), 0.03), ((d,), 0.02))]
     return x, w
 
 
 def grad_input(B, S, dtype, seed, width=None):
     d, _ = width or (D, HEADS)
-    return torch.from_numpy(np.random.RandomState(seed).randn(B, S, d)
-                            .astype(np.float32)).to(DEV, dtype)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    return torch.randn(B, S, d, generator=gen, device=DEV).to(dtype)
 
 
 def reset_launches():
@@ -880,12 +903,15 @@ def model_from(cfg, state_dict):
     return model
 
 
-def phase_train_parity(init_state, batch, rope=False):
+def phase_train_parity(init_state, batch, rope=False, keep=False):
     '''First-step loss and gradient with drop-path off, for each backward mode under its
     pairing: the bf16 kernel path against the f32 plain path, whose error may be at most
     TRAIN_BF16_ERR_RATIO x the bf16 plain path's; and f32 kernel vs f32 plain at depth 2.
     The plain paths run under full remat (a policy never changes a result). With rope the
-    rope256 step on the batch with frame times.'''
+    rope256 step on the batch with frame times. Returns the relative errors, and with keep
+    also the losses and the gradients on the host that phase dp holds its ranks against:
+    the f32 and bf16 plain paths' and the step of record's (bf16, and f32 at depth 2).'''
+    kept = {}
     rel = lambda a, b: abs(a - b) / abs(b)
     plain = (STEP_OF_RECORD[0], 'full')
     cfg16, cfg32 = (train_config(dt, 0.0, pairing=plain, rope=rope)
@@ -896,6 +922,8 @@ def phase_train_parity(init_state, batch, rope=False):
     model = model_from(cfg16, init_state)
     loss_p, grad_p = loss_and_flat_grad(model, cfg16, batch, plain=True)
     del model
+    if keep:
+        kept.update(plain_f32=grad_r.cpu(), plain_bf16=grad_p.cpu())
     errs = {'loss_plain_bf16': rel(loss_p, loss_r), 'grad_plain_bf16': rel_l2(grad_p, grad_r)}
     losses = {'plain_bf16': loss_p, 'plain_f32': loss_r}
     del grad_p
@@ -908,6 +936,8 @@ def phase_train_parity(init_state, batch, rope=False):
         del model
         errs[f'loss_kernel_bf16_{mode}'] = rel(losses[f'kernel_bf16_{mode}'], loss_r)
         errs[f'grad_kernel_bf16_{mode}'] = rel_l2(grad_k, grad_r)
+        if keep and pairing == STEP_OF_RECORD:
+            kept['kernel_bf16'] = grad_k.cpu()
         del grad_k
     del grad_r
     with depth_preset(2, (D, HEADS)):
@@ -927,6 +957,8 @@ def phase_train_parity(init_state, batch, rope=False):
             errs[f'loss_kernel_vs_plain_f32_depth2_{mode}'] = rel(loss_k2,
                                                                   losses['plain_f32_depth2'])
             errs[f'grad_kernel_vs_plain_f32_depth2_{mode}'] = rel_l2(grad_k2, grad_p2)
+            if keep and pairing == STEP_OF_RECORD:
+                kept['kernel_f32_depth2'] = grad_k2.cpu()
     ratios = {}
     for mode, _ in PAIRINGS:
         for what in ('loss', 'grad'):
@@ -945,6 +977,8 @@ def phase_train_parity(init_state, batch, rope=False):
           'rel_err': errs,
           'bf16_err_ratio': ratios, 'bf16_err_ratio_limit': TRAIN_BF16_ERR_RATIO,
           'tol_f32_depth2': TOL_TRAIN_F32})
+    if keep:
+        return errs, dict(losses=losses, grads=kept)
     return errs
 
 
@@ -1355,6 +1389,38 @@ def write_dataset(root, splits, frames):
     return seconds, nbytes
 
 
+# The Kubric datasets the phases read, written on a thread while the kernels build
+# (prewrite_datasets): name -> future of (root, seconds, bytes on disk).
+DATA_DIR = _build.BUILD_DIR / 'chip_smoke_data'
+DATASETS = {}
+
+
+def dataset_specs():
+    '''name -> (splits, frames) of every dataset a phase reads.'''
+    return {'driver': (DRIVER_SPLITS, DRIVER_FRAMES),
+            'driver_rope': ((('train', ROPE_DRIVER_SCENES, SEED + 200),), ROPE_DRIVER_FRAMES),
+            'eval': ((('test', EVAL_SCENES, SEED + 300),), DRIVER_FRAMES),
+            'pth': ((('train', PTH_TRAIN_SCENES, SEED + 400),), DRIVER_FRAMES),
+            'stream_long': ((('test', STREAM_EVAL_SCENES, SEED + 300),), STREAM_EVAL_FRAMES)}
+
+
+def prewrite_datasets():
+    '''Starts writing every dataset of dataset_specs under DATA_DIR, one after another on
+    one thread; the writer's own threads use the cores that nvcc leaves idle.'''
+    shutil.rmtree(DATA_DIR, ignore_errors=True)
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    for name, (splits, frames) in dataset_specs().items():
+        root = DATA_DIR / name
+        DATASETS[name] = pool.submit(lambda r=root, sp=splits, f=frames:
+                                     (r, *write_dataset(r, sp, f)))
+    pool.shutdown(wait=False)
+
+
+def dataset(name):
+    '''(root, seconds its writing took, bytes) of a dataset of dataset_specs, once written.'''
+    return DATASETS[name].result()
+
+
 def parse_steps(log_text):
     return [json.loads(m.group(1)) for m in STEP_STATS.finditer(log_text)]
 
@@ -1696,11 +1762,9 @@ def phase_train_driver(workdir):
     per-step host times, the loader-wait share and peak memory of each run.'''
     out = {'cpu_count': os.cpu_count()}
     shutil.rmtree(workdir, ignore_errors=True)
-    root, rope_root = workdir / 'kubric', workdir / 'kubric_rope'
-    out['dataset_write_s'], out['dataset_bytes'] = write_dataset(root, DRIVER_SPLITS,
-                                                                 DRIVER_FRAMES)
-    out['rope_dataset_write_s'], out['rope_dataset_bytes'] = write_dataset(
-        rope_root, (('train', ROPE_DRIVER_SCENES, SEED + 200),), ROPE_DRIVER_FRAMES)
+    workdir.mkdir(parents=True)
+    root, out['dataset_write_s'], out['dataset_bytes'] = dataset('driver')
+    rope_root, out['rope_dataset_write_s'], out['rope_dataset_bytes'] = dataset('driver_rope')
     out.update(host_checks(root))
     emit({'phase': 'train_driver_host', **out})
 
@@ -1730,6 +1794,430 @@ def phase_train_driver(workdir):
     emit({'phase': 'train_driver', 'launches': launches, 'rope_launches': rope_launches,
           'resume_bit_equal': resume['bit_equal']})
     return {'launches': launches, 'rope_launches': rope_launches}
+
+
+# ---------------------------------------------------------------------------------------
+# Data parallelism: two ranks on the one card, one rank on NCCL, train_torch.py --multihost
+# ---------------------------------------------------------------------------------------
+
+# Ranks of phase dp: two "hosts" that share the one card (LOCAL_RANK 0 both), so the
+# backend rule picks gloo.
+DP_WORLD = 2
+DP_TIMEOUT_S = 300
+# f32 (TF32 off): the two-rank step's gradient against the one-process step's, at depth 2
+# and full width; only the order of the sums differs (the rows split over the ranks).
+TOL_DP_F32 = 1e-4
+
+
+def start_ranks(cmd, log_dir, name, world=DP_WORLD):
+    '''`cmd` as `world` ranks of one group on this card (RANK, WORLD_SIZE, LOCAL_RANK 0,
+    MASTER_ADDR, MASTER_PORT), each rank's output to <log_dir>/<name>_rank<r>.log.'''
+    port = mesh_lib.free_port()
+    ranks = []
+    for r in range(world):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK='0',
+                   MASTER_ADDR='127.0.0.1', MASTER_PORT=str(port))
+        fp = log_dir / f'{name}_rank{r}.log'
+        with open(fp, 'w') as log:
+            proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, env=env,
+                                    cwd=os.path.dirname(os.path.abspath(__file__)))
+        ranks.append((proc, fp))
+    return ranks
+
+
+def stop_ranks(ranks):
+    for p, _ in ranks:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def wait_ranks(ranks, name, timeout_s, poll=None):
+    '''Waits for every rank (calling poll() meanwhile); fails, stopping the others, when
+    one exits non-zero, after timeout_s or once ABORT is set. Returns each rank's log
+    text.'''
+    t0 = time.perf_counter()
+    try:
+        while any(p.poll() is None for p, _ in ranks):
+            if ABORT.is_set():
+                fail(f'{name}: stopped, another phase failed')
+            bad = [(r, p.returncode) for r, (p, _) in enumerate(ranks)
+                   if p.poll() not in (None, 0)]
+            if bad:
+                print(ranks[bad[0][0]][1].read_text()[-4000:], file=sys.stderr)
+                fail(f'{name}: rank {bad[0][0]} exited {bad[0][1]}')
+            if time.perf_counter() - t0 > timeout_s:
+                fail(f'{name}: the ranks took over {timeout_s} s')
+            if poll is not None:
+                poll()
+            time.sleep(0.05)
+        texts = [fp.read_text() for _, fp in ranks]
+        for r, (p, _) in enumerate(ranks):
+            if p.returncode != 0:
+                print(texts[r][-4000:], file=sys.stderr)
+                fail(f'{name}: rank {r} exited {p.returncode}')
+        return texts
+    finally:
+        stop_ranks(ranks)
+
+
+def dp_rank_main(out_dir):
+    '''One rank of phase dp (a), started by start_dp: draws the seeded init on the host,
+    waits for <out_dir>/go (phase_dp writes it once the card is free), joins the group
+    from the environment (the backend rule must pick gloo: both ranks are on cuda:0), runs
+    the step of record's global batch's rows of this rank under each pairing, then the
+    gradients of the parity pass, and writes <out_dir>/rank<r>.json (rank 0 also the
+    gradients, .pt). It leaves when its parent does.'''
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)   # the host init runs beside the main process's phases
+    out_dir = pathlib.Path(out_dir)
+    parent = os.getppid()
+    # The seeded init of init_train_state(SEED, ...), drawn once for every pass.
+    init = params_to_jax(step_lib.init_train_state(
+        SEED, train_config(torch.bfloat16), dp_optimizer(), device='cpu').model.state_dict())
+    deadline = time.perf_counter() + DP_TIMEOUT_S
+    while not (out_dir / 'go').exists():
+        if os.getppid() != parent or time.perf_counter() > deadline:
+            fail('dp rank: no go from chip_smoke.py')
+        time.sleep(0.05)
+    mesh = mesh_lib.make_mesh(DEV)
+    try:
+        if mesh.backend != 'gloo':
+            fail(f'dp rank {mesh.rank}: backend {mesh.backend} ({mesh.reason}), expected '
+                 'gloo for two ranks on one GPU')
+        out = dict(rank=mesh.rank, world=mesh.world, backend=mesh.backend,
+                   reason=mesh.reason, device=str(mesh.device))
+        batch = mesh_lib.shard_batch(train_batch(), mesh)
+        out['rows'] = int(batch['query_inds'].shape[0])
+        out['pairings'] = {'/'.join(p): dp_rank_pairing(mesh, p, batch, init)
+                           for p in PAIRINGS}
+        out['parity'] = dp_rank_parity(mesh, batch, out_dir, init)
+    finally:
+        mesh.close()
+    (out_dir / f'rank{mesh.rank}.json').write_text(json.dumps(out))
+
+
+def dp_optimizer():
+    return optim.make_optimizer('adamw', learn_rate=1e-4, num_epochs=70, steps_per_epoch=1000,
+                                gradient_clip=0.3)
+
+
+def dp_rank_pairing(mesh, pairing, batch, init):
+    '''phase_train's steps under one pairing on this rank's rows, from the JAX-layout tree
+    `init`: launches checked per step, the state placed from rank 0 and its replicas
+    compared after the steps; for the step of record the gradient all-reduce timed alone,
+    three times.'''
+    cfg = train_config(torch.bfloat16, pairing=pairing)
+    state = step_lib.init_train_state(SEED, cfg, dp_optimizer(), params=init, device=mesh.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mesh_lib.shard_state(state, mesh)
+    torch.cuda.synchronize()
+    place_ms = 1e3 * (time.perf_counter() - t0)
+    train_step = step_lib.make_train_step(cfg, mesh=mesh)
+    depth = cfg.seeker.network_depth
+    per_step = {k: PAIRINGS[pairing].get(k, 0) * 2 * depth for k in read_launches()}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    steps = []
+    for i in range(1 + TRAIN_STEPS):
+        counts = read_launches()
+        state, aux, ms, host_ms = timed_step(train_step, state, batch)
+        rec = dict(step=i, step_ms=ms, host_ms=host_ms, loss=float(aux['total_seeker']),
+                   grad_norm=float(aux['grad_norm']),
+                   skipped_nonfinite=float(aux['skipped_nonfinite']),
+                   launches={k: n - counts[k] for k, n in read_launches().items()})
+        steps.append(rec)
+        if not np.isfinite(rec['loss']) or rec['skipped_nonfinite'] != 0.0:
+            fail(f'dp {pairing} rank {mesh.rank} step {i}: loss {rec["loss"]}')
+        if rec['launches'] != per_step:
+            fail(f'dp {pairing} rank {mesh.rank} step {i}: launches {rec["launches"]}, '
+                 f'expected {per_step}')
+    out = dict(steps=steps, launches=read_launches(), launches_per_step=per_step,
+               step_ms=sum(r['step_ms'] for r in steps[1:]) / TRAIN_STEPS,
+               host_ms=sum(r['host_ms'] for r in steps[1:]) / TRAIN_STEPS,
+               peak=torch.cuda.max_memory_allocated(), place_ms=place_ms,
+               digest=mesh_lib.check_replicas(state, mesh))
+    if pairing == STEP_OF_RECORD:
+        grads = [p.grad for p in state.model.parameters() if p.grad is not None]
+        out['allreduce_bytes'] = sum(g.numel() * g.element_size() for g in grads)
+        out['allreduce_ms'] = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mesh_lib.all_reduce_grads(state.model.parameters(), mesh)
+            torch.cuda.synchronize()
+            out['allreduce_ms'].append(1e3 * (time.perf_counter() - t0))
+    del state, train_step
+    torch.cuda.empty_cache()
+    return out
+
+
+def flat_grad(model):
+    return torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).float().flatten()
+                      for p in model.parameters()])
+
+
+def dp_rank_parity(mesh, batch, out_dir, init):
+    '''The step of record's first-step gradients, drop-path off, summed over the ranks
+    (step.compute_gradients): bf16 at full depth from `init` and f32 at depth 2, the inits
+    of phase_train_parity; rank 0 saves them for phase_dp.'''
+    out = {}
+    cfg = train_config(torch.bfloat16, 0.0)
+    state = step_lib.init_train_state(SEED, cfg, dp_optimizer(), params=init, device=mesh.device)
+    out['loss_bf16'] = float(step_lib.compute_gradients(state, cfg, batch, TRAIN_PROGRESS,
+                                                        mesh=mesh)['total_seeker'])
+    if mesh.rank == 0:
+        torch.save(flat_grad(state.model).cpu(), out_dir / 'grad_bf16.pt')
+    del state
+    torch.cuda.empty_cache()
+    with depth_preset(2, (D, HEADS)):
+        cfg2 = train_config(torch.float32, 0.0, depth=2)
+        model = MaskTracker(cfg2.seeker, device=mesh.device)
+        model.init_params_(torch.Generator().manual_seed(SEED))
+        state2 = step_lib.TrainState(model, None, torch.Generator())
+        out['loss_f32_depth2'] = float(step_lib.compute_gradients(
+            state2, cfg2, batch, TRAIN_PROGRESS, mesh=mesh)['total_seeker'])
+        if mesh.rank == 0:
+            torch.save(flat_grad(model).cpu(), out_dir / 'grad_f32_depth2.pt')
+    return out
+
+
+def start_dp(workdir):
+    '''Starts phase dp (a)'s ranks (dp_rank_main), which draw their init on the host and
+    then wait for phase_dp's go.'''
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    return start_ranks([sys.executable, '-c',
+                        f'import chip_smoke as c; c.dp_rank_main({str(workdir)!r})'],
+                       workdir, 'dp')
+
+
+def phase_dp(ranks, parity, workdir):
+    '''(a) The step of record's global batch (2 clips x 3 queries) split over DP_WORLD
+    ranks that share the card (dp_rank_main, subprocesses): gloo asserted, every pairing's
+    launches per rank and step, replicas bit-identical (state digests), the all-reduced
+    gradients against phase_train_parity's one-process ones: the bf16 error against the
+    f32 plain path <= TRAIN_BF16_ERR_RATIO x the bf16 plain path's, f32 at depth 2 within
+    TOL_DP_F32 of the one-process step; per rank step ms, peak and the all-reduce's ms.
+    (b) The step of record at world size 1 on NCCL in this process, bit-equal to the
+    one-process step (phase_dp_nccl). `ranks` are start_dp's. Returns the launches of
+    both by path.'''
+    t0 = time.perf_counter()
+    (workdir / 'go').touch()
+    wait_ranks(ranks, 'dp', DP_TIMEOUT_S)
+    wall_s = time.perf_counter() - t0
+    res = [json.loads((workdir / f'rank{r}.json').read_text()) for r in range(DP_WORLD)]
+    for name in res[0]['pairings']:
+        digests = {r['pairings'][name]['digest'] for r in res}
+        if len(digests) != 1:
+            fail(f'dp {name}: the replicas differ after the steps: {digests}')
+    grads, losses = parity['grads'], parity['losses']
+    grad_dp = torch.load(workdir / 'grad_bf16.pt')
+    grad_dp2 = torch.load(workdir / 'grad_f32_depth2.pt')
+    rel = lambda a, b: abs(a - b) / abs(b)
+    loss_dp = res[0]['parity']['loss_bf16']
+    errs = {'grad_plain_bf16': rel_l2(grads['plain_bf16'], grads['plain_f32']),
+            'grad_dp_bf16': rel_l2(grad_dp, grads['plain_f32']),
+            'grad_dp_vs_one_process_bf16': rel_l2(grad_dp, grads['kernel_bf16']),
+            'loss_plain_bf16': rel(losses['plain_bf16'], losses['plain_f32']),
+            'loss_dp_bf16': rel(loss_dp, losses['plain_f32']),
+            'loss_dp_vs_one_process_bf16': rel(loss_dp, losses['kernel_bf16_kernel_x']),
+            'grad_dp_vs_one_process_f32_depth2': rel_l2(grad_dp2, grads['kernel_f32_depth2']),
+            'loss_dp_vs_one_process_f32_depth2': rel(
+                res[0]['parity']['loss_f32_depth2'], losses['kernel_f32_depth2_kernel_x'])}
+    ratios = {w: errs[f'{w}_dp_bf16'] / errs[f'{w}_plain_bf16'] for w in ('grad', 'loss')}
+    for what, ratio in ratios.items():
+        if not ratio <= TRAIN_BF16_ERR_RATIO:
+            fail(f'dp: bf16 {what} error of the two-rank step {errs[f"{what}_dp_bf16"]} > '
+                 f'{TRAIN_BF16_ERR_RATIO} x the plain path\'s {errs[f"{what}_plain_bf16"]}')
+    for what in ('grad', 'loss'):
+        if not errs[f'{what}_dp_vs_one_process_f32_depth2'] <= TOL_DP_F32:
+            fail(f'dp: f32 {what} of the two-rank step vs one process at depth 2 '
+                 f'{errs[f"{what}_dp_vs_one_process_f32_depth2"]} > {TOL_DP_F32}')
+    per_rank = [{'rank': r['rank'], 'backend': r['backend'], 'reason': r['reason'],
+                 'rows': r['rows'], 'pairings': {
+                     n: {k: v for k, v in p.items() if k not in ('steps', 'launches')}
+                     for n, p in r['pairings'].items()}} for r in res]
+    emit({'phase': 'dp', 'world': DP_WORLD, 'ranks_wall_s': wall_s, 'ranks': per_rank,
+          'rel_err': errs, 'bf16_err_ratio': ratios,
+          'bf16_err_ratio_limit': TRAIN_BF16_ERR_RATIO, 'tol_f32_depth2': TOL_DP_F32})
+    launches = {}
+    for name in res[0]['pairings']:
+        for k in read_launches():
+            n = sum(r['pairings'][name]['launches'][k] for r in res)
+            if n:
+                launches.setdefault(k, {})[f'dp_{name.split("/")[0]}'] = n
+    for k, n in phase_dp_nccl().items():
+        if n:
+            launches.setdefault(k, {})['dp_nccl'] = n
+    return launches
+
+
+def profile_step(step):
+    '''One call of step() under torch.profiler: host wall and device busy ms, and the
+    collectives it made: their count by profiler name and the device ms of NCCL's
+    kernels.'''
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    spans, collectives, nccl_us = [], {}, 0.0
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            spans.append((ev.time_range.start, ev.time_range.end))
+            if 'nccl' in ev.name.lower():
+                nccl_us += ev.time_range.end - ev.time_range.start
+        elif 'allreduce' in ev.name.lower().replace('_', ''):
+            collectives[ev.name] = collectives.get(ev.name, 0) + 1
+    busy_us, end = 0.0, float('-inf')
+    for s0, e in sorted(spans):
+        if e > end:
+            busy_us += e - max(s0, end)
+            end = e
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_us / 1e3, collectives=collectives,
+                nccl_kernel_ms=nccl_us / 1e3)
+
+
+def phase_dp_nccl():
+    '''The step of record (drop-path 0.1) at world size 1 on NCCL in this process against
+    the one-process step from the same init: after each of 1 + TRAIN_STEPS steps the loss,
+    the gradient norm and the state digest (parameters, AdamW moments, generator, counts)
+    bit-equal; then one more step of each under torch.profiler (profile_step: the
+    collectives' count and device time). Returns the compared NCCL steps' launches.'''
+    mesh = mesh_lib.make_mesh(DEV, rank=0, world=1, local_rank=0, addr='127.0.0.1',
+                              port=mesh_lib.free_port())
+    try:
+        if mesh.backend != 'nccl':
+            fail(f'dp_nccl: backend {mesh.backend} ({mesh.reason}) at world size 1')
+        cfg = train_config(torch.bfloat16)
+        one = step_lib.init_train_state(SEED, cfg, dp_optimizer(), device=DEV)
+        dp = mesh_lib.shard_state(step_lib.init_train_state(SEED, cfg, dp_optimizer(),
+                                                            device=DEV), mesh)
+        steps = (step_lib.make_train_step(cfg), step_lib.make_train_step(cfg, mesh=mesh))
+        batch = train_batch()
+        local = mesh_lib.shard_batch(batch, mesh)
+        recs, launches = [], dict.fromkeys(read_launches(), 0)
+        for i in range(1 + TRAIN_STEPS):
+            one, aux1, ms1, _ = timed_step(steps[0], one, batch)
+            counts = read_launches()
+            dp, aux2, ms2, _ = timed_step(steps[1], dp, local)
+            for k, n in launches_since(counts).items():
+                launches[k] += n
+            rec = dict(step=i, one_ms=ms1, nccl_ms=ms2,
+                       loss_bits_equal=float(aux1['total_seeker']) == float(aux2['total_seeker']),
+                       grad_norm_bits_equal=float(aux1['grad_norm']) == float(aux2['grad_norm']),
+                       state_bits_equal=(mesh_lib.state_digest(one)
+                                         == mesh_lib.state_digest(dp)))
+            recs.append(rec)
+            if not (rec['loss_bits_equal'] and rec['grad_norm_bits_equal']
+                    and rec['state_bits_equal']):
+                fail(f'dp_nccl step {i}: world size 1 on NCCL differs from one process: '
+                     f'{rec}')
+        prof = {'one_process': profile_step(lambda: steps[0](one, batch, TRAIN_PROGRESS)),
+                'nccl': profile_step(lambda: steps[1](dp, local, TRAIN_PROGRESS))}
+        del one, dp, steps
+        torch.cuda.empty_cache()
+    finally:
+        mesh.close()
+    emit({'phase': 'dp_nccl', 'backend': mesh.backend, 'reason': mesh.reason,
+          'steps': recs, 'launches': launches, 'profile': prof})
+    return launches
+
+
+# Phase dp (c): train_torch.py --multihost 1 as two ranks on the card, on the train_driver
+# dataset: one epoch of DRIVER_TRAIN_STEPS global steps (1 clip x 3 queries a rank).
+DP_DRIVER_RECORDS = {
+    'dpu': driver_records(1, val=False),
+    'dpp': driver_records(1, stop_after=(0, PREEMPT_STEPS_DONE - 1)),
+    'dpr': driver_records(1, start_step=PREEMPT_STEPS_DONE)}
+
+
+def phase_dp_driver(root, workdir):
+    '''(c) `python train_torch.py --multihost 1` as DP_WORLD ranks on the card
+    (start_ranks), on phase_train_driver's dataset at `root`: dpu, one uninterrupted epoch
+    without validation, runs beside dpp, the same epoch, whose rank 0 gets SIGTERM once
+    train step PREEMPT_STEPS_DONE - 2 has logged; dpr resumes dpp, with both val phases.
+    Each rank's log must hold exactly its steps (rank 0 also the vis step) with the
+    launches of DRIVER_PER_STEP, the backend gloo and no traceback; dpp leaves one
+    mid-epoch checkpoint of PREEMPT_STEPS_DONE steps; dpr's final state must equal dpu's
+    (bit for bit, else within TOL_RESUME). main runs it on a thread beside phases that
+    time nothing (start_dp_driver), so none of its times is a measurement. Returns the
+    launches of the two-rank runs.'''
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    out = {}
+    base = lambda name, *extra: [sys.executable, 'train_torch.py', *driver_argv(
+        root, workdir, name, '--num_epochs', '1', *extra), '--multihost', '1']
+    t0 = time.perf_counter()
+    whole = start_ranks(base('dpu', '--do_val_aug', '0', '--do_val_noaug', '0'), workdir,
+                        'dpu')
+    pre = start_ranks(base('dpp'), workdir, 'dpp')
+    sent = {}
+
+    def preempt():
+        proc, fp = pre[0]
+        if not sent and any(r['phase'] == 'train' and r['epoch'] == 0
+                            and r['step'] == PREEMPT_STEPS_DONE - 2
+                            for r in parse_steps(fp.read_text())):
+            time.sleep(0.1)   # past that step's own preemption check
+            proc.send_signal(signal.SIGTERM)
+            sent['dpp'] = time.perf_counter() - t0
+    try:
+        texts = {'dpp': wait_ranks(pre, 'dpp', RUN_TIMEOUT_S, preempt)}
+        ckpt = workdir / 'checkpoints' / 'dpp'
+        files = sorted(f.name for f in ckpt.glob('*.npz'))
+        meta = peek_meta(str(ckpt / 'checkpoint.npz'))
+        if files != ['checkpoint.npz'] or not (
+                meta['partial'] and meta['opt_restored']
+                and meta['steps_done_in_epoch'] == PREEMPT_STEPS_DONE):
+            fail(f'dpp: checkpoints {files}, {meta}')
+        texts['dpr'] = wait_ranks(start_ranks(base('dpp', '--resume', 'dpp'), workdir, 'dpr'),
+                                  'dpr', RUN_TIMEOUT_S)
+        texts['dpu'] = wait_ranks(whole, 'dpu', RUN_TIMEOUT_S)
+    finally:
+        stop_ranks(whole)
+    wall_s = time.perf_counter() - t0
+    dp_steps = []
+    for name, logs in texts.items():
+        for rank, text in enumerate(logs):
+            want = [r for r in DP_DRIVER_RECORDS[name] if rank == 0 or r[0] != 'vis']
+            steps = check_steps(f'{name} rank {rank}', text, want, DRIVER_PER_STEP)
+            where = {(r['rank'], r['world'], r['backend']) for r in steps}
+            if where != {(rank, DP_WORLD, 'gloo')}:
+                fail(f'{name} rank {rank}: step_stats of {where}')
+            dp_steps += steps
+            out[f'{name}_rank{rank}'] = epoch_stats(steps, text)
+    resume = compare_final_states(workdir / 'checkpoints' / 'dpu' / 'checkpoint.npz',
+                                  ckpt / 'checkpoint.npz')
+    launches = sum_launches(dp_steps)
+    emit({'phase': 'dp_driver', 'wall_s': wall_s, 'sigterm_at_s': sent, 'runs': out,
+          'preempt_checkpoint': {k: meta[k] for k in ('epoch', 'partial',
+                                                      'steps_done_in_epoch')},
+          'resume': resume, 'launches': launches})
+    return launches
+
+
+def start_dp_driver(root, workdir):
+    '''phase_dp_driver on a thread; returns a function that waits for it and returns its
+    launches (or raises what it raised). The thread's ranks are host-bound: their start,
+    the loaders and the checkpoints take most of their time, beside which the card does
+    the main thread's comparisons of kernels against plain versions.'''
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    future = pool.submit(phase_dp_driver, root, workdir)
+    pool.shutdown(wait=False)
+
+    def finish():
+        try:
+            return future.result()
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+    return finish
 
 
 # ---------------------------------------------------------------------------------------
@@ -1905,10 +2393,8 @@ def phase_eval(workdir):
     this process. Prints per-step host times, clips/s per source, the media time, peak
     memory and the video container written.'''
     shutil.rmtree(workdir, ignore_errors=True)
-    kubric_root = workdir / 'kubric_test'
     out = {}
-    out['dataset_write_s'], out['dataset_bytes'] = write_dataset(
-        kubric_root, (('test', EVAL_SCENES, SEED + 300),), DRIVER_FRAMES)
+    kubric_root, out['dataset_write_s'], out['dataset_bytes'] = dataset('eval')
     eval_checkpoint(workdir / 'checkpoints' / 'eval1')
     text, out['wall_s'] = run_eval(eval_argv(workdir, kubric_root), workdir / 'eval.log')
     faults = [f for f in EVAL_LOG_FAULTS if f in text]
@@ -2982,8 +3468,8 @@ class GemmCase:
 def gemm_cases():
     '''Every GemmCase of GEMM_SHAPES, WGRAD_SHAPES and COLSUM_SHAPES, one at a time.'''
     def rand(shape, seed, scale=1.0, dtype=torch.bfloat16):
-        a = np.random.RandomState(seed).randn(*shape).astype(np.float32) * scale
-        return torch.from_numpy(a).to(DEV, dtype)
+        gen = torch.Generator(device=DEV).manual_seed(seed)
+        return (torch.randn(shape, generator=gen, device=DEV) * scale).to(dtype)
 
     for i, (name, N, K, wt, has_bias, rows) in enumerate(GEMM_SHAPES):
         w = rand((N, K) if wt else (K, N), SEED + 700 + i, K ** -0.5, torch.float32)
@@ -3162,9 +3648,7 @@ def phase_pth(workdir):
                            launches=steps[0]['launches'])
 
     # (3) train_torch.py --tracker_pretrained <ViT-B/16 .pth>, one step.
-    root = workdir / 'kubric'
-    out['dataset_write_s'], _ = write_dataset(root, (('train', PTH_TRAIN_SCENES, SEED + 400),),
-                                              DRIVER_FRAMES)
+    root, out['dataset_write_s'], _ = dataset('pth')
     vit = imagenet_vit_b16(SEED + 8)
     vit_fp = workdir / 'vit_b16.pth'
     torch.save({'model': vit}, vit_fp)
@@ -3941,9 +4425,7 @@ def tools_stream_eval(workdir, ckpt):
     process, scene 0's unbounded stream (12 K1 a frame) against the offline forward at T =
     160 (24 K1: temporal 300 x 160 causal, spatial 160 x 301) within TOL_SEEKER_BF16.'''
     torch_stream_eval = importlib.import_module('torch_stream_eval')
-    root = workdir / 'kubric_long'
-    write_s, nbytes = write_dataset(root, (('test', STREAM_EVAL_SCENES, SEED + 300),),
-                                    STREAM_EVAL_FRAMES)
+    root, write_s, nbytes = dataset('stream_long')
     out_fp = workdir / 'stream_eval.json'
     _, wall_s = run_tool('torch_stream_eval.py', [
         '--resume', ckpt, '--data_path', root, '--num_frames', STREAM_EVAL_FRAMES,
@@ -4134,16 +4616,43 @@ def main():
     T0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    prewrite_datasets()
+    ranks = []
+    try:
+        return run_phases(ranks)
+    except BaseException:
+        ABORT.set()
+        raise
+    finally:
+        stop_ranks(ranks)
+        shutil.rmtree(DATA_DIR, ignore_errors=True)
+
+
+def run_phases(ranks):
+    '''Every phase, in order; `ranks` gets the subprocesses that outlive a phase, for main
+    to stop.'''
     smi = phase_device()
-    errs = phase_kernel_vs_plain()
-    k4_errs = phase_k4_vs_plain()
+    # The two-rank train_torch.py runs (host-bound) beside the phases that hold kernels
+    # against their plain versions and time nothing.
+    finish_dp_driver = start_dp_driver(dataset('driver')[0],
+                                       _build.BUILD_DIR / 'chip_smoke_dp_driver')
+    try:
+        errs = phase_kernel_vs_plain()
+        k4_errs = phase_k4_vs_plain()
+        new_errs = phase_new_kernels_vs_plain()
+        rope_errs = phase_rope_kernels_vs_plain()
+    except BaseException:
+        ABORT.set()
+        with contextlib.suppress(BaseException):
+            finish_dp_driver()
+        raise
+    dp_driver_launches = finish_dp_driver()
     ckpt_dir = _build.BUILD_DIR / 'chip_smoke_ckpt'
     try:
         params, cfg, inference_launches, inputs = phase_slice(ckpt_dir)
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     per_geom = phase_times(params, cfg, inputs)
-    new_errs = phase_new_kernels_vs_plain()
     trains = {}
     for pairing in PAIRINGS:
         trains[pairing] = phase_train(pairing)
@@ -4157,11 +4666,18 @@ def main():
          'launches_per_step': {k: n // (1 + TRAIN_STEPS) for k, n in t['launches'].items() if n}}
         for (m, p), t in trains.items()]})
     record = trains[STEP_OF_RECORD]
-    phase_train_parity(record['init_state'], record['batch'])
+    dp_dir = _build.BUILD_DIR / 'chip_smoke_dp'
+    ranks += start_dp(dp_dir)
+    _, parity = phase_train_parity(record['init_state'], record['batch'], keep=True)
     train_geom = phase_train_times(record)
     for key in ('state', 'train_step', 'batch', 'init_state'):
         del record[key]
     torch.cuda.empty_cache()
+    try:
+        dp_launches = phase_dp(ranks, parity, dp_dir)
+    finally:
+        shutil.rmtree(dp_dir, ignore_errors=True)
+    del parity
     try:
         device_side = phase_train_device_side(ckpt_dir)
     finally:
@@ -4169,7 +4685,7 @@ def main():
     driver_dir = _build.BUILD_DIR / 'chip_smoke_driver'
     try:
         driver = phase_train_driver(driver_dir)
-        data_tools = data_tools_run(driver_dir / 'kubric')
+        data_tools = data_tools_run(dataset('driver')[0])
     finally:
         shutil.rmtree(driver_dir, ignore_errors=True)
     eval_dir = _build.BUILD_DIR / 'chip_smoke_eval'
@@ -4190,7 +4706,6 @@ def main():
     serve = phase_serve(stream.pop('params'), stream.pop('cfg'))
     torch.cuda.empty_cache()
 
-    rope_errs = phase_rope_kernels_vs_plain()
     try:
         rope_inference_launches = phase_rope_slice(ckpt_dir)
     finally:
@@ -4235,12 +4750,14 @@ def main():
     source = 'tcow_tpu_torch/ops/csrc/fused_attention.cu'
     replaces = 'tcow_tpu/ops/pallas_attention.py:'
     # The device side of training runs the step of record's kernels, K1 and K4, and so
-    # does the driver (train_torch.py); its rope256 run K1, K1r, K4 and K4r.
+    # does the driver (train_torch.py; its two-rank runs under dp_driver); its rope256
+    # run K1, K1r, K4 and K4r.
     def device_side_launches(kernel):
         return {'train_device_side': device_side['launches'][kernel],
                 'train_driver': driver['launches'].get(kernel, 0),
                 'train_driver_rope': driver['rope_launches'].get(kernel, 0),
-                'pth': pth['launches'].get(kernel, 0)}
+                'pth': pth['launches'].get(kernel, 0),
+                'dp_driver': dp_driver_launches.get(kernel, 0)}
     k1 = kernel_entry('fused_attention', source, replaces + '87',
                       {'inference': inference_launches, **train_launches('K1'),
                        **device_side_launches('K1'),
@@ -4249,7 +4766,7 @@ def main():
                        'stream_clips': stream['clip_launches']['K1'],
                        'stream_eval': stream['eval_launches']['K1'],
                        **serve['launches'], **joint_launches['K1'], **vitl_launches['K1'],
-                       **tools_launches}, errs, per_geom)
+                       **tools_launches, **dp_launches.get('K1', {})}, errs, per_geom)
     k1['per_geometry_train'] = train_geom['K1']
     # The stream's spatial call (1 x 301) and a 4-session server tick's (4 x 301).
     k1['per_geometry_stream'] = stream['k1']
@@ -4265,6 +4782,7 @@ def main():
             launches.update(device_side_launches('K4'))
         launches.update(joint_launches.get(kernel, {}))
         launches.update(vitl_launches.get(kernel, {}))
+        launches.update(dp_launches.get(kernel, {}))
         entries.append(kernel_entry(name, source, replaces + line, launches, kerrs,
                                     train_geom[kernel]))
     # The rope variants: the rotation in _kernel (:120-136) for the forwards, in

@@ -3,9 +3,13 @@ The flags of the port: a copy of tcow_tpu/config.py (the shared, train and test 
 verify_args, args_to_dict, build_seeker_args), so the JAX package's train and eval
 commands run unchanged against train_torch.py and eval_torch.py.
 
---device defaults to cuda and accepts cpu. Flags of what the port does not run raise
-NotImplementedError from verify_args, naming the ROADMAP.md item that holds them:
---mesh_devices > 1, --seq_shards, --tp_shards or --pp_stages > 1 and --multihost (item 7).
+--device defaults to cuda and accepts cpu. Training runs data-parallel: --mesh_devices N
+(train_torch.py starts N ranks, one per GPU; -1 = every visible GPU, one on the CPU) or
+--multihost 1 (this process is one rank of a world its launcher describes in RANK,
+WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT). Flags of what the port does not run
+raise NotImplementedError from verify_args, naming the ROADMAP.md item that holds them:
+--seq_shards, --tp_shards or --pp_stages > 1 (item 7), and --mesh_devices > 1 or
+--multihost for evaluation (item 7).
 Every other flag parses and behaves as in the JAX package; --resume and
 --tracker_pretrained take a reference .pth too (models/torch_import.py).
 '''
@@ -57,10 +61,12 @@ def shared_args(parser: argparse.ArgumentParser):
     parser.add_argument('--train_log_path', default='', type=str)
     parser.add_argument('--log_path', default='', type=str)
     parser.add_argument('--wandb_group', default='group', type=str)
-    # Resource options. The port runs one device: the parallel layouts (mesh, sequence,
-    # tensor, pipeline, multi-host) parse and raise in verify_args.
+    # Resource options. Training runs data-parallel over --mesh_devices ranks or the
+    # --multihost world; the sequence, tensor and pipeline layouts parse and raise in
+    # verify_args.
     parser.add_argument('--mesh_devices', default=-1, type=int,
-                        help='Number of devices in the mesh; -1 = all (one in the port).')
+                        help='Data-parallel ranks of a train run, one per GPU; -1 = every '
+                             'visible GPU (one on the CPU).')
     parser.add_argument('--seq_shards', default=1, type=int,
                         help='Sequence-parallel shards (second mesh axis).')
     parser.add_argument('--tp_shards', default=1, type=int,
@@ -86,7 +92,9 @@ def shared_args(parser: argparse.ArgumentParser):
                              '(on for a CUDA run, host-side on the CPU), 0 forces the '
                              'host colour path, 1 the device.')
     parser.add_argument('--multihost', default=False, type=_str2bool,
-                        help='Multi-host execution; not ported.')
+                        help='Train as one rank of the world that the environment '
+                             'describes (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, '
+                             'MASTER_PORT; torchrun sets them).')
     parser.add_argument('--h2d_prefetch', default=True, type=_str2bool,
                         help='Copy the NEXT batch to the device on a side stream while '
                              'the current step executes (one-deep double buffering from '
@@ -114,7 +122,9 @@ def train_args(argv=None):
                              'state (a --checkpoint_light save), reinitializing the AdamW '
                              'moments/LR step. Off by default: the driver instead falls '
                              'back to the newest full-state model_{e}.npz snapshot in the '
-                             'same directory, or refuses.')
+                             'same directory, or refuses. Also lets a resume with another '
+                             'number of ranks than the checkpoint\'s sample the train '
+                             'queries afresh.')
     parser.add_argument('--learn_rate', default=1e-4, type=float)
     parser.add_argument('--lr_decay', default=0.3, type=float)
     parser.add_argument('--do_val_aug', default=True, type=_str2bool)
@@ -207,13 +217,15 @@ def test_args(argv=None):
     return args
 
 
-def _refuse_unported(args):
+def _refuse_unported(args, is_train: bool):
     unported = [
-        (args.mesh_devices > 1, '--mesh_devices > 1', 7),
-        (args.seq_shards > 1, '--seq_shards > 1', 7),
-        (args.tp_shards > 1, '--tp_shards > 1', 7),
-        (args.pp_stages > 1, '--pp_stages > 1', 7),
-        (bool(args.multihost), '--multihost', 7),
+        (args.seq_shards > 1, '--seq_shards > 1', '7, sequence parallelism'),
+        (args.tp_shards > 1, '--tp_shards > 1', '7, tensor parallelism'),
+        (args.pp_stages > 1, '--pp_stages > 1', '7, pipeline parallelism'),
+        (not is_train and args.mesh_devices > 1, '--mesh_devices > 1 for evaluation',
+         '7, data-parallel evaluation'),
+        (not is_train and bool(args.multihost), '--multihost for evaluation',
+         '7, data-parallel evaluation'),
     ]
     for bad, flag, item in unported:
         if bad:
@@ -234,7 +246,7 @@ def verify_args(args, is_train: bool = False):
     bare --resume (train), the debug flag, the test batch from --test_device_batch, the
     worker count, the resolved resume path, and the checkpoint and log directories; a
     test run logs under <log_root>/<resumed experiment>/test_<name>_e<epoch>.'''
-    _refuse_unported(args)
+    _refuse_unported(args, is_train)
     if is_train and args.resume != '' and args.name == '':
         # Continue the SAME experiment: under the resumed run's own name, or for a
         # checkpoint FILE path under its directory's basename.

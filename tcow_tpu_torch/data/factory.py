@@ -25,6 +25,7 @@ import torch
 
 from tcow_tpu_torch.data import kubric as kubric_lib
 from tcow_tpu_torch.data import plugin as plugin_lib
+from tcow_tpu_torch.parallel.mesh import shard_rows
 
 # Process workers are forked from a forkserver, never from the trainer: the trainer has
 # touched CUDA and runs threads by the time a pool starts, and a child forked from it
@@ -67,16 +68,19 @@ class PrefetchLoader:
 
     shard_rank/shard_count: each process loads ONLY its batch_size / shard_count rows of
     every global batch (rows [rank*B_local, (rank+1)*B_local) of the shared same-seed
-    global order).'''
+    global order); with microbatches = A > 1 (the train step's grad_accum) its rows of
+    each of the A microbatches in turn (parallel/mesh.py:shard_rows), collated in that
+    order, as A consecutive batches of batch_size / A would be.'''
 
     def __init__(self, dataset, batch_size: int, collate_fn: Callable, shuffle: bool,
                  drop_last: bool, num_workers: int = 2, prefetch_depth: int = 2,
                  seed: int = 0, worker_mode: str = 'thread',
-                 shard_rank: int = 0, shard_count: int = 1):
+                 shard_rank: int = 0, shard_count: int = 1, microbatches: int = 1):
         if worker_mode not in ('thread', 'process'):
             raise ValueError(f'worker_mode must be thread or process, got {worker_mode}')
-        if not 0 <= shard_rank < shard_count or batch_size % shard_count:
+        if not 0 <= shard_rank < shard_count:
             raise ValueError(f'bad shard {shard_rank}/{shard_count} of batch {batch_size}')
+        self.rows = shard_rows(batch_size, shard_rank, shard_count, microbatches)
         self.dataset = dataset
         self.batch_size = batch_size
         self.collate_fn = collate_fn
@@ -168,9 +172,7 @@ class PrefetchLoader:
         '''Starts the producer thread for this epoch; returns (queue, stop_event).'''
         batches = self.batch_order()[start_step:]
         if self.shard_count > 1:
-            b_local = self.batch_size // self.shard_count
-            lo = self.shard_rank * b_local
-            batches = [b[lo:lo + b_local] for b in batches]
+            batches = [b[self.rows] for b in batches]
 
         q: 'queue.Queue' = queue.Queue(maxsize=prefetch_depth or self.prefetch_depth)
         stop = threading.Event()
@@ -237,10 +239,11 @@ def kubric_dset_args(args) -> Dict[str, Any]:
 
 def create_train_val_data_loaders(args, logger, shard=(0, 1)):
     '''(train_loader, val_aug_loader, val_noaug_loader, dset_args_sources).
-    shard=(process_index, process_count) makes each process load only its rows of every
-    global batch.'''
+    shard=(rank, world) makes each rank load only its rows of every global batch: the
+    train loader's interleaved per microbatch under --grad_accum (PrefetchLoader).'''
     dset_args_sources = {}
     loaders = {}
+    accum = max(1, int(getattr(args, 'grad_accum', 1)))
     for cur_data_path in args.data_path:
         if is_plugin_source(cur_data_path):
             raise NotImplementedError('Plugin video is only available at test time.')
@@ -261,7 +264,8 @@ def create_train_val_data_loaders(args, logger, shard=(0, 1)):
                                             drop_last=True,
                                             num_workers=min(args.num_workers, cap),
                                             seed=args.seed, worker_mode=mode,
-                                            shard_rank=shard[0], shard_count=shard[1])
+                                            shard_rank=shard[0], shard_count=shard[1],
+                                            microbatches=accum if phase == 'train' else 1)
     return loaders['train'], loaders['val_aug'], loaders['val_noaug'], dset_args_sources
 
 

@@ -157,15 +157,19 @@ class MaskTracker(nn.Module):
 
     def forward(self, input_frames: torch.Tensor, query_mask: torch.Tensor,
                 train: bool = False, generator: Optional[torch.Generator] = None,
-                frame_times: Optional[torch.Tensor] = None
+                frame_times: Optional[torch.Tensor] = None,
+                drop_path_rows: Optional[Tuple[int, int]] = None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        '''train=True with a generator applies stochastic depth drawn from it.
+        '''train=True with a generator applies stochastic depth drawn from it; with
+        drop_path_rows = (start, total) the B clips are rows [start, start + B) of a batch
+        of `total`, whose masks are drawn (timesformer.draw_drop_path_masks).
         frame_times (B, T): true source timestamps for time-calibrated rope, read only
         under cfg.temporal_rope (mask_tracker.py:185-201).'''
         cfg = self.cfg
         B, _, T, _, _ = input_frames.shape
         x = torch.cat([input_frames.float(), query_mask.float()], dim=1)
-        feats, _ = self.backbone(x, train=train, generator=generator, frame_times=frame_times)
+        feats, _ = self.backbone(x, train=train, generator=generator, frame_times=frame_times,
+                                 drop_path_rows=drop_path_rows)
         feats = feats.permute(0, 2, 3, 4, 1)                  # (B, T, H', W', D)
         Ho, Wo = feats.shape[2], feats.shape[3]
         p, C = cfg.patch_size, cfg.output_channels

@@ -235,21 +235,25 @@ class DropPathMasks:
 
 
 def draw_drop_path_masks(generator: torch.Generator, rate: float, depth: int, B: int, N: int,
-                         T: int, device, divided: bool = True) -> list:
+                         T: int, device, divided: bool = True,
+                         rows: Optional[Tuple[int, int]] = None) -> list:
     '''Every block's masks for one forward, drawn up front from `generator` (as JAX splits
     the block keys before the scan, :769-771) and moved to `device` once. Drawing outside
     the blocks keeps them fixed when a rematerialized block is recomputed in the backward
     pass. Per-block rates are linspace(0, rate, depth) (:767); a row survives when its
-    uniform draw is below keep = 1 - rate. divided=False draws a joint block's masks.'''
+    uniform draw is below keep = 1 - rate. divided=False draws a joint block's masks.
+    rows = (start, total): the B rows are rows [start, start + B) of a batch of `total`
+    (one rank's rows under data parallelism): the masks of all `total` rows are drawn, so
+    the generator advances as for the whole batch, and these rows' are kept.'''
+    start, total = (0, B) if rows is None else rows
     keep = 1.0 - torch.linspace(0.0, rate, depth, dtype=torch.float32)
-    draw = lambda *shape: (torch.rand((depth,) + shape, generator=generator,
-                                      device=generator.device)
-                           < keep.to(generator.device).reshape((depth,) + (1,) * len(shape)))
+    draw = lambda *shape: (torch.rand((depth, total) + shape, generator=generator,
+                                      device=generator.device)[:, start:start + B]
+                           < keep.to(generator.device).reshape((depth,) + (1,) * (len(shape) + 1)))
     if divided:
-        keep, temporal, spatial, mlp = (t.to(device) for t in (keep, draw(B, N), draw(B, T),
-                                                               draw(B)))
+        keep, temporal, spatial, mlp = (t.to(device) for t in (keep, draw(N), draw(T), draw()))
         return [DropPathMasks(keep[i], temporal[i], spatial[i], mlp[i]) for i in range(depth)]
-    keep, spatial, mlp = (t.to(device) for t in (keep, draw(B), draw(B)))
+    keep, spatial, mlp = (t.to(device) for t in (keep, draw(), draw()))
     return [DropPathMasks(keep[i], None, spatial[i], mlp[i]) for i in range(depth)]
 
 
@@ -396,14 +400,16 @@ class TimeSformer(nn.Module):
                     blk.temporal_fc.w.zero_()
 
     def forward(self, pixels: torch.Tensor, train: bool = False,
-                generator: torch.Generator = None, frame_times: torch.Tensor = None):
+                generator: torch.Generator = None, frame_times: torch.Tensor = None,
+                drop_path_rows: Optional[Tuple[int, int]] = None):
         '''train with a generator and drop_path_rate > 0 draws drop-path masks from the
-        generator; with cfg.remat and gradients on, each group of cfg.remat_group blocks is
-        recomputed in the backward pass (torch.utils.checkpoint), except the outputs that
-        cfg.remat_policy
-        keeps (`remat_saved_ops`): under 'full' the attention forwards run again, under
-        the '_out' policies they do not. frame_times (B, T): the clip's true source
-        timestamps, read only under cfg.temporal_rope (None means 0..T-1).'''
+        generator (for rows drop_path_rows of a larger batch when given,
+        draw_drop_path_masks); with cfg.remat and gradients on, each group of
+        cfg.remat_group blocks is recomputed in the backward pass (torch.utils.checkpoint),
+        except the outputs that cfg.remat_policy keeps (`remat_saved_ops`): under 'full'
+        the attention forwards run again, under the '_out' policies they do not.
+        frame_times (B, T): the clip's true source timestamps, read only under
+        cfg.temporal_rope (None means 0..T-1).'''
         cfg = self.cfg
         B, C, T, H, W = pixels.shape
         p, D = cfg.patch_size, cfg.embed_dim
@@ -437,7 +443,7 @@ class TimeSformer(nn.Module):
         masks = [None] * cfg.depth
         if train and cfg.drop_path_rate > 0.0 and generator is not None:
             masks = draw_drop_path_masks(generator, cfg.drop_path_rate, cfg.depth, B, N, T,
-                                         x.device, cfg.divided)
+                                         x.device, cfg.divided, drop_path_rows)
         remat = cfg.remat and torch.is_grad_enabled()
         kw = {}
         if cfg.remat_policy != 'full':

@@ -5,7 +5,7 @@ tcow_tpu/objectives/metrics.py (:19-108).
 Binary IoU (output logit > 0 vs target > 0.5) per (batch, query, channel, frame) for six
 families; frames with empty or negative (unannotated) targets are excluded, and each
 family reports a (sum, count) pair, finalized to mean_* / count_* (mean -1.0 when the
-count is 0).
+count is 0). With a process group the sums cover every rank's rows.
 '''
 
 from typing import Dict, List
@@ -13,15 +13,18 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from tcow_tpu_torch.parallel.mesh import all_sum
+
 METRIC_KEYS = ('snitch_iou', 'occl_mask_iou', 'cont_mask_iou',
                'snitch_during_vis_iou', 'snitch_during_occl_iou', 'snitch_during_cont_iou')
 
 
-def mask_track_metric_sums(output_mask: torch.Tensor, target_mask: torch.Tensor
-                           ) -> Dict[str, torch.Tensor]:
+def mask_track_metric_sums(output_mask: torch.Tensor, target_mask: torch.Tensor,
+                           group=None) -> Dict[str, torch.Tensor]:
     '''
     :param output_mask (B, Q, Co, T, H, W) logits, Co in {1, 3}.
     :param target_mask (B, Q, Ct, T, H, W), Ct in {1, 3}; negative values mark unannotated.
+    :param group process group whose ranks' rows form the batch (one all_reduce), or None.
     :return dict mapping 'sum_<k>' / 'count_<k>' to f32 scalar tensors.
     '''
     out_b, tgt_b = torch.broadcast_tensors(output_mask > 0.0, target_mask > 0.5)
@@ -55,6 +58,9 @@ def mask_track_metric_sums(output_mask: torch.Tensor, target_mask: torch.Tensor
             family(name, none, iou[:, :, 0])
 
     sums.update(counts)
+    if group is not None:
+        keys = list(sums)
+        sums = dict(zip(keys, all_sum(torch.stack([sums[k] for k in keys]), group).unbind(0)))
     return sums
 
 

@@ -24,6 +24,17 @@ the kernel launches it made and, on the GPU, the peak of torch.cuda.max_memory_a
 so far. A vis step that ran logs a line of its own after its step's (phase 'vis': its
 host wall time, the overlay rendering included, and launches); its videos are encoded on
 the logger's threads and waited for at the end of the epoch.
+
+Data parallelism (tcow_tpu/train/driver.py:160-199, :329, :357-390, :538-552, :660-675):
+with --multihost 1 this process is one rank of the world its launcher describes (RANK,
+WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT; train_torch.py --mesh_devices N starts N
+such ranks). Each rank loads its rows of every global batch, rank 0's state is broadcast
+to all (parallel/mesh.py:shard_state), the train and eval steps reduce over the group,
+rank 0 alone writes checkpoints (with every rank's loader state) and renders the vis step
+from its own rows, and rank 0's SIGTERM flag is broadcast once per step and at the epoch
+boundaries, so every rank leaves at the same step. A step that raises on one rank cannot
+be skipped by the others: under a mesh it ends the run. Every step_stats line carries
+the rank, the world size and the backend.
 '''
 
 import json
@@ -44,6 +55,7 @@ from tcow_tpu_torch.models.mask_tracker import SeekerConfig, seeker_config_from_
 from tcow_tpu_torch.objectives import metrics as metrics_lib
 from tcow_tpu_torch.objectives.losses import LossConfig
 from tcow_tpu_torch.ops import fused_attention as fa
+from tcow_tpu_torch.parallel import mesh as mesh_lib
 from tcow_tpu_torch.train import checkpoint as ckpt_lib
 from tcow_tpu_torch.train import optim, step as step_lib
 from tcow_tpu_torch.weights import params_from_jax, params_to_jax
@@ -113,11 +125,7 @@ def _host_state(state: step_lib.TrainState, full: bool, copy: bool):
     state in place: the JAX-layout parameters and, when full, the optax-layout optimizer
     state, the step and the generator's bytes. copy: CPU tensors share their memory with
     the arrays, so those are copied.'''
-    def own(tree):
-        if not copy:
-            return tree
-        return {k: own(v) if isinstance(v, dict) else np.array(v, copy=True)
-                for k, v in tree.items()}
+    own = mesh_lib.fetch_global if copy else (lambda tree: tree)
 
     params = own(params_to_jax(state.model.state_dict()))
     if not full:
@@ -126,8 +134,59 @@ def _host_state(state: step_lib.TrainState, full: bool, copy: bool):
             state.generator.get_state().numpy().copy())
 
 
+class _StopFlag:
+    '''The SIGTERM flag as the ranks agree on it: check() returns rank 0's flag on every
+    rank (one broadcast under a mesh, none once they have agreed to stop), and `stopped`
+    holds the agreed value since. Every rank calls check() at the same points.'''
+
+    def __init__(self, mesh):
+        self.event = threading.Event()
+        self.mesh = mesh
+        self.stopped = False
+
+    def check(self) -> bool:
+        if not self.stopped:
+            self.stopped = mesh_lib.broadcast_one_to_all(self.event.is_set(), self.mesh)
+        return self.stopped
+
+
+def join_mesh(args, logger):
+    '''The DataMesh of a --multihost rank (None for one process), checked against the
+    flags: --mesh_devices, when given, must equal the world size, and batch_size /
+    grad_accum must divide by it (the world is fixed: no ranks are dropped).'''
+    if not args.multihost:
+        if args.mesh_devices > 1:
+            raise ValueError('--mesh_devices > 1 starts its ranks through train_torch.py; '
+                             'each rank runs with --multihost 1')
+        return None
+    resolve_device(args.device)
+    mesh = mesh_lib.make_mesh(args.device)
+    logger.info(f'Data mesh: rank {mesh.rank} of {mesh.world} on {mesh.device}, backend '
+                f'{mesh.backend} ({mesh.reason})')
+    try:
+        if args.mesh_devices > 0 and args.mesh_devices != mesh.world:
+            raise ValueError(f'--mesh_devices {args.mesh_devices} but the world has '
+                             f'{mesh.world} ranks')
+        mesh_lib.shard_rows(args.batch_size, mesh.rank, mesh.world,
+                            max(1, int(getattr(args, 'grad_accum', 1))))
+    except ValueError:
+        mesh.close()
+        raise
+    return mesh
+
+
 def main(args, logger):
-    device = resolve_device(args.device)
+    mesh = join_mesh(args, logger)
+    try:
+        return _train(args, logger, mesh)
+    finally:
+        if mesh is not None:
+            mesh.close()
+
+
+def _train(args, logger, mesh):
+    device = mesh.device if mesh is not None else resolve_device(args.device)
+    rank = 0 if mesh is None else mesh.rank
     logger.save_args(args, 'train')
     np.random.seed(args.seed)
     random.seed(args.seed)
@@ -136,7 +195,7 @@ def main(args, logger):
     # wandb gradations: 0 = scalars + media online, 1 = scalars only, 2 = fully offline
     # (scalars.jsonl is always written regardless).
     avoid_wandb = int(getattr(args, 'avoid_wandb', 0))
-    if avoid_wandb < 2:
+    if avoid_wandb < 2 and rank == 0:
         logger.init_wandb('tcow', args, name=args.name or None,
                           group=getattr(args, 'wandb_group', 'train'))
     logger.log_media_online = (avoid_wandb == 0)
@@ -158,7 +217,8 @@ def main(args, logger):
 
     start_time = time.time()
     train_loader, val_aug_loader, val_noaug_loader, dset_args = \
-        factory.create_train_val_data_loaders(args, logger)
+        factory.create_train_val_data_loaders(
+            args, logger, shard=(rank, 1 if mesh is None else mesh.world))
     logger.info(f'Data loaders ready ({time.time() - start_time:.3f}s)')
     steps_per_epoch = len(train_loader)
 
@@ -214,21 +274,40 @@ def main(args, logger):
                            'optimizer/LR-schedule state is REINITIALIZED '
                            '(--allow_opt_reinit).')
 
+    if mesh is not None:
+        mesh_lib.shard_state(state, mesh)
     grad_accum = max(1, int(getattr(args, 'grad_accum', 1)))
     if grad_accum > 1 and args.batch_size % grad_accum != 0:
         raise ValueError(f'batch_size {args.batch_size} must be divisible by '
                          f'grad_accum {grad_accum}')
-    train_step = step_lib.make_train_step(step_cfg, grad_accum=grad_accum)
-    eval_step = step_lib.make_eval_step(step_cfg)
-    vis_step = step_lib.make_vis_step(step_cfg)
+    train_step = step_lib.make_train_step(step_cfg, grad_accum=grad_accum, mesh=mesh)
+    eval_step = step_lib.make_eval_step(step_cfg, mesh=mesh)
+    # Rank 0 renders the vis step from its own rows; it runs no collective.
+    vis_step = step_lib.make_vis_step(step_cfg) if rank == 0 else None
 
     ckpt_thread = [None]
     # The train loader's query-sampling stream after the last batch a step consumed:
     # saved with each checkpoint, so that a resumed run samples the queries an
     # uninterrupted run would.
+    # One stream a rank ('train_collate_rng_by_rank'); a checkpoint written before ranks
+    # holds the one process's as 'train_collate_rng'.
     collate_rng = [None]
     if args.resume and loaded.get('loader_state'):
-        train_loader.collate_fn.restore(loaded['loader_state']['train_collate_rng'])
+        ls = loaded['loader_state']
+        by_rank = ls.get('train_collate_rng_by_rank') or [ls['train_collate_rng']]
+        world = 1 if mesh is None else mesh.world
+        if len(by_rank) == world:
+            train_loader.collate_fn.restore(by_rank[rank])
+        elif allow_opt_reinit:
+            logger.warning(f'The checkpoint holds the loader state of {len(by_rank)} '
+                           f'rank(s), this run has {world}: queries are sampled afresh '
+                           '(--allow_opt_reinit).')
+        else:
+            raise ValueError(
+                f'{args.resume}: the checkpoint holds the loader state of {len(by_rank)} '
+                f'rank(s), this run has {world}, so the resume would not sample the '
+                'queries an uninterrupted run samples. Resume with the same world size, '
+                'or pass --allow_opt_reinit 1 to sample them afresh.')
 
     def checkpoint_fn(epoch, final: bool = False, steps_done=None):
         if not args.checkpoint_path:
@@ -242,11 +321,16 @@ def main(args, logger):
         # (preemption) save is always full: it IS the state to resume from.
         full = (not getattr(args, 'checkpoint_light', False) or final or epoch < 0
                 or steps_done is not None or epoch % args.checkpoint_every == 0)
+        # Every rank samples its own rows' queries: rank 0 saves every rank's stream.
+        by_rank = ([collate_rng[0]] if mesh is None
+                   else mesh_lib.gather_objects(collate_rng[0], mesh))
+        loader_state = (None if by_rank[0] is None
+                        else {'train_collate_rng_by_rank': by_rank})
+        if rank != 0:
+            return   # one writer; the state is replicated
         # Taken now, on this thread: the next step updates the state in place.
         params, opt_state, step, generator_state = _host_state(
             state, full, copy=device.type == 'cpu')
-        loader_state = (None if collate_rng[0] is None
-                        else {'train_collate_rng': collate_rng[0]})
 
         def write():
             ckpt_lib.save_checkpoint(
@@ -275,23 +359,23 @@ def main(args, logger):
 
     # Preemption safety (--preempt_save, on by default): SIGTERM finishes the in-flight
     # step, writes a FULL mid-epoch checkpoint, and exits cleanly; --resume continues that
-    # epoch at that step.
-    stop_event = threading.Event()
+    # epoch at that step. Under a mesh rank 0's flag decides for every rank (_StopFlag).
+    stop = _StopFlag(mesh)
     old_sigterm = None
     if getattr(args, 'preempt_save', True) \
             and threading.current_thread() is threading.main_thread():
         def _on_sigterm(signum, frame):
-            stop_event.set()
+            stop.event.set()
             logger.warning('SIGTERM received: finishing the current step, writing a '
                            'mid-epoch checkpoint, then exiting.')
         old_sigterm = signal.signal(signal.SIGTERM, _on_sigterm)
     else:
-        stop_event = None
+        stop = None
 
     total_steps_all = args.num_epochs * steps_per_epoch
     try:
         for epoch in range(start_epoch, args.num_epochs):
-            if stop_event is not None and stop_event.is_set():
+            if stop is not None and stop.check():
                 logger.warning(f'Preempted: exiting before epoch {epoch}.')
                 break
             ep_start = start_step if epoch == start_epoch else 0
@@ -306,17 +390,16 @@ def main(args, logger):
             state, steps_done, rng_after = _run_one_epoch(
                 args, logger, device, state, train_step, None, train_loader, 'train',
                 epoch, steps_per_epoch, total_steps_all, vis_step=vis_step,
-                start_step=ep_start, stop_event=stop_event)
+                start_step=ep_start, stop=stop, mesh=mesh)
             collate_rng[0] = rng_after or collate_rng[0]
-            if stop_event is not None and stop_event.is_set() \
-                    and steps_done < steps_per_epoch:
+            if stop is not None and stop.stopped and steps_done < steps_per_epoch:
                 checkpoint_fn(epoch, steps_done=steps_done)
                 logger.warning(f'Preempted: mid-epoch checkpoint at epoch {epoch}, '
                                f'step {steps_done}/{steps_per_epoch}; exiting.')
                 break
             checkpoint_fn(epoch, final=(epoch == args.num_epochs - 1))
             logger.epoch_finished(epoch)
-            if stop_event is not None and stop_event.is_set():
+            if stop is not None and stop.check():
                 logger.warning(f'Preempted: exiting after completed epoch {epoch}.')
                 break
             if epoch % args.val_every == 0:
@@ -325,7 +408,7 @@ def main(args, logger):
                     if on and vl is not None:
                         _run_one_epoch(args, logger, device, state, None, eval_step, vl,
                                        phase, epoch, steps_per_epoch, total_steps_all,
-                                       stop_event=stop_event)
+                                       stop=stop, mesh=mesh)
                 logger.epoch_finished(epoch)
     finally:
         if old_sigterm is not None:
@@ -441,12 +524,12 @@ class _H2DPrefetcher:
 
 def _run_one_epoch(args, logger, device, state, train_step, eval_step, loader, phase, epoch,
                    steps_per_epoch, total_steps_all, vis_step=None, start_step=0,
-                   stop_event=None):
+                   stop=None, mesh=None):
     '''Returns (state, steps_done, rng_after) where steps_done counts completed steps of
     this epoch INCLUDING the skipped prefix (start_step, a mid-epoch resume point) and
     rng_after is the collate stream's state after the last completed step's batch (None
-    without one). stop_event set -> leave after the in-flight step completes (preemption
-    checkpointing).'''
+    without one). stop.check() true -> leave after the in-flight step completes
+    (preemption checkpointing); it runs once per iteration on every rank.'''
     logger.info('=' * 32)
     logger.info(f'Epoch (1-based): {epoch + 1} / {args.num_epochs}  phase: {phase}'
                 + (f'  (resuming at step {start_step})' if start_step else ''))
@@ -455,6 +538,8 @@ def _run_one_epoch(args, logger, device, state, train_step, eval_step, loader, p
     num_exceptions = 0
     is_train = (phase == 'train')
     debug = logger.debug_enabled()
+    where = ({'rank': 0, 'world': 1, 'backend': None} if mesh is None else
+             {'rank': mesh.rank, 'world': mesh.world, 'backend': mesh.backend})
 
     profile_dir = getattr(args, 'profile_dir', '')
     profile_start = min(2, max(len(loader) - 1, 0))  # short epochs still get a trace
@@ -485,7 +570,7 @@ def _run_one_epoch(args, logger, device, state, train_step, eval_step, loader, p
                 profiler = _start_profiler(device)
                 logger.info(f'torch.profiler trace started -> {profile_dir}')
             if profiler is not None and cur_step == profile_start + 3:
-                _stop_profiler(profiler, profile_dir, logger)
+                _stop_profiler(profiler, profile_dir, logger, where['rank'])
                 profiler = None
             total_step = cur_step + steps_per_epoch * epoch
             progress = total_step / max(total_steps_all, 1)
@@ -499,7 +584,7 @@ def _run_one_epoch(args, logger, device, state, train_step, eval_step, loader, p
                 else:
                     aux = eval_step(state.model, device_batch, progress)
                 if debug:
-                    stats = {'phase': phase, 'epoch': epoch, 'step': cur_step}
+                    stats = {'phase': phase, 'epoch': epoch, 'step': cur_step, **where}
                     if device.type == 'cuda':
                         torch.cuda.synchronize(device)
                         stats['max_memory_allocated'] = torch.cuda.max_memory_allocated(device)
@@ -525,14 +610,14 @@ def _run_one_epoch(args, logger, device, state, train_step, eval_step, loader, p
                     else:
                         if debug:
                             vis_stats = {'phase': 'vis', 'epoch': epoch, 'step': cur_step,
-                                         'wall_ms': (time.time() - t_vis) * 1e3,
+                                         **where, 'wall_ms': (time.time() - t_vis) * 1e3,
                                          'launches': fa.launches_since(counts)}
             except Exception as e:  # noqa: BLE001 — the tolerated-exception budget
                 num_exceptions += 1
-                if num_exceptions >= MAX_EXCEPTIONS_PER_EPOCH:
+                if num_exceptions >= MAX_EXCEPTIONS_PER_EPOCH or mesh is not None:
                     raise
                 logger.exception(e)
-                if stop_event is not None and stop_event.is_set():
+                if stop is not None and stop.check():
                     logger.warning(f'[{phase}] stopping after failed step {cur_step} '
                                    f'(preemption requested).')
                     break
@@ -545,7 +630,7 @@ def _run_one_epoch(args, logger, device, state, train_step, eval_step, loader, p
             if cur_step >= 100 and args.is_debug:
                 logger.warning('Cutting epoch short for debugging...')
                 break
-            if stop_event is not None and stop_event.is_set():
+            if stop is not None and stop.check():
                 logger.warning(f'[{phase}] stopping after step {cur_step} '
                                f'(preemption requested).')
                 break
@@ -554,7 +639,7 @@ def _run_one_epoch(args, logger, device, state, train_step, eval_step, loader, p
         if prefetcher is not None:
             prefetcher.close()
         if profiler is not None:
-            _stop_profiler(profiler, profile_dir, logger)
+            _stop_profiler(profiler, profile_dir, logger, where['rank'])
     if pending_aux is not None:
         _log_step_scalars(logger, phase, epoch, pending_step, len(loader), pending_aux)
     wall = time.time() - start_time
@@ -579,11 +664,11 @@ def _start_profiler(device):
     return profiler
 
 
-def _stop_profiler(profiler, profile_dir, logger):
+def _stop_profiler(profiler, profile_dir, logger, rank=0):
     import os
     profiler.stop()
     os.makedirs(profile_dir, exist_ok=True)
-    path = os.path.join(profile_dir, 'trace.json')
+    path = os.path.join(profile_dir, 'trace.json' if rank == 0 else f'trace_rank{rank}.json')
     profiler.export_chrome_trace(path)
     logger.info(f'torch.profiler trace stopped -> {path}')
 

@@ -5,6 +5,12 @@ computes the losses and metric sums, backpropagates (every attention backward th
 FusedAttention: K4 on the card) and applies one optimizer update, skipped when the loss
 is not finite.
 
+Under data parallelism (a DataMesh from parallel/mesh.py, `mesh=`) each rank runs the step
+on its rows of the global batch (mesh.shard_batch): the losses and metric sums reduce over
+the group, each rank draws the global batch's drop-path masks and keeps its rows, the
+gradients are summed over the ranks after the backward, and the clip and the non-finite
+skip follow from the global loss and norm, so every rank keeps the same replica.
+
 Batch schema (numpy arrays or tensors; the step moves them to the model's device):
   rgb           (B, 3, T, H, W) float32  (or uint8 'rgb_u8', scaled by 1/255 on device)
   segm          (B, T, H, W)    int32    1-based visible instance IDs (or uint8 'segm_u8')
@@ -32,6 +38,7 @@ from tcow_tpu_torch.objectives import metrics as metrics_lib
 from tcow_tpu_torch.objectives import supervision
 from tcow_tpu_torch.objectives.losses import LossConfig
 from tcow_tpu_torch.ops import device_augs
+from tcow_tpu_torch.parallel import mesh as mesh_lib
 from tcow_tpu_torch.train.optim import Optimizer, OptimizerSpec, global_norm
 from tcow_tpu_torch.weights import params_from_jax
 
@@ -102,10 +109,11 @@ def build_supervision(cfg: StepConfig, batch) -> Dict[str, torch.Tensor]:
 
 
 def _forward_queries(model: MaskTracker, cfg: StepConfig, batch, sup, train: bool,
-                     generator: Optional[torch.Generator]):
+                     generator: Optional[torch.Generator], mesh=None):
     '''The seeker on all (example, query) pairs as one folded batch (step.py:63-85), every
     query of an example on its clock when rope_time_coords is set (:73-77). Returns
-    output_mask (B, Q, C, T, H, W) and output_flags (B, Q, T, F) or None.'''
+    output_mask (B, Q, C, T, H, W) and output_flags (B, Q, T, F) or None. Under a mesh the
+    B x Q folded rows are rank r's of the world's, whose drop-path masks are drawn.'''
     B, Q = batch['query_inds'].shape
     rgb = batch['rgb']
     _, _, T, H, W = rgb.shape
@@ -114,8 +122,9 @@ def _forward_queries(model: MaskTracker, cfg: StepConfig, batch, sup, train: boo
     frame_times = None
     if cfg.seeker.rope_time_coords and 'frame_times' in batch:
         frame_times = batch['frame_times'][:, None].expand(B, Q, T).reshape(B * Q, T)
+    rows = None if mesh is None else (mesh.rank * B * Q, mesh.world * B * Q)
     out_mask, out_flags = model(rgb_q, qmask, train=train, generator=generator,
-                                frame_times=frame_times)
+                                frame_times=frame_times, drop_path_rows=rows)
     out_mask = out_mask.reshape(B, Q, cfg.seeker.output_channels, T, H, W)
     if out_flags is not None:
         out_flags = out_flags.reshape(B, Q, T, -1)
@@ -123,15 +132,19 @@ def _forward_queries(model: MaskTracker, cfg: StepConfig, batch, sup, train: boo
 
 
 def _outputs_and_losses(model, cfg: StepConfig, batch, generator, progress, train: bool,
-                        per_example: bool = False):
+                        per_example: bool = False, mesh=None):
     '''(losses, metric sums, output_mask, output_flags, supervision) of one batch; with
     per_example the losses and metric sums of each example on its own (B = 1 slices of
     the batched outputs, as step.py:262-274 vmaps them) stacked with a leading B axis,
-    and the snitch weights without the slice's axis of 1.'''
+    and the snitch weights without the slice's axis of 1. Under a mesh the batch is this
+    rank's rows and the losses and metric sums are the global batch's.'''
+    if per_example and mesh is not None:
+        raise ValueError('per-example losses are per clip: run them without a mesh')
+    group = None if mesh is None else mesh.group
     device = next(model.parameters()).device
     batch = unpack_batch(batch, device)
     sup = build_supervision(cfg, batch)
-    out_mask, out_flags = _forward_queries(model, cfg, batch, sup, train, generator)
+    out_mask, out_flags = _forward_queries(model, cfg, batch, sup, train, generator, mesh)
     # (B, Q, T, 3) occlusion fractions of the selected queries.
     B = batch['query_inds'].shape[0]
     sel_occl_fracs = batch['occl_fracs'][torch.arange(B, device=device)[:, None],
@@ -139,8 +152,9 @@ def _outputs_and_losses(model, cfg: StepConfig, batch, generator, progress, trai
     rows = [slice(b, b + 1) for b in range(B)] if per_example else [slice(None)]
     per = [(losses_lib.compute_losses(
         cfg.loss, out_mask[sl], sup['target_mask'][sl], sel_occl_fracs[sl],
-        sup['snitch_occl_by_ptr'][sl], batch['query_time'], progress),
-        metrics_lib.mask_track_metric_sums(out_mask[sl].detach(), sup['target_mask'][sl]))
+        sup['snitch_occl_by_ptr'][sl], batch['query_time'], progress, group),
+        metrics_lib.mask_track_metric_sums(out_mask[sl].detach(), sup['target_mask'][sl],
+                                           group))
         for sl in rows]
     if not per_example:
         return (*per[0], out_mask, out_flags, sup)
@@ -151,11 +165,13 @@ def _outputs_and_losses(model, cfg: StepConfig, batch, generator, progress, trai
     return loss_retval, msums, out_mask, out_flags, sup
 
 
-def loss_and_aux(model, cfg: StepConfig, batch, generator, progress, train: bool):
+def loss_and_aux(model, cfg: StepConfig, batch, generator, progress, train: bool,
+                 mesh=None):
     '''(total loss, aux of losses and metric sums) of one batch, differentiable in the
-    model's parameters; `generator` draws the drop-path masks when training.'''
+    model's parameters; `generator` draws the drop-path masks when training. Under a
+    mesh, the global batch's loss from this rank's rows.'''
     loss_retval, msums, *_ = _outputs_and_losses(model, cfg, batch, generator, progress,
-                                                 train)
+                                                 train, mesh=mesh)
     aux = {k: loss_retval[k] for k in ('track', 'occl_mask', 'cont_mask', 'total_seeker')}
     aux['metric_sums'] = msums
     return loss_retval['total_seeker'], aux
@@ -180,7 +196,38 @@ def split_microbatches(batch, grad_accum: int):
     return parts
 
 
-def make_train_step(cfg: StepConfig, grad_accum: int = 1):
+def compute_gradients(state: TrainState, cfg: StepConfig, batch, progress,
+                      grad_accum: int = 1, mesh=None):
+    '''The step up to the update: the gradients of the batch's loss in the parameters'
+    .grad and the aux of make_train_step without skipped_nonfinite and grad_norm. Under a
+    mesh the gradients and the metric sums are summed over the ranks, so that every rank
+    holds the global batch's.'''
+    A = int(grad_accum)
+    model = state.model
+    model.zero_grad(set_to_none=True)
+    aux_sum = None
+    for part in (split_microbatches(batch, A) if A > 1 else (batch,)):
+        loss, aux = loss_and_aux(model, cfg, part, state.generator, progress, True, mesh)
+        loss.backward()
+        aux = {k: ({m: t.detach() for m, t in v.items()} if k == 'metric_sums'
+                   else v.detach()) for k, v in aux.items()}
+        aux_sum = aux if aux_sum is None else {
+            k: ({m: t + v[m] for m, t in aux_sum[k].items()} if k == 'metric_sums'
+                else aux_sum[k] + v) for k, v in aux.items()}
+    aux = aux_sum
+    if A > 1:
+        inv = 1.0 / A
+        for p in model.parameters():
+            if p.grad is not None:
+                p.grad.mul_(inv)
+        # The metric sums are counts: summed over the microbatches, not averaged.
+        aux = {k: (v if k == 'metric_sums' else v * inv) for k, v in aux.items()}
+    if mesh is not None:
+        mesh_lib.all_reduce_grads(model.parameters(), mesh)
+    return aux
+
+
+def make_train_step(cfg: StepConfig, grad_accum: int = 1, mesh=None):
     '''Returns train_step(state, batch, progress) -> (state, aux). The state is updated in
     place. aux holds the losses and metric sums of step.py:137-143 (0-d tensors, the
     losses detached), skipped_nonfinite (1.0 when the update was skipped) and grad_norm,
@@ -192,31 +239,19 @@ def make_train_step(cfg: StepConfig, grad_accum: int = 1):
     gradients are summed in the parameters' .grad and scaled by 1/grad_accum, the losses
     averaged and the metric sums summed, then one clip and one update, skipped when the
     averaged loss is not finite. The drop-path masks of each microbatch are drawn from
-    the state's generator in turn.'''
+    the state's generator in turn.
+
+    With a mesh (parallel/mesh.py) `batch` is this rank's rows (mesh.shard_batch with the
+    same grad_accum): each microbatch's losses are the global microbatch's, and the
+    gradients are summed over the ranks (compute_gradients) before the clip and the
+    update, which every rank then takes alike.'''
     A = int(grad_accum)
     if A < 1:
         raise ValueError(f'grad_accum must be >= 1, got {grad_accum}')
 
     def train_step(state: TrainState, batch, progress):
-        model = state.model
-        model.zero_grad(set_to_none=True)
-        aux_sum = None
-        for part in (split_microbatches(batch, A) if A > 1 else (batch,)):
-            loss, aux = loss_and_aux(model, cfg, part, state.generator, progress, True)
-            loss.backward()
-            aux = {k: ({m: t.detach() for m, t in v.items()} if k == 'metric_sums'
-                       else v.detach()) for k, v in aux.items()}
-            aux_sum = aux if aux_sum is None else {
-                k: ({m: t + v[m] for m, t in aux_sum[k].items()} if k == 'metric_sums'
-                    else aux_sum[k] + v) for k, v in aux.items()}
-        grads = [p.grad for p in model.parameters() if p.grad is not None]
-        aux = aux_sum
-        if A > 1:
-            inv = 1.0 / A
-            for g in grads:
-                g.mul_(inv)
-            # The metric sums are counts: summed over the microbatches, not averaged.
-            aux = {k: (v if k == 'metric_sums' else v * inv) for k, v in aux.items()}
+        aux = compute_gradients(state, cfg, batch, progress, A, mesh)
+        grads = [p.grad for p in state.model.parameters() if p.grad is not None]
         loss = aux['total_seeker']
         grad_norm = global_norm(grads)
         ok = bool(torch.isfinite(loss))
@@ -230,7 +265,8 @@ def make_train_step(cfg: StepConfig, grad_accum: int = 1):
     return train_step
 
 
-def make_eval_step(cfg: StepConfig, return_outputs: bool = False, per_example: bool = False):
+def make_eval_step(cfg: StepConfig, return_outputs: bool = False, per_example: bool = False,
+                   mesh=None):
     '''Returns eval_step(model, batch, progress) -> dict of losses and metric sums, with no
     gradients and no drop-path. With return_outputs the dict also carries output_mask,
     output_flags, target_mask, seeker_query_mask and snitch_weights.
@@ -238,12 +274,13 @@ def make_eval_step(cfg: StepConfig, return_outputs: bool = False, per_example: b
     per_example (implies return_outputs, step.py:225-289): one batched forward, then the
     losses and metric sums of each example computed on its own B = 1 slice, so that each
     is what a forward of that clip alone gives; every loss and metric sum has a leading
-    B axis.'''
+    B axis. Under a mesh (not with per_example) the losses and metric sums are the global
+    batch's, from this rank's rows.'''
 
     def eval_step(model, batch, progress):
         with torch.no_grad():
             loss_retval, msums, out_mask, out_flags, sup = _outputs_and_losses(
-                model, cfg, batch, None, progress, False, per_example)
+                model, cfg, batch, None, progress, False, per_example, mesh)
         out = {k: loss_retval[k] for k in ('track', 'occl_mask', 'cont_mask', 'total_seeker')}
         out['metric_sums'] = msums
         if return_outputs or per_example:

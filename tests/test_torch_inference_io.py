@@ -112,7 +112,8 @@ def test_import_without_jax_or_tcow_tpu():
         "            'config', 'utils.logvis', 'train.driver', 'utils.visualization',\n"
         "            'data.plugin', 'evaluation.inference', 'evaluation.test_driver',\n"
         "            'evaluation.pick_represent', 'models.streaming', 'serving',\n"
-        "            'models.torch_import', 'models.resnet', 'utils.misc')}\n"
+        "            'models.torch_import', 'models.resnet', 'utils.misc',\n"
+        "            'parallel.mesh')}\n"
         "assert named <= set(mods), named - set(mods)\n"
         "import chip_smoke, train_torch, eval_torch\n"
         "sys.path.insert(0, 'tools')\n"

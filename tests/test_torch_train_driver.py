@@ -183,7 +183,7 @@ def test_port_preempted_run_resumes_bit_equal(synth_root6, tmp_path, tiny, monke
     assert loaded['partial'] is True
     assert loaded['epoch'] == 0 and loaded['steps_done_in_epoch'] == 2
     assert loaded['opt_restored'] is True
-    assert 'train_collate_rng' in loaded['loader_state']
+    assert len(loaded['loader_state']['train_collate_rng_by_rank']) == 1
     assert not (ckpt_dir / 'model_0.npz').exists()
 
     monkeypatch.setattr(pdriver, '_log_step_scalars', real_log)
@@ -196,6 +196,32 @@ def test_port_preempted_run_resumes_bit_equal(synth_root6, tmp_path, tiny, monke
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
     final = pckpt.peek_meta(str(ckpt_dir / 'checkpoint.npz'))
     assert final['partial'] is False and final['epoch'] == 1
+
+
+def _set_loader_state(path, loader_state):
+    with np.load(path) as z:
+        payload = {k: z[k] for k in z.files}
+    meta = json.loads(payload['__meta__'].tobytes())
+    meta['loader_state'] = loader_state
+    payload['__meta__'] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
+    np.savez(path, **payload)
+
+
+def test_port_resume_checks_the_loader_state_s_world_size(synth_root, tmp_path, tiny):
+    '''The checkpoint holds one query stream a rank. A one-process resume of two ranks'
+    streams raises unless --allow_opt_reinit (queries then sampled afresh); a checkpoint
+    written before ranks (one 'train_collate_rng') still resumes.'''
+    one_epoch = ('--num_epochs', '1', '--do_val_aug', '0')
+    run(make_args(synth_root, tmp_path, name='pws', extra=one_epoch))
+    path = str(tmp_path / 'checkpoints' / 'pws' / 'checkpoint.npz')
+    stream, = pckpt.peek_meta(path)['loader_state']['train_collate_rng_by_rank']
+    _set_loader_state(path, {'train_collate_rng_by_rank': [stream, stream]})
+    with pytest.raises(ValueError, match='loader state of 2 rank'):
+        run(make_args(synth_root, tmp_path, name='pws', resume='pws', extra=one_epoch))
+    run(make_args(synth_root, tmp_path, name='pws', resume='pws',
+                  extra=(*one_epoch, '--allow_opt_reinit', '1')))
+    _set_loader_state(path, {'train_collate_rng': stream})
+    run(make_args(synth_root, tmp_path, name='pws', resume='pws', extra=one_epoch))
 
 
 def test_port_light_resume_gate_and_full_snapshot_fallback(synth_root, tmp_path, tiny):
@@ -231,8 +257,8 @@ def test_port_exception_budget_and_ba_save(synth_root, tmp_path, tiny, monkeypat
     real = pstep.make_train_step
     failures = []
 
-    def flaky(cfg, grad_accum=1):
-        step = real(cfg, grad_accum)
+    def flaky(cfg, grad_accum=1, mesh=None):
+        step = real(cfg, grad_accum, mesh)
 
         def wrapped(state, batch, progress):
             if not failures:
@@ -247,7 +273,7 @@ def test_port_exception_budget_and_ba_save(synth_root, tmp_path, tiny, monkeypat
     snap = pckpt.load_checkpoint(str(tmp_path / 'checkpoints' / 'pba1' / 'model_-1.npz'))
     assert snap['epoch'] == -1 and snap['opt_restored']
 
-    def broken(cfg, grad_accum=1):
+    def broken(cfg, grad_accum=1, mesh=None):
         def step(state, batch, progress):
             raise RuntimeError('always fails')
         return step
@@ -258,12 +284,17 @@ def test_port_exception_budget_and_ba_save(synth_root, tmp_path, tiny, monkeypat
         run(make_args(synth_root, tmp_path, name='pbud', extra=['--do_val_aug', '0']))
 
 
-@pytest.mark.parametrize('flags', [['--mesh_devices', '2'], ['--seq_shards', '2'],
-                                   ['--tp_shards', '2'], ['--pp_stages', '2'],
-                                   ['--multihost', '1']])
+@pytest.mark.parametrize('flags', [['--mesh_devices', '2', '--seq_shards', '2'],
+                                   ['--seq_shards', '2'], ['--tp_shards', '2'],
+                                   ['--pp_stages', '2'], ['--multihost', '1', '--tp_shards', '2']])
 def test_port_unported_flags_raise(synth_root, tmp_path, flags):
+    '''Data parallelism (--mesh_devices, --multihost) parses; the sequence, tensor and
+    pipeline layouts raise, alone or beside it.'''
     with pytest.raises(NotImplementedError, match='ROADMAP.md section 1 item'):
         make_args(synth_root, tmp_path, extra=flags)
+    dp = [f for f in flags if f in ('--mesh_devices', '--multihost')]
+    if dp:
+        make_args(synth_root, tmp_path, extra=[dp[0], flags[flags.index(dp[0]) + 1]])
 
 
 def test_port_driver_trains_with_host_colour_augs(synth_root, tmp_path, tiny):
