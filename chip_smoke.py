@@ -156,7 +156,21 @@ Drives the PyTorch port (tcow_tpu_torch) on one NVIDIA GPU and checks it:
      step at world size 1 on NCCL bit-equal to one process; `python train_torch.py
      --multihost 1` as two ranks: a SIGTERM to rank 0 stops both after the same step with
      one mid-epoch checkpoint, and the resume ends bit-equal to an uninterrupted two-rank
-     run.
+     run;
+ 25. tensor parallelism (phases tp and tp_grid after dp, tp_driver on a thread beside the
+     phases of item 2, on its own 4-scene dataset): the step of record's batch on one data
+     row of two model ranks that share the card (gloo, asserted), each running K1-K6 on
+     its half of every attention call's rows (900 x 30 and 90 x 301 at the step of
+     record, recorded): 24 K1 + 24 K4 per rank and step at depth 12 and each other
+     pairing's launches at depth 2, the replicated tensors and the shards compared by
+     digest, the gathered first-step gradients against train_parity's (bf16 ratio, f32 at
+     depth 2), per rank step ms, peak and the model-axis collectives per step (count,
+     bytes, ms in the instrumented warm-up step); four ranks as (data 2, model 2), the f32 depth-2 gradient against one process;
+     `train_torch.py --multihost 1 --tp_shards 2` as two ranks for one epoch of 2 steps
+     at full width and depth 2, its checkpoint in the one-process layout loaded into a
+     one-process state on the card, bit for bit; which of all_gather_into_tensor,
+     reduce_scatter_tensor, all_to_all_single and send / recv gloo runs on CUDA tensors
+     (phase gloo_probe, on a thread beside the kernel checks).
 
 The Kubric datasets are written on a thread while the kernels build; the inputs of the
 kernel comparisons and timings are drawn on the card.
@@ -209,11 +223,13 @@ from tcow_tpu_torch.ops import _build
 from tcow_tpu_torch.ops import fused_attention as fa
 from tcow_tpu_torch.ops import rope as rope_lib
 from tcow_tpu_torch.parallel import mesh as mesh_lib
+from tcow_tpu_torch.parallel import tensor as tensor_lib
 from tcow_tpu_torch.train import driver as train_driver
 from tcow_tpu_torch.train import optim
 from tcow_tpu_torch.train import step as step_lib
-from tcow_tpu_torch.train.checkpoint import (flatten_with_paths, load_checkpoint, peek_meta,
-                                             save_checkpoint, save_train_state)
+from tcow_tpu_torch.train.checkpoint import (flatten_with_paths, load_checkpoint,
+                                             opt_state_to_jax, peek_meta, save_checkpoint,
+                                             save_train_state)
 from tcow_tpu_torch.weights import params_to_jax
 
 SEED = 0
@@ -299,7 +315,7 @@ def fail(msg):
 T0 = time.perf_counter()
 
 
-# Phases on other threads (start_dp_driver) print through emit too, and stop their
+# Phases on other threads (start_host_run) print through emit too, and stop their
 # subprocesses once ABORT is set.
 EMIT_LOCK = threading.Lock()
 ABORT = threading.Event()
@@ -798,13 +814,16 @@ def train_config(dtype, drop_path_rate=0.1, depth=12, pairing=STEP_OF_RECORD, ro
     return step_lib.StepConfig(seeker=seeker, loss=LossConfig(), num_queries=queries)
 
 
-def train_batch(rope=False):
-    '''The synthetic batch of record; with rope also its seeded frame times (B, T).'''
-    T, H, W = (SEEKER_ARGS[k] for k in ('num_total_frames', 'frame_height', 'frame_width'))
-    b = synthetic_device_batch(0, B=TRAIN_B, Q=TRAIN_Q, T=T, H=H, W=W, M=TRAIN_M, K=TRAIN_K)
-    if rope:
-        b['frame_times'] = synthetic_frame_times(SEED, TRAIN_B, T, ROPE_FRAME_STRIDE)
-    return {k: torch.as_tensor(v, device=DEV) for k, v in b.items()}
+def train_batch(rope=False, host=None):
+    '''The synthetic batch of record on the card (from `host`, its numpy arrays, when
+    given); with rope also its seeded frame times (B, T).'''
+    if host is None:
+        T, H, W = (SEEKER_ARGS[k] for k in ('num_total_frames', 'frame_height', 'frame_width'))
+        host = synthetic_device_batch(0, B=TRAIN_B, Q=TRAIN_Q, T=T, H=H, W=W, M=TRAIN_M,
+                                      K=TRAIN_K)
+        if rope:
+            host['frame_times'] = synthetic_frame_times(SEED, TRAIN_B, T, ROPE_FRAME_STRIDE)
+    return {k: torch.as_tensor(v, device=DEV) for k, v in host.items()}
 
 
 def step_flops(cfg):
@@ -1401,6 +1420,7 @@ def dataset_specs():
             'driver_rope': ((('train', ROPE_DRIVER_SCENES, SEED + 200),), ROPE_DRIVER_FRAMES),
             'eval': ((('test', EVAL_SCENES, SEED + 300),), DRIVER_FRAMES),
             'pth': ((('train', PTH_TRAIN_SCENES, SEED + 400),), DRIVER_FRAMES),
+            'tp_driver': ((('train', TP_DRIVER_SCENES, SEED + 500),), DRIVER_FRAMES),
             'stream_long': ((('test', STREAM_EVAL_SCENES, SEED + 300),), STREAM_EVAL_FRAMES)}
 
 
@@ -2121,6 +2141,8 @@ def phase_dp_nccl():
                      f'{rec}')
         prof = {'one_process': profile_step(lambda: steps[0](one, batch, TRAIN_PROGRESS)),
                 'nccl': profile_step(lambda: steps[1](dp, local, TRAIN_PROGRESS))}
+        if not sum(prof['nccl']['collectives'].values()):
+            fail(f'dp_nccl: the profiled NCCL step made no all-reduce: {prof["nccl"]}')
         del one, dp, steps
         torch.cuda.empty_cache()
     finally:
@@ -2147,7 +2169,7 @@ def phase_dp_driver(root, workdir):
     launches of DRIVER_PER_STEP, the backend gloo and no traceback; dpp leaves one
     mid-epoch checkpoint of PREEMPT_STEPS_DONE steps; dpr's final state must equal dpu's
     (bit for bit, else within TOL_RESUME). main runs it on a thread beside phases that
-    time nothing (start_dp_driver), so none of its times is a measurement. Returns the
+    time nothing (start_host_run), so none of its times is a measurement. Returns the
     launches of the two-rank runs.'''
     shutil.rmtree(workdir, ignore_errors=True)
     workdir.mkdir(parents=True)
@@ -2203,13 +2225,15 @@ def phase_dp_driver(root, workdir):
     return launches
 
 
-def start_dp_driver(root, workdir):
-    '''phase_dp_driver on a thread; returns a function that waits for it and returns its
-    launches (or raises what it raised). The thread's ranks are host-bound: their start,
-    the loaders and the checkpoints take most of their time, beside which the card does
-    the main thread's comparisons of kernels against plain versions.'''
+def start_host_run(phase, *args):
+    '''phase(*args) (phase_dp_driver, phase_tp_driver, phase_gloo_probe; the last argument
+    their work directory) on a thread; returns a function that waits for it and returns
+    its result (or raises what it raised). The thread's ranks are host-bound: their start,
+    the loaders and the checkpoints take most of their time, beside which the card does the
+    main thread's comparisons of kernels against plain versions.'''
+    workdir = args[-1]
     pool = concurrent.futures.ThreadPoolExecutor(1)
-    future = pool.submit(phase_dp_driver, root, workdir)
+    future = pool.submit(phase, *args)
     pool.shutdown(wait=False)
 
     def finish():
@@ -2218,6 +2242,536 @@ def start_dp_driver(root, workdir):
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
     return finish
+
+
+# ---------------------------------------------------------------------------------------
+# Tensor parallelism: two model ranks on the card, a (data 2, model 2) grid, and
+# train_torch.py --tp_shards 2
+# ---------------------------------------------------------------------------------------
+
+# Phase tp: one data row of two model ranks that share the one card (gloo); phase tp_grid:
+# two data rows of two.
+TP_MODEL = 2
+TP_GRID_WORLD = 4
+TP_TIMEOUT_S = 600
+# The other pairings run at full width and this depth under tensor parallelism.
+TP_SHORT_DEPTH = 2
+# The collectives whose handling of CUDA tensors on gloo phase gloo_probe records (the
+# sequence- and pipeline-parallel slices need them); all_reduce and broadcast, which the
+# port uses, are the controls.
+GLOO_PROBES = ('all_reduce', 'broadcast', 'all_gather_into_tensor', 'reduce_scatter_tensor',
+               'all_to_all_single', 'send_recv')
+
+
+def gathered_flat_grad(model, mesh):
+    '''Every parameter gradient of a tensor-parallel model gathered into the one-process
+    layout (a collective), concatenated in f32 in the one-process parameter order.'''
+    grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+             for n, p in model.named_parameters()}
+    full = mesh_lib.gather_state_dict(grads, mesh)
+    return torch.cat([full[n].float().flatten() for n in grads])
+
+
+@contextlib.contextmanager
+def attention_rows_recorded(rows):
+    '''Adds the (rows, S) of every attention call a tensor-parallel rank makes to the set
+    `rows` (the chunk of the rows each rank runs the kernels on).'''
+    inner = tensor_lib.fused_attention
+
+    def recorded(x, *args, **kw):
+        rows.add(tuple(x.shape[:2]))
+        return inner(x, *args, **kw)
+    tensor_lib.fused_attention = recorded
+    try:
+        yield
+    finally:
+        tensor_lib.fused_attention = inner
+
+
+@contextlib.contextmanager
+def model_axis_recorded(stats):
+    '''Counts in `stats` every model-axis collective of parallel/mesh.py (its gathers,
+    sums and sums into a part) under the block: 'calls', and 'bytes' of the full tensor
+    each gathers or sums; when stats['timing'] is true, also their host 'seconds', the
+    device synchronised before and after each (an instrumented run, not a timed one).'''
+    inner = {name: getattr(mesh_lib, name) for name in ('_gather', '_model_sum',
+                                                         '_model_sum_part')}
+
+    def recorded(name):
+        def run(t, *args):
+            if stats['timing']:
+                torch.cuda.synchronize(t.device)
+                t0 = time.perf_counter()
+            out = inner[name](t, *args)
+            if stats['timing']:
+                torch.cuda.synchronize(t.device)
+                stats['seconds'] += time.perf_counter() - t0
+            stats['calls'] += 1
+            stats['bytes'] += max(t.numel(), out.numel()) * t.element_size()
+            return out
+        return run
+    for name in inner:
+        setattr(mesh_lib, name, recorded(name))
+    try:
+        yield
+    finally:
+        for name, fn in inner.items():
+            setattr(mesh_lib, name, fn)
+
+
+def tp_rank_pairing(mesh, pairing, batch, init, depth):
+    '''phase_train's steps under one pairing on a tensor-parallel rank (the whole batch,
+    this rank's shards), from the JAX-layout tree `init` or the seed: launches checked per
+    step, the rows of each kernel call, the model-axis collectives per step (count and
+    bytes), the state placed from rank 0 and its replicas and shards compared after the
+    steps; for the step of record the collectives of the warm-up step timed (the device
+    synchronised around each; the timed steps run without).'''
+    cfg = train_config(torch.bfloat16, pairing=pairing, depth=depth)
+    state = step_lib.init_train_state(SEED, cfg, dp_optimizer(), params=init,
+                                      device=mesh.device, mesh=mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mesh_lib.shard_state(state, mesh)
+    torch.cuda.synchronize()
+    place_ms = 1e3 * (time.perf_counter() - t0)
+    train_step = step_lib.make_train_step(cfg, mesh=mesh)
+    per_step = {k: PAIRINGS[pairing].get(k, 0) * 2 * depth for k in read_launches()}
+    stats = dict(calls=0, bytes=0, seconds=0.0, timing=False)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    steps, rows = [], set()
+    with attention_rows_recorded(rows), model_axis_recorded(stats):
+        for i in range(1 + TRAIN_STEPS):
+            counts = read_launches()
+            stats.update(calls=0, bytes=0, seconds=0.0,
+                         timing=i == 0 and pairing == STEP_OF_RECORD)
+            state, aux, ms, host_ms = timed_step(train_step, state, batch)
+            if i == 0 and pairing == STEP_OF_RECORD:
+                instrumented = dict(instrumented_step_ms=ms,
+                                    collective_ms_per_step=1e3 * stats['seconds'],
+                                    collective_gb_per_s=stats['bytes'] / stats['seconds'] / 1e9)
+            rec = dict(step=i, step_ms=ms, host_ms=host_ms, loss=float(aux['total_seeker']),
+                       grad_norm=float(aux['grad_norm']),
+                       skipped_nonfinite=float(aux['skipped_nonfinite']),
+                       collectives=stats['calls'], collective_bytes=stats['bytes'],
+                       launches={k: n - counts[k] for k, n in read_launches().items()})
+            steps.append(rec)
+            if not np.isfinite(rec['loss']) or rec['skipped_nonfinite'] != 0.0:
+                fail(f'tp {pairing} rank {mesh.rank} step {i}: loss {rec["loss"]}')
+            if rec['launches'] != per_step:
+                fail(f'tp {pairing} rank {mesh.rank} step {i}: launches {rec["launches"]}, '
+                     f'expected {per_step}')
+    out = dict(steps=steps, launches=read_launches(), launches_per_step=per_step,
+               rows_per_call=sorted(rows), depth=depth,
+               step_ms=sum(r['step_ms'] for r in steps[1:]) / TRAIN_STEPS,
+               host_ms=sum(r['host_ms'] for r in steps[1:]) / TRAIN_STEPS,
+               peak=torch.cuda.max_memory_allocated(), place_ms=place_ms,
+               collectives_per_step=steps[-1]['collectives'],
+               collective_bytes_per_step=steps[-1]['collective_bytes'])
+    if pairing == STEP_OF_RECORD:
+        out.update(instrumented)
+    out['digest'] = mesh_lib.check_replicas(state, mesh)
+    out['digests'] = dict(zip(('replicated', 'shards'), mesh_lib.state_digests(state)))
+    del state, train_step
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank_f32_depth2(mesh, batch):
+    '''The step of record's first-step gradients in f32 at depth 2, full width, drop-path
+    off, from phase_train_parity's seeded init, on this rank's rows and shards: the loss,
+    the gradient gathered over the model group (every rank calls it), the launches.'''
+    with depth_preset(2, (D, HEADS)):
+        cfg2 = train_config(torch.float32, 0.0, depth=2)
+        full = MaskTracker(cfg2.seeker, device='cpu')
+        full.init_params_(torch.Generator().manual_seed(SEED))
+        model = MaskTracker(cfg2.seeker, device=mesh.device, mesh=mesh)
+        model.load_state_dict(mesh_lib.shard_params(full.state_dict(), mesh))
+        counts = read_launches()
+        loss = float(step_lib.compute_gradients(step_lib.TrainState(model, None,
+                                                                    torch.Generator()),
+                                                cfg2, batch, TRAIN_PROGRESS,
+                                                mesh=mesh)['total_seeker'])
+        launches = launches_since(counts)
+        return loss, gathered_flat_grad(model, mesh), launches
+
+
+def tp_rank_parity(mesh, batch, out_dir, init):
+    '''The step of record's first-step gradients, drop-path off, gathered over the model
+    group: bf16 at full depth from `init` and f32 at depth 2; rank 0 saves them for
+    phase_tp.'''
+    out = {}
+    cfg = train_config(torch.bfloat16, 0.0)
+    state = step_lib.init_train_state(SEED, cfg, dp_optimizer(), params=init,
+                                      device=mesh.device, mesh=mesh)
+    out['loss_bf16'] = float(step_lib.compute_gradients(state, cfg, batch, TRAIN_PROGRESS,
+                                                        mesh=mesh)['total_seeker'])
+    grad = gathered_flat_grad(state.model, mesh)
+    if mesh.rank == 0:
+        torch.save(grad.cpu(), out_dir / 'tp_grad_bf16.pt')
+    del state, grad
+    torch.cuda.empty_cache()
+    out['loss_f32_depth2'], grad2, _ = tp_rank_f32_depth2(mesh, batch)
+    if mesh.rank == 0:
+        torch.save(grad2.cpu(), out_dir / 'tp_grad_f32_depth2.pt')
+    return out
+
+
+def gloo_probe_main(out_path):
+    '''One rank of a two-rank gloo world on cuda:0 (from the environment) that runs each
+    collective of GLOO_PROBES once, in order, on small CUDA tensors; rank 0 rewrites
+    out_path after each with what it found (raised, with the error, or the result right
+    or wrong) and the collective it runs next. A collective that gloo cannot move may
+    abort the process (a C++ exception on gloo's thread): phase_gloo_probe then records
+    the exit for that one.'''
+    import torch.distributed as dist
+    mesh = mesh_lib.make_mesh(DEV)
+    n, r, dev = mesh.world, mesh.rank, mesh.device
+    part = lambda k: torch.arange(4, dtype=torch.float32, device=dev) + 10 * k
+    whole = lambda k: torch.arange(4 * n, dtype=torch.float32, device=dev) + 100 * k
+
+    def all_reduce():
+        x = part(r)
+        dist.all_reduce(x)
+        return torch.equal(x, sum(part(k) for k in range(n)))
+
+    def broadcast():
+        x = part(r)
+        dist.broadcast(x, src=0)
+        return torch.equal(x, part(0))
+
+    def all_gather_into_tensor():
+        out = torch.empty(4 * n, device=dev)
+        dist.all_gather_into_tensor(out, part(r))
+        return torch.equal(out, torch.cat([part(k) for k in range(n)]))
+
+    def reduce_scatter_tensor():
+        out = torch.empty(4, device=dev)
+        dist.reduce_scatter_tensor(out, whole(r))
+        return torch.equal(out, sum(whole(k) for k in range(n))[4 * r:4 * r + 4])
+
+    def all_to_all_single():
+        out = torch.empty(4 * n, device=dev)
+        dist.all_to_all_single(out, whole(r))
+        return torch.equal(out, torch.cat([whole(k)[4 * r:4 * r + 4] for k in range(n)]))
+
+    def send_recv():
+        x = part(r)
+        if r == 0:
+            dist.send(x, dst=1)
+        else:
+            dist.recv(x, src=0)
+        return r == 0 or torch.equal(x, part(0))
+
+    probes = dict(all_reduce=all_reduce, broadcast=broadcast,
+                  all_gather_into_tensor=all_gather_into_tensor,
+                  reduce_scatter_tensor=reduce_scatter_tensor,
+                  all_to_all_single=all_to_all_single, send_recv=send_recv)
+    found = {}
+    try:
+        for op in GLOO_PROBES:
+            if r == 0:
+                pathlib.Path(out_path).write_text(json.dumps({'found': found, 'running': op}))
+            try:
+                torch.cuda.synchronize()
+                found[op] = {'result': 'works' if probes[op]() else 'wrong'}
+                torch.cuda.synchronize()
+            except Exception as e:  # noqa: BLE001 — the probe records what raises
+                found[op] = {'result': 'raises', 'error': f'{type(e).__name__}: {e}'[:300]}
+        if r == 0:
+            pathlib.Path(out_path).write_text(json.dumps({'found': found, 'running': None}))
+    finally:
+        mesh.close()
+
+
+# Seconds the probe's two ranks may take (their start included).
+GLOO_PROBE_TIMEOUT_S = 120
+
+
+def phase_gloo_probe(workdir):
+    '''Which collectives gloo moves for CUDA tensors on this torch (the sequence- and
+    pipeline-parallel slices need them; the port uses all_reduce, broadcast and
+    all_gather_into_tensor): GLOO_PROBES in two ranks on cuda:0 (gloo_probe_main), send /
+    recv last. An op 'works' (no exception, right result), is 'wrong', 'raises' (the error
+    recorded), 'aborts' (a rank died in it: the exit codes and log tails) or 'hangs'. The
+    three the port uses must work. Returns the results.'''
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    path = workdir / 'found.json'
+    ranks = start_ranks([sys.executable, '-c', f'import chip_smoke as c; '
+                         f'c.gloo_probe_main({str(path)!r})'], workdir, 'gloo')
+    while any(p.poll() is None for p, _ in ranks) and not ABORT.is_set() \
+            and time.perf_counter() < t0 + GLOO_PROBE_TIMEOUT_S:
+        time.sleep(0.05)
+    codes = [p.poll() for p, _ in ranks]
+    stop_ranks(ranks)
+    state = json.loads(path.read_text()) if path.exists() else {'found': {},
+                                                                 'running': GLOO_PROBES[0]}
+    out = state['found']
+    if state['running'] is not None:
+        out[state['running']] = (
+            {'result': 'hangs', 'timeout_s': GLOO_PROBE_TIMEOUT_S} if None in codes else
+            {'result': 'aborts', 'exit_codes': codes,
+             'log_tail': [fp.read_text()[-300:] for _, fp in ranks]})
+    for op in ('all_reduce', 'broadcast', 'all_gather_into_tensor'):
+        if out.get(op, {}).get('result') != 'works':
+            fail(f'gloo_probe: {op} on CUDA tensors: {out.get(op, "not run")}')
+    emit({'phase': 'gloo_probe', 'torch': torch.__version__, 'wall_s':
+          time.perf_counter() - t0, 'collectives_on_cuda_tensors': out})
+    return out
+
+
+def tp_rank_main(out_dir, kind):
+    '''One rank of phase tp (kind 'tp': 2 ranks, model 2) or tp_grid ('grid': 4 ranks,
+    data 2 x model 2), started by start_tp: for 'tp' draws the seeded init on the host,
+    waits for <out_dir>/go_<kind>, joins the mesh from the environment (gloo: every rank is
+    on cuda:0) and writes <out_dir>/<kind>_rank<r>.json. 'tp': the step of record at depth
+    12, the other pairings at TP_SHORT_DEPTH, the parity gradients (rank 0 saves them),
+    then the gloo probe; 'grid': the f32 depth-2 gradients (rank 0 saves them).'''
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)   # the host init runs beside the main process's phases
+    out_dir = pathlib.Path(out_dir)
+    parent = os.getppid()
+    init = None
+    if kind == 'tp':
+        init = params_to_jax(step_lib.init_train_state(
+            SEED, train_config(torch.bfloat16), dp_optimizer(),
+            device='cpu').model.state_dict())
+    T, H, W = (SEEKER_ARGS[k] for k in ('num_total_frames', 'frame_height', 'frame_width'))
+    host_batch = synthetic_device_batch(0, B=TRAIN_B, Q=TRAIN_Q, T=T, H=H, W=W, M=TRAIN_M,
+                                        K=TRAIN_K)
+    deadline = time.perf_counter() + TP_TIMEOUT_S
+    while not (out_dir / f'go_{kind}').exists():
+        if os.getppid() != parent or time.perf_counter() > deadline:
+            fail(f'{kind} rank: no go from chip_smoke.py')
+        time.sleep(0.05)
+    mesh = mesh_lib.make_mesh(DEV, model=TP_MODEL)
+    try:
+        if mesh.backend != 'gloo':
+            fail(f'{kind} rank {mesh.rank}: backend {mesh.backend} ({mesh.reason}), expected '
+                 'gloo for ranks that share one GPU')
+        out = dict(rank=mesh.rank, world=mesh.world, data_rank=mesh.data_rank,
+                   model_rank=mesh.model_rank, backend=mesh.backend, reason=mesh.reason,
+                   device=str(mesh.device))
+        batch = mesh_lib.shard_batch(train_batch(host=host_batch), mesh)
+        out['rows'] = int(batch['query_inds'].shape[0])
+        if kind == 'tp':
+            out['pairings'] = {'/'.join(STEP_OF_RECORD): tp_rank_pairing(
+                mesh, STEP_OF_RECORD, batch, init, SEEKER_ARGS['network_depth'])}
+            print(f'tp rank {mesh.rank}: step of record done', flush=True)
+            with depth_preset(TP_SHORT_DEPTH, (D, HEADS)):
+                for pairing in PAIRINGS:
+                    if pairing != STEP_OF_RECORD:
+                        out['pairings']['/'.join(pairing)] = tp_rank_pairing(
+                            mesh, pairing, batch, None, TP_SHORT_DEPTH)
+                        print(f'tp rank {mesh.rank}: {pairing} done', flush=True)
+            out['parity'] = tp_rank_parity(mesh, batch, out_dir, init)
+        else:
+            torch.cuda.reset_peak_memory_stats()
+            loss, grad, launches = tp_rank_f32_depth2(mesh, batch)
+            out.update(loss_f32_depth2=loss, launches=launches,
+                       peak=torch.cuda.max_memory_allocated())
+            if mesh.rank == 0:
+                torch.save(grad.cpu(), out_dir / 'grid_grad_f32_depth2.pt')
+    finally:
+        mesh.close()
+    (out_dir / f'{kind}_rank{mesh.rank}.json').write_text(json.dumps(out))
+
+
+def start_tp(workdir):
+    '''Starts the ranks of phases tp and tp_grid (tp_rank_main), which wait for their go:
+    {'tp': ranks, 'grid': ranks}.'''
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    cmd = lambda kind: [sys.executable, '-c', f'import chip_smoke as c; '
+                        f'c.tp_rank_main({str(workdir)!r}, {kind!r})']
+    return {'tp': start_ranks(cmd('tp'), workdir, 'tp', TP_MODEL),
+            'grid': start_ranks(cmd('grid'), workdir, 'grid', TP_GRID_WORLD)}
+
+
+def tp_launches(res, key, name):
+    '''{kernel: {name: launches summed over the ranks}} of res[r][key]'s launches.'''
+    out = {}
+    for k in read_launches():
+        n = sum(r[key]['launches'].get(k, 0) for r in res)
+        if n:
+            out.setdefault(k, {})[name] = n
+    return out
+
+
+def phase_tp(ranks, parity, workdir):
+    '''(a) The step of record's batch (2 clips x 3 queries) on one data row of TP_MODEL
+    model ranks that share the card (tp_rank_main, subprocesses): gloo asserted; per rank
+    and step 24 K1 + 24 K4 on half the rows at depth 12, and each other pairing's launches
+    at TP_SHORT_DEPTH; the replicated tensors equal over the world and the shards over
+    their data group (check_replicas, inside the ranks); the gathered gradients against
+    phase_train_parity's one-process ones: the bf16 error against the f32 plain path <=
+    TRAIN_BF16_ERR_RATIO x the bf16 plain path's, f32 at depth 2 within TOL_DP_F32 of the
+    one-process step; per rank step ms, peak, the model-axis collectives per step (count,
+    bytes, and their ms in an instrumented step). (b) phase_tp_grid. `ranks` are start_tp's. Returns the
+    launches by path.'''
+    t0 = time.perf_counter()
+    (workdir / 'go_tp').touch()
+    wait_ranks(ranks['tp'], 'tp', TP_TIMEOUT_S)
+    wall_s = time.perf_counter() - t0
+    res = [json.loads((workdir / f'tp_rank{r}.json').read_text()) for r in range(TP_MODEL)]
+    if [(r['data_rank'], r['model_rank']) for r in res] != [(0, m) for m in range(TP_MODEL)]:
+        fail(f'tp: mesh coordinates {[(r["data_rank"], r["model_rank"]) for r in res]}')
+    record = res[0]['pairings']['/'.join(STEP_OF_RECORD)]
+    want_rows = [[R // TP_MODEL, S] for R, S, _ in TRAIN_GEOMETRIES.values()]
+    if sorted(record['rows_per_call']) != sorted(want_rows):
+        fail(f'tp: kernel rows per call {record["rows_per_call"]}, expected {want_rows}')
+    for name in res[0]['pairings']:
+        if len({r['pairings'][name]['digests']['replicated'] for r in res}) != 1:
+            fail(f'tp {name}: the replicated tensors differ between the ranks')
+    grads, losses = parity['grads'], parity['losses']
+    grad_tp = torch.load(workdir / 'tp_grad_bf16.pt')
+    grad_tp2 = torch.load(workdir / 'tp_grad_f32_depth2.pt')
+    rel = lambda a, b: abs(a - b) / abs(b)
+    loss_tp = res[0]['parity']['loss_bf16']
+    errs = {'grad_plain_bf16': rel_l2(grads['plain_bf16'], grads['plain_f32']),
+            'grad_tp_bf16': rel_l2(grad_tp, grads['plain_f32']),
+            'grad_tp_vs_one_process_bf16': rel_l2(grad_tp, grads['kernel_bf16']),
+            'loss_plain_bf16': rel(losses['plain_bf16'], losses['plain_f32']),
+            'loss_tp_bf16': rel(loss_tp, losses['plain_f32']),
+            'loss_tp_vs_one_process_bf16': rel(loss_tp, losses['kernel_bf16_kernel_x']),
+            'grad_tp_vs_one_process_f32_depth2': rel_l2(grad_tp2, grads['kernel_f32_depth2']),
+            'loss_tp_vs_one_process_f32_depth2': rel(
+                res[0]['parity']['loss_f32_depth2'], losses['kernel_f32_depth2_kernel_x'])}
+    ratios = {w: errs[f'{w}_tp_bf16'] / errs[f'{w}_plain_bf16'] for w in ('grad', 'loss')}
+    for what, ratio in ratios.items():
+        if not ratio <= TRAIN_BF16_ERR_RATIO:
+            fail(f'tp: bf16 {what} error of the tensor-parallel step {errs[f"{what}_tp_bf16"]} '
+                 f'> {TRAIN_BF16_ERR_RATIO} x the plain path\'s {errs[f"{what}_plain_bf16"]}')
+    for what in ('grad', 'loss'):
+        if not errs[f'{what}_tp_vs_one_process_f32_depth2'] <= TOL_DP_F32:
+            fail(f'tp: f32 {what} of the tensor-parallel step vs one process at depth 2 '
+                 f'{errs[f"{what}_tp_vs_one_process_f32_depth2"]} > {TOL_DP_F32}')
+    per_rank = [{k: r[k] for k in ('rank', 'data_rank', 'model_rank', 'backend', 'reason',
+                                   'rows')} | {'pairings': {
+                     n: {k: v for k, v in p.items() if k not in ('steps', 'launches')}
+                     for n, p in r['pairings'].items()}} for r in res]
+    emit({'phase': 'tp', 'world': TP_MODEL, 'mesh': {'data': 1, 'model': TP_MODEL},
+          'ranks_wall_s': wall_s, 'ranks': per_rank, 'rel_err': errs,
+          'bf16_err_ratio': ratios, 'bf16_err_ratio_limit': TRAIN_BF16_ERR_RATIO,
+          'tol_f32_depth2': TOL_DP_F32})
+    launches = {}
+    for name in res[0]['pairings']:
+        for k, v in tp_launches([r['pairings'] for r in res], name,
+                                f'tp_{name.split("/")[0]}').items():
+            launches.setdefault(k, {}).update(v)
+    for k, v in phase_tp_grid(ranks['grid'], parity, workdir).items():
+        launches.setdefault(k, {}).update(v)
+    return launches
+
+
+def phase_tp_grid(ranks, parity, workdir):
+    '''(b) TP_GRID_WORLD ranks on the card as (data 2, model 2): the f32 depth-2 first-step
+    gradient of the step of record's batch (each data row 1 clip x 3 queries), summed over
+    the data group and gathered over the model group, within TOL_DP_F32 of the
+    one-process step's (phase_train_parity). Returns the launches by path.'''
+    t0 = time.perf_counter()
+    (workdir / 'go_grid').touch()
+    wait_ranks(ranks, 'tp_grid', TP_TIMEOUT_S)
+    wall_s = time.perf_counter() - t0
+    res = [json.loads((workdir / f'grid_rank{r}.json').read_text())
+           for r in range(TP_GRID_WORLD)]
+    coords = [(r['data_rank'], r['model_rank']) for r in res]
+    if coords != [(d, m) for d in range(TP_GRID_WORLD // TP_MODEL) for m in range(TP_MODEL)]:
+        fail(f'tp_grid: mesh coordinates {coords}')
+    grad = torch.load(workdir / 'grid_grad_f32_depth2.pt')
+    err = rel_l2(grad, parity['grads']['kernel_f32_depth2'])
+    loss_err = abs(res[0]['loss_f32_depth2'] - parity['losses']['kernel_f32_depth2_kernel_x']) \
+        / abs(parity['losses']['kernel_f32_depth2_kernel_x'])
+    want = {'K1': 2 * 2, 'K4': 2 * 2}
+    for r in res:
+        if r['launches'] != want:
+            fail(f'tp_grid rank {r["rank"]}: launches {r["launches"]}, expected {want}')
+    if not (err <= TOL_DP_F32 and loss_err <= TOL_DP_F32):
+        fail(f'tp_grid: f32 gradient {err} / loss {loss_err} vs one process at depth 2 > '
+             f'{TOL_DP_F32}')
+    emit({'phase': 'tp_grid', 'world': TP_GRID_WORLD,
+          'mesh': {'data': TP_GRID_WORLD // TP_MODEL, 'model': TP_MODEL},
+          'ranks_wall_s': wall_s, 'coords': coords, 'rows': [r['rows'] for r in res],
+          'peak': [r['peak'] for r in res], 'rel_err': {
+              'grad_grid_vs_one_process_f32_depth2': err,
+              'loss_grid_vs_one_process_f32_depth2': loss_err},
+          'tol_f32_depth2': TOL_DP_F32})
+    return {k: {'tp_grid': sum(r['launches'].get(k, 0) for r in res)} for k in want}
+
+
+# Phase tp_driver: train_torch.py --multihost 1 --tp_shards 2 as two ranks on the card, at
+# the configuration of record's width but depth TP_DRIVER_DEPTH (phase tp runs depth 12;
+# here each step's 28 model-axis collectives a block go through the host beside the
+# dp_driver ranks), on its own dataset of TP_DRIVER_SCENES scenes: one epoch of 2 global
+# steps without validation, the vis step at step 0 on both ranks.
+TP_DRIVER_DEPTH = 2
+TP_DRIVER_SCENES = 4
+TP_DRIVER_RECORDS = driver_records(1, steps=TP_DRIVER_SCENES // TRAIN_B, val=False)
+TP_DRIVER_PER_STEP = {phase: {k: 2 * TP_DRIVER_DEPTH for k in per}
+                      for phase, per in DRIVER_PER_STEP.items()}
+
+
+def phase_tp_driver(root, workdir):
+    '''`train_torch.py --multihost 1 --tp_shards 2 --network_depth TP_DRIVER_DEPTH` as
+    TP_MODEL ranks on the card (start_ranks; each registers the depth's preset at full
+    width, then runs train_torch.main) on the dataset at `root`: each rank's log must hold
+    exactly the steps of TP_DRIVER_RECORDS with the launches of TP_DRIVER_PER_STEP at
+    coordinates (data 0, model r), backend gloo and no traceback; the checkpoint rank 0
+    writes must hold the one-process layout (full-width block weights) and load into a
+    one-process state on the card whose parameters and AdamW state are the file's, bit for
+    bit. main runs it on a thread beside phases that time nothing (start_host_run).
+    Returns its launches.'''
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    launch = ('import sys; from tcow_tpu_torch.models import timesformer; '
+              f'timesformer.DEPTH_PRESETS[{TP_DRIVER_DEPTH}] = ({D}, {HEADS}); '
+              'import train_torch; sys.exit(train_torch.main())')
+    cmd = [sys.executable, '-c', launch, *driver_argv(
+        root, workdir, 'tpd', '--num_epochs', '1', '--do_val_aug', '0', '--do_val_noaug', '0',
+        '--network_depth', str(TP_DRIVER_DEPTH), '--tp_shards', str(TP_MODEL)),
+           '--multihost', '1']
+    texts = wait_ranks(start_ranks(cmd, workdir, 'tpd', TP_MODEL), 'tpd', RUN_TIMEOUT_S)
+    wall_s = time.perf_counter() - t0
+    steps, runs = [], {}
+    for rank, text in enumerate(texts):
+        recs = check_steps(f'tpd rank {rank}', text, TP_DRIVER_RECORDS, TP_DRIVER_PER_STEP)
+        where = {(r['rank'], r['world'], r['backend'], r['data_rank'], r['model_rank'])
+                 for r in recs}
+        if where != {(rank, TP_MODEL, 'gloo', 0, rank)}:
+            fail(f'tpd rank {rank}: step_stats of {where}')
+        steps += recs
+        runs[f'tpd_rank{rank}'] = epoch_stats(recs, text)
+    path = workdir / 'checkpoints' / 'tpd' / 'checkpoint.npz'
+    meta = peek_meta(str(path))
+    if meta['partial'] or not meta['opt_restored']:
+        fail(f'tpd: checkpoint {meta}')
+    file = checkpoint_arrays(path)
+    qkv = file["params['backbone']['blocks']['attn']['qkv']['w']"]
+    if qkv.shape != (TP_DRIVER_DEPTH, D, 3 * D):
+        fail(f'tpd: the checkpoint holds qkv.w of {qkv.shape}, not the one-process layout')
+    with depth_preset(TP_DRIVER_DEPTH, (D, HEADS)):
+        state = step_lib.init_train_state(
+            SEED + 1, train_config(torch.bfloat16, depth=TP_DRIVER_DEPTH), dp_optimizer(),
+            device=DEV)
+    load_checkpoint(str(path), state_template=state)
+    held = {'params' + k: v for k, v in
+            flatten_with_paths(params_to_jax(state.model.state_dict())).items()}
+    held.update({'opt_state' + k: v for k, v in opt_state_to_jax(state.optimizer).items()})
+    differ = [k for k, v in held.items() if not np.array_equal(v, file[k])]
+    if differ or len(held) + 2 != len(file):
+        fail(f'tpd: the one-process state loaded from the checkpoint differs: {differ[:5]}, '
+             f'{len(held)} arrays held of {len(file)}')
+    del state
+    launches = sum_launches(steps)
+    emit({'phase': 'tp_driver', 'wall_s': wall_s, 'runs': runs, 'depth': TP_DRIVER_DEPTH,
+          'checkpoint': {'arrays': len(file), 'qkv_w': list(qkv.shape),
+                         'loads_into_one_process': True}, 'launches': launches})
+    return launches
 
 
 # ---------------------------------------------------------------------------------------
@@ -4631,22 +5185,28 @@ def main():
 def run_phases(ranks):
     '''Every phase, in order; `ranks` gets the subprocesses that outlive a phase, for main
     to stop.'''
-    smi = phase_device()
-    # The two-rank train_torch.py runs (host-bound) beside the phases that hold kernels
-    # against their plain versions and time nothing.
-    finish_dp_driver = start_dp_driver(dataset('driver')[0],
-                                       _build.BUILD_DIR / 'chip_smoke_dp_driver')
+    # The phases on threads (start_host_run), each with the function that waits for it.
+    # The gloo probe needs no kernel and runs beside the build; the two-rank
+    # train_torch.py runs, data- and tensor-parallel (host-bound), beside the phases that
+    # hold kernels against their plain versions and time nothing.
+    finishers = [start_host_run(phase_gloo_probe, _build.BUILD_DIR / 'chip_smoke_gloo')]
     try:
+        smi = phase_device()
+        finishers += [start_host_run(phase_dp_driver, dataset('driver')[0],
+                                     _build.BUILD_DIR / 'chip_smoke_dp_driver'),
+                      start_host_run(phase_tp_driver, dataset('tp_driver')[0],
+                                     _build.BUILD_DIR / 'chip_smoke_tp_driver')]
         errs = phase_kernel_vs_plain()
         k4_errs = phase_k4_vs_plain()
         new_errs = phase_new_kernels_vs_plain()
         rope_errs = phase_rope_kernels_vs_plain()
+        _, dp_driver_launches, tp_driver_launches = [finish() for finish in finishers]
     except BaseException:
         ABORT.set()
-        with contextlib.suppress(BaseException):
-            finish_dp_driver()
+        for finish in finishers:
+            with contextlib.suppress(BaseException):
+                finish()
         raise
-    dp_driver_launches = finish_dp_driver()
     ckpt_dir = _build.BUILD_DIR / 'chip_smoke_ckpt'
     try:
         params, cfg, inference_launches, inputs = phase_slice(ckpt_dir)
@@ -4667,16 +5227,24 @@ def run_phases(ranks):
         for (m, p), t in trains.items()]})
     record = trains[STEP_OF_RECORD]
     dp_dir = _build.BUILD_DIR / 'chip_smoke_dp'
-    ranks += start_dp(dp_dir)
+    tp_dir = _build.BUILD_DIR / 'chip_smoke_tp'
+    dp_ranks = start_dp(dp_dir)
+    ranks += dp_ranks
+    tp_ranks = start_tp(tp_dir)
+    ranks += tp_ranks['tp'] + tp_ranks['grid']
     _, parity = phase_train_parity(record['init_state'], record['batch'], keep=True)
     train_geom = phase_train_times(record)
     for key in ('state', 'train_step', 'batch', 'init_state'):
         del record[key]
     torch.cuda.empty_cache()
     try:
-        dp_launches = phase_dp(ranks, parity, dp_dir)
+        dp_launches = phase_dp(dp_ranks, parity, dp_dir)
     finally:
         shutil.rmtree(dp_dir, ignore_errors=True)
+    try:
+        tp_launches = phase_tp(tp_ranks, parity, tp_dir)
+    finally:
+        shutil.rmtree(tp_dir, ignore_errors=True)
     del parity
     try:
         device_side = phase_train_device_side(ckpt_dir)
@@ -4750,14 +5318,15 @@ def run_phases(ranks):
     source = 'tcow_tpu_torch/ops/csrc/fused_attention.cu'
     replaces = 'tcow_tpu/ops/pallas_attention.py:'
     # The device side of training runs the step of record's kernels, K1 and K4, and so
-    # does the driver (train_torch.py; its two-rank runs under dp_driver); its rope256
-    # run K1, K1r, K4 and K4r.
+    # does the driver (train_torch.py; its two-rank runs under dp_driver and tp_driver);
+    # its rope256 run K1, K1r, K4 and K4r.
     def device_side_launches(kernel):
         return {'train_device_side': device_side['launches'][kernel],
                 'train_driver': driver['launches'].get(kernel, 0),
                 'train_driver_rope': driver['rope_launches'].get(kernel, 0),
                 'pth': pth['launches'].get(kernel, 0),
-                'dp_driver': dp_driver_launches.get(kernel, 0)}
+                'dp_driver': dp_driver_launches.get(kernel, 0),
+                'tp_driver': tp_driver_launches.get(kernel, 0)}
     k1 = kernel_entry('fused_attention', source, replaces + '87',
                       {'inference': inference_launches, **train_launches('K1'),
                        **device_side_launches('K1'),
@@ -4766,7 +5335,8 @@ def run_phases(ranks):
                        'stream_clips': stream['clip_launches']['K1'],
                        'stream_eval': stream['eval_launches']['K1'],
                        **serve['launches'], **joint_launches['K1'], **vitl_launches['K1'],
-                       **tools_launches, **dp_launches.get('K1', {})}, errs, per_geom)
+                       **tools_launches, **dp_launches.get('K1', {}),
+                       **tp_launches.get('K1', {})}, errs, per_geom)
     k1['per_geometry_train'] = train_geom['K1']
     # The stream's spatial call (1 x 301) and a 4-session server tick's (4 x 301).
     k1['per_geometry_stream'] = stream['k1']
@@ -4783,6 +5353,7 @@ def run_phases(ranks):
         launches.update(joint_launches.get(kernel, {}))
         launches.update(vitl_launches.get(kernel, {}))
         launches.update(dp_launches.get(kernel, {}))
+        launches.update(tp_launches.get(kernel, {}))
         entries.append(kernel_entry(name, source, replaces + line, launches, kerrs,
                                     train_geom[kernel]))
     # The rope variants: the rotation in _kernel (:120-136) for the forwards, in

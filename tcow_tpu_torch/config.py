@@ -6,10 +6,12 @@ commands run unchanged against train_torch.py and eval_torch.py.
 --device defaults to cuda and accepts cpu. Training runs data-parallel: --mesh_devices N
 (train_torch.py starts N ranks, one per GPU; -1 = every visible GPU, one on the CPU) or
 --multihost 1 (this process is one rank of a world its launcher describes in RANK,
-WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT). Flags of what the port does not run
-raise NotImplementedError from verify_args, naming the ROADMAP.md item that holds them:
---seq_shards, --tp_shards or --pp_stages > 1 (item 7), and --mesh_devices > 1 or
---multihost for evaluation (item 7).
+WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT), and tensor-parallel over
+--tp_shards of those ranks (the (data, model) mesh: N / tp_shards data rows of tp_shards
+ranks; tp_shards must divide the width, the MLP width and the world, else ValueError).
+Flags of what the port does not run raise NotImplementedError from verify_args, naming
+the ROADMAP.md item that holds them: --seq_shards or --pp_stages > 1 (item 7), and
+--tp_shards > 1, --mesh_devices > 1 or --multihost for evaluation (item 7).
 Every other flag parses and behaves as in the JAX package; --resume and
 --tracker_pretrained take a reference .pth too (models/torch_import.py).
 '''
@@ -61,8 +63,8 @@ def shared_args(parser: argparse.ArgumentParser):
     parser.add_argument('--train_log_path', default='', type=str)
     parser.add_argument('--log_path', default='', type=str)
     parser.add_argument('--wandb_group', default='group', type=str)
-    # Resource options. Training runs data-parallel over --mesh_devices ranks or the
-    # --multihost world; the sequence, tensor and pipeline layouts parse and raise in
+    # Resource options. Training runs data- and tensor-parallel over --mesh_devices ranks
+    # or the --multihost world; the sequence and pipeline layouts parse and raise in
     # verify_args.
     parser.add_argument('--mesh_devices', default=-1, type=int,
                         help='Data-parallel ranks of a train run, one per GPU; -1 = every '
@@ -70,7 +72,8 @@ def shared_args(parser: argparse.ArgumentParser):
     parser.add_argument('--seq_shards', default=1, type=int,
                         help='Sequence-parallel shards (second mesh axis).')
     parser.add_argument('--tp_shards', default=1, type=int,
-                        help='Tensor-parallel shards (model mesh axis); not ported.')
+                        help='Tensor-parallel shards (model mesh axis) of a train run: '
+                             'each data row of the mesh has this many ranks.')
     parser.add_argument('--grad_accum', default=1, type=int,
                         help='Gradient accumulation: split the batch into this many '
                              'microbatches, run forward+backward per microbatch in turn, '
@@ -220,7 +223,8 @@ def test_args(argv=None):
 def _refuse_unported(args, is_train: bool):
     unported = [
         (args.seq_shards > 1, '--seq_shards > 1', '7, sequence parallelism'),
-        (args.tp_shards > 1, '--tp_shards > 1', '7, tensor parallelism'),
+        (not is_train and args.tp_shards > 1, '--tp_shards > 1 for evaluation',
+         '7, tensor-parallel evaluation'),
         (args.pp_stages > 1, '--pp_stages > 1', '7, pipeline parallelism'),
         (not is_train and args.mesh_devices > 1, '--mesh_devices > 1 for evaluation',
          '7, data-parallel evaluation'),
@@ -231,6 +235,26 @@ def _refuse_unported(args, is_train: bool):
         if bad:
             raise NotImplementedError(f'{flag} is not ported to tcow_tpu_torch '
                                       f'(ROADMAP.md section 1 item {item})')
+    if args.tp_shards > 1:
+        _check_tp_shards(args)
+
+
+def _check_tp_shards(args):
+    '''Raises ValueError unless --tp_shards divides the backbone's width and MLP width and
+    the world: --mesh_devices when given, else WORLD_SIZE under --multihost, else the one
+    process (a world of -1 visible GPUs is checked when train_torch.py counts them).'''
+    from tcow_tpu_torch.models.timesformer import DEPTH_PRESETS
+    from tcow_tpu_torch.parallel.mesh import check_tp_widths
+    tp = args.tp_shards
+    if args.network_depth not in DEPTH_PRESETS:
+        raise ValueError(f'--network_depth {args.network_depth} has no width preset')
+    width = DEPTH_PRESETS[args.network_depth][0]
+    check_tp_widths(tp, width, 4 * width)
+    world = (args.mesh_devices if args.mesh_devices > 0
+             else int(os.environ.get('WORLD_SIZE', 1)) if args.multihost
+             else None if args.device == 'cuda' else 1)
+    if world is not None and world % tp:
+        raise ValueError(f'--tp_shards {tp} does not divide the world of {world} ranks')
 
 
 def resolve_resume_path(checkpoint_root: str, resume: str, epoch: int = -1) -> str:

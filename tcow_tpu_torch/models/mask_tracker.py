@@ -136,12 +136,16 @@ def coarsen_mask(mask: torch.Tensor, stride: int, mode: str) -> torch.Tensor:
 
 
 class MaskTracker(nn.Module):
+    '''The seeker. With a DataMesh whose model axis has more than one rank (`mesh`), the
+    backbone's blocks hold this rank's shards of the block weights and run tensor-parallel
+    (timesformer.py); the heads stay replicated. `self.mesh` is that mesh, or None.'''
 
-    def __init__(self, cfg: SeekerConfig, device=None):
+    def __init__(self, cfg: SeekerConfig, device=None, mesh=None):
         super().__init__()
         self.cfg = cfg
         D = tsf.DEPTH_PRESETS[cfg.network_depth][0]
-        self.backbone = tsf.TimeSformer(cfg.backbone_config(), device)
+        self.backbone = tsf.TimeSformer(cfg.backbone_config(), device, mesh)
+        self.mesh = self.backbone.mesh
         self.post_linear = tsf.Dense(D, cfg.output_channels * cfg.patch_size ** 2, device)
         self.flag_linear = (tsf.Dense(D, cfg.flag_channels, device)
                             if cfg.flag_channels > 0 else None)

@@ -11,6 +11,12 @@ Under temporal_rope the temporal attention rotates q and k by each frame's posit
 Parameters keep the JAX layout and names (linear `w` is (din, dout), LayerNorm `g`/`b`),
 with the stacked block axis unrolled into a ModuleList; weights.py converts between the
 two. Master weights stay float32 and are cast to the compute dtype at use.
+
+Under tensor parallelism (a DataMesh whose model axis has n > 1 ranks, passed to the
+constructor) each block holds this rank's shards of qkv.w and proj.w (D / n input rows),
+of fc1 (Hm / n output columns) and of fc2.w (Hm / n input rows), and runs its attention
+row-parallel and its MLP as Megatron's (parallel/tensor.py); without a mesh, or with one
+model rank, every path is the one-process one.
 '''
 
 import dataclasses
@@ -25,6 +31,8 @@ import torch.utils.checkpoint
 from torch import nn
 
 from tcow_tpu_torch.ops.fused_attention import BWD_MODES, FORWARD_OPS, fused_attention
+from tcow_tpu_torch.parallel import mesh as mesh_lib
+from tcow_tpu_torch.parallel import tensor as tensor_lib
 
 # Input normalization constants for pretrained backbones.
 TIMESFORMER_MEAN = (0.45, 0.45, 0.45)
@@ -184,33 +192,44 @@ class LayerNorm(nn.Module):
 class Attention(nn.Module):
     '''Multi-head self-attention over the second-to-last axis (timesformer.py:212-316),
     always through ops.fused_attention in the backward mode `bwd_mode`: the plain versions
-    on the CPU, the kernels on CUDA.'''
+    on the CPU, the kernels on CUDA. With a tensor-parallel mesh `tp`, qkv.w and proj.w are
+    this rank's row shards and the call runs row-parallel (tensor.attention_rows).'''
 
-    def __init__(self, dim: int, num_heads: int, bwd_mode: str, device=None):
+    def __init__(self, dim: int, num_heads: int, bwd_mode: str, device=None, tp=None):
         super().__init__()
         self.num_heads = num_heads
         self.bwd_mode = bwd_mode
-        self.qkv = Dense(dim, 3 * dim, device)
-        self.proj = Dense(dim, dim, device)
+        self.tp = tp
+        n = 1 if tp is None else tp.n_model
+        self.qkv = Dense(dim // n, 3 * dim, device)
+        self.proj = Dense(dim // n, dim, device)
 
     def forward(self, x, causal_attention: int, rope: bool = False, pos=None):
         '''x (..., S, D); with rope, q and k rotated by positions pos (..., S) f32, or by
         0..S-1 when pos is None (:243).'''
         *lead, S, D = x.shape
         flat_pos = None if pos is None else pos.reshape(-1, S).contiguous()
-        out = fused_attention(x.reshape(-1, S, D).contiguous(), self.qkv.w, self.qkv.b,
-                              self.proj.w, self.proj.b, self.num_heads, causal_attention,
-                              self.bwd_mode, rope, flat_pos)
+        args = (x.reshape(-1, S, D).contiguous(), self.qkv.w, self.qkv.b, self.proj.w,
+                self.proj.b, self.num_heads, causal_attention, self.bwd_mode, rope, flat_pos)
+        out = (fused_attention(*args) if self.tp is None
+               else tensor_lib.attention_rows(*args, self.tp))
         return out.reshape(*lead, S, D)
 
 
 class Mlp(nn.Module):
-    def __init__(self, dim: int, hidden: int, device=None):
+    '''fc2(gelu(fc1(x))); with a tensor-parallel mesh `tp`, fc1 holds this rank's output
+    columns and fc2.w its input rows (tensor.megatron_mlp).'''
+
+    def __init__(self, dim: int, hidden: int, device=None, tp=None):
         super().__init__()
-        self.fc1 = Dense(dim, hidden, device)
-        self.fc2 = Dense(hidden, dim, device)
+        self.tp = tp
+        n = 1 if tp is None else tp.n_model
+        self.fc1 = Dense(dim, hidden // n, device)
+        self.fc2 = Dense(hidden // n, dim, device)
 
     def forward(self, x):
+        if self.tp is not None:
+            return tensor_lib.megatron_mlp(x, self.fc1, self.fc2, self.tp)
         return self.fc2(F.gelu(self.fc1(x)))   # exact (erf) GELU
 
 
@@ -260,16 +279,16 @@ def draw_drop_path_masks(generator: torch.Generator, rate: float, depth: int, B:
 class DividedBlock(nn.Module):
     '''One divided space-time block (timesformer.py:388-450).'''
 
-    def __init__(self, cfg: TimeSformerConfig, device=None):
+    def __init__(self, cfg: TimeSformerConfig, device=None, tp=None):
         super().__init__()
         D = cfg.embed_dim
         self.cfg = cfg
         self.norm1 = LayerNorm(D, cfg.ln_eps, device)
-        self.attn = Attention(D, cfg.num_heads, cfg.attention_bwd, device)
+        self.attn = Attention(D, cfg.num_heads, cfg.attention_bwd, device, tp)
         self.norm2 = LayerNorm(D, cfg.ln_eps, device)
-        self.mlp = Mlp(D, cfg.mlp_dim, device)
+        self.mlp = Mlp(D, cfg.mlp_dim, device, tp)
         self.temporal_norm1 = LayerNorm(D, cfg.ln_eps, device)
-        self.temporal_attn = Attention(D, cfg.num_heads, cfg.attention_bwd, device)
+        self.temporal_attn = Attention(D, cfg.num_heads, cfg.attention_bwd, device, tp)
         self.temporal_fc = Dense(D, D, device)
 
     def forward(self, xs, cls, masks: DropPathMasks = None, frame_times=None):
@@ -315,13 +334,13 @@ class JointBlock(nn.Module):
     b (h w t) m, never causal (JAX passes no causal_attention there, :460-462), then the
     MLP over the whole sequence. It has no temporal parameters.'''
 
-    def __init__(self, cfg: TimeSformerConfig, device=None):
+    def __init__(self, cfg: TimeSformerConfig, device=None, tp=None):
         super().__init__()
         D = cfg.embed_dim
         self.norm1 = LayerNorm(D, cfg.ln_eps, device)
-        self.attn = Attention(D, cfg.num_heads, cfg.attention_bwd, device)
+        self.attn = Attention(D, cfg.num_heads, cfg.attention_bwd, device, tp)
         self.norm2 = LayerNorm(D, cfg.ln_eps, device)
-        self.mlp = Mlp(D, cfg.mlp_dim, device)
+        self.mlp = Mlp(D, cfg.mlp_dim, device, tp)
 
     def forward(self, xs, cls, masks: DropPathMasks = None, frame_times=None):
         '''xs (B, N, T, D), cls (B, D), drop-path masks or None -> updated (xs, cls).
@@ -367,24 +386,33 @@ def _run_blocks(blocks, xs, cls, masks, frame_times):
 
 
 class TimeSformer(nn.Module):
-    '''Dense forward: pixels (B, C, T, H, W) -> (features (B, D, T, H', W'), cls (B, D)).'''
+    '''Dense forward: pixels (B, C, T, H, W) -> (features (B, D, T, H', W'), cls (B, D)).
+    With a mesh whose model axis has more than one rank the blocks hold this rank's
+    shards (module docstring).'''
 
-    def __init__(self, cfg: TimeSformerConfig, device=None):
+    def __init__(self, cfg: TimeSformerConfig, device=None, mesh=None):
         super().__init__()
         D, p = cfg.embed_dim, cfg.patch_size
         self.cfg = cfg
+        self.mesh = mesh_lib.tp_mesh(mesh)
+        if self.mesh is not None:
+            mesh_lib.check_tp_widths(self.mesh.n_model, D, cfg.mlp_dim)
         self.patch_embed = Dense(p * p * cfg.in_channels, D, device)
         self.cls_token = nn.Parameter(torch.zeros(D, device=device))
         self.pos_embed = nn.Parameter(torch.zeros(cfg.num_patches + 1, D, device=device))
         self.time_embed = nn.Parameter(torch.zeros(cfg.num_frames, D, device=device))
         self.norm = LayerNorm(D, cfg.ln_eps, device)
         block = DividedBlock if cfg.divided else JointBlock
-        self.blocks = nn.ModuleList(block(cfg, device) for _ in range(cfg.depth))
+        self.blocks = nn.ModuleList(block(cfg, device, self.mesh) for _ in range(cfg.depth))
 
     def init_params_(self, generator: torch.Generator):
         '''Random init of tcow_tpu timesformer.init_params (:149-188): trunc-normal(0.02)
         linears and embeddings, zero biases, unit LayerNorm, temporal_fc zero for blocks > 0
-        (divided blocks; joint blocks have none).'''
+        (divided blocks; joint blocks have none). A tensor-parallel model raises: its
+        shards come from the full model's init (mesh.shard_params).'''
+        if self.mesh is not None:
+            raise ValueError('initialise the full model and load its shards '
+                             '(parallel/mesh.py:shard_params)')
         for name, prm in self.named_parameters():
             leaf = name.rsplit('.', 1)[-1]
             with torch.no_grad():

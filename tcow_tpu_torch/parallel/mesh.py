@@ -1,29 +1,43 @@
 '''
-Data parallelism on torch.distributed: the counterpart of tcow_tpu/parallel/mesh.py for its
-data axis (the reference's torch.nn.DataParallel, its train.py:222-223).
+Data and tensor parallelism on torch.distributed: the counterpart of
+tcow_tpu/parallel/mesh.py for its data and model axes (the reference's
+torch.nn.DataParallel, its train.py:222-223).
 
 In the JAX package the batch is sharded over the mesh's 'data' axis inside one jitted
 program, so every loss reduction covers the global batch. Here each rank is a process that
 holds its rows of the global batch, and the global-batch math is written out:
   - make_mesh joins the process group and returns a DataMesh (world size, rank, local
-    rank, device, backend, group);
-  - shard_batch / shard_rows pick this rank's rows, interleaved per microbatch under
-    grad_accum so that microbatch i is JAX's global rows [i B/A, (i+1) B/A);
-  - the losses and metric sums reduce over mesh.group with all_sum / all_max / all_min
+    rank, device, backend, the data group and, under tensor parallelism, the model group);
+  - shard_batch / shard_rows pick this rank's rows by its data coordinate, interleaved per
+    microbatch under grad_accum so that microbatch i is JAX's global rows [i B/A, (i+1) B/A);
+  - the losses and metric sums reduce over the data group with all_sum / all_max / all_min
     (objectives/losses.py), whose gradient is this rank's share of the global gradient;
-  - all_reduce_grads sums those shares with one all_reduce per dtype after the backward;
-  - replicate_tree / shard_state broadcast rank 0's state and check_replicas compares a
-    digest of it across ranks;
+  - all_reduce_grads sums those shares over the data group after the backward;
+  - shard_state broadcasts rank 0's state and check_replicas compares digests of it across
+    ranks;
   - broadcast_one_to_all carries rank 0's stop flag (the driver's preemption check), and
     gather_objects every rank's loader state into rank 0's checkpoint.
+
+Tensor parallelism (--tp_shards, the 'model' axis of JAX's (data, seq, model, pipe) mesh
+with seq = pipe = 1): rank r sits at data coordinate r // n_model and model coordinate
+r % n_model, as JAX reshapes its device list (tcow_tpu/parallel/mesh.py:37), so the model
+ranks of one data row are consecutive. The block weights are sharded as block_pspec
+shards them (tp_dim: qkv.w, proj.w and fc2.w by their input rows, fc1.w and fc1.b by
+their output columns; everything else replicated); shard_params / gather_state_dict convert
+between the full one-process state_dict and a rank's shards, and fetch_global gathers a
+tree of shards into the one-process layout (a collective every rank calls). The model-axis
+collectives (copy_to_model, reduce_from_model, gather_rows, scatter_rows, gather_weight)
+carry the activations of parallel/tensor.py's row-parallel attention and Megatron MLP.
 
 Backend rule, decided once by make_mesh and logged by its caller: gloo on the CPU; on CUDA,
 nccl when every rank has a device of its own, gloo when two ranks share one physical GPU
 (the ranks publish their device UUIDs through the rendezvous store; NCCL fails on
 duplicate GPUs). A backend that fails to start raises: nothing is retried on another one.
-Only all_reduce and broadcast are used, the collectives gloo moves for CUDA tensors.
+Only all_reduce, broadcast and (on the model axis) all_gather_into_tensor and
+reduce_scatter_tensor are used: gloo moves all four for CUDA tensors (chip_smoke.py's
+phase gloo_probe holds it), but not send / recv.
 
-Not here: block_pspec / tp_pspec (tensor and pipeline parallelism, ROADMAP.md section 1
+Not here: the seq and pipe axes (sequence and pipeline parallelism, ROADMAP.md section 1
 item 7), and _relay_probe / shard_state_staged, which pace uploads over the TPU host's
 relay (tcow_tpu/parallel/mesh.py:141-239): the port places the state by broadcast.
 '''
@@ -31,6 +45,7 @@ relay (tcow_tpu/parallel/mesh.py:141-239): the port places the state by broadcas
 import dataclasses
 import datetime
 import os
+import re
 import socket
 from typing import Any, Dict, Iterable, Optional, Sequence
 
@@ -50,8 +65,11 @@ _DIGEST_CHUNK = 1 << 24
 
 @dataclasses.dataclass
 class DataMesh:
-    '''The data axis of this process: `world` ranks, this one `rank` (its device index
-    `local_rank` on its host), the backend and the process group.'''
+    '''This process's place in the mesh: `world` ranks, this one `rank` (its device index
+    `local_rank` on its host), the backend, `group` (the data group: the ranks with this
+    rank's model coordinate) and, under tensor parallelism (n_model > 1), `model_group`
+    (the ranks of this rank's data row). Rank r is at data coordinate r // n_model and
+    model coordinate r % n_model.'''
     world: int
     rank: int
     local_rank: int
@@ -59,10 +77,37 @@ class DataMesh:
     backend: str
     reason: str
     group: Any = None
+    n_model: int = 1
+    model_group: Any = None
+
+    @property
+    def n_data(self) -> int:
+        return self.world // self.n_model
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank // self.n_model
+
+    @property
+    def model_rank(self) -> int:
+        return self.rank % self.n_model
 
     def close(self):
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+def tp_mesh(mesh: Optional[DataMesh]) -> Optional[DataMesh]:
+    '''`mesh` when its model axis has more than one rank, else None.'''
+    return mesh if mesh is not None and mesh.n_model > 1 else None
+
+
+def rank_layout(world: int, model: int = 1) -> np.ndarray:
+    '''The global ranks on the (data, seq, model, pipe) grid with seq = pipe = 1: the device
+    list reshaped as tcow_tpu/parallel/mesh.py:37 reshapes it.'''
+    if world % model:
+        raise ValueError(f'{world} ranks do not divide into {model} model shards')
+    return np.arange(world).reshape(world // model, 1, model, 1)
 
 
 def free_port() -> int:
@@ -88,11 +133,18 @@ def choose_backend(device: torch.device, uuids: Sequence[str]):
 
 def make_mesh(device='cuda', rank: Optional[int] = None, world: Optional[int] = None,
               local_rank: Optional[int] = None, addr: Optional[str] = None,
-              port: Optional[int] = None) -> DataMesh:
+              port: Optional[int] = None, model: int = 1, seq: int = 1,
+              pipe: int = 1) -> DataMesh:
     '''Joins the process group of `world` ranks as `rank` and returns its DataMesh. Every
     argument left None comes from the environment a launcher sets (RANK, WORLD_SIZE,
     LOCAL_RANK, MASTER_ADDR, MASTER_PORT: torchrun's, or train_torch.py --mesh_devices').
-    On CUDA the rank runs on cuda:<local_rank>. The backend follows the module's rule.'''
+    On CUDA the rank runs on cuda:<local_rank>. The backend follows the module's rule.
+    model > 1 splits the world into world / model data rows of `model` ranks
+    (rank_layout); every rank creates every data and model group, in the same order.
+    seq and pipe must be 1: sequence and pipeline parallelism are not ported.'''
+    if seq != 1 or pipe != 1:
+        raise NotImplementedError('the seq and pipe axes are not ported to tcow_tpu_torch '
+                                  '(ROADMAP.md section 1 item 7)')
     env = os.environ
     rank = int(env['RANK']) if rank is None else rank
     world = int(env['WORLD_SIZE']) if world is None else world
@@ -101,6 +153,7 @@ def make_mesh(device='cuda', rank: Optional[int] = None, world: Optional[int] = 
     port = int(env['MASTER_PORT']) if port is None else port
     if not 0 <= rank < world:
         raise ValueError(f'rank {rank} is not in a world of {world}')
+    layout = rank_layout(world, model)[:, 0, :, 0]          # (data, model)
     device = torch.device(device)
     if device.type == 'cuda':
         device = torch.device('cuda', local_rank)
@@ -113,7 +166,12 @@ def make_mesh(device='cuda', rank: Optional[int] = None, world: Optional[int] = 
     backend, reason = choose_backend(device, uuids)
     dist.init_process_group(backend, store=store, rank=rank, world_size=world,
                             timeout=TIMEOUT)
-    return DataMesh(world, rank, local_rank, device, backend, reason, dist.group.WORLD)
+    if model == 1:
+        return DataMesh(world, rank, local_rank, device, backend, reason, dist.group.WORLD)
+    data_groups = [dist.new_group(layout[:, m].tolist()) for m in range(model)]
+    model_groups = [dist.new_group(layout[d].tolist()) for d in range(world // model)]
+    return DataMesh(world, rank, local_rank, device, backend, reason,
+                    data_groups[rank % model], model, model_groups[rank // model])
 
 
 # ---------------------------------------------------------------------------------------
@@ -138,10 +196,11 @@ def shard_rows(batch_size: int, rank: int, world: int, grad_accum: int = 1) -> n
 
 def batch_sharding(mesh: Optional[DataMesh], leaf, grad_accum: int = 1):
     '''The rows of `leaf` this rank holds: None (all of it) for a scalar or without a
-    mesh, else shard_rows of its leading axis.'''
+    mesh, else shard_rows of its leading axis by the data coordinate (the model ranks of
+    one data row hold the same rows).'''
     if mesh is None or np.ndim(leaf) == 0:
         return None
-    return shard_rows(leaf.shape[0], mesh.rank, mesh.world, grad_accum)
+    return shard_rows(leaf.shape[0], mesh.data_rank, mesh.n_data, grad_accum)
 
 
 def shard_batch(batch: Dict[str, Any], mesh: Optional[DataMesh], grad_accum: int = 1):
@@ -257,6 +316,198 @@ def all_reduce_grads(params: Iterable[torch.nn.Parameter], mesh: DataMesh):
 
 
 # ---------------------------------------------------------------------------------------
+# The model axis: the layout of the sharded parameters
+# ---------------------------------------------------------------------------------------
+
+_NAME = re.compile(r'[A-Za-z_][A-Za-z_0-9]*|\d+')
+
+
+def tp_dim(name: str) -> Optional[int]:
+    '''The dim a parameter (or its optimizer moment) is sharded on over the model axis, None
+    when it is replicated: block_pspec's rule (tcow_tpu/parallel/mesh.py:67-93) on the
+    trailing names of `name`. In a port name ('backbone.blocks.3.attn.qkv.w', a (D, 3D)
+    matrix) qkv.w, proj.w and fc2.w are sharded on dim 0 (their input rows), fc1.w on dim
+    1 and fc1.b on dim 0 (their output columns). A name of the JAX layout, whose blocks are
+    stacked on a leading axis ('backbone.blocks.attn.qkv.w', or an optax key path
+    "[1][0].mu['backbone']['blocks']['attn']['qkv']['w']"), has its dim one further.'''
+    parts = _NAME.findall(name)
+    if len(parts) < 3:
+        return None
+    gp, parent, leaf = parts[-3:]
+    dim = None
+    if leaf == 'w' and gp in ('attn', 'temporal_attn') and parent in ('qkv', 'proj'):
+        dim = 0
+    elif gp == 'mlp' and parent == 'fc1':
+        dim = 1 if leaf == 'w' else 0
+    elif gp == 'mlp' and parent == 'fc2' and leaf == 'w':
+        dim = 0
+    if dim is None or 'blocks' not in parts:
+        return None
+    after = parts[parts.index('blocks') + 1:]
+    return dim if after and after[0].isdigit() else dim + 1
+
+
+def check_tp_widths(n_model: int, embed_dim: int, mlp_dim: int):
+    '''Raises ValueError unless n_model model shards divide the width and the MLP width.'''
+    for what, n in (('embed_dim', embed_dim), ('mlp_dim', mlp_dim)):
+        if n % n_model:
+            raise ValueError(f'tp_shards {n_model} does not divide {what} {n}')
+
+
+def shard_params(full: Dict[str, torch.Tensor], mesh: Optional[DataMesh]):
+    '''This rank's shards of a full (one-process) state_dict: each tensor sharded by
+    tp_dim sliced to this rank's model coordinate, the rest as it is; `full` itself
+    without a tensor-parallel mesh.'''
+    if tp_mesh(mesh) is None:
+        return full
+    out = {}
+    for name, t in full.items():
+        dim = tp_dim(name)
+        out[name] = t if dim is None else _part(t, mesh, dim)
+    return out
+
+
+def gather_state_dict(shards: Dict[str, torch.Tensor], mesh: Optional[DataMesh]):
+    '''The full tensors of a state_dict of this rank's shards (a collective every rank
+    calls, in the same order): the inverse of shard_params; `shards` itself without a
+    tensor-parallel mesh.'''
+    if tp_mesh(mesh) is None:
+        return shards
+    return {name: (t if tp_dim(name) is None else _gather(t.detach(), mesh, tp_dim(name)))
+            for name, t in shards.items()}
+
+
+# ---------------------------------------------------------------------------------------
+# The model axis: collectives of the row-parallel attention and the Megatron MLP
+# ---------------------------------------------------------------------------------------
+
+def _gather(t: torch.Tensor, mesh: DataMesh, dim: int) -> torch.Tensor:
+    '''The model group's parts of `t` joined along `dim`, rank order (one
+    all_gather_into_tensor, which moves the bytes as they are).'''
+    part = _on_backend(t, mesh).contiguous()
+    n, shape = mesh.n_model, list(part.shape)
+    full = part.new_empty([n * shape[0]] + shape[1:])     # the parts one after another
+    dist.all_gather_into_tensor(full, part, group=mesh.model_group)
+    joined = full.view([n] + shape).movedim(0, dim)
+    shape[dim] *= n
+    return joined.reshape(shape).to(t.device)
+
+
+def _part(t: torch.Tensor, mesh: DataMesh, dim: int) -> torch.Tensor:
+    '''This rank's part of `t` along `dim` (its length / n_model, at the model coordinate).'''
+    k = t.shape[dim] // mesh.n_model
+    return t.narrow(dim, mesh.model_rank * k, k).contiguous()
+
+
+def _model_sum(t: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
+    '''`t` summed over the model group (one all_reduce).'''
+    y = _on_backend(t.contiguous().clone(), mesh)
+    dist.all_reduce(y, op=dist.ReduceOp.SUM, group=mesh.model_group)
+    return y.to(t.device)
+
+
+def _model_sum_part(t: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
+    '''This rank's rows of `t` summed over the model group (one reduce_scatter_tensor,
+    which moves 1 / n_model of an all_reduce's bytes out of each rank).'''
+    x = _on_backend(t.contiguous(), mesh)
+    y = x.new_empty((x.shape[0] // mesh.n_model,) + tuple(x.shape[1:]))
+    dist.reduce_scatter_tensor(y, x, group=mesh.model_group)
+    return y.to(t.device)
+
+
+class _CopyToModel(torch.autograd.Function):
+    '''Identity forward; the backward sums the gradient over the model group (each rank
+    holds the gradient of its share of the computation that follows).'''
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _model_sum(g, ctx.mesh), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    '''Sum over the model group; the backward passes the (replicated) gradient through.'''
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return _model_sum(x, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherRows(torch.autograd.Function):
+    '''Each rank's rows joined in rank order; the backward takes this rank's rows of the
+    (replicated) gradient.'''
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return _gather(x.contiguous(), mesh, 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _part(g, ctx.mesh, 0), None
+
+
+class _ScatterRows(torch.autograd.Function):
+    '''This rank's rows of a replicated tensor; the backward joins every rank's rows of
+    the gradient.'''
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return _part(x, mesh, 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g.contiguous(), ctx.mesh, 0), None
+
+
+class _GatherWeight(torch.autograd.Function):
+    '''The full weight from the model group's row shards; the backward sums each rank's
+    gradient of the full weight over the model group into this rank's shard.'''
+
+    @staticmethod
+    def forward(ctx, w, mesh):
+        ctx.mesh = mesh
+        return _gather(w.detach().contiguous(), mesh, 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _model_sum_part(g, ctx.mesh), None
+
+
+def copy_to_model(x, mesh: DataMesh):
+    return _CopyToModel.apply(x, mesh)
+
+
+def reduce_from_model(x, mesh: DataMesh):
+    return _ReduceFromModel.apply(x, mesh)
+
+
+def gather_rows(x, mesh: DataMesh):
+    return _GatherRows.apply(x, mesh)
+
+
+def scatter_rows(x, mesh: DataMesh):
+    '''This rank's rows of x (R, ...); R must divide by n_model.'''
+    if x.shape[0] % mesh.n_model:
+        raise ValueError(f'{x.shape[0]} rows do not divide into {mesh.n_model} model shards')
+    return _ScatterRows.apply(x, mesh)
+
+
+def gather_weight(w, mesh: DataMesh):
+    '''The full weight of the row shards w (rows / n_model, ...).'''
+    return _GatherWeight.apply(w, mesh)
+
+
+# ---------------------------------------------------------------------------------------
 # Replicated state
 # ---------------------------------------------------------------------------------------
 
@@ -265,36 +516,47 @@ def _on_backend(t: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
     return t.to(mesh.device) if mesh.backend == 'nccl' and t.device.type != 'cuda' else t
 
 
-def replicate_tree(tensors: Iterable[torch.Tensor], mesh: DataMesh):
-    '''Overwrites every tensor, in order, with rank 0's (a broadcast each).'''
+def replicate_tree(tensors: Iterable[torch.Tensor], mesh: DataMesh, group=None, src: int = 0):
+    '''Overwrites every tensor, in order, with global rank `src`'s (a broadcast each over
+    `group`, the data group when None).'''
+    group = mesh.group if group is None else group
     for t in tensors:
         moved = _on_backend(t.detach(), mesh)
-        dist.broadcast(moved, src=0, group=mesh.group)
+        dist.broadcast(moved, src=src, group=group)
         if moved is not t:
             with torch.no_grad():
                 t.copy_(moved)
 
 
 def _state_tensors(state):
-    '''The tensors of a TrainState in a fixed order: parameters and buffers, each
-    parameter's optimizer state, the drop-path generator's state, the counts.'''
+    '''The tensors of a TrainState in a fixed order, each with whether it is sharded over
+    the model axis: parameters and buffers, each parameter's optimizer state (its moments
+    follow the parameter's layout, its step count is replicated), the drop-path
+    generator's state, the counts.'''
     model, opt = state.model, state.optimizer
-    out = [t for _, t in sorted(model.state_dict(keep_vars=True).items())]
-    for p in opt.params:
+    tp = tp_mesh(getattr(model, 'mesh', None)) is not None
+    out = [(tp and tp_dim(n) is not None, t)
+           for n, t in sorted(model.state_dict(keep_vars=True).items())]
+    for n, p in zip(opt.names, opt.params):
         st = opt.torch_opt.state.get(p, {})
-        out += [st[k] for k in sorted(st) if isinstance(st[k], torch.Tensor)]
+        out += [(tp and tp_dim(n) is not None and st[k].shape == p.shape, st[k])
+                for k in sorted(st) if isinstance(st[k], torch.Tensor)]
+    out += [(False, state.generator.get_state()),
+            (False, torch.tensor([state.step, state.optimizer.count], dtype=torch.int64))]
     return out
 
 
 def shard_state(state, mesh: DataMesh):
     '''Places a TrainState on every rank as rank 0 holds it (the JAX package instead has
     every process initialise the same seed, tcow_tpu/parallel/mesh.py:95-119): parameters,
-    optimizer moments, the drop-path generator, the step and update counts; then checks
-    the replicas (check_replicas). Returns the state.'''
-    replicate_tree(_state_tensors(state), mesh)
-    gen = state.generator.get_state()
-    counts = torch.tensor([state.step, state.optimizer.count], dtype=torch.int64)
-    replicate_tree([gen, counts], mesh)
+    optimizer moments, the drop-path generator, the step and update counts, the
+    replicated tensors from rank 0 over the world and each shard from the first rank of
+    its data group (its model coordinate); then checks the replicas (check_replicas).
+    Returns the state.'''
+    tensors = _state_tensors(state)
+    gen, counts = tensors[-2][1], tensors[-1][1]
+    replicate_tree([t for s, t in tensors if not s], mesh, group=dist.group.WORLD)
+    replicate_tree([t for s, t in tensors if s], mesh, src=mesh.model_rank)
     state.generator.set_state(gen)
     state.step, state.optimizer.count = (int(c) for c in counts)
     check_replicas(state, mesh)
@@ -312,54 +574,89 @@ def tensor_digest(t: torch.Tensor) -> int:
     return (total * 1000003 + b.numel()) % (1 << 61)
 
 
-def state_digest(state) -> int:
-    '''tensor_digest of every tensor of a TrainState, the generator and the counts.'''
-    tensors = _state_tensors(state) + [state.generator.get_state(),
-                                       torch.tensor([state.step, state.optimizer.count])]
+def _digest(tensors) -> int:
     total = 0
     for i, t in enumerate(tensors):
         total = (total * 31 + tensor_digest(t) + i) % (1 << 61)
     return total
 
 
-def check_replicas(state, mesh: DataMesh) -> int:
-    '''Raises unless every rank's state has the same digest; returns it.'''
-    d = state_digest(state)
+def state_digests(state):
+    '''(replicated, shards): the digest of the TrainState's tensors that every rank holds
+    alike (all of them without tensor parallelism) and of this rank's shards (0 when
+    none).'''
+    tensors = _state_tensors(state)
+    return (_digest([t for s, t in tensors if not s]), _digest([t for s, t in tensors if s]))
+
+
+def state_digest(state) -> int:
+    '''A digest of every tensor of a TrainState, the generator and the counts: that of its
+    replicated tensors and of its shards, combined.'''
+    return _combine(*state_digests(state))
+
+
+def _combine(rep: int, shards: int) -> int:
+    return (rep * 1000003 + shards) % (1 << 61)
+
+
+def _same_everywhere(d: int, mesh: DataMesh, group, what: str):
     lo_hi = torch.tensor([d, -d], dtype=torch.int64, device=mesh.device)
-    dist.all_reduce(lo_hi, op=dist.ReduceOp.MAX, group=mesh.group)
+    dist.all_reduce(lo_hi, op=dist.ReduceOp.MAX, group=group)
     if int(lo_hi[0]) != d or int(lo_hi[1]) != -d:
-        raise RuntimeError(f'rank {mesh.rank}: the replicas differ (digest {d}, largest '
+        raise RuntimeError(f'rank {mesh.rank}: the {what} differ (digest {d}, largest '
                            f'{int(lo_hi[0])}, smallest {-int(lo_hi[1])})')
-    return d
 
 
-def fetch_global(tree):
-    '''Host numpy copies of a tree (nested dicts) of tensors. Under data parallelism every
-    rank holds the whole state, so no collective is needed; a checkpoint's writer (rank
-    0) calls it alone.'''
-    if isinstance(tree, dict):
-        return {k: fetch_global(v) for k, v in tree.items()}
-    if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu().numpy().copy()
-    return np.array(tree, copy=True)
+def check_replicas(state, mesh: DataMesh) -> int:
+    '''Raises unless the replicated tensors of every rank's state have the same digest
+    over the world, and the shards over each data group; returns state_digest(state).'''
+    rep, shards = state_digests(state)
+    _same_everywhere(rep, mesh, dist.group.WORLD, 'replicated tensors')
+    _same_everywhere(shards, mesh, mesh.group, 'shards')
+    return _combine(rep, shards)
+
+
+def _host(t) -> np.ndarray:
+    if isinstance(t, torch.Tensor):
+        return t.detach().cpu().numpy().copy()
+    return np.array(t, copy=True)
+
+
+def fetch_global(tree, mesh: Optional[DataMesh] = None):
+    '''Host numpy copies of a tree (nested dicts, or flat dicts keyed by path) of tensors
+    or arrays. Under tensor parallelism the leaves tp_dim names sharded (by their path)
+    are gathered over the model group into the one-process layout, so every rank must
+    call it, in the same order (a checkpoint's writer then writes alone); without it
+    every rank holds the whole state and no collective is made.'''
+    tp = tp_mesh(mesh)
+
+    def fetch(node, path):
+        if isinstance(node, dict):
+            return {k: fetch(v, f'{path}.{k}') for k, v in node.items()}
+        dim = None if tp is None else tp_dim(path)
+        if dim is None:
+            return _host(node)
+        t = node if isinstance(node, torch.Tensor) else torch.from_numpy(np.asarray(node))
+        return _host(_gather(t.detach().contiguous(), tp, dim))
+    return fetch(tree, '')
 
 
 def gather_objects(obj, mesh: DataMesh) -> list:
     '''Every rank's picklable `obj`, in rank order, on every rank (a broadcast from each
-    rank in turn).'''
+    rank in turn, over the world).'''
     out = []
     for src in range(mesh.world):
         box = [obj if src == mesh.rank else None]
-        dist.broadcast_object_list(box, src=src, group=mesh.group,
+        dist.broadcast_object_list(box, src=src,
                                    device=mesh.device if mesh.backend == 'nccl' else None)
         out.append(box[0])
     return out
 
 
 def broadcast_one_to_all(flag: bool, mesh: Optional[DataMesh]) -> bool:
-    '''Rank 0's flag on every rank (the flag itself without a mesh).'''
+    '''Rank 0's flag on every rank of the world (the flag itself without a mesh).'''
     if mesh is None:
         return bool(flag)
     t = torch.tensor([int(bool(flag))], dtype=torch.int32, device=mesh.device)
-    dist.broadcast(t, src=0, group=mesh.group)
+    dist.broadcast(t, src=0)
     return bool(t.item())

@@ -15,6 +15,11 @@ torch.Generator, saved under GENERATOR_KEY. The JAX loader selects its subtrees 
 (k.startswith('params' / 'opt_state' / 'rng' / 'step')), so that key starts with none of
 them and the JAX loader passes it by.
 
+Under tensor parallelism every rank calls save_train_state, which gathers the shards of
+the parameters and the optimizer moments over the model group (parallel/mesh.py
+fetch_global), and global rank 0 writes the one-process layout; a load slices what each
+rank holds (shard_params), so a checkpoint resumes at any --tp_shards.
+
 A directory holds checkpoint.npz (the latest save, replaced atomically), model_{epoch}.npz
 snapshots every `checkpoint_every` epochs, and the checkpoint_epoch.txt /
 checkpoint_name.txt sidecars.
@@ -31,6 +36,7 @@ import numpy as np
 import torch
 
 from tcow_tpu_torch.models import torch_import
+from tcow_tpu_torch.parallel import mesh as mesh_lib
 from tcow_tpu_torch.weights import params_from_jax, params_to_jax
 
 GENERATOR_KEY = 'torch_generator'
@@ -99,7 +105,8 @@ def opt_state_to_jax(optimizer) -> Dict[str, np.ndarray]:
 def load_opt_state(optimizer, flat: Dict[str, np.ndarray]):
     '''Restores into `optimizer` what `opt_state_to_jax` writes (and the JAX package
     saves for the same optimizer): the count of applied updates, and the moments with
-    torch's per-parameter step set to Adam's count.'''
+    torch's per-parameter step set to Adam's count; under tensor parallelism the shards
+    of the moments that this rank's parameters are.'''
     adam, sched = _optax_prefixes(optimizer)
     optimizer.count = int(flat[f'{sched}.count'])
     if adam is None:
@@ -112,8 +119,9 @@ def load_opt_state(optimizer, flat: Dict[str, np.ndarray]):
     moments = {}
     for which in ('mu', 'nu'):
         head = f'{adam}.{which}'
-        moments[which] = params_from_jax(nest_from_keystrs(
-            {k[len(head):]: v for k, v in flat.items() if k.startswith(head + '[')}))
+        moments[which] = mesh_lib.shard_params(params_from_jax(nest_from_keystrs(
+            {k[len(head):]: v for k, v in flat.items() if k.startswith(head + '[')})),
+            optimizer.mesh)
     for n, p in zip(optimizer.names, optimizer.params):
         state[p] = {'step': torch.tensor(float(count), dtype=torch.float32),
                     'exp_avg': moments['mu'][n].to(p.device, p.dtype),
@@ -184,12 +192,21 @@ def save_checkpoint(checkpoint_dir: str, epoch: int, name: str, params,
     return path
 
 
-def save_train_state(checkpoint_dir: str, epoch: int, name: str, state, **kwargs) -> str:
+def save_train_state(checkpoint_dir: str, epoch: int, name: str, state,
+                     **kwargs) -> Optional[str]:
     '''save_checkpoint of a train/step.py TrainState: its model's parameters, its
-    optimizer's state under optax's paths, its step and its generator.'''
-    return save_checkpoint(checkpoint_dir, epoch, name,
-                           params_to_jax(state.model.state_dict()),
-                           opt_state=opt_state_to_jax(state.optimizer),
+    optimizer's state under optax's paths, its step and its generator. Under tensor
+    parallelism every rank calls it: the shards are gathered, global rank 0 writes and
+    returns the path, the others return None.'''
+    mesh = state.model.mesh
+    params = params_to_jax(state.model.state_dict())
+    opt_state = opt_state_to_jax(state.optimizer)
+    if mesh is not None:
+        params, opt_state = mesh_lib.fetch_global(params, mesh), \
+            mesh_lib.fetch_global(opt_state, mesh)
+        if mesh.rank != 0:
+            return None
+    return save_checkpoint(checkpoint_dir, epoch, name, params, opt_state=opt_state,
                            step=state.step, generator_state=state.generator.get_state().numpy(),
                            **kwargs)
 
@@ -199,7 +216,8 @@ def load_checkpoint(path: str, state_template=None) -> Dict[str, Any]:
     'seeker_args', ...), 'params' (the nested JAX-layout tree of numpy arrays) and
     'opt_restored' (whether optimizer state is present). With `state_template`, a
     train/step.py TrainState built for the same model and optimizer, also restores into
-    it, in place, and returns it as 'state': the parameters; the optimizer state when
+    it, in place, and returns it as 'state': the parameters (this rank's shards of them
+    under tensor parallelism); the optimizer state when
     present (a light save keeps the template's); the step; and the generator. A port
     checkpoint restores the generator's saved state. A JAX checkpoint holds a threefry
     key instead, which no torch generator can continue: the generator is then seeded
@@ -219,8 +237,9 @@ def load_checkpoint(path: str, state_template=None) -> Dict[str, Any]:
     if state_template is not None:
         state = state_template
         device = next(state.model.parameters()).device
+        full = params_from_jax(out['params'])
         state.model.load_state_dict({k: v.to(device) for k, v in
-                                     params_from_jax(out['params']).items()})
+                                     mesh_lib.shard_params(full, state.model.mesh).items()})
         if opt_flat:
             load_opt_state(state.optimizer, opt_flat)
         if 'step' in flat:

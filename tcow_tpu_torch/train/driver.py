@@ -34,7 +34,15 @@ rank 0 alone writes checkpoints (with every rank's loader state) and renders the
 from its own rows, and rank 0's SIGTERM flag is broadcast once per step and at the epoch
 boundaries, so every rank leaves at the same step. A step that raises on one rank cannot
 be skipped by the others: under a mesh it ends the run. Every step_stats line carries
-the rank, the world size and the backend.
+the rank, the world size, the backend and the rank's data and model coordinates.
+
+Tensor parallelism (--tp_shards, tcow_tpu/train/driver.py:186-199): the world is a (data,
+model) mesh of world / tp_shards data rows of tp_shards ranks. The ranks of a data row load
+the same rows (the loaders, the query-sampling stream and the drop-path masks go by the
+data coordinate) and hold shards of the block weights; the vis step runs on every rank of
+data row 0 (its forward makes model-axis collectives) and rank 0 renders it; every rank
+gathers the shards for a checkpoint, which rank 0 writes in the one-process layout; the
+checkpoint holds one query-sampling stream per data row.
 '''
 
 import json
@@ -95,7 +103,8 @@ def init_seeker_params(model, cfg: SeekerConfig, seeker_args: Dict[str, Any], lo
     (`net_seeker`) loads whole; any other state dict (or its `model` entry) is an image
     ViT, inflated to the video backbone and applied over the init, which keeps what the
     file lacks. There is no network to fetch ImageNet weights from, so a truthy flag
-    without a file keeps the random init.'''
+    without a file keeps the random init. A tensor-parallel model's shards are gathered
+    for the inflation (every rank calls it) and sliced again.'''
     path = seeker_args.get('tracker_pretrained', False)
     if not (isinstance(path, str) and len(path) > 5 and path.lower() not in ('false', 'true')):
         if cfg.pretrained:
@@ -114,18 +123,21 @@ def init_seeker_params(model, cfg: SeekerConfig, seeker_args: Dict[str, Any], lo
         inflated = torch_import.inflate_imagenet_vit_state_dict(
             sd, in_chans=cfg.input_channels, num_patches=bb_cfg.num_patches,
             num_frames=bb_cfg.num_frames, attention_type=cfg.attention_type)
-        params = params_to_jax(model.state_dict())
+        params = params_to_jax(mesh_lib.gather_state_dict(model.state_dict(), model.mesh))
         params['backbone'] = torch_import.apply_pretrained_to_params(
             params['backbone'], inflated, bb_cfg)
-    model.load_state_dict(params_from_jax(params))
+    model.load_state_dict(mesh_lib.shard_params(params_from_jax(params), model.mesh))
 
 
 def _host_state(state: step_lib.TrainState, full: bool, copy: bool):
     '''What a checkpoint writes, on the host, taken before the next step updates the
     state in place: the JAX-layout parameters and, when full, the optax-layout optimizer
     state, the step and the generator's bytes. copy: CPU tensors share their memory with
-    the arrays, so those are copied.'''
-    own = mesh_lib.fetch_global if copy else (lambda tree: tree)
+    the arrays, so those are copied. A tensor-parallel model's shards are gathered over
+    the model group (fetch_global, which every rank calls).'''
+    mesh = state.model.mesh
+    own = (lambda tree: mesh_lib.fetch_global(tree, mesh)) if copy or mesh is not None \
+        else (lambda tree: tree)
 
     params = own(params_to_jax(state.model.state_dict()))
     if not full:
@@ -151,23 +163,25 @@ class _StopFlag:
 
 
 def join_mesh(args, logger):
-    '''The DataMesh of a --multihost rank (None for one process), checked against the
-    flags: --mesh_devices, when given, must equal the world size, and batch_size /
-    grad_accum must divide by it (the world is fixed: no ranks are dropped).'''
+    '''The DataMesh of a --multihost rank (None for one process): world / --tp_shards data
+    rows of --tp_shards ranks, checked against the flags: --mesh_devices, when given, must
+    equal the world size, and batch_size / grad_accum must divide by the data rows (the
+    world is fixed: no ranks are dropped).'''
     if not args.multihost:
         if args.mesh_devices > 1:
             raise ValueError('--mesh_devices > 1 starts its ranks through train_torch.py; '
                              'each rank runs with --multihost 1')
         return None
     resolve_device(args.device)
-    mesh = mesh_lib.make_mesh(args.device)
-    logger.info(f'Data mesh: rank {mesh.rank} of {mesh.world} on {mesh.device}, backend '
-                f'{mesh.backend} ({mesh.reason})')
+    mesh = mesh_lib.make_mesh(args.device, model=int(getattr(args, 'tp_shards', 1)))
+    logger.info(f'Mesh: rank {mesh.rank} of {mesh.world} on {mesh.device} at (data '
+                f'{mesh.data_rank} of {mesh.n_data}, model {mesh.model_rank} of '
+                f'{mesh.n_model}), backend {mesh.backend} ({mesh.reason})')
     try:
         if args.mesh_devices > 0 and args.mesh_devices != mesh.world:
             raise ValueError(f'--mesh_devices {args.mesh_devices} but the world has '
                              f'{mesh.world} ranks')
-        mesh_lib.shard_rows(args.batch_size, mesh.rank, mesh.world,
+        mesh_lib.shard_rows(args.batch_size, mesh.data_rank, mesh.n_data,
                             max(1, int(getattr(args, 'grad_accum', 1))))
     except ValueError:
         mesh.close()
@@ -187,6 +201,7 @@ def main(args, logger):
 def _train(args, logger, mesh):
     device = mesh.device if mesh is not None else resolve_device(args.device)
     rank = 0 if mesh is None else mesh.rank
+    data_rank, n_data = (0, 1) if mesh is None else (mesh.data_rank, mesh.n_data)
     logger.save_args(args, 'train')
     np.random.seed(args.seed)
     random.seed(args.seed)
@@ -218,15 +233,15 @@ def _train(args, logger, mesh):
     start_time = time.time()
     train_loader, val_aug_loader, val_noaug_loader, dset_args = \
         factory.create_train_val_data_loaders(
-            args, logger, shard=(rank, 1 if mesh is None else mesh.world))
+            args, logger, shard=(data_rank, n_data))
     logger.info(f'Data loaders ready ({time.time() - start_time:.3f}s)')
     steps_per_epoch = len(train_loader)
 
     tx = optim.make_optimizer(args.optimizer, args.learn_rate, args.lr_decay,
                               args.num_epochs, steps_per_epoch, args.gradient_clip)
-    state = step_lib.init_train_state(args.seed, step_cfg, tx, device=device)
+    state = step_lib.init_train_state(args.seed, step_cfg, tx, device=device, mesh=mesh)
     init_seeker_params(state.model, cfg, seeker_args, logger)
-    n_params = sum(p.numel() for p in state.model.parameters())
+    n_params = sum(p.numel() for p in state.model.parameters())   # this rank's shards
     logger.info(f'Seeker parameter count: {int(np.round(n_params / 1e6))}M')
 
     start_epoch = 0
@@ -236,7 +251,8 @@ def _train(args, logger, mesh):
         # A reference checkpoint: its parameters, with a fresh optimizer (checked above).
         logger.info('Loading weights from: ' + args.resume)
         params, _, ckpt = torch_import.load_tcow_checkpoint(args.resume)
-        state.model.load_state_dict(params_from_jax(params))
+        state.model.load_state_dict(mesh_lib.shard_params(params_from_jax(params),
+                                                           state.model.mesh))
         start_epoch = int(ckpt.get('epoch', -1)) + 1
         logger.warning('Resuming from a torch .pth checkpoint: parameters restored, '
                        'optimizer/LR-schedule state REINITIALIZED (--allow_opt_reinit).')
@@ -282,30 +298,30 @@ def _train(args, logger, mesh):
                          f'grad_accum {grad_accum}')
     train_step = step_lib.make_train_step(step_cfg, grad_accum=grad_accum, mesh=mesh)
     eval_step = step_lib.make_eval_step(step_cfg, mesh=mesh)
-    # Rank 0 renders the vis step from its own rows; it runs no collective.
-    vis_step = step_lib.make_vis_step(step_cfg) if rank == 0 else None
+    # Rank 0 renders the vis step from its own rows; the other model ranks of its data row
+    # run its forward beside it (model-axis collectives); no data-group collective.
+    vis_step = step_lib.make_vis_step(step_cfg) if data_rank == 0 else None
 
     ckpt_thread = [None]
     # The train loader's query-sampling stream after the last batch a step consumed:
     # saved with each checkpoint, so that a resumed run samples the queries an
     # uninterrupted run would.
-    # One stream a rank ('train_collate_rng_by_rank'); a checkpoint written before ranks
-    # holds the one process's as 'train_collate_rng'.
+    # One stream a data row ('train_collate_rng_by_rank'); a checkpoint written before
+    # ranks holds the one process's as 'train_collate_rng'.
     collate_rng = [None]
     if args.resume and loaded.get('loader_state'):
         ls = loaded['loader_state']
         by_rank = ls.get('train_collate_rng_by_rank') or [ls['train_collate_rng']]
-        world = 1 if mesh is None else mesh.world
-        if len(by_rank) == world:
-            train_loader.collate_fn.restore(by_rank[rank])
+        if len(by_rank) == n_data:
+            train_loader.collate_fn.restore(by_rank[data_rank])
         elif allow_opt_reinit:
             logger.warning(f'The checkpoint holds the loader state of {len(by_rank)} '
-                           f'rank(s), this run has {world}: queries are sampled afresh '
+                           f'rank(s), this run has {n_data}: queries are sampled afresh '
                            '(--allow_opt_reinit).')
         else:
             raise ValueError(
                 f'{args.resume}: the checkpoint holds the loader state of {len(by_rank)} '
-                f'rank(s), this run has {world}, so the resume would not sample the '
+                f'rank(s), this run has {n_data}, so the resume would not sample the '
                 'queries an uninterrupted run samples. Resume with the same world size, '
                 'or pass --allow_opt_reinit 1 to sample them afresh.')
 
@@ -321,16 +337,20 @@ def _train(args, logger, mesh):
         # (preemption) save is always full: it IS the state to resume from.
         full = (not getattr(args, 'checkpoint_light', False) or final or epoch < 0
                 or steps_done is not None or epoch % args.checkpoint_every == 0)
-        # Every rank samples its own rows' queries: rank 0 saves every rank's stream.
+        # Every data row samples its own rows' queries: rank 0 saves every row's stream
+        # (the model ranks of a row hold the same one).
         by_rank = ([collate_rng[0]] if mesh is None
-                   else mesh_lib.gather_objects(collate_rng[0], mesh))
+                   else mesh_lib.gather_objects(collate_rng[0], mesh)[::mesh.n_model])
         loader_state = (None if by_rank[0] is None
                         else {'train_collate_rng_by_rank': by_rank})
-        if rank != 0:
+        if rank != 0 and state.model.mesh is None:
             return   # one writer; the state is replicated
-        # Taken now, on this thread: the next step updates the state in place.
+        # Taken now, on this thread: the next step updates the state in place. Every rank
+        # of a tensor-parallel mesh takes part in the gather, then rank 0 writes alone.
         params, opt_state, step, generator_state = _host_state(
             state, full, copy=device.type == 'cpu')
+        if rank != 0:
+            return
 
         def write():
             ckpt_lib.save_checkpoint(
@@ -538,8 +558,10 @@ def _run_one_epoch(args, logger, device, state, train_step, eval_step, loader, p
     num_exceptions = 0
     is_train = (phase == 'train')
     debug = logger.debug_enabled()
-    where = ({'rank': 0, 'world': 1, 'backend': None} if mesh is None else
-             {'rank': mesh.rank, 'world': mesh.world, 'backend': mesh.backend})
+    where = ({'rank': 0, 'world': 1, 'backend': None, 'data_rank': 0, 'model_rank': 0}
+             if mesh is None else
+             {'rank': mesh.rank, 'world': mesh.world, 'backend': mesh.backend,
+              'data_rank': mesh.data_rank, 'model_rank': mesh.model_rank})
 
     profile_dir = getattr(args, 'profile_dir', '')
     profile_start = min(2, max(len(loader) - 1, 0))  # short epochs still get a trace
@@ -604,7 +626,7 @@ def _run_one_epoch(args, logger, device, state, train_step, eval_step, loader, p
                     try:
                         _log_vis_step(logger, args, phase, epoch, cur_step, total_step,
                                       steps_per_epoch, state, vis_step, batch,
-                                      device_batch, progress)
+                                      device_batch, progress, render=where['rank'] == 0)
                     except Exception as e:  # noqa: BLE001 — must never kill training
                         logger.warning(f'train-step visualization failed: {e}')
                     else:
@@ -674,13 +696,15 @@ def _stop_profiler(profiler, profile_dir, logger, rank=0):
 
 
 def _log_vis_step(logger, args, phase, epoch, cur_step, total_step, steps_per_epoch, state,
-                  vis_step, batch, device_batch, progress):
-    '''Runs the compact visualization forward on the current batch and hands the result
-    to MyLogger.handle_train_step (tcow_tpu/train/driver.py:_render_train_overlays): its
-    losses and metrics on the console, and its float16 slices (example 0, the first two
-    queries) as overlay videos. seeker_rgb is the rgb the model saw, after the device's
-    colour augmentations.'''
+                  vis_step, batch, device_batch, progress, render: bool = True):
+    '''Runs the compact visualization forward on the current batch and, when `render`,
+    hands the result to MyLogger.handle_train_step (tcow_tpu/train/driver.py:
+    _render_train_overlays): its losses and metrics on the console, and its float16 slices
+    (example 0, the first two queries) as overlay videos. seeker_rgb is the rgb the model
+    saw, after the device's colour augmentations.'''
     vis = vis_step(state.model, device_batch, progress)
+    if not render:
+        return
     host = lambda t: None if t is None else t.cpu().numpy()
     model_retval = {
         'seeker_input': host(vis['seeker_rgb']).astype(np.float32),

@@ -8,13 +8,21 @@ written as optax.clip_by_global_norm writes it: g * max_norm / norm only when no
 max_norm, with no epsilon (torch.nn.utils.clip_grad_norm_ divides by norm + 1e-6). The learning rate of
 update n is schedule(n), n counting the updates actually applied, as optax counts them in
 its state (an update skipped for a non-finite loss does not advance it).
+
+Under tensor parallelism each rank's optimizer holds the moments of its parameters'
+shards (AdamW is elementwise, so its update of a shard is the shard of its update), and
+the norms that span a tensor are the logical tensor's: the squares of the sharded
+parameters summed over the model group, a replicated parameter counted once (the global
+norm of clipping and of grad_norm, LAMB's per-leaf ||p|| and ||u||).
 '''
 
 import dataclasses
 from typing import Callable, Iterable, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
+from tcow_tpu_torch.parallel.mesh import tp_dim, tp_mesh
 from tcow_tpu_torch.weights import jax_leaf_name
 
 Schedule = Callable[[int], float]
@@ -41,10 +49,24 @@ def multistep_schedule(learn_rate: float, lr_decay: float, num_epochs: int,
     return schedule
 
 
-def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    '''sqrt of the sum of squares of every element, in f32 (optax.global_norm).'''
-    return torch.linalg.vector_norm(torch.stack(
-        torch._foreach_norm([t.float() for t in tensors])))
+def global_norm(tensors: Iterable[torch.Tensor], sharded: Optional[Iterable[bool]] = None,
+                group=None) -> torch.Tensor:
+    '''sqrt of the sum of squares of every element, in f32 (optax.global_norm). With a
+    model group, the tensors flagged in `sharded` are this rank's shards of larger ones:
+    their squares are summed over the group, the others' counted once.'''
+    tensors = list(tensors)
+    if group is None:
+        return torch.linalg.vector_norm(torch.stack(
+            torch._foreach_norm([t.float() for t in tensors])))
+    sharded = list(sharded)
+
+    def squares(ts):
+        if not ts:
+            return torch.zeros((), dtype=torch.float32, device=tensors[0].device)
+        return torch.stack(torch._foreach_norm([t.float() for t in ts])).square().sum()
+    parts = squares([t for t, s in zip(tensors, sharded) if s])
+    dist.all_reduce(parts, op=dist.ReduceOp.SUM, group=group)
+    return torch.sqrt(parts + squares([t for t, s in zip(tensors, sharded) if not s]))
 
 
 class Lamb(torch.optim.Optimizer):
@@ -56,10 +78,12 @@ class Lamb(torch.optim.Optimizer):
     of every block) share one ratio, from the norms over all of them. Each group is
     updated by foreach ops. The moments and the count sit in each parameter's state under
     torch.optim.Adam's names (exp_avg, exp_avg_sq, step), so checkpoints read both
-    optimizers alike.'''
+    optimizers alike. A group flagged 'sharded' holds this rank's shards of its leaf: its
+    norms are summed over `group`, the model group.'''
 
-    def __init__(self, params, lr: float):
-        super().__init__(params, dict(lr=lr))
+    def __init__(self, params, lr: float, group=None):
+        super().__init__(params, dict(lr=lr, sharded=False))
+        self.model_group = group
 
     @torch.no_grad()
     def step(self):
@@ -85,8 +109,10 @@ class Lamb(torch.optim.Optimizer):
             torch._foreach_sqrt_(denom)
             torch._foreach_add_(denom, LAMB_EPS)
             updates = torch._foreach_div(torch._foreach_div(mus, 1 - LAMB_B1 ** count), denom)
-            p_norm = global_norm(params)
-            u_norm = global_norm(updates)
+            flags = [group['sharded']] * len(params)
+            model_group = self.model_group if group['sharded'] else None
+            p_norm = global_norm(params, flags, model_group)
+            u_norm = global_norm(updates, flags, model_group)
             ratio = torch.where((p_norm == 0) | (u_norm == 0), torch.ones_like(p_norm),
                                 p_norm / u_norm)
             torch._foreach_mul_(updates, ratio * -group['lr'])
@@ -99,19 +125,23 @@ class OptimizerSpec:
     schedule: Schedule
     gradient_clip: float
 
-    def init(self, named_params: Iterable[Tuple[str, torch.nn.Parameter]]) -> 'Optimizer':
-        return Optimizer(self, named_params)
+    def init(self, named_params: Iterable[Tuple[str, torch.nn.Parameter]],
+             mesh=None) -> 'Optimizer':
+        return Optimizer(self, named_params, mesh)
 
 
 class Optimizer:
     '''A torch optimizer over the parameters of `named_params` ((name, parameter) pairs,
     model.named_parameters()), its schedule and its clipping. The names place each
     parameter in the JAX package's tree (weights.py): LAMB's trust ratio and the optax
-    state of a checkpoint go by them.'''
+    state of a checkpoint go by them. Under a tensor-parallel `mesh` (parallel/mesh.py)
+    the parameters tp_dim names sharded are this rank's shards.'''
 
-    def __init__(self, spec: OptimizerSpec, named_params):
+    def __init__(self, spec: OptimizerSpec, named_params, mesh=None):
         self.spec = spec
         self.names, self.params = map(list, zip(*named_params))
+        self.mesh = tp_mesh(mesh)
+        self.sharded = [self.mesh is not None and tp_dim(n) is not None for n in self.names]
         params = self.params
         lr = spec.schedule(0)
         if spec.name == 'sgd':
@@ -127,7 +157,10 @@ class Optimizer:
             leaves = {}
             for n, p in zip(self.names, params):
                 leaves.setdefault(jax_leaf_name(n), []).append(p)
-            self.torch_opt = Lamb([{'params': ps} for ps in leaves.values()], lr=lr)
+            self.torch_opt = Lamb([{'params': ps, 'sharded': self.mesh is not None
+                                    and tp_dim(leaf) is not None}
+                                   for leaf, ps in leaves.items()], lr=lr,
+                                  group=None if self.mesh is None else self.mesh.model_group)
         else:
             raise ValueError(f'unknown optimizer: {spec.name}')
         self.count = 0   # updates applied
@@ -142,6 +175,13 @@ class Optimizer:
         for g in grads:
             g.copy_(torch.where(keep, g, (g / norm) * max_norm))
 
+    def grad_norm(self) -> torch.Tensor:
+        '''The global norm of the gradients of self.params that have one (of the logical
+        tensors under tensor parallelism).'''
+        have = [(p.grad, s) for p, s in zip(self.params, self.sharded) if p.grad is not None]
+        return global_norm([g for g, _ in have], [s for _, s in have],
+                           None if self.mesh is None else self.mesh.model_group)
+
     def step(self, grad_norm: Optional[torch.Tensor] = None):
         '''Clips the gradients of self.params (grad_norm: their global norm, computed when
         None) and applies one update at the scheduled rate. A parameter the loss does not
@@ -150,7 +190,7 @@ class Optimizer:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
-        self.clip_(grads, global_norm(grads) if grad_norm is None else grad_norm)
+        self.clip_(grads, self.grad_norm() if grad_norm is None else grad_norm)
         for group in self.torch_opt.param_groups:
             group['lr'] = self.spec.schedule(self.count)
         self.torch_opt.step()

@@ -11,6 +11,12 @@ the group, each rank draws the global batch's drop-path masks and keeps its rows
 gradients are summed over the ranks after the backward, and the clip and the non-finite
 skip follow from the global loss and norm, so every rank keeps the same replica.
 
+Under tensor parallelism (a mesh with n_model > 1) the model ranks of one data row hold
+the same rows and draw the same drop-path masks; the model is built with the mesh
+(init_train_state shards the full model's parameters), its blocks make the model-axis
+sums inside the backward, so after it only the data group's sum is left, and the
+gradient norm is the logical tensors' (optim.Optimizer.grad_norm).
+
 Batch schema (numpy arrays or tensors; the step moves them to the model's device):
   rgb           (B, 3, T, H, W) float32  (or uint8 'rgb_u8', scaled by 1/255 on device)
   segm          (B, T, H, W)    int32    1-based visible instance IDs (or uint8 'segm_u8')
@@ -39,7 +45,7 @@ from tcow_tpu_torch.objectives import supervision
 from tcow_tpu_torch.objectives.losses import LossConfig
 from tcow_tpu_torch.ops import device_augs
 from tcow_tpu_torch.parallel import mesh as mesh_lib
-from tcow_tpu_torch.train.optim import Optimizer, OptimizerSpec, global_norm
+from tcow_tpu_torch.train.optim import Optimizer, OptimizerSpec
 from tcow_tpu_torch.weights import params_from_jax
 
 
@@ -62,18 +68,27 @@ class TrainState:
 
 
 def init_train_state(seed: int, cfg: StepConfig, tx: OptimizerSpec,
-                     params: Optional[Dict[str, Any]] = None, device='cuda') -> TrainState:
+                     params: Optional[Dict[str, Any]] = None, device='cuda',
+                     mesh=None) -> TrainState:
     '''A model on `device` initialised from `seed` (or from the JAX-layout tree `params`),
-    its optimizer, and a drop-path generator; the two generators are split from `seed`.'''
+    its optimizer, and a drop-path generator; the two generators are split from `seed`.
+    Under a tensor-parallel mesh the full model is initialised on the CPU (the init draws
+    there in any case) and the model on `device` gets this rank's shards of it before the
+    optimizer sees its parameters.'''
     device = resolve_device(device)
     root = torch.Generator().manual_seed(seed)
     init_seed, drop_seed = torch.randint(0, 2 ** 62, (2,), generator=root).tolist()
-    model = MaskTracker(cfg.seeker, device=device)
+    tp = mesh_lib.tp_mesh(mesh)
+    model = MaskTracker(cfg.seeker, device='cpu' if tp is not None else device)
     if params is None:
         model.init_params_(torch.Generator().manual_seed(init_seed))
     else:
         model.load_state_dict(params_from_jax(params))
-    return TrainState(model, tx.init(model.named_parameters()),
+    if tp is not None:
+        full = model.state_dict()
+        model = MaskTracker(cfg.seeker, device=device, mesh=tp)
+        model.load_state_dict(mesh_lib.shard_params(full, tp))
+    return TrainState(model, tx.init(model.named_parameters(), mesh=tp),
                       torch.Generator().manual_seed(drop_seed))
 
 
@@ -113,7 +128,8 @@ def _forward_queries(model: MaskTracker, cfg: StepConfig, batch, sup, train: boo
     '''The seeker on all (example, query) pairs as one folded batch (step.py:63-85), every
     query of an example on its clock when rope_time_coords is set (:73-77). Returns
     output_mask (B, Q, C, T, H, W) and output_flags (B, Q, T, F) or None. Under a mesh the
-    B x Q folded rows are rank r's of the world's, whose drop-path masks are drawn.'''
+    B x Q folded rows are those of data coordinate d of the n_data rows' (every model rank
+    of the row draws the same), whose drop-path masks are drawn.'''
     B, Q = batch['query_inds'].shape
     rgb = batch['rgb']
     _, _, T, H, W = rgb.shape
@@ -122,7 +138,7 @@ def _forward_queries(model: MaskTracker, cfg: StepConfig, batch, sup, train: boo
     frame_times = None
     if cfg.seeker.rope_time_coords and 'frame_times' in batch:
         frame_times = batch['frame_times'][:, None].expand(B, Q, T).reshape(B * Q, T)
-    rows = None if mesh is None else (mesh.rank * B * Q, mesh.world * B * Q)
+    rows = None if mesh is None else (mesh.data_rank * B * Q, mesh.n_data * B * Q)
     out_mask, out_flags = model(rgb_q, qmask, train=train, generator=generator,
                                 frame_times=frame_times, drop_path_rows=rows)
     out_mask = out_mask.reshape(B, Q, cfg.seeker.output_channels, T, H, W)
@@ -200,8 +216,9 @@ def compute_gradients(state: TrainState, cfg: StepConfig, batch, progress,
                       grad_accum: int = 1, mesh=None):
     '''The step up to the update: the gradients of the batch's loss in the parameters'
     .grad and the aux of make_train_step without skipped_nonfinite and grad_norm. Under a
-    mesh the gradients and the metric sums are summed over the ranks, so that every rank
-    holds the global batch's.'''
+    mesh the gradients and the metric sums are summed over the data group, so that every
+    rank holds the global batch's (its shards' under tensor parallelism, whose model-axis
+    sums the blocks make in the backward).'''
     A = int(grad_accum)
     model = state.model
     model.zero_grad(set_to_none=True)
@@ -251,9 +268,8 @@ def make_train_step(cfg: StepConfig, grad_accum: int = 1, mesh=None):
 
     def train_step(state: TrainState, batch, progress):
         aux = compute_gradients(state, cfg, batch, progress, A, mesh)
-        grads = [p.grad for p in state.model.parameters() if p.grad is not None]
         loss = aux['total_seeker']
-        grad_norm = global_norm(grads)
+        grad_norm = state.optimizer.grad_norm()
         ok = bool(torch.isfinite(loss))
         if ok:
             state.optimizer.step(grad_norm)

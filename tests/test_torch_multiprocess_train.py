@@ -9,6 +9,10 @@ and ends with the parameters and AdamW moments of an uninterrupted two-rank run,
 bit (tests/test_multiprocess.py:test_multihost_driver_preempt_and_exact_step_resume is
 the JAX package's counterpart).
 
+`train_torch.py --device cpu --mesh_devices 2 --tp_shards 2` runs the two ranks as one
+data row of two tensor-parallel ranks: one epoch, and its checkpoint in the one-process
+layout, against the one-process run of the same flags.
+
 The ranks run the test's own command line (train_torch.py's launcher starts each rank
 with the interpreter's arguments), which registers the tiny width before calling
 train_torch.main().
@@ -154,3 +158,33 @@ def test_two_ranks_preempt_and_resume_exactly(kubric_root, tmp_path):
     assert set(got) == set(want)
     differ = [k for k in want if not np.array_equal(got[k], want[k])]
     assert not differ, differ[:5]
+
+
+def test_tensor_parallel_ranks_train_and_write_one_process_checkpoint(kubric_root, tmp_path):
+    '''--tp_shards 2 over --mesh_devices 2: both ranks hold data row 0 (model ranks 0 and
+    1) and take the epoch's 4 steps and the vis step; rank 0 writes the checkpoint in the
+    one-process layout (full-width block weights and AdamW moments), which loads into a
+    one-process state and is within 5e-6 of the one-process run's (the same batches and
+    masks; only the order of the sums differs).'''
+    deadline = time.monotonic() + RUN_TIMEOUT_S
+    extra = ('--num_epochs', '1', '--do_val_aug', '0')
+    one = start(train_argv(kubric_root, tmp_path, 'mptp1', *extra, '--mesh_devices', '1'))
+    proc = start(train_argv(kubric_root, tmp_path, 'mptp', *extra, '--tp_shards', '2'))
+    finish(proc, deadline)
+    finish(one, deadline)
+    for rank, t in enumerate(rank_logs(tmp_path, 'mptp')):
+        recs = [json.loads(m.group(1)) for m in STEP_STATS.finditer(t)]
+        assert {(r['rank'], r['world'], r['data_rank'], r['model_rank']) for r in recs} == {
+            (rank, 2, 0, rank)}
+        assert [(r['phase'], r['step']) for r in recs] == [
+            ('train', 0), ('vis', 0), *[('train', s) for s in range(1, STEPS_PER_EPOCH)]]
+    ckpt = tmp_path / 'checkpoints' / 'mptp' / 'checkpoint.npz'
+    got = checkpoint_arrays(ckpt)
+    want = checkpoint_arrays(tmp_path / 'checkpoints' / 'mptp1' / 'checkpoint.npz')
+    assert set(got) == set(want)
+    for k, w in want.items():
+        assert got[k].shape == w.shape, k
+        np.testing.assert_allclose(got[k], w, rtol=0, atol=5e-6, err_msg=k)
+    assert got["params['backbone']['blocks']['mlp']['fc1']['w']"].shape == (2, 32, 128)
+    assert pckpt.load_checkpoint(str(ckpt))['params']['backbone']['blocks']['attn']['qkv'][
+        'w'].shape == (2, 32, 96)

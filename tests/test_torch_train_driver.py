@@ -285,11 +285,12 @@ def test_port_exception_budget_and_ba_save(synth_root, tmp_path, tiny, monkeypat
 
 
 @pytest.mark.parametrize('flags', [['--mesh_devices', '2', '--seq_shards', '2'],
-                                   ['--seq_shards', '2'], ['--tp_shards', '2'],
-                                   ['--pp_stages', '2'], ['--multihost', '1', '--tp_shards', '2']])
+                                   ['--seq_shards', '2'], ['--tp_shards', '2', '--pp_stages', '2'],
+                                   ['--pp_stages', '2'],
+                                   ['--multihost', '1', '--tp_shards', '2', '--seq_shards', '2']])
 def test_port_unported_flags_raise(synth_root, tmp_path, flags):
-    '''Data parallelism (--mesh_devices, --multihost) parses; the sequence, tensor and
-    pipeline layouts raise, alone or beside it.'''
+    '''Data parallelism (--mesh_devices, --multihost) parses; the sequence and pipeline
+    layouts raise, alone, beside it or beside tensor parallelism.'''
     with pytest.raises(NotImplementedError, match='ROADMAP.md section 1 item'):
         make_args(synth_root, tmp_path, extra=flags)
     dp = [f for f in flags if f in ('--mesh_devices', '--multihost')]

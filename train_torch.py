@@ -12,11 +12,17 @@ every rank (rank 0's decides). --multihost 1 runs this process as one rank of a 
 launcher (torchrun, or the lines above) describes in those variables. Rank 0 logs under
 --log_path, rank r under <log_path>/rank<r>.
 
+Tensor parallelism: --tp_shards M splits the N ranks into N / M data rows of M ranks that
+share the rows of the batch and hold shards of the block weights; the data rows shrink
+until they divide batch_size / grad_accum, and N becomes their count times M. On the CPU:
+  python train_torch.py --device cpu --mesh_devices 2 --tp_shards 2 ...
+
 Example (the configuration of record):
   python train_torch.py --name v1 --data_path /path/to/kubric_random/ --batch_size 2 \
       --num_queries 3 --num_frames 30 --causal_attention 1
 On two GPUs of one host: the same with --mesh_devices 2 (or torchrun --nproc_per_node 2
-train_torch.py ... --multihost 1).
+train_torch.py ... --multihost 1); add --tp_shards 2 for one data row of two
+tensor-parallel ranks.
 A synthetic Kubric-format dataset: python -m tcow_tpu_torch.data.synthetic --out DIR
 '''
 
@@ -34,8 +40,10 @@ STOP_GRACE_S = 30
 
 def ranks_to_start(args, logger) -> int:
     '''How many ranks --mesh_devices asks of this host: -1 means every visible GPU (one
-    on the CPU); more GPUs than the host has raises; the count shrinks, with a warning,
-    until it divides batch_size / grad_accum (tcow_tpu/train/driver.py:187-199).'''
+    on the CPU); more GPUs than the host has raises, and so does a count that
+    --tp_shards does not divide; the data rows (the count / tp_shards) shrink, with a
+    warning, until they divide batch_size / grad_accum (tcow_tpu/train/driver.py:186-199),
+    and the count is their number times tp_shards.'''
     import torch
     n = args.mesh_devices
     if args.device == 'cuda':
@@ -44,14 +52,17 @@ def ranks_to_start(args, logger) -> int:
             raise ValueError(f'--mesh_devices {n} but this host has {have} CUDA devices')
         n = have if n <= 0 else n
     n = max(n, 1)
+    tp = max(1, int(args.tp_shards))
+    if n % tp:
+        raise ValueError(f'--tp_shards {tp} does not divide the {n} ranks')
     rows = args.batch_size // max(1, int(args.grad_accum))
-    n_data = n
+    n_data = n // tp
     while rows % n_data:
         n_data -= 1
-    if n_data != n:
-        logger.warning(f'Using {n_data}/{n} devices so the data axis ({n_data}) divides '
-                       f'batch_size / grad_accum ({rows}).')
-    return n_data
+    if n_data * tp != n:
+        logger.warning(f'Using {n_data * tp}/{n} devices so the data axis ({n_data}) '
+                       f'divides batch_size / grad_accum ({rows}).')
+    return n_data * tp
 
 
 def launch_ranks(command, world: int, logger) -> int:
