@@ -157,11 +157,11 @@ Drives the PyTorch port (tcow_tpu_torch) on one NVIDIA GPU and checks it:
      --multihost 1` as two ranks: a SIGTERM to rank 0 stops both after the same step with
      one mid-epoch checkpoint, and the resume ends bit-equal to an uninterrupted two-rank
      run;
- 25. tensor parallelism (phases tp and tp_grid after dp, tp_driver on a thread beside the
-     phases of item 2, on its own 4-scene dataset): the step of record's batch on one data
+ 25. tensor parallelism (phase tp after dp; tp_grid, beside sp_grid, and tp_driver on a
+     thread while the threads of item 2 run, tp_driver on its own 4-scene dataset): the step of record's batch on one data
      row of two model ranks that share the card (gloo, asserted), each running K1-K6 on
      its half of every attention call's rows (900 x 30 and 90 x 301 at the step of
-     record, recorded): 24 K1 + 24 K4 per rank and step at depth 12 and each other
+     record, recorded): 8 K1 + 8 K4 per rank and step at depth 4 and each other
      pairing's launches at depth 2, the replicated tensors and the shards compared by
      digest, the gathered first-step gradients against train_parity's (bf16 ratio, f32 at
      depth 2), per rank step ms, peak and the model-axis collectives per step (count,
@@ -169,8 +169,20 @@ Drives the PyTorch port (tcow_tpu_torch) on one NVIDIA GPU and checks it:
      `train_torch.py --multihost 1 --tp_shards 2` as two ranks for one epoch of 2 steps
      at full width and depth 2, its checkpoint in the one-process layout loaded into a
      one-process state on the card, bit for bit; which of all_gather_into_tensor,
-     reduce_scatter_tensor, all_to_all_single and send / recv gloo runs on CUDA tensors
-     (phase gloo_probe, on a thread beside the kernel checks).
+     reduce_scatter_tensor, all_to_all_single (even and uneven split sizes) and send / recv
+     gloo runs on CUDA tensors (phase gloo_probe, on a thread beside the kernel checks);
+ 26. sequence parallelism (phase sp after tp; sp_grid beside tp_grid and sp_driver on a
+     thread while the threads of item 2 run, sp_driver on its own 4-scene dataset): the step of record's batch on
+     one data row of two seq ranks that share the card (gloo), each holding the whole model
+     and its chunk of the tokens, K1-K6 on its patches' and its frames' rows (900 x 30 and
+     90 x 301, recorded): 24 K1 + 24 K4 per rank and step at depth 12 and each other
+     pairing's launches at depth 2, the replicated tensors by digest, the gradients against
+     train_parity's (bf16 ratio, f32 at depth 2), causal_attention 0 at depth 2 against
+     one process, per rank step ms, peak and the seq collectives per step (count, bytes, ms
+     in the instrumented warm-up step); four ranks as (seq 2, model 2), the f32 depth-2
+     gradient against one process; `train_torch.py --multihost 1 --seq_shards 2` as two
+     ranks for one epoch of 2 steps at full width and depth 2, its checkpoint loaded into a
+     one-process state on the card, bit for bit.
 
 The Kubric datasets are written on a thread while the kernels build; the inputs of the
 kernel comparisons and timings are drawn on the card.
@@ -186,6 +198,7 @@ import concurrent.futures
 import contextlib
 import csv
 import dataclasses
+import functools
 import gc
 import importlib
 import io
@@ -223,6 +236,7 @@ from tcow_tpu_torch.ops import _build
 from tcow_tpu_torch.ops import fused_attention as fa
 from tcow_tpu_torch.ops import rope as rope_lib
 from tcow_tpu_torch.parallel import mesh as mesh_lib
+from tcow_tpu_torch.parallel import sequence as seq_lib
 from tcow_tpu_torch.parallel import tensor as tensor_lib
 from tcow_tpu_torch.train import driver as train_driver
 from tcow_tpu_torch.train import optim
@@ -800,17 +814,24 @@ def depth_preset(depth, width_heads):
         del tsf.DEPTH_PRESETS[depth]
 
 
+def at_depth(depth):
+    '''depth_preset(depth) at full width, unless depth has a preset of its own.'''
+    return (contextlib.nullcontext() if depth in tsf.DEPTH_PRESETS
+            else depth_preset(depth, (D, HEADS)))
+
+
 def train_config(dtype, drop_path_rate=0.1, depth=12, pairing=STEP_OF_RECORD, rope=False,
-                 joint=False, queries=TRAIN_Q):
+                 joint=False, queries=TRAIN_Q, **overrides):
     '''ViT-B/16, T=30 at 240x320, causal 1, per-block remat under the pairing's
     (attention_bwd, remat_policy); the step of record by default; with rope the rope256
-    configuration, with joint joint space-time attention.'''
+    configuration, with joint joint space-time attention; `overrides` set other seeker
+    fields (causal_attention).'''
     mode, policy = pairing
     seeker_args = ROPE_ARGS if rope else JOINT_ARGS if joint else SEEKER_ARGS
     seeker = seeker_config_from_args(seeker_args,
                                      drop_path_rate=drop_path_rate,
                                      compute_dtype=dtype, remat=True, network_depth=depth,
-                                     attention_bwd=mode, remat_policy=policy)
+                                     attention_bwd=mode, remat_policy=policy, **overrides)
     return step_lib.StepConfig(seeker=seeker, loss=LossConfig(), num_queries=queries)
 
 
@@ -857,7 +878,6 @@ def phase_train(pairing, rope=False):
     tx = optim.make_optimizer('adamw', learn_rate=1e-4, num_epochs=70, steps_per_epoch=1000,
                               gradient_clip=0.3)
     state = step_lib.init_train_state(SEED, cfg, tx, device=DEV)
-    init_state = {k: v.clone() for k, v in state.model.state_dict().items()}
     train_step = step_lib.make_train_step(cfg)
     batch = train_batch(rope)
     last = cfg.seeker.network_depth - 1
@@ -902,7 +922,15 @@ def phase_train(pairing, rope=False):
           'clips_per_s': TRAIN_B / (step_ms / 1e3), 'max_memory_allocated_bytes': peak,
           'step_matmul_flops': flops, 'step_bound_ms': 1e3 * flops / PEAK_BF16_FLOPS})
     return dict(cfg=cfg, state=state, train_step=train_step, batch=batch,
-                init_state=init_state, launches=launches, step_ms=step_ms, peak=peak)
+                launches=launches, step_ms=step_ms, peak=peak)
+
+
+def record_init(rope=False):
+    '''The step of record's seeded initial parameters, as phase_train draws them (the
+    rope256 step's with rope), and its batch on the card: phase_train_parity's inputs.'''
+    cfg = train_config(torch.bfloat16, rope=rope)
+    state = step_lib.init_train_state(SEED, cfg, dp_optimizer(), device=DEV)
+    return state.model.state_dict(), train_batch(rope)
 
 
 def loss_and_flat_grad(model, cfg, batch, plain):
@@ -1421,6 +1449,7 @@ def dataset_specs():
             'eval': ((('test', EVAL_SCENES, SEED + 300),), DRIVER_FRAMES),
             'pth': ((('train', PTH_TRAIN_SCENES, SEED + 400),), DRIVER_FRAMES),
             'tp_driver': ((('train', TP_DRIVER_SCENES, SEED + 500),), DRIVER_FRAMES),
+            'sp_driver': ((('train', TP_DRIVER_SCENES, SEED + 600),), DRIVER_FRAMES),
             'stream_long': ((('test', STREAM_EVAL_SCENES, SEED + 300),), STREAM_EVAL_FRAMES)}
 
 
@@ -1508,7 +1537,8 @@ def epoch_stats(steps, log_text):
 def run_driver(argv, log_fp, sigterm_after_step=None):
     '''python train_torch.py argv as a subprocess (real argv, real signals), its output to
     log_fp; with sigterm_after_step=k, SIGTERM is sent once train step k of epoch 0
-    (0-based) has logged: step k + 1 is then in flight or waiting for its batch. Returns
+    (0-based) has logged, which the driver does after that step's preemption check: step
+    k + 1 is then in flight or waiting for its batch, and the run stops after it. Returns
     (log text, wall seconds); fails on a non-zero exit or after RUN_TIMEOUT_S.'''
     t0 = time.perf_counter()
     with open(log_fp, 'w') as log:
@@ -1523,7 +1553,6 @@ def run_driver(argv, log_fp, sigterm_after_step=None):
                         r['phase'] == 'train' and r['epoch'] == 0
                         and r['step'] == sigterm_after_step
                         for r in parse_steps(log_fp.read_text())):
-                    time.sleep(0.1)   # past that step's own preemption check
                     proc.send_signal(signal.SIGTERM)
                     sigterm_after_step = None
                 time.sleep(0.05)
@@ -1776,7 +1805,8 @@ def phase_train_driver(workdir):
     2 epochs of 4 steps with both val phases; run 2 is run 1 under another name, sent
     SIGTERM during step PREEMPT_STEPS_DONE of epoch 0; run 3 resumes run 2 and must end
     where run 1 ended; run 5 trains 2 steps with --device_augs 0 (the host colour path);
-    run 4 is rope256 through train_torch.main in this process. Every step's launches are
+    runs 1, 2 then 3, and 5 go at once; run 4 is rope256 through train_torch.main in this
+    process, after them. Every step's launches are
     checked (DRIVER_PER_*), every loss finite, every epoch's checkpoint full, run 1's
     vis-step videos decoded. Prints item times, the host->device copy of a batch,
     per-step host times, the loader-wait share and peak memory of each run.'''
@@ -1789,20 +1819,31 @@ def phase_train_driver(workdir):
     emit({'phase': 'train_driver_host', **out})
 
     runs = {}
-    for name, extra, sig in (('run1', (), None),
-                             ('run2', (), PREEMPT_STEPS_DONE - 2),
-                             ('run3', ('--resume', 'run2'), None)):
+
+    def run(name, extra=(), sig=None):
         argv = driver_argv(root, workdir, 'run2' if name == 'run3' else name, *extra)
         text, wall_s = run_driver(argv, workdir / f'{name}.log', sig)
         runs[name] = dict(wall_s=wall_s, **check_run(name, text, workdir))
         emit({'phase': f'train_driver_{name}',
               **{k: v for k, v in runs[name].items() if k != 'steps'}})
+
+    def host5():
+        runs['host5'] = host_augs_run(root, workdir)
+        emit({'phase': 'train_driver_host5',
+              **{k: v for k, v in runs['host5'].items() if k != 'steps'}})
+
+    # Runs 1, 2 (then 3) and 5 at once, each a subprocess waited for on a thread: they
+    # share the host and the card, so their host times are no measurement.
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        done = [pool.submit(run, 'run1'),
+                pool.submit(lambda: (run('run2', sig=PREEMPT_STEPS_DONE - 2),
+                                     run('run3', ('--resume', 'run2')))),
+                pool.submit(host5)]
+        for future in done:
+            future.result()
     resume = compare_final_states(workdir / 'checkpoints' / 'run1' / 'checkpoint.npz',
                                   workdir / 'checkpoints' / 'run2' / 'checkpoint.npz')
     emit({'phase': 'train_driver_resume', **resume})
-    runs['host5'] = host_augs_run(root, workdir)
-    emit({'phase': 'train_driver_host5',
-          **{k: v for k, v in runs['host5'].items() if k != 'steps'}})
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()   # run 4 shares this process with every phase
     runs['rope4'] = rope_driver_run(rope_root, workdir)
@@ -1824,6 +1865,11 @@ def phase_train_driver(workdir):
 # backend rule picks gloo.
 DP_WORLD = 2
 DP_TIMEOUT_S = 300
+# Seconds a rank of phases dp, tp and sp, started beside the build, waits for its go.
+RANK_GO_TIMEOUT_S = 900
+# The pairings other than the step of record run at full width and this depth under data,
+# tensor and sequence parallelism.
+PARALLEL_SHORT_DEPTH = 2
 # f32 (TF32 off): the two-rank step's gradient against the one-process step's, at depth 2
 # and full width; only the order of the sums differs (the rows split over the ranks).
 TOL_DP_F32 = 1e-4
@@ -1885,8 +1931,9 @@ def dp_rank_main(out_dir):
     '''One rank of phase dp (a), started by start_dp: draws the seeded init on the host,
     waits for <out_dir>/go (phase_dp writes it once the card is free), joins the group
     from the environment (the backend rule must pick gloo: both ranks are on cuda:0), runs
-    the step of record's global batch's rows of this rank under each pairing, then the
-    gradients of the parity pass, and writes <out_dir>/rank<r>.json (rank 0 also the
+    the step of record's global batch's rows of this rank under each pairing (the step of
+    record at depth 12, the others at PARALLEL_SHORT_DEPTH), then the gradients of the
+    parity pass, and writes <out_dir>/rank<r>.json (rank 0 also the
     gradients, .pt). It leaves when its parent does.'''
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1896,7 +1943,7 @@ def dp_rank_main(out_dir):
     # The seeded init of init_train_state(SEED, ...), drawn once for every pass.
     init = params_to_jax(step_lib.init_train_state(
         SEED, train_config(torch.bfloat16), dp_optimizer(), device='cpu').model.state_dict())
-    deadline = time.perf_counter() + DP_TIMEOUT_S
+    deadline = time.perf_counter() + RANK_GO_TIMEOUT_S
     while not (out_dir / 'go').exists():
         if os.getppid() != parent or time.perf_counter() > deadline:
             fail('dp rank: no go from chip_smoke.py')
@@ -1910,8 +1957,12 @@ def dp_rank_main(out_dir):
                    reason=mesh.reason, device=str(mesh.device))
         batch = mesh_lib.shard_batch(train_batch(), mesh)
         out['rows'] = int(batch['query_inds'].shape[0])
-        out['pairings'] = {'/'.join(p): dp_rank_pairing(mesh, p, batch, init)
-                           for p in PAIRINGS}
+        out['pairings'] = {'/'.join(STEP_OF_RECORD): dp_rank_pairing(
+            mesh, STEP_OF_RECORD, batch, init)}
+        with at_depth(PARALLEL_SHORT_DEPTH):
+            out['pairings'].update({'/'.join(p): dp_rank_pairing(mesh, p, batch, None,
+                                                                 PARALLEL_SHORT_DEPTH)
+                                    for p in PAIRINGS if p != STEP_OF_RECORD})
         out['parity'] = dp_rank_parity(mesh, batch, out_dir, init)
     finally:
         mesh.close()
@@ -1923,12 +1974,12 @@ def dp_optimizer():
                                 gradient_clip=0.3)
 
 
-def dp_rank_pairing(mesh, pairing, batch, init):
-    '''phase_train's steps under one pairing on this rank's rows, from the JAX-layout tree
-    `init`: launches checked per step, the state placed from rank 0 and its replicas
-    compared after the steps; for the step of record the gradient all-reduce timed alone,
-    three times.'''
-    cfg = train_config(torch.bfloat16, pairing=pairing)
+def dp_rank_pairing(mesh, pairing, batch, init, depth=12):
+    '''phase_train's steps under one pairing on this rank's rows at `depth`, from the
+    JAX-layout tree `init` or the seed: launches checked per step, the state placed from
+    rank 0 and its replicas compared after the steps; for the step of record the gradient
+    all-reduce timed alone, three times.'''
+    cfg = train_config(torch.bfloat16, pairing=pairing, depth=depth)
     state = step_lib.init_train_state(SEED, cfg, dp_optimizer(), params=init, device=mesh.device)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1936,7 +1987,6 @@ def dp_rank_pairing(mesh, pairing, batch, init):
     torch.cuda.synchronize()
     place_ms = 1e3 * (time.perf_counter() - t0)
     train_step = step_lib.make_train_step(cfg, mesh=mesh)
-    depth = cfg.seeker.network_depth
     per_step = {k: PAIRINGS[pairing].get(k, 0) * 2 * depth for k in read_launches()}
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2152,6 +2202,26 @@ def phase_dp_nccl():
     return launches
 
 
+# The two-rank train_torch.py --multihost 1 runs of phases dp_driver, tp_driver and
+# sp_driver run at the configuration of record's width but this depth (their time is the
+# ranks' start, loaders and checkpoints, beside which a depth-12 step adds little but the
+# 1.5 GB checkpoints); each registers the depth's preset, then runs train_torch.main.
+PARALLEL_DRIVER_DEPTH = 2
+PARALLEL_DRIVER_PER_STEP = {phase: {k: 2 * PARALLEL_DRIVER_DEPTH for k in per}
+                            for phase, per in DRIVER_PER_STEP.items()}
+
+
+def parallel_driver_cmd(root, workdir, name, *extra):
+    '''The command of one rank of a two-rank train_torch.py run at PARALLEL_DRIVER_DEPTH
+    (one epoch; driver_argv's flags, then `extra`).'''
+    launch = ('import sys; from tcow_tpu_torch.models import timesformer; '
+              f'timesformer.DEPTH_PRESETS[{PARALLEL_DRIVER_DEPTH}] = ({D}, {HEADS}); '
+              'import train_torch; sys.exit(train_torch.main())')
+    return [sys.executable, '-c', launch, *driver_argv(
+        root, workdir, name, '--num_epochs', '1', '--network_depth',
+        str(PARALLEL_DRIVER_DEPTH), *extra), '--multihost', '1']
+
+
 # Phase dp (c): train_torch.py --multihost 1 as two ranks on the card, on the train_driver
 # dataset: one epoch of DRIVER_TRAIN_STEPS global steps (1 clip x 3 queries a rank).
 DP_DRIVER_RECORDS = {
@@ -2162,20 +2232,19 @@ DP_DRIVER_RECORDS = {
 
 def phase_dp_driver(root, workdir):
     '''(c) `python train_torch.py --multihost 1` as DP_WORLD ranks on the card
-    (start_ranks), on phase_train_driver's dataset at `root`: dpu, one uninterrupted epoch
-    without validation, runs beside dpp, the same epoch, whose rank 0 gets SIGTERM once
-    train step PREEMPT_STEPS_DONE - 2 has logged; dpr resumes dpp, with both val phases.
-    Each rank's log must hold exactly its steps (rank 0 also the vis step) with the
-    launches of DRIVER_PER_STEP, the backend gloo and no traceback; dpp leaves one
-    mid-epoch checkpoint of PREEMPT_STEPS_DONE steps; dpr's final state must equal dpu's
-    (bit for bit, else within TOL_RESUME). main runs it on a thread beside phases that
+    (start_ranks) at PARALLEL_DRIVER_DEPTH, on phase_train_driver's dataset at `root`: dpu,
+    one uninterrupted epoch without validation, runs beside dpp, the same epoch, whose rank
+    0 gets SIGTERM once train step PREEMPT_STEPS_DONE - 2 has logged; dpr resumes dpp, with
+    both val phases. Each rank's log must hold exactly its steps (rank 0 also the vis step)
+    with the launches of PARALLEL_DRIVER_PER_STEP, the backend gloo and no traceback; dpp
+    leaves one mid-epoch checkpoint of PREEMPT_STEPS_DONE steps; dpr's final state must
+    equal dpu's (bit for bit, else within TOL_RESUME). main runs it on a thread beside phases that
     time nothing (start_host_run), so none of its times is a measurement. Returns the
     launches of the two-rank runs.'''
     shutil.rmtree(workdir, ignore_errors=True)
     workdir.mkdir(parents=True)
     out = {}
-    base = lambda name, *extra: [sys.executable, 'train_torch.py', *driver_argv(
-        root, workdir, name, '--num_epochs', '1', *extra), '--multihost', '1']
+    base = functools.partial(parallel_driver_cmd, root, workdir)
     t0 = time.perf_counter()
     whole = start_ranks(base('dpu', '--do_val_aug', '0', '--do_val_noaug', '0'), workdir,
                         'dpu')
@@ -2187,8 +2256,7 @@ def phase_dp_driver(root, workdir):
         if not sent and any(r['phase'] == 'train' and r['epoch'] == 0
                             and r['step'] == PREEMPT_STEPS_DONE - 2
                             for r in parse_steps(fp.read_text())):
-            time.sleep(0.1)   # past that step's own preemption check
-            proc.send_signal(signal.SIGTERM)
+            proc.send_signal(signal.SIGTERM)   # logged after that step's check
             sent['dpp'] = time.perf_counter() - t0
     try:
         texts = {'dpp': wait_ranks(pre, 'dpp', RUN_TIMEOUT_S, preempt)}
@@ -2209,7 +2277,7 @@ def phase_dp_driver(root, workdir):
     for name, logs in texts.items():
         for rank, text in enumerate(logs):
             want = [r for r in DP_DRIVER_RECORDS[name] if rank == 0 or r[0] != 'vis']
-            steps = check_steps(f'{name} rank {rank}', text, want, DRIVER_PER_STEP)
+            steps = check_steps(f'{name} rank {rank}', text, want, PARALLEL_DRIVER_PER_STEP)
             where = {(r['rank'], r['world'], r['backend']) for r in steps}
             if where != {(rank, DP_WORLD, 'gloo')}:
                 fail(f'{name} rank {rank}: step_stats of {where}')
@@ -2226,8 +2294,8 @@ def phase_dp_driver(root, workdir):
 
 
 def start_host_run(phase, *args):
-    '''phase(*args) (phase_dp_driver, phase_tp_driver, phase_gloo_probe; the last argument
-    their work directory) on a thread; returns a function that waits for it and returns
+    '''phase(*args) (phase_dp_driver, phase_parallel_driver, phase_gloo_probe; the last
+    argument their work directory) on a thread; returns a function that waits for it and returns
     its result (or raises what it raised). The thread's ranks are host-bound: their start,
     the loaders and the checkpoints take most of their time, beside which the card does the
     main thread's comparisons of kernels against plain versions.'''
@@ -2254,13 +2322,22 @@ def start_host_run(phase, *args):
 TP_MODEL = 2
 TP_GRID_WORLD = 4
 TP_TIMEOUT_S = 600
-# The other pairings run at full width and this depth under tensor parallelism.
-TP_SHORT_DEPTH = 2
+# Phase sp: one data row of two seq ranks that share the card (gloo); phase sp_grid: one
+# data row of (seq 2, model 2).
+SP_SEQ = 2
+# The step of record runs at full width and this depth under tensor parallelism (its
+# 9.8-10.8 s a step at depth 12 are almost all collectives through the host, PERF.md);
+# the parity gradients stay at depth 12.
+TP_RECORD_DEPTH = 4
 # The collectives whose handling of CUDA tensors on gloo phase gloo_probe records (the
-# sequence- and pipeline-parallel slices need them); all_reduce and broadcast, which the
-# port uses, are the controls.
+# pipeline-parallel slice needs send / recv); all_reduce and broadcast are the controls,
+# and the port uses every one but send / recv.
 GLOO_PROBES = ('all_reduce', 'broadcast', 'all_gather_into_tensor', 'reduce_scatter_tensor',
-               'all_to_all_single', 'send_recv')
+               'all_to_all_single', 'all_to_all_uneven', 'send_recv')
+# The collectives of each axis, by the functions that issue them: parallel/mesh.py's on the
+# model axis, parallel/sequence.py's on the seq axis.
+MODEL_AXIS = (mesh_lib, ('_gather', '_model_sum', '_model_sum_part'))
+SEQ_AXIS = (seq_lib, ('_gather', '_scatter_sum', '_exchange', '_seq_sum', '_from_owner'))
 
 
 def gathered_flat_grad(model, mesh):
@@ -2274,28 +2351,33 @@ def gathered_flat_grad(model, mesh):
 
 @contextlib.contextmanager
 def attention_rows_recorded(rows):
-    '''Adds the (rows, S) of every attention call a tensor-parallel rank makes to the set
-    `rows` (the chunk of the rows each rank runs the kernels on).'''
-    inner = tensor_lib.fused_attention
+    '''Adds the (rows, S) of every attention call a rank makes to the set `rows` (the
+    chunk of the rows each rank runs the kernels on): the backbone's own calls and the
+    row-parallel ones.'''
+    inner = {m: m.fused_attention for m in (tsf, tensor_lib)}   # both ops.fused_attention's
 
     def recorded(x, *args, **kw):
         rows.add(tuple(x.shape[:2]))
-        return inner(x, *args, **kw)
-    tensor_lib.fused_attention = recorded
+        return fa.fused_attention(x, *args, **kw)
+    for m in inner:
+        m.fused_attention = recorded
     try:
         yield
     finally:
-        tensor_lib.fused_attention = inner
+        for m, fn in inner.items():
+            m.fused_attention = fn
 
 
 @contextlib.contextmanager
-def model_axis_recorded(stats):
-    '''Counts in `stats` every model-axis collective of parallel/mesh.py (its gathers,
-    sums and sums into a part) under the block: 'calls', and 'bytes' of the full tensor
-    each gathers or sums; when stats['timing'] is true, also their host 'seconds', the
-    device synchronised before and after each (an instrumented run, not a timed one).'''
-    inner = {name: getattr(mesh_lib, name) for name in ('_gather', '_model_sum',
-                                                         '_model_sum_part')}
+def collectives_recorded(stats, axis):
+    '''Counts in `stats` every collective of an axis (MODEL_AXIS: parallel/mesh.py's
+    gathers, sums and sums into a part; SEQ_AXIS: parallel/sequence.py's gathers,
+    reduce-scatters, all-to-alls, sums and broadcasts) under the block: 'calls', and
+    'bytes' of the full tensor each gathers, sums or exchanges; when stats['timing'] is
+    true, also their host 'seconds', the device synchronised before and after each (an
+    instrumented run, not a timed one).'''
+    module, names = axis
+    inner = {name: getattr(module, name) for name in names}
 
     def recorded(name):
         def run(t, *args):
@@ -2311,21 +2393,22 @@ def model_axis_recorded(stats):
             return out
         return run
     for name in inner:
-        setattr(mesh_lib, name, recorded(name))
+        setattr(module, name, recorded(name))
     try:
         yield
     finally:
         for name, fn in inner.items():
-            setattr(mesh_lib, name, fn)
+            setattr(module, name, fn)
 
 
-def tp_rank_pairing(mesh, pairing, batch, init, depth):
-    '''phase_train's steps under one pairing on a tensor-parallel rank (the whole batch,
-    this rank's shards), from the JAX-layout tree `init` or the seed: launches checked per
-    step, the rows of each kernel call, the model-axis collectives per step (count and
-    bytes), the state placed from rank 0 and its replicas and shards compared after the
-    steps; for the step of record the collectives of the warm-up step timed (the device
-    synchronised around each; the timed steps run without).'''
+def rank_pairing(what, mesh, pairing, batch, init, depth, axis):
+    '''phase_train's steps under one pairing on a tensor- or sequence-parallel rank
+    (`what`: 'tp' or 'sp'; the whole batch, this rank's shards or tokens), from the
+    JAX-layout tree `init` or the seed: launches checked per step, the rows of each kernel
+    call, the axis's collectives per step (count and bytes), the state placed from rank 0
+    and its replicas and shards compared after the steps; for the step of record the
+    collectives of the warm-up step timed (the device synchronised around each; the timed
+    steps run without).'''
     cfg = train_config(torch.bfloat16, pairing=pairing, depth=depth)
     state = step_lib.init_train_state(SEED, cfg, dp_optimizer(), params=init,
                                       device=mesh.device, mesh=mesh)
@@ -2341,7 +2424,7 @@ def tp_rank_pairing(mesh, pairing, batch, init, depth):
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     steps, rows = [], set()
-    with attention_rows_recorded(rows), model_axis_recorded(stats):
+    with attention_rows_recorded(rows), collectives_recorded(stats, axis):
         for i in range(1 + TRAIN_STEPS):
             counts = read_launches()
             stats.update(calls=0, bytes=0, seconds=0.0,
@@ -2358,10 +2441,10 @@ def tp_rank_pairing(mesh, pairing, batch, init, depth):
                        launches={k: n - counts[k] for k, n in read_launches().items()})
             steps.append(rec)
             if not np.isfinite(rec['loss']) or rec['skipped_nonfinite'] != 0.0:
-                fail(f'tp {pairing} rank {mesh.rank} step {i}: loss {rec["loss"]}')
+                fail(f'{what} {pairing} rank {mesh.rank} step {i}: loss {rec["loss"]}')
             if rec['launches'] != per_step:
-                fail(f'tp {pairing} rank {mesh.rank} step {i}: launches {rec["launches"]}, '
-                     f'expected {per_step}')
+                fail(f'{what} {pairing} rank {mesh.rank} step {i}: launches '
+                     f'{rec["launches"]}, expected {per_step}')
     out = dict(steps=steps, launches=read_launches(), launches_per_step=per_step,
                rows_per_call=sorted(rows), depth=depth,
                step_ms=sum(r['step_ms'] for r in steps[1:]) / TRAIN_STEPS,
@@ -2378,15 +2461,17 @@ def tp_rank_pairing(mesh, pairing, batch, init, depth):
     return out
 
 
-def tp_rank_f32_depth2(mesh, batch):
+def rank_f32_depth2(mesh, batch, **overrides):
     '''The step of record's first-step gradients in f32 at depth 2, full width, drop-path
-    off, from phase_train_parity's seeded init, on this rank's rows and shards: the loss,
-    the gradient gathered over the model group (every rank calls it), the launches.'''
+    off (`overrides` other seeker fields), from phase_train_parity's seeded init, on this
+    rank's rows, shards or tokens (one process's without a mesh): the loss, the gradient
+    gathered over the model group (every rank calls it), the launches.'''
     with depth_preset(2, (D, HEADS)):
-        cfg2 = train_config(torch.float32, 0.0, depth=2)
+        cfg2 = train_config(torch.float32, 0.0, depth=2, **overrides)
         full = MaskTracker(cfg2.seeker, device='cpu')
         full.init_params_(torch.Generator().manual_seed(SEED))
-        model = MaskTracker(cfg2.seeker, device=mesh.device, mesh=mesh)
+        model = MaskTracker(cfg2.seeker, device=DEV if mesh is None else mesh.device,
+                            mesh=mesh)
         model.load_state_dict(mesh_lib.shard_params(full.state_dict(), mesh))
         counts = read_launches()
         loss = float(step_lib.compute_gradients(step_lib.TrainState(model, None,
@@ -2397,10 +2482,10 @@ def tp_rank_f32_depth2(mesh, batch):
         return loss, gathered_flat_grad(model, mesh), launches
 
 
-def tp_rank_parity(mesh, batch, out_dir, init):
+def rank_parity(mesh, batch, out_dir, init, prefix):
     '''The step of record's first-step gradients, drop-path off, gathered over the model
-    group: bf16 at full depth from `init` and f32 at depth 2; rank 0 saves them for
-    phase_tp.'''
+    group: bf16 at full depth from `init` and f32 at depth 2; rank 0 saves them for the
+    phase (<prefix>_grad_bf16.pt, <prefix>_grad_f32_depth2.pt).'''
     out = {}
     cfg = train_config(torch.bfloat16, 0.0)
     state = step_lib.init_train_state(SEED, cfg, dp_optimizer(), params=init,
@@ -2409,12 +2494,12 @@ def tp_rank_parity(mesh, batch, out_dir, init):
                                                         mesh=mesh)['total_seeker'])
     grad = gathered_flat_grad(state.model, mesh)
     if mesh.rank == 0:
-        torch.save(grad.cpu(), out_dir / 'tp_grad_bf16.pt')
+        torch.save(grad.cpu(), out_dir / f'{prefix}_grad_bf16.pt')
     del state, grad
     torch.cuda.empty_cache()
-    out['loss_f32_depth2'], grad2, _ = tp_rank_f32_depth2(mesh, batch)
+    out['loss_f32_depth2'], grad2, _ = rank_f32_depth2(mesh, batch)
     if mesh.rank == 0:
-        torch.save(grad2.cpu(), out_dir / 'tp_grad_f32_depth2.pt')
+        torch.save(grad2.cpu(), out_dir / f'{prefix}_grad_f32_depth2.pt')
     return out
 
 
@@ -2456,6 +2541,17 @@ def gloo_probe_main(out_path):
         dist.all_to_all_single(out, whole(r))
         return torch.equal(out, torch.cat([whole(k)[4 * r:4 * r + 4] for k in range(n)]))
 
+    # Uneven split sizes, as the seq axis's all-to-all splits 30 frames over 4 ranks: rank
+    # k sends j + k + 1 elements to rank j.
+    sizes = lambda k: [j + k + 1 for j in range(n)]
+    sent = lambda k: torch.arange(sum(sizes(k)), dtype=torch.float32, device=dev) + 100 * k
+
+    def all_to_all_uneven():
+        out = torch.empty(sum(sizes(r)), device=dev)
+        dist.all_to_all_single(out, sent(r), output_split_sizes=sizes(r),
+                               input_split_sizes=sizes(r))
+        return torch.equal(out, torch.cat([sent(k).split(sizes(k))[r] for k in range(n)]))
+
     def send_recv():
         x = part(r)
         if r == 0:
@@ -2467,7 +2563,8 @@ def gloo_probe_main(out_path):
     probes = dict(all_reduce=all_reduce, broadcast=broadcast,
                   all_gather_into_tensor=all_gather_into_tensor,
                   reduce_scatter_tensor=reduce_scatter_tensor,
-                  all_to_all_single=all_to_all_single, send_recv=send_recv)
+                  all_to_all_single=all_to_all_single, all_to_all_uneven=all_to_all_uneven,
+                  send_recv=send_recv)
     found = {}
     try:
         for op in GLOO_PROBES:
@@ -2490,12 +2587,12 @@ GLOO_PROBE_TIMEOUT_S = 120
 
 
 def phase_gloo_probe(workdir):
-    '''Which collectives gloo moves for CUDA tensors on this torch (the sequence- and
-    pipeline-parallel slices need them; the port uses all_reduce, broadcast and
-    all_gather_into_tensor): GLOO_PROBES in two ranks on cuda:0 (gloo_probe_main), send /
-    recv last. An op 'works' (no exception, right result), is 'wrong', 'raises' (the error
+    '''Which collectives gloo moves for CUDA tensors on this torch (the pipeline-parallel
+    slice needs send / recv; the port uses the others: the seq axis all_to_all_single with
+    uneven split sizes): GLOO_PROBES in two ranks on cuda:0 (gloo_probe_main), send / recv
+    last. An op 'works' (no exception, right result), is 'wrong', 'raises' (the error
     recorded), 'aborts' (a rank died in it: the exit codes and log tails) or 'hangs'. The
-    three the port uses must work. Returns the results.'''
+    ones the port uses must work. Returns the results.'''
     shutil.rmtree(workdir, ignore_errors=True)
     workdir.mkdir(parents=True)
     t0 = time.perf_counter()
@@ -2515,7 +2612,7 @@ def phase_gloo_probe(workdir):
             {'result': 'hangs', 'timeout_s': GLOO_PROBE_TIMEOUT_S} if None in codes else
             {'result': 'aborts', 'exit_codes': codes,
              'log_tail': [fp.read_text()[-300:] for _, fp in ranks]})
-    for op in ('all_reduce', 'broadcast', 'all_gather_into_tensor'):
+    for op in GLOO_PROBES[:-1]:
         if out.get(op, {}).get('result') != 'works':
             fail(f'gloo_probe: {op} on CUDA tensors: {out.get(op, "not run")}')
     emit({'phase': 'gloo_probe', 'torch': torch.__version__, 'wall_s':
@@ -2523,76 +2620,102 @@ def phase_gloo_probe(workdir):
     return out
 
 
-def tp_rank_main(out_dir, kind):
-    '''One rank of phase tp (kind 'tp': 2 ranks, model 2) or tp_grid ('grid': 4 ranks,
-    data 2 x model 2), started by start_tp: for 'tp' draws the seeded init on the host,
-    waits for <out_dir>/go_<kind>, joins the mesh from the environment (gloo: every rank is
-    on cuda:0) and writes <out_dir>/<kind>_rank<r>.json. 'tp': the step of record at depth
-    12, the other pairings at TP_SHORT_DEPTH, the parity gradients (rank 0 saves them),
-    then the gloo probe; 'grid': the f32 depth-2 gradients (rank 0 saves them).'''
+# The ranks of each tensor- and sequence-parallel phase: their axis's collectives and
+# their mesh (every rank on cuda:0, so gloo).
+PARALLEL_RANKS = {'tp': (MODEL_AXIS, dict(model=TP_MODEL)),
+                  'tp_grid': (MODEL_AXIS, dict(model=TP_MODEL)),
+                  'sp': (SEQ_AXIS, dict(seq=SP_SEQ)),
+                  'sp_grid': (SEQ_AXIS, dict(seq=SP_SEQ, model=TP_MODEL))}
+PARALLEL_WORLDS = {'tp': TP_MODEL, 'tp_grid': TP_GRID_WORLD, 'sp': SP_SEQ,
+                   'sp_grid': SP_SEQ * TP_MODEL}
+
+
+def parallel_rank_main(out_dir, kind):
+    '''One rank of phase tp (kind 'tp': 2 ranks, model 2), tp_grid ('tp_grid': 4 ranks,
+    data 2 x model 2), sp ('sp': 2 ranks, seq 2) or sp_grid ('sp_grid': 4 ranks, seq 2 x
+    model 2), started by start_parallel: for 'tp' and 'sp' draws the seeded init on the
+    host, waits for <out_dir>/go_<kind>, joins the mesh from the environment (gloo: every
+    rank is on cuda:0) and writes <out_dir>/<kind>_rank<r>.json. 'tp' and 'sp': the step
+    of record (at TP_RECORD_DEPTH for 'tp', depth 12 for 'sp'), the other pairings at
+    PARALLEL_SHORT_DEPTH, the parity gradients (rank 0 saves them); 'sp' also the f32
+    depth-2 gradients under causal_attention 0 (the cls token the mean over the frames, a
+    sum over the seq ranks), rank 0 holding them against one process on the card. The grids: the
+    f32 depth-2 gradients (rank 0 saves them).'''
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_num_threads(2)   # the host init runs beside the main process's phases
+    axis, mesh_kw = PARALLEL_RANKS[kind]
     out_dir = pathlib.Path(out_dir)
     parent = os.getppid()
     init = None
-    if kind == 'tp':
+    if kind in ('tp', 'sp'):
         init = params_to_jax(step_lib.init_train_state(
             SEED, train_config(torch.bfloat16), dp_optimizer(),
             device='cpu').model.state_dict())
     T, H, W = (SEEKER_ARGS[k] for k in ('num_total_frames', 'frame_height', 'frame_width'))
     host_batch = synthetic_device_batch(0, B=TRAIN_B, Q=TRAIN_Q, T=T, H=H, W=W, M=TRAIN_M,
                                         K=TRAIN_K)
-    deadline = time.perf_counter() + TP_TIMEOUT_S
+    deadline = time.perf_counter() + RANK_GO_TIMEOUT_S
     while not (out_dir / f'go_{kind}').exists():
         if os.getppid() != parent or time.perf_counter() > deadline:
             fail(f'{kind} rank: no go from chip_smoke.py')
         time.sleep(0.05)
-    mesh = mesh_lib.make_mesh(DEV, model=TP_MODEL)
+    mesh = mesh_lib.make_mesh(DEV, **mesh_kw)
     try:
         if mesh.backend != 'gloo':
             fail(f'{kind} rank {mesh.rank}: backend {mesh.backend} ({mesh.reason}), expected '
                  'gloo for ranks that share one GPU')
         out = dict(rank=mesh.rank, world=mesh.world, data_rank=mesh.data_rank,
-                   model_rank=mesh.model_rank, backend=mesh.backend, reason=mesh.reason,
-                   device=str(mesh.device))
+                   seq_rank=mesh.seq_rank, model_rank=mesh.model_rank, backend=mesh.backend,
+                   reason=mesh.reason, device=str(mesh.device))
         batch = mesh_lib.shard_batch(train_batch(host=host_batch), mesh)
         out['rows'] = int(batch['query_inds'].shape[0])
-        if kind == 'tp':
-            out['pairings'] = {'/'.join(STEP_OF_RECORD): tp_rank_pairing(
-                mesh, STEP_OF_RECORD, batch, init, SEEKER_ARGS['network_depth'])}
-            print(f'tp rank {mesh.rank}: step of record done', flush=True)
-            with depth_preset(TP_SHORT_DEPTH, (D, HEADS)):
+        if kind in ('tp', 'sp'):
+            depth = TP_RECORD_DEPTH if kind == 'tp' else SEEKER_ARGS['network_depth']
+            with at_depth(depth):
+                out['pairings'] = {'/'.join(STEP_OF_RECORD): rank_pairing(
+                    kind, mesh, STEP_OF_RECORD, batch, None if kind == 'tp' else init, depth,
+                    axis)}
+            print(f'{kind} rank {mesh.rank}: step of record done', flush=True)
+            with at_depth(PARALLEL_SHORT_DEPTH):
                 for pairing in PAIRINGS:
                     if pairing != STEP_OF_RECORD:
-                        out['pairings']['/'.join(pairing)] = tp_rank_pairing(
-                            mesh, pairing, batch, None, TP_SHORT_DEPTH)
-                        print(f'tp rank {mesh.rank}: {pairing} done', flush=True)
-            out['parity'] = tp_rank_parity(mesh, batch, out_dir, init)
+                        out['pairings']['/'.join(pairing)] = rank_pairing(
+                            kind, mesh, pairing, batch, None, PARALLEL_SHORT_DEPTH, axis)
+                        print(f'{kind} rank {mesh.rank}: {pairing} done', flush=True)
+            out['parity'] = rank_parity(mesh, batch, out_dir, init, kind)
+            if kind == 'sp':
+                loss0, grad0, launches0 = rank_f32_depth2(mesh, batch, causal_attention=0)
+                out['ca0'] = dict(loss=loss0, launches=launches0)
+                if mesh.rank == 0:
+                    one_loss, one_grad, _ = rank_f32_depth2(None, batch, causal_attention=0)
+                    out['ca0'].update(
+                        loss_vs_one_process=abs(loss0 - one_loss) / abs(one_loss),
+                        grad_vs_one_process=rel_l2(grad0, one_grad))
         else:
             torch.cuda.reset_peak_memory_stats()
-            loss, grad, launches = tp_rank_f32_depth2(mesh, batch)
+            loss, grad, launches = rank_f32_depth2(mesh, batch)
             out.update(loss_f32_depth2=loss, launches=launches,
                        peak=torch.cuda.max_memory_allocated())
             if mesh.rank == 0:
-                torch.save(grad.cpu(), out_dir / 'grid_grad_f32_depth2.pt')
+                torch.save(grad.cpu(), out_dir / f'{kind}_grad_f32_depth2.pt')
     finally:
         mesh.close()
     (out_dir / f'{kind}_rank{mesh.rank}.json').write_text(json.dumps(out))
 
 
-def start_tp(workdir):
-    '''Starts the ranks of phases tp and tp_grid (tp_rank_main), which wait for their go:
-    {'tp': ranks, 'grid': ranks}.'''
+def start_parallel(workdir, kinds):
+    '''Starts the ranks of each of `kinds` (parallel_rank_main), which wait for their go:
+    {kind: ranks}.'''
     shutil.rmtree(workdir, ignore_errors=True)
     workdir.mkdir(parents=True)
     cmd = lambda kind: [sys.executable, '-c', f'import chip_smoke as c; '
-                        f'c.tp_rank_main({str(workdir)!r}, {kind!r})']
-    return {'tp': start_ranks(cmd('tp'), workdir, 'tp', TP_MODEL),
-            'grid': start_ranks(cmd('grid'), workdir, 'grid', TP_GRID_WORLD)}
+                        f'c.parallel_rank_main({str(workdir)!r}, {kind!r})']
+    return {kind: start_ranks(cmd(kind), workdir, kind, PARALLEL_WORLDS[kind])
+            for kind in kinds}
 
 
-def tp_launches(res, key, name):
+def rank_launches(res, key, name):
     '''{kernel: {name: launches summed over the ranks}} of res[r][key]'s launches.'''
     out = {}
     for k in read_launches():
@@ -2602,173 +2725,209 @@ def tp_launches(res, key, name):
     return out
 
 
-def phase_tp(ranks, parity, workdir):
-    '''(a) The step of record's batch (2 clips x 3 queries) on one data row of TP_MODEL
-    model ranks that share the card (tp_rank_main, subprocesses): gloo asserted; per rank
-    and step 24 K1 + 24 K4 on half the rows at depth 12, and each other pairing's launches
-    at TP_SHORT_DEPTH; the replicated tensors equal over the world and the shards over
-    their data group (check_replicas, inside the ranks); the gathered gradients against
-    phase_train_parity's one-process ones: the bf16 error against the f32 plain path <=
-    TRAIN_BF16_ERR_RATIO x the bf16 plain path's, f32 at depth 2 within TOL_DP_F32 of the
-    one-process step; per rank step ms, peak, the model-axis collectives per step (count,
-    bytes, and their ms in an instrumented step). (b) phase_tp_grid. `ranks` are start_tp's. Returns the
-    launches by path.'''
+PARALLELS = ('tp', 'sp')
+
+
+def phase_parallels(ranks, parity, workdir):
+    '''(a) Phases tp and sp, both at once (their ranks are host-bound on gloo and share
+    the card): parallel_result checks each. `ranks` are start_parallel's (the kinds of
+    PARALLELS among them run). Returns {kind: its launches by path}.'''
+    kinds = [kind for kind in PARALLELS if kind in ranks]
     t0 = time.perf_counter()
-    (workdir / 'go_tp').touch()
-    wait_ranks(ranks['tp'], 'tp', TP_TIMEOUT_S)
+    for kind in kinds:
+        (workdir / f'go_{kind}').touch()
+    wait_ranks([r for kind in kinds for r in ranks[kind]], 'tp and sp', TP_TIMEOUT_S)
     wall_s = time.perf_counter() - t0
-    res = [json.loads((workdir / f'tp_rank{r}.json').read_text()) for r in range(TP_MODEL)]
-    if [(r['data_rank'], r['model_rank']) for r in res] != [(0, m) for m in range(TP_MODEL)]:
-        fail(f'tp: mesh coordinates {[(r["data_rank"], r["model_rank"]) for r in res]}')
+    return {kind: parallel_result(kind, parity, workdir, wall_s) for kind in kinds}
+
+
+def parallel_result(kind, parity, workdir, wall_s):
+    '''The step of record's batch (2 clips x 3 queries) on one data row of two ranks that
+    share the card (parallel_rank_main, subprocesses): kind 'tp', two model ranks, or 'sp',
+    two seq ranks; gloo asserted; per rank and step 24 K1 + 24 K4 at the step of record's
+    depth (TP_RECORD_DEPTH under 'tp': 8 + 8) on half the rows (900 x 30 and 90 x 301), and
+    each other pairing's launches at PARALLEL_SHORT_DEPTH; the replicated tensors equal
+    over the world and the shards over their gradient group (check_replicas, inside the ranks); the
+    gathered gradients against phase_train_parity's one-process ones: the bf16 error
+    against the f32 plain path <= TRAIN_BF16_ERR_RATIO x the bf16 plain path's, f32 at
+    depth 2 within TOL_DP_F32 of the one-process step; under 'sp' also causal_attention 0
+    at depth 2 within TOL_DP_F32 of one process; per rank step ms, peak, the axis's
+    collectives per step (count, bytes, and their ms in an instrumented step); wall_s is
+    phase_parallels' for both kinds. Returns the launches by path.'''
+    world = PARALLEL_WORLDS[kind]
+    res = [json.loads((workdir / f'{kind}_rank{r}.json').read_text()) for r in range(world)]
+    coords = [(r['data_rank'], r['seq_rank'], r['model_rank']) for r in res]
+    if coords != [(0, r, 0) if kind == 'sp' else (0, 0, r) for r in range(world)]:
+        fail(f'{kind}: mesh coordinates {coords}')
     record = res[0]['pairings']['/'.join(STEP_OF_RECORD)]
-    want_rows = [[R // TP_MODEL, S] for R, S, _ in TRAIN_GEOMETRIES.values()]
+    want_rows = [[R // world, S] for R, S, _ in TRAIN_GEOMETRIES.values()]
     if sorted(record['rows_per_call']) != sorted(want_rows):
-        fail(f'tp: kernel rows per call {record["rows_per_call"]}, expected {want_rows}')
+        fail(f'{kind}: kernel rows per call {record["rows_per_call"]}, expected {want_rows}')
     for name in res[0]['pairings']:
         if len({r['pairings'][name]['digests']['replicated'] for r in res}) != 1:
-            fail(f'tp {name}: the replicated tensors differ between the ranks')
+            fail(f'{kind} {name}: the replicated tensors differ between the ranks')
     grads, losses = parity['grads'], parity['losses']
-    grad_tp = torch.load(workdir / 'tp_grad_bf16.pt')
-    grad_tp2 = torch.load(workdir / 'tp_grad_f32_depth2.pt')
+    grad_k = torch.load(workdir / f'{kind}_grad_bf16.pt')
+    grad_k2 = torch.load(workdir / f'{kind}_grad_f32_depth2.pt')
     rel = lambda a, b: abs(a - b) / abs(b)
-    loss_tp = res[0]['parity']['loss_bf16']
+    loss_k = res[0]['parity']['loss_bf16']
     errs = {'grad_plain_bf16': rel_l2(grads['plain_bf16'], grads['plain_f32']),
-            'grad_tp_bf16': rel_l2(grad_tp, grads['plain_f32']),
-            'grad_tp_vs_one_process_bf16': rel_l2(grad_tp, grads['kernel_bf16']),
+            f'grad_{kind}_bf16': rel_l2(grad_k, grads['plain_f32']),
+            f'grad_{kind}_vs_one_process_bf16': rel_l2(grad_k, grads['kernel_bf16']),
             'loss_plain_bf16': rel(losses['plain_bf16'], losses['plain_f32']),
-            'loss_tp_bf16': rel(loss_tp, losses['plain_f32']),
-            'loss_tp_vs_one_process_bf16': rel(loss_tp, losses['kernel_bf16_kernel_x']),
-            'grad_tp_vs_one_process_f32_depth2': rel_l2(grad_tp2, grads['kernel_f32_depth2']),
-            'loss_tp_vs_one_process_f32_depth2': rel(
+            f'loss_{kind}_bf16': rel(loss_k, losses['plain_f32']),
+            f'loss_{kind}_vs_one_process_bf16': rel(loss_k, losses['kernel_bf16_kernel_x']),
+            f'grad_{kind}_vs_one_process_f32_depth2': rel_l2(grad_k2,
+                                                             grads['kernel_f32_depth2']),
+            f'loss_{kind}_vs_one_process_f32_depth2': rel(
                 res[0]['parity']['loss_f32_depth2'], losses['kernel_f32_depth2_kernel_x'])}
-    ratios = {w: errs[f'{w}_tp_bf16'] / errs[f'{w}_plain_bf16'] for w in ('grad', 'loss')}
+    if kind == 'sp':
+        errs.update({f'{w}_sp_vs_one_process_f32_depth2_ca0': res[0]['ca0'][
+            f'{w}_vs_one_process'] for w in ('grad', 'loss')})
+    ratios = {w: errs[f'{w}_{kind}_bf16'] / errs[f'{w}_plain_bf16'] for w in ('grad', 'loss')}
     for what, ratio in ratios.items():
         if not ratio <= TRAIN_BF16_ERR_RATIO:
-            fail(f'tp: bf16 {what} error of the tensor-parallel step {errs[f"{what}_tp_bf16"]} '
+            fail(f'{kind}: bf16 {what} error of the parallel step {errs[f"{what}_{kind}_bf16"]} '
                  f'> {TRAIN_BF16_ERR_RATIO} x the plain path\'s {errs[f"{what}_plain_bf16"]}')
-    for what in ('grad', 'loss'):
-        if not errs[f'{what}_tp_vs_one_process_f32_depth2'] <= TOL_DP_F32:
-            fail(f'tp: f32 {what} of the tensor-parallel step vs one process at depth 2 '
-                 f'{errs[f"{what}_tp_vs_one_process_f32_depth2"]} > {TOL_DP_F32}')
-    per_rank = [{k: r[k] for k in ('rank', 'data_rank', 'model_rank', 'backend', 'reason',
-                                   'rows')} | {'pairings': {
+    for key, err in errs.items():
+        if 'f32_depth2' in key and not err <= TOL_DP_F32:
+            fail(f'{kind}: f32 {key} {err} > {TOL_DP_F32}')
+    per_rank = [{k: r[k] for k in ('rank', 'data_rank', 'seq_rank', 'model_rank', 'backend',
+                                   'reason', 'rows')} | {'pairings': {
                      n: {k: v for k, v in p.items() if k not in ('steps', 'launches')}
                      for n, p in r['pairings'].items()}} for r in res]
-    emit({'phase': 'tp', 'world': TP_MODEL, 'mesh': {'data': 1, 'model': TP_MODEL},
+    emit({'phase': kind, 'world': world, 'mesh': {'data': 1, **PARALLEL_RANKS[kind][1]},
           'ranks_wall_s': wall_s, 'ranks': per_rank, 'rel_err': errs,
           'bf16_err_ratio': ratios, 'bf16_err_ratio_limit': TRAIN_BF16_ERR_RATIO,
           'tol_f32_depth2': TOL_DP_F32})
     launches = {}
     for name in res[0]['pairings']:
-        for k, v in tp_launches([r['pairings'] for r in res], name,
-                                f'tp_{name.split("/")[0]}').items():
+        for k, v in rank_launches([r['pairings'] for r in res], name,
+                                f'{kind}_{name.split("/")[0]}').items():
             launches.setdefault(k, {}).update(v)
-    for k, v in phase_tp_grid(ranks['grid'], parity, workdir).items():
-        launches.setdefault(k, {}).update(v)
+    if kind == 'sp':
+        for k, v in rank_launches(res, 'ca0', 'sp_ca0').items():
+            launches.setdefault(k, {}).update(v)
     return launches
 
 
-def phase_tp_grid(ranks, parity, workdir):
-    '''(b) TP_GRID_WORLD ranks on the card as (data 2, model 2): the f32 depth-2 first-step
-    gradient of the step of record's batch (each data row 1 clip x 3 queries), summed over
-    the data group and gathered over the model group, within TOL_DP_F32 of the
-    one-process step's (phase_train_parity). Returns the launches by path.'''
+GRIDS = ('tp_grid', 'sp_grid')
+
+
+def phase_grids(ranks, parity, workdir):
+    '''(b) Four ranks on the card as (data 2, model 2) ('tp_grid') and four as (seq 2,
+    model 2) ('sp_grid'), both at once (they time nothing): the f32 depth-2 first-step
+    gradient of the step of record's batch (under 'tp_grid' each data row 1 clip x 3
+    queries), summed over the gradient group and gathered over the model group, within
+    TOL_DP_F32 of the one-process step's (phase_train_parity). `ranks` are
+    start_parallel's (the grids among them run). Returns the launches by path.'''
+    kinds = [kind for kind in GRIDS if kind in ranks]
     t0 = time.perf_counter()
-    (workdir / 'go_grid').touch()
-    wait_ranks(ranks, 'tp_grid', TP_TIMEOUT_S)
+    for kind in kinds:
+        (workdir / f'go_{kind}').touch()
+    wait_ranks([r for kind in kinds for r in ranks[kind]], 'grids', TP_TIMEOUT_S)
     wall_s = time.perf_counter() - t0
-    res = [json.loads((workdir / f'grid_rank{r}.json').read_text())
-           for r in range(TP_GRID_WORLD)]
-    coords = [(r['data_rank'], r['model_rank']) for r in res]
-    if coords != [(d, m) for d in range(TP_GRID_WORLD // TP_MODEL) for m in range(TP_MODEL)]:
-        fail(f'tp_grid: mesh coordinates {coords}')
-    grad = torch.load(workdir / 'grid_grad_f32_depth2.pt')
+    launches = {}
+    for kind in kinds:
+        for k, v in grid_result(kind, parity, workdir, wall_s).items():
+            launches.setdefault(k, {}).update(v)
+    return launches
+
+
+def grid_result(kind, parity, workdir, wall_s):
+    '''One grid's checks and phase line (phase_grids); its launches by path.'''
+    world = PARALLEL_WORLDS[kind]
+    res = [json.loads((workdir / f'{kind}_rank{r}.json').read_text()) for r in range(world)]
+    coords = [(r['data_rank'], r['seq_rank'], r['model_rank']) for r in res]
+    outer = (lambda a: (a, 0)) if kind == 'tp_grid' else (lambda a: (0, a))
+    if coords != [(*outer(a), m) for a in range(world // TP_MODEL) for m in range(TP_MODEL)]:
+        fail(f'{kind}: mesh coordinates {coords}')
+    grad = torch.load(workdir / f'{kind}_grad_f32_depth2.pt')
     err = rel_l2(grad, parity['grads']['kernel_f32_depth2'])
     loss_err = abs(res[0]['loss_f32_depth2'] - parity['losses']['kernel_f32_depth2_kernel_x']) \
         / abs(parity['losses']['kernel_f32_depth2_kernel_x'])
     want = {'K1': 2 * 2, 'K4': 2 * 2}
     for r in res:
         if r['launches'] != want:
-            fail(f'tp_grid rank {r["rank"]}: launches {r["launches"]}, expected {want}')
+            fail(f'{kind} rank {r["rank"]}: launches {r["launches"]}, expected {want}')
     if not (err <= TOL_DP_F32 and loss_err <= TOL_DP_F32):
-        fail(f'tp_grid: f32 gradient {err} / loss {loss_err} vs one process at depth 2 > '
+        fail(f'{kind}: f32 gradient {err} / loss {loss_err} vs one process at depth 2 > '
              f'{TOL_DP_F32}')
-    emit({'phase': 'tp_grid', 'world': TP_GRID_WORLD,
-          'mesh': {'data': TP_GRID_WORLD // TP_MODEL, 'model': TP_MODEL},
+    emit({'phase': kind, 'world': world,
+          'mesh': {'data': res[-1]['data_rank'] + 1, 'seq': res[-1]['seq_rank'] + 1,
+                   'model': TP_MODEL},
           'ranks_wall_s': wall_s, 'coords': coords, 'rows': [r['rows'] for r in res],
           'peak': [r['peak'] for r in res], 'rel_err': {
-              'grad_grid_vs_one_process_f32_depth2': err,
-              'loss_grid_vs_one_process_f32_depth2': loss_err},
+              f'grad_{kind}_vs_one_process_f32_depth2': err,
+              f'loss_{kind}_vs_one_process_f32_depth2': loss_err},
           'tol_f32_depth2': TOL_DP_F32})
-    return {k: {'tp_grid': sum(r['launches'].get(k, 0) for r in res)} for k in want}
+    return {k: {kind: sum(r['launches'].get(k, 0) for r in res)} for k in want}
 
 
-# Phase tp_driver: train_torch.py --multihost 1 --tp_shards 2 as two ranks on the card, at
-# the configuration of record's width but depth TP_DRIVER_DEPTH (phase tp runs depth 12;
-# here each step's 28 model-axis collectives a block go through the host beside the
-# dp_driver ranks), on its own dataset of TP_DRIVER_SCENES scenes: one epoch of 2 global
-# steps without validation, the vis step at step 0 on both ranks.
-TP_DRIVER_DEPTH = 2
+# Phases tp_driver and sp_driver: train_torch.py --multihost 1 with --tp_shards 2 or
+# --seq_shards 2 as two ranks on the card at PARALLEL_DRIVER_DEPTH (phases tp and sp run
+# the step of record; here each step's collectives go through the host beside the
+# dp_driver ranks), each on its own dataset of TP_DRIVER_SCENES scenes: one epoch of 2
+# global steps without validation, the vis step at step 0 on both ranks.
 TP_DRIVER_SCENES = 4
 TP_DRIVER_RECORDS = driver_records(1, steps=TP_DRIVER_SCENES // TRAIN_B, val=False)
-TP_DRIVER_PER_STEP = {phase: {k: 2 * TP_DRIVER_DEPTH for k in per}
-                      for phase, per in DRIVER_PER_STEP.items()}
+# Each driver phase's flag, run name and the (seq, model) coordinates of rank r.
+PARALLEL_DRIVERS = {'tp': ('--tp_shards', 'tpd', lambda r: (0, r)),
+                    'sp': ('--seq_shards', 'spd', lambda r: (r, 0))}
 
 
-def phase_tp_driver(root, workdir):
-    '''`train_torch.py --multihost 1 --tp_shards 2 --network_depth TP_DRIVER_DEPTH` as
-    TP_MODEL ranks on the card (start_ranks; each registers the depth's preset at full
-    width, then runs train_torch.main) on the dataset at `root`: each rank's log must hold
-    exactly the steps of TP_DRIVER_RECORDS with the launches of TP_DRIVER_PER_STEP at
-    coordinates (data 0, model r), backend gloo and no traceback; the checkpoint rank 0
+def phase_parallel_driver(kind, root, workdir):
+    '''`train_torch.py --multihost 1 --tp_shards 2` (kind 'tp') or `--seq_shards 2` ('sp')
+    at PARALLEL_DRIVER_DEPTH as two ranks on the card (start_ranks, parallel_driver_cmd) on
+    the dataset at `root`: each rank's log must hold exactly the steps of
+    TP_DRIVER_RECORDS with the launches of PARALLEL_DRIVER_PER_STEP at its coordinates
+    (data 0, and seq r or model r), backend gloo and no traceback; the checkpoint rank 0
     writes must hold the one-process layout (full-width block weights) and load into a
-    one-process state on the card whose parameters and AdamW state are the file's, bit for
-    bit. main runs it on a thread beside phases that time nothing (start_host_run).
-    Returns its launches.'''
+    one-process state on the card whose parameters and AdamW state are the file's, bit
+    for bit. main runs it on a thread beside
+    phases that time nothing (start_host_run). Returns its launches.'''
+    flag, name, coords = PARALLEL_DRIVERS[kind]
     shutil.rmtree(workdir, ignore_errors=True)
     workdir.mkdir(parents=True)
     t0 = time.perf_counter()
-    launch = ('import sys; from tcow_tpu_torch.models import timesformer; '
-              f'timesformer.DEPTH_PRESETS[{TP_DRIVER_DEPTH}] = ({D}, {HEADS}); '
-              'import train_torch; sys.exit(train_torch.main())')
-    cmd = [sys.executable, '-c', launch, *driver_argv(
-        root, workdir, 'tpd', '--num_epochs', '1', '--do_val_aug', '0', '--do_val_noaug', '0',
-        '--network_depth', str(TP_DRIVER_DEPTH), '--tp_shards', str(TP_MODEL)),
-           '--multihost', '1']
-    texts = wait_ranks(start_ranks(cmd, workdir, 'tpd', TP_MODEL), 'tpd', RUN_TIMEOUT_S)
+    cmd = parallel_driver_cmd(root, workdir, name, '--do_val_aug', '0', '--do_val_noaug', '0',
+                              flag, '2')
+    texts = wait_ranks(start_ranks(cmd, workdir, name, 2), name, RUN_TIMEOUT_S)
     wall_s = time.perf_counter() - t0
     steps, runs = [], {}
     for rank, text in enumerate(texts):
-        recs = check_steps(f'tpd rank {rank}', text, TP_DRIVER_RECORDS, TP_DRIVER_PER_STEP)
-        where = {(r['rank'], r['world'], r['backend'], r['data_rank'], r['model_rank'])
-                 for r in recs}
-        if where != {(rank, TP_MODEL, 'gloo', 0, rank)}:
-            fail(f'tpd rank {rank}: step_stats of {where}')
+        recs = check_steps(f'{name} rank {rank}', text, TP_DRIVER_RECORDS,
+                           PARALLEL_DRIVER_PER_STEP)
+        where = {(r['rank'], r['world'], r['backend'], r['data_rank'], r['seq_rank'],
+                  r['model_rank']) for r in recs}
+        if where != {(rank, 2, 'gloo', 0, *coords(rank))}:
+            fail(f'{name} rank {rank}: step_stats of {where}')
         steps += recs
-        runs[f'tpd_rank{rank}'] = epoch_stats(recs, text)
-    path = workdir / 'checkpoints' / 'tpd' / 'checkpoint.npz'
+        runs[f'{name}_rank{rank}'] = epoch_stats(recs, text)
+    path = workdir / 'checkpoints' / name / 'checkpoint.npz'
     meta = peek_meta(str(path))
     if meta['partial'] or not meta['opt_restored']:
-        fail(f'tpd: checkpoint {meta}')
+        fail(f'{name}: checkpoint {meta}')
     file = checkpoint_arrays(path)
     qkv = file["params['backbone']['blocks']['attn']['qkv']['w']"]
-    if qkv.shape != (TP_DRIVER_DEPTH, D, 3 * D):
-        fail(f'tpd: the checkpoint holds qkv.w of {qkv.shape}, not the one-process layout')
-    with depth_preset(TP_DRIVER_DEPTH, (D, HEADS)):
+    if qkv.shape != (PARALLEL_DRIVER_DEPTH, D, 3 * D):
+        fail(f'{name}: the checkpoint holds qkv.w of {qkv.shape}, not the one-process layout')
+    with depth_preset(PARALLEL_DRIVER_DEPTH, (D, HEADS)):
         state = step_lib.init_train_state(
-            SEED + 1, train_config(torch.bfloat16, depth=TP_DRIVER_DEPTH), dp_optimizer(),
-            device=DEV)
+            SEED + 1, train_config(torch.bfloat16, depth=PARALLEL_DRIVER_DEPTH),
+            dp_optimizer(), device=DEV)
     load_checkpoint(str(path), state_template=state)
     held = {'params' + k: v for k, v in
             flatten_with_paths(params_to_jax(state.model.state_dict())).items()}
     held.update({'opt_state' + k: v for k, v in opt_state_to_jax(state.optimizer).items()})
     differ = [k for k, v in held.items() if not np.array_equal(v, file[k])]
     if differ or len(held) + 2 != len(file):
-        fail(f'tpd: the one-process state loaded from the checkpoint differs: {differ[:5]}, '
-             f'{len(held)} arrays held of {len(file)}')
+        fail(f'{name}: the one-process state loaded from the checkpoint differs: '
+             f'{differ[:5]}, {len(held)} arrays held of {len(file)}')
     del state
     launches = sum_launches(steps)
-    emit({'phase': 'tp_driver', 'wall_s': wall_s, 'runs': runs, 'depth': TP_DRIVER_DEPTH,
+    emit({'phase': f'{kind}_driver', 'wall_s': wall_s, 'runs': runs,
+          'depth': PARALLEL_DRIVER_DEPTH,
           'checkpoint': {'arrays': len(file), 'qkv_w': list(qkv.shape),
                          'loads_into_one_process': True}, 'launches': launches})
     return launches
@@ -4973,17 +5132,45 @@ def data_tools_run(root):
                 validate_last=out.strip().splitlines()[-1])
 
 
-def tools_stream_eval(workdir, ckpt):
-    '''tools/torch_stream_eval.py on STREAM_EVAL_SCENES port-written Kubric scenes of
-    STREAM_EVAL_FRAMES frames at windows 0 and 30 with the offline forward; then in this
-    process, scene 0's unbounded stream (12 K1 a frame) against the offline forward at T =
-    160 (24 K1: temporal 300 x 160 causal, spatial 160 x 301) within TOL_SEEKER_BF16.'''
+def start_tools(workdir):
+    '''The subprocesses of phase_tools (run_tool), all at once, each waited for on a thread
+    of its own, once the seeded checkpoint of record is written: torch_stream_demo.py,
+    torch_stream_bench.py, torch_serve_bench.py at each of SERVE_BENCH_SLOTS and
+    torch_stream_eval.py. They share the host and the card with each other and with the
+    main thread's phases, so their wall seconds and the benches' rates are no measurement.
+    Returns (the checkpoint, {run: future of run_tool's (stdout, wall seconds)}).'''
+    shutil.rmtree(workdir, ignore_errors=True)
+    eval_checkpoint(workdir / 'checkpoints' / 'eval1')
+    ckpt = workdir / 'checkpoints' / 'eval1' / 'checkpoint.npz'
+    runs = {
+        'stream_demo': ('torch_stream_demo.py', [
+            '--resume', ckpt, '--video', EVAL_DEMO, '--query', STREAM_QUERY,
+            '--query_frame', STREAM_QUERY_FRAME, '--window', STREAM_WINDOW,
+            '--out', workdir / 'demo.webm', '--device', DEV]),
+        'stream_bench': ('torch_stream_bench.py', [*STREAM_BENCH_ARGS, '--device', DEV]),
+        **{f'serve_bench_{slots}': ('torch_serve_bench.py', [
+            *SERVE_BENCH_ARGS, '--batch_slots', slots, '--resume', ckpt, '--device', DEV])
+           for slots in SERVE_BENCH_SLOTS},
+        'stream_eval': ('torch_stream_eval.py', [
+            '--resume', ckpt, '--data_path', dataset('stream_long')[0], '--num_frames',
+            STREAM_EVAL_FRAMES, '--windows', STREAM_EVAL_WINDOWS,
+            '--out', workdir / 'stream_eval.json', '--device', DEV])}
+    pool = concurrent.futures.ThreadPoolExecutor(len(runs))
+    futures = {name: pool.submit(run_tool, *run) for name, run in runs.items()}
+    pool.shutdown(wait=False)
+    return ckpt, futures
+
+
+def tools_stream_eval(workdir, ckpt, run):
+    '''tools/torch_stream_eval.py's run (start_tools) on STREAM_EVAL_SCENES port-written
+    Kubric scenes of STREAM_EVAL_FRAMES frames at windows 0 and 30 with the offline
+    forward; then in this process, scene 0's unbounded stream (12 K1 a frame) against the
+    offline forward at T = 160 (24 K1: temporal 300 x 160 causal, spatial 160 x 301)
+    within TOL_SEEKER_BF16.'''
     torch_stream_eval = importlib.import_module('torch_stream_eval')
     root, write_s, nbytes = dataset('stream_long')
     out_fp = workdir / 'stream_eval.json'
-    _, wall_s = run_tool('torch_stream_eval.py', [
-        '--resume', ckpt, '--data_path', root, '--num_frames', STREAM_EVAL_FRAMES,
-        '--windows', STREAM_EVAL_WINDOWS, '--out', out_fp, '--device', DEV])
+    _, wall_s = run.result()
     results = json.loads(out_fp.read_text())
     variants = {'stream_winf', 'stream_w30', 'joint'}
     if not variants <= set(results) or not finite_numbers(results):
@@ -5015,24 +5202,19 @@ def tools_stream_eval(workdir, ckpt):
                 launches={'stream': stream_launches, 'offline': offline_launches})
 
 
-def phase_tools(workdir, data_tools):
-    '''The tools as subprocesses at the configuration of record (depth 12, 240x320, a
-    seeded checkpoint): torch_stream_demo.py (window 30 over demo/rollball.mp4 from its
-    query, the video decoded back, 12 K1 a frame), torch_stream_bench.py and
+def phase_tools(workdir, data_tools, started):
+    '''The tools as subprocesses (start_tools) at the configuration of record (depth 12,
+    240x320, a seeded checkpoint): torch_stream_demo.py (window 30 over demo/rollball.mp4
+    from its query, the video decoded back, 12 K1 a frame), torch_stream_bench.py and
     torch_serve_bench.py (dedicated and 4 slots; finite numbers, 12 K1 a frame or server
     step) and torch_stream_eval.py (tools_stream_eval); data_tools is data_tools_run's
     record. No traceback in any output. Returns K1's launches by tool.'''
-    shutil.rmtree(workdir, ignore_errors=True)
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), 'tools'))
-    eval_checkpoint(workdir / 'checkpoints' / 'eval1')
-    ckpt = workdir / 'checkpoints' / 'eval1' / 'checkpoint.npz'
+    ckpt, runs = started
     out = {'data_tools': data_tools}
     launches = {}
 
-    text, wall_s = run_tool('torch_stream_demo.py', [
-        '--resume', ckpt, '--video', EVAL_DEMO, '--query', STREAM_QUERY, '--query_frame',
-        STREAM_QUERY_FRAME, '--window', STREAM_WINDOW, '--out', workdir / 'demo.webm',
-        '--device', DEV])
+    text, wall_s = runs['stream_demo'].result()
     demo = json_line(text, 'stream_demo')['stream_demo']
     decoded = decoded_frames(demo['out'])
     want = {k: n * DEMO_FRAMES for k, n in K1_PER_FRAME.items()}
@@ -5041,7 +5223,7 @@ def phase_tools(workdir, data_tools):
     out['stream_demo'] = dict(demo, decoded_frames=decoded, wall_s=wall_s)
     launches['tools_stream_demo'] = demo['launches'].get('K1', 0)
 
-    text, wall_s = run_tool('torch_stream_bench.py', [*STREAM_BENCH_ARGS, '--device', DEV])
+    text, wall_s = runs['stream_bench'].result()
     bench = json_line(text, 'stream_bench')
     for name, r in bench['stream_bench'].items():
         if r['launches_per_step'] != {k: float(n) for k, n in K1_PER_FRAME.items()} \
@@ -5053,9 +5235,7 @@ def phase_tools(workdir, data_tools):
 
     out['serve_bench'] = {}
     for slots in SERVE_BENCH_SLOTS:
-        text, wall_s = run_tool('torch_serve_bench.py', [*SERVE_BENCH_ARGS, '--batch_slots',
-                                                         slots, '--resume', ckpt, '--device',
-                                                         DEV])
+        text, wall_s = runs[f'serve_bench_{slots}'].result()
         recs = [json.loads(ln) for ln in text.splitlines() if ln.startswith('{"serve_bench"')]
         lines = [ln for ln in text.splitlines() if ln.startswith('sessions=')]
         for r in recs:
@@ -5068,7 +5248,7 @@ def phase_tools(workdir, data_tools):
         launches[f'tools_serve_bench_slots_{slots}'] = sum(r['launches'].get('K1', 0)
                                                             for r in recs)
 
-    out['stream_eval'] = tools_stream_eval(workdir, ckpt)
+    out['stream_eval'] = tools_stream_eval(workdir, ckpt, runs['stream_eval'])
     launches['tools_stream_eval'] = sum(n.get('K1', 0)
                                         for n in out['stream_eval']['launches'].values())
     emit({'phase': 'tools', **out})
@@ -5168,6 +5348,9 @@ def main():
         return 2
     global T0
     T0 = time.perf_counter()
+    # On stderr, for the command's own time: the wall clock at the start, the script's
+    # seconds once it has cleaned up.
+    print(f'chip_smoke: started at wall {time.time():.3f}', file=sys.stderr, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     prewrite_datasets()
@@ -5180,6 +5363,8 @@ def main():
     finally:
         stop_ranks(ranks)
         shutil.rmtree(DATA_DIR, ignore_errors=True)
+        print(f'chip_smoke: cleaned up at script_s {time.perf_counter() - T0:.1f}',
+              file=sys.stderr, flush=True)
 
 
 def run_phases(ranks):
@@ -5187,20 +5372,38 @@ def run_phases(ranks):
     to stop.'''
     # The phases on threads (start_host_run), each with the function that waits for it.
     # The gloo probe needs no kernel and runs beside the build; the two-rank
-    # train_torch.py runs, data- and tensor-parallel (host-bound), beside the phases that
-    # hold kernels against their plain versions and time nothing.
+    # train_torch.py runs, data-, tensor- and sequence-parallel (host-bound), beside the
+    # phases that time nothing: the kernels against their plain versions, the parity
+    # passes and the grids.
     finishers = [start_host_run(phase_gloo_probe, _build.BUILD_DIR / 'chip_smoke_gloo')]
+    dp_dir = _build.BUILD_DIR / 'chip_smoke_dp'
+    par_dir = _build.BUILD_DIR / 'chip_smoke_parallel'
     try:
+        # The ranks of phases dp, tp and sp draw their init on the host beside the build
+        # and wait for their go.
+        dp_ranks = start_dp(dp_dir)
+        ranks += dp_ranks
+        par_ranks = start_parallel(par_dir, PARALLEL_RANKS)
+        ranks += [r for kind in PARALLEL_RANKS for r in par_ranks[kind]]
         smi = phase_device()
         finishers += [start_host_run(phase_dp_driver, dataset('driver')[0],
-                                     _build.BUILD_DIR / 'chip_smoke_dp_driver'),
-                      start_host_run(phase_tp_driver, dataset('tp_driver')[0],
-                                     _build.BUILD_DIR / 'chip_smoke_tp_driver')]
+                                     _build.BUILD_DIR / 'chip_smoke_dp_driver')]
+        finishers += [start_host_run(functools.partial(phase_parallel_driver, kind),
+                                     dataset(f'{kind}_driver')[0],
+                                     _build.BUILD_DIR / f'chip_smoke_{kind}_driver')
+                      for kind in PARALLEL_DRIVERS]
         errs = phase_kernel_vs_plain()
         k4_errs = phase_k4_vs_plain()
         new_errs = phase_new_kernels_vs_plain()
         rope_errs = phase_rope_kernels_vs_plain()
-        _, dp_driver_launches, tp_driver_launches = [finish() for finish in finishers]
+        # The parity passes and the grids time nothing either, so they run while the
+        # threads do.
+        phase_train_parity(*record_init(rope=True), rope=True)
+        _, parity = phase_train_parity(*record_init(), keep=True)
+        torch.cuda.empty_cache()
+        grid_launches = phase_grids(par_ranks, parity, par_dir)
+        _, dp_driver_launches, tp_driver_launches, sp_driver_launches = [
+            finish() for finish in finishers]
     except BaseException:
         ABORT.set()
         for finish in finishers:
@@ -5217,7 +5420,7 @@ def run_phases(ranks):
     for pairing in PAIRINGS:
         trains[pairing] = phase_train(pairing)
         if pairing != STEP_OF_RECORD:
-            for key in ('state', 'train_step', 'batch', 'init_state'):
+            for key in ('state', 'train_step', 'batch'):
                 del trains[pairing][key]
             torch.cuda.empty_cache()
     emit({'phase': 'train_pairings', 'pairings': [
@@ -5226,15 +5429,8 @@ def run_phases(ranks):
          'launches_per_step': {k: n // (1 + TRAIN_STEPS) for k, n in t['launches'].items() if n}}
         for (m, p), t in trains.items()]})
     record = trains[STEP_OF_RECORD]
-    dp_dir = _build.BUILD_DIR / 'chip_smoke_dp'
-    tp_dir = _build.BUILD_DIR / 'chip_smoke_tp'
-    dp_ranks = start_dp(dp_dir)
-    ranks += dp_ranks
-    tp_ranks = start_tp(tp_dir)
-    ranks += tp_ranks['tp'] + tp_ranks['grid']
-    _, parity = phase_train_parity(record['init_state'], record['batch'], keep=True)
     train_geom = phase_train_times(record)
-    for key in ('state', 'train_step', 'batch', 'init_state'):
+    for key in ('state', 'train_step', 'batch'):
         del record[key]
     torch.cuda.empty_cache()
     try:
@@ -5242,9 +5438,12 @@ def run_phases(ranks):
     finally:
         shutil.rmtree(dp_dir, ignore_errors=True)
     try:
-        tp_launches = phase_tp(tp_ranks, parity, tp_dir)
+        tp_launches, sp_launches = phase_parallels(par_ranks, parity, par_dir).values()
+        for k, by_path in grid_launches.items():
+            for path, n in by_path.items():
+                (tp_launches if path == 'tp_grid' else sp_launches).setdefault(k, {})[path] = n
     finally:
-        shutil.rmtree(tp_dir, ignore_errors=True)
+        shutil.rmtree(par_dir, ignore_errors=True)
     del parity
     try:
         device_side = phase_train_device_side(ckpt_dir)
@@ -5256,16 +5455,24 @@ def run_phases(ranks):
         data_tools = data_tools_run(dataset('driver')[0])
     finally:
         shutil.rmtree(driver_dir, ignore_errors=True)
-    eval_dir = _build.BUILD_DIR / 'chip_smoke_eval'
+    # The tools' subprocesses run beside eval and pth, which time nothing on the card.
+    tools_dir = _build.BUILD_DIR / 'chip_smoke_tools'
+    tools = start_tools(tools_dir)
     try:
-        evaluation = phase_eval(eval_dir)
+        eval_dir = _build.BUILD_DIR / 'chip_smoke_eval'
+        try:
+            evaluation = phase_eval(eval_dir)
+        finally:
+            shutil.rmtree(eval_dir, ignore_errors=True)
+        pth_dir = _build.BUILD_DIR / 'chip_smoke_pth'
+        try:
+            pth = phase_pth(pth_dir)
+        finally:
+            shutil.rmtree(pth_dir, ignore_errors=True)
+        tools_launches = phase_tools(tools_dir, data_tools, tools)
     finally:
-        shutil.rmtree(eval_dir, ignore_errors=True)
-    pth_dir = _build.BUILD_DIR / 'chip_smoke_pth'
-    try:
-        pth = phase_pth(pth_dir)
-    finally:
-        shutil.rmtree(pth_dir, ignore_errors=True)
+        concurrent.futures.wait(tools[1].values())
+        shutil.rmtree(tools_dir, ignore_errors=True)
     stream_dir = _build.BUILD_DIR / 'chip_smoke_stream'
     try:
         stream = phase_stream(stream_dir)
@@ -5281,15 +5488,9 @@ def run_phases(ranks):
     rope_trains = {}
     for pairing in PAIRINGS:
         rope_trains[pairing] = phase_train(pairing, rope=True)
-        if pairing != STEP_OF_RECORD:
-            for key in ('state', 'train_step', 'batch', 'init_state'):
-                del rope_trains[pairing][key]
-            torch.cuda.empty_cache()
-    rope_record = rope_trains[STEP_OF_RECORD]
-    phase_train_parity(rope_record['init_state'], rope_record['batch'], rope=True)
-    for key in ('state', 'train_step', 'batch', 'init_state'):
-        del rope_record[key]
-    torch.cuda.empty_cache()
+        for key in ('state', 'train_step', 'batch'):
+            del rope_trains[pairing][key]
+        torch.cuda.empty_cache()
     rope_geom = phase_rope_times()
     core = phase_attn_core_times()
     bwd_core = phase_attn_bwd_times()
@@ -5304,11 +5505,6 @@ def run_phases(ranks):
         vitl_launches = phase_vitl(vitl_dir)
     finally:
         shutil.rmtree(vitl_dir, ignore_errors=True)
-    tools_dir = _build.BUILD_DIR / 'chip_smoke_tools'
-    try:
-        tools_launches = phase_tools(tools_dir, data_tools)
-    finally:
-        shutil.rmtree(tools_dir, ignore_errors=True)
     phase_resnet()
 
     def train_launches(kernel, runs=trains, prefix='train'):
@@ -5318,7 +5514,8 @@ def run_phases(ranks):
     source = 'tcow_tpu_torch/ops/csrc/fused_attention.cu'
     replaces = 'tcow_tpu/ops/pallas_attention.py:'
     # The device side of training runs the step of record's kernels, K1 and K4, and so
-    # does the driver (train_torch.py; its two-rank runs under dp_driver and tp_driver);
+    # does the driver (train_torch.py; its two-rank runs under dp_driver, tp_driver and
+    # sp_driver);
     # its rope256 run K1, K1r, K4 and K4r.
     def device_side_launches(kernel):
         return {'train_device_side': device_side['launches'][kernel],
@@ -5326,7 +5523,8 @@ def run_phases(ranks):
                 'train_driver_rope': driver['rope_launches'].get(kernel, 0),
                 'pth': pth['launches'].get(kernel, 0),
                 'dp_driver': dp_driver_launches.get(kernel, 0),
-                'tp_driver': tp_driver_launches.get(kernel, 0)}
+                'tp_driver': tp_driver_launches.get(kernel, 0),
+                'sp_driver': sp_driver_launches.get(kernel, 0)}
     k1 = kernel_entry('fused_attention', source, replaces + '87',
                       {'inference': inference_launches, **train_launches('K1'),
                        **device_side_launches('K1'),
@@ -5336,7 +5534,8 @@ def run_phases(ranks):
                        'stream_eval': stream['eval_launches']['K1'],
                        **serve['launches'], **joint_launches['K1'], **vitl_launches['K1'],
                        **tools_launches, **dp_launches.get('K1', {}),
-                       **tp_launches.get('K1', {})}, errs, per_geom)
+                       **tp_launches.get('K1', {}), **sp_launches.get('K1', {})}, errs,
+                      per_geom)
     k1['per_geometry_train'] = train_geom['K1']
     # The stream's spatial call (1 x 301) and a 4-session server tick's (4 x 301).
     k1['per_geometry_stream'] = stream['k1']
@@ -5354,6 +5553,7 @@ def run_phases(ranks):
         launches.update(vitl_launches.get(kernel, {}))
         launches.update(dp_launches.get(kernel, {}))
         launches.update(tp_launches.get(kernel, {}))
+        launches.update(sp_launches.get(kernel, {}))
         entries.append(kernel_entry(name, source, replaces + line, launches, kerrs,
                                     train_geom[kernel]))
     # The rope variants: the rotation in _kernel (:120-136) for the forwards, in

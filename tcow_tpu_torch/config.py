@@ -6,12 +6,15 @@ commands run unchanged against train_torch.py and eval_torch.py.
 --device defaults to cuda and accepts cpu. Training runs data-parallel: --mesh_devices N
 (train_torch.py starts N ranks, one per GPU; -1 = every visible GPU, one on the CPU) or
 --multihost 1 (this process is one rank of a world its launcher describes in RANK,
-WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT), and tensor-parallel over
---tp_shards of those ranks (the (data, model) mesh: N / tp_shards data rows of tp_shards
-ranks; tp_shards must divide the width, the MLP width and the world, else ValueError).
+WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT), sequence-parallel over --seq_shards
+and tensor-parallel over --tp_shards of those ranks (the (data, seq, model) mesh: N /
+(seq_shards x tp_shards) data rows of seq_shards x tp_shards ranks; tp_shards must divide
+the width and the MLP width, seq_shards must leave every seq rank patches and frames, and
+their product must divide the world, else ValueError).
 Flags of what the port does not run raise NotImplementedError from verify_args, naming
-the ROADMAP.md item that holds them: --seq_shards or --pp_stages > 1 (item 7), and
---tp_shards > 1, --mesh_devices > 1 or --multihost for evaluation (item 7).
+the ROADMAP.md item that holds them: --pp_stages > 1 (item 7), --seq_shards > 1 with joint
+attention (item 7), and --seq_shards > 1, --tp_shards > 1, --mesh_devices > 1 or
+--multihost for evaluation (item 7).
 Every other flag parses and behaves as in the JAX package; --resume and
 --tracker_pretrained take a reference .pth too (models/torch_import.py).
 '''
@@ -63,14 +66,16 @@ def shared_args(parser: argparse.ArgumentParser):
     parser.add_argument('--train_log_path', default='', type=str)
     parser.add_argument('--log_path', default='', type=str)
     parser.add_argument('--wandb_group', default='group', type=str)
-    # Resource options. Training runs data- and tensor-parallel over --mesh_devices ranks
-    # or the --multihost world; the sequence and pipeline layouts parse and raise in
-    # verify_args.
+    # Resource options. Training runs data-, sequence- and tensor-parallel over
+    # --mesh_devices ranks or the --multihost world; the pipeline layout parses and raises
+    # in verify_args.
     parser.add_argument('--mesh_devices', default=-1, type=int,
                         help='Data-parallel ranks of a train run, one per GPU; -1 = every '
                              'visible GPU (one on the CPU).')
     parser.add_argument('--seq_shards', default=1, type=int,
-                        help='Sequence-parallel shards (second mesh axis).')
+                        help='Sequence-parallel shards (seq mesh axis) of a train run: '
+                             'each data row of the mesh has seq_shards x tp_shards ranks, '
+                             'which split the patches and frames inside the blocks.')
     parser.add_argument('--tp_shards', default=1, type=int,
                         help='Tensor-parallel shards (model mesh axis) of a train run: '
                              'each data row of the mesh has this many ranks.')
@@ -222,7 +227,11 @@ def test_args(argv=None):
 
 def _refuse_unported(args, is_train: bool):
     unported = [
-        (args.seq_shards > 1, '--seq_shards > 1', '7, sequence parallelism'),
+        (not is_train and args.seq_shards > 1, '--seq_shards > 1 for evaluation',
+         '7, sequence-parallel evaluation'),
+        (args.seq_shards > 1 and is_train and args.attention_type != 'divided_space_time',
+         '--seq_shards > 1 with joint attention',
+         '7, joint attention under sequence parallelism'),
         (not is_train and args.tp_shards > 1, '--tp_shards > 1 for evaluation',
          '7, tensor-parallel evaluation'),
         (args.pp_stages > 1, '--pp_stages > 1', '7, pipeline parallelism'),
@@ -235,26 +244,35 @@ def _refuse_unported(args, is_train: bool):
         if bad:
             raise NotImplementedError(f'{flag} is not ported to tcow_tpu_torch '
                                       f'(ROADMAP.md section 1 item {item})')
-    if args.tp_shards > 1:
-        _check_tp_shards(args)
+    if args.tp_shards > 1 or args.seq_shards > 1:
+        _check_shards(args)
 
 
-def _check_tp_shards(args):
-    '''Raises ValueError unless --tp_shards divides the backbone's width and MLP width and
-    the world: --mesh_devices when given, else WORLD_SIZE under --multihost, else the one
-    process (a world of -1 visible GPUs is checked when train_torch.py counts them).'''
+def _check_shards(args):
+    '''Raises ValueError unless --tp_shards divides the backbone's width and MLP width,
+    --seq_shards leaves every seq rank patches and frames, and seq_shards x tp_shards
+    divides the world: --mesh_devices when given, else WORLD_SIZE under --multihost, else
+    the one process (a world of -1 visible GPUs is checked when train_torch.py counts
+    them).'''
     from tcow_tpu_torch.models.timesformer import DEPTH_PRESETS
     from tcow_tpu_torch.parallel.mesh import check_tp_widths
-    tp = args.tp_shards
-    if args.network_depth not in DEPTH_PRESETS:
-        raise ValueError(f'--network_depth {args.network_depth} has no width preset')
-    width = DEPTH_PRESETS[args.network_depth][0]
-    check_tp_widths(tp, width, 4 * width)
+    from tcow_tpu_torch.parallel.sequence import check_seq_split
+    tp, seq = args.tp_shards, args.seq_shards
+    if tp > 1:
+        if args.network_depth not in DEPTH_PRESETS:
+            raise ValueError(f'--network_depth {args.network_depth} has no width preset')
+        width = DEPTH_PRESETS[args.network_depth][0]
+        check_tp_widths(tp, width, 4 * width)
+    if seq > 1:
+        check_seq_split((args.frame_height // args.patch_size)
+                        * (args.frame_width // args.patch_size), args.num_frames, seq)
     world = (args.mesh_devices if args.mesh_devices > 0
              else int(os.environ.get('WORLD_SIZE', 1)) if args.multihost
              else None if args.device == 'cuda' else 1)
-    if world is not None and world % tp:
-        raise ValueError(f'--tp_shards {tp} does not divide the world of {world} ranks')
+    if world is not None and world % (seq * tp):
+        what = ' x '.join(f'--{name} {n}' for name, n in (('seq_shards', seq),
+                                                          ('tp_shards', tp)) if n > 1)
+        raise ValueError(f'{what} does not divide the world of {world} ranks')
 
 
 def resolve_resume_path(checkpoint_root: str, resume: str, epoch: int = -1) -> str:

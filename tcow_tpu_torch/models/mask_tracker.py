@@ -137,8 +137,9 @@ def coarsen_mask(mask: torch.Tensor, stride: int, mode: str) -> torch.Tensor:
 
 class MaskTracker(nn.Module):
     '''The seeker. With a DataMesh whose model axis has more than one rank (`mesh`), the
-    backbone's blocks hold this rank's shards of the block weights and run tensor-parallel
-    (timesformer.py); the heads stay replicated. `self.mesh` is that mesh, or None.'''
+    backbone's blocks hold this rank's shards of the block weights and run tensor-parallel;
+    with one whose seq axis has, they split the tokens over the seq ranks (timesformer.py);
+    the heads stay replicated. `self.mesh` is that mesh, or None.'''
 
     def __init__(self, cfg: SeekerConfig, device=None, mesh=None):
         super().__init__()

@@ -17,6 +17,12 @@ constructor) each block holds this rank's shards of qkv.w and proj.w (D / n inpu
 of fc1 (Hm / n output columns) and of fc2.w (Hm / n input rows), and runs its attention
 row-parallel and its MLP as Megatron's (parallel/tensor.py); without a mesh, or with one
 model rank, every path is the one-process one.
+
+Under sequence parallelism (a mesh whose seq axis has n > 1 ranks) every rank holds the
+whole model; the tokens are split over the seq ranks after the embedding, each block runs
+temporal attention, temporal_fc and the MLP on this rank's patches and spatial attention on
+its frames, with an all-to-all at each swap and the cls token's collectives
+(parallel/sequence.py), and the tokens are gathered before the norm.
 '''
 
 import dataclasses
@@ -32,6 +38,7 @@ from torch import nn
 
 from tcow_tpu_torch.ops.fused_attention import BWD_MODES, FORWARD_OPS, fused_attention
 from tcow_tpu_torch.parallel import mesh as mesh_lib
+from tcow_tpu_torch.parallel import sequence as seq_lib
 from tcow_tpu_torch.parallel import tensor as tensor_lib
 
 # Input normalization constants for pretrained backbones.
@@ -255,7 +262,9 @@ class DropPathMasks:
 
 def draw_drop_path_masks(generator: torch.Generator, rate: float, depth: int, B: int, N: int,
                          T: int, device, divided: bool = True,
-                         rows: Optional[Tuple[int, int]] = None) -> list:
+                         rows: Optional[Tuple[int, int]] = None,
+                         cols: Optional[Tuple[Tuple[int, int], Tuple[int, int]]] = None
+                         ) -> list:
     '''Every block's masks for one forward, drawn up front from `generator` (as JAX splits
     the block keys before the scan, :769-771) and moved to `device` once. Drawing outside
     the blocks keeps them fixed when a rematerialized block is recomputed in the backward
@@ -263,26 +272,34 @@ def draw_drop_path_masks(generator: torch.Generator, rate: float, depth: int, B:
     uniform draw is below keep = 1 - rate. divided=False draws a joint block's masks.
     rows = (start, total): the B rows are rows [start, start + B) of a batch of `total`
     (one rank's rows under data parallelism): the masks of all `total` rows are drawn, so
-    the generator advances as for the whole batch, and these rows' are kept.'''
+    the generator advances as for the whole batch, and these rows' are kept. cols =
+    ((n0, n1), (t0, t1)): the columns of this rank's patches and frames under sequence
+    parallelism, kept of the whole (B, N) and (B, T) draws.'''
     start, total = (0, B) if rows is None else rows
     keep = 1.0 - torch.linspace(0.0, rate, depth, dtype=torch.float32)
     draw = lambda *shape: (torch.rand((depth, total) + shape, generator=generator,
                                       device=generator.device)[:, start:start + B]
                            < keep.to(generator.device).reshape((depth,) + (1,) * (len(shape) + 1)))
     if divided:
-        keep, temporal, spatial, mlp = (t.to(device) for t in (keep, draw(N), draw(T), draw()))
+        temporal, spatial = draw(N), draw(T)
+        if cols is not None:
+            (n0, n1), (t0, t1) = cols
+            temporal, spatial = temporal[..., n0:n1], spatial[..., t0:t1]
+        keep, temporal, spatial, mlp = (t.to(device) for t in (keep, temporal, spatial, draw()))
         return [DropPathMasks(keep[i], temporal[i], spatial[i], mlp[i]) for i in range(depth)]
     keep, spatial, mlp = (t.to(device) for t in (keep, draw(), draw()))
     return [DropPathMasks(keep[i], None, spatial[i], mlp[i]) for i in range(depth)]
 
 
 class DividedBlock(nn.Module):
-    '''One divided space-time block (timesformer.py:388-450).'''
+    '''One divided space-time block (timesformer.py:388-450). With a sequence-parallel mesh
+    `sp`, xs holds this rank's patches (parallel/sequence.py).'''
 
-    def __init__(self, cfg: TimeSformerConfig, device=None, tp=None):
+    def __init__(self, cfg: TimeSformerConfig, device=None, tp=None, sp=None):
         super().__init__()
         D = cfg.embed_dim
         self.cfg = cfg
+        self.sp = sp
         self.norm1 = LayerNorm(D, cfg.ln_eps, device)
         self.attn = Attention(D, cfg.num_heads, cfg.attention_bwd, device, tp)
         self.norm2 = LayerNorm(D, cfg.ln_eps, device)
@@ -291,11 +308,14 @@ class DividedBlock(nn.Module):
         self.temporal_attn = Attention(D, cfg.num_heads, cfg.attention_bwd, device, tp)
         self.temporal_fc = Dense(D, D, device)
 
-    def forward(self, xs, cls, masks: DropPathMasks = None, frame_times=None):
+    def forward(self, xs, cls, masks: DropPathMasks = None, frame_times=None,
+                num_patches: Optional[int] = None):
         '''xs (B, N, T, D) patch tokens, cls (B, D), drop-path masks or None, frame_times
-        (B, T) f32 or None -> updated (xs, cls).'''
+        (B, T) f32 or None -> updated (xs, cls). Under sequence parallelism xs holds this
+        rank's chunk of the num_patches patches and the masks its columns.'''
         B, N, T, D = xs.shape
         ca = self.cfg.causal_attention
+        sp = self.sp
 
         def dp(x, which):
             return x if masks is None else drop_path(x, getattr(masks, which), masks.keep)
@@ -307,18 +327,26 @@ class DividedBlock(nn.Module):
                    'temporal')
         xt = xs + self.temporal_fc(res_t)
 
-        # Spatial attention over patches per frame, with the three cls behaviours.
-        xsp = xt.transpose(1, 2)                                   # (B, T, N, D)
+        # Spatial attention over patches per frame, with the three cls behaviours; under
+        # sequence parallelism over this rank's frames, after the all-to-all.
+        xsp = (xt.transpose(1, 2) if sp is None
+               else seq_lib.patches_to_frames(xt, sp, num_patches))   # (B, T, N, D)
         if ca in (0, 1):
-            seq = torch.cat([cls[:, None, None, :].expand(B, T, 1, D), xsp], dim=2)
+            seq = torch.cat([cls[:, None, None, :].expand(B, xsp.shape[1], 1, D), xsp], dim=2)
             res_sp = dp(self.attn(self.norm1(seq), 0), 'spatial')  # (B, T, N+1, D), per (b, t)
             cls_out = res_sp[:, :, 0, :]
             # ca 0: mean over frames; ca 1: frame-0 copy.
-            cls_new = cls_out.mean(dim=1) if ca == 0 else cls_out[:, 0, :]
-            res_sp = res_sp[:, :, 1:, :].transpose(1, 2)
+            if sp is None:
+                cls_new = cls_out.mean(dim=1) if ca == 0 else cls_out[:, 0, :]
+            else:
+                cls_new = (seq_lib.mean_over_frames(cls_out, sp, T) if ca == 0
+                           else seq_lib.first_frame(cls_out, sp))
+            res_sp = res_sp[:, :, 1:, :]
         else:  # ca >= 2 or ca == -1: no cls token in spatial attention.
-            res_sp = dp(self.attn(self.norm1(xsp), 0), 'spatial').transpose(1, 2)
+            res_sp = dp(self.attn(self.norm1(xsp), 0), 'spatial')
             cls_new = torch.zeros_like(cls)
+        res_sp = (res_sp.transpose(1, 2) if sp is None
+                  else seq_lib.frames_to_patches(res_sp, sp, T))
 
         tokens = xt + res_sp
         cls2 = cls + cls_new
@@ -342,9 +370,11 @@ class JointBlock(nn.Module):
         self.norm2 = LayerNorm(D, cfg.ln_eps, device)
         self.mlp = Mlp(D, cfg.mlp_dim, device, tp)
 
-    def forward(self, xs, cls, masks: DropPathMasks = None, frame_times=None):
+    def forward(self, xs, cls, masks: DropPathMasks = None, frame_times=None,
+                num_patches: Optional[int] = None):
         '''xs (B, N, T, D), cls (B, D), drop-path masks or None -> updated (xs, cls).
-        frame_times is unused: rope needs the divided temporal axis.'''
+        frame_times and num_patches are unused: rope needs the divided temporal axis, and
+        joint attention has no sequence-parallel path.'''
         B, N, T, D = xs.shape
 
         def dp(x, which):
@@ -378,39 +408,49 @@ def resize_pos_embed(pos_embed: torch.Tensor, src_grid: Tuple[int, int],
     return torch.cat([pos_embed[0:1], g.reshape(gh * gw, D)], dim=0)
 
 
-def _run_blocks(blocks, xs, cls, masks, frame_times):
+def _run_blocks(blocks, num_patches, xs, cls, masks, frame_times):
     '''The blocks in order, each with its drop-path masks (or None).'''
     for blk, m in zip(blocks, masks):
-        xs, cls = blk(xs, cls, m, frame_times)
+        xs, cls = blk(xs, cls, m, frame_times, num_patches)
     return xs, cls
 
 
 class TimeSformer(nn.Module):
     '''Dense forward: pixels (B, C, T, H, W) -> (features (B, D, T, H', W'), cls (B, D)).
     With a mesh whose model axis has more than one rank the blocks hold this rank's
-    shards (module docstring).'''
+    shards; with one whose seq axis has, they split the tokens (module docstring).
+    `self.mesh` is that mesh (None without either), `tp` / `sp` the mesh for each axis
+    that has more than one rank.'''
 
     def __init__(self, cfg: TimeSformerConfig, device=None, mesh=None):
         super().__init__()
         D, p = cfg.embed_dim, cfg.patch_size
         self.cfg = cfg
-        self.mesh = mesh_lib.tp_mesh(mesh)
-        if self.mesh is not None:
-            mesh_lib.check_tp_widths(self.mesh.n_model, D, cfg.mlp_dim)
+        self.tp, self.sp = mesh_lib.tp_mesh(mesh), mesh_lib.sp_mesh(mesh)
+        self.mesh = mesh if self.tp is not None or self.sp is not None else None
+        if self.tp is not None:
+            mesh_lib.check_tp_widths(self.tp.n_model, D, cfg.mlp_dim)
+        if self.sp is not None:
+            if not cfg.divided:
+                raise NotImplementedError('joint space-time attention under sequence '
+                                          'parallelism is not ported to tcow_tpu_torch '
+                                          '(ROADMAP.md section 1 item 7)')
+            seq_lib.check_seq_split(cfg.num_patches, cfg.num_frames, self.sp.n_seq)
         self.patch_embed = Dense(p * p * cfg.in_channels, D, device)
         self.cls_token = nn.Parameter(torch.zeros(D, device=device))
         self.pos_embed = nn.Parameter(torch.zeros(cfg.num_patches + 1, D, device=device))
         self.time_embed = nn.Parameter(torch.zeros(cfg.num_frames, D, device=device))
         self.norm = LayerNorm(D, cfg.ln_eps, device)
-        block = DividedBlock if cfg.divided else JointBlock
-        self.blocks = nn.ModuleList(block(cfg, device, self.mesh) for _ in range(cfg.depth))
+        self.blocks = nn.ModuleList(
+            DividedBlock(cfg, device, self.tp, self.sp) if cfg.divided
+            else JointBlock(cfg, device, self.tp) for _ in range(cfg.depth))
 
     def init_params_(self, generator: torch.Generator):
         '''Random init of tcow_tpu timesformer.init_params (:149-188): trunc-normal(0.02)
         linears and embeddings, zero biases, unit LayerNorm, temporal_fc zero for blocks > 0
         (divided blocks; joint blocks have none). A tensor-parallel model raises: its
         shards come from the full model's init (mesh.shard_params).'''
-        if self.mesh is not None:
+        if self.tp is not None:
             raise ValueError('initialise the full model and load its shards '
                              '(parallel/mesh.py:shard_params)')
         for name, prm in self.named_parameters():
@@ -437,7 +477,9 @@ class TimeSformer(nn.Module):
         except the outputs that cfg.remat_policy keeps (`remat_saved_ops`): under 'full'
         the attention forwards run again, under the '_out' policies they do not.
         frame_times (B, T): the clip's true source timestamps, read only under
-        cfg.temporal_rope (None means 0..T-1).'''
+        cfg.temporal_rope (None means 0..T-1). Under sequence parallelism the blocks run on
+        this rank's chunk of the patches, split after the embedding and gathered before the
+        norm, and its columns of the drop-path masks.'''
         cfg = self.cfg
         B, C, T, H, W = pixels.shape
         p, D = cfg.patch_size, cfg.embed_dim
@@ -468,10 +510,14 @@ class TimeSformer(nn.Module):
                        and frame_times is not None else None)
 
         xs = x.transpose(1, 2).contiguous()   # (B, N, T, D)
+        cols = None
+        if self.sp is not None:
+            cols = (seq_lib.local_range(N, self.sp), seq_lib.local_range(T, self.sp))
+            xs = seq_lib.split_seq(xs, self.sp, 1)
         masks = [None] * cfg.depth
         if train and cfg.drop_path_rate > 0.0 and generator is not None:
             masks = draw_drop_path_masks(generator, cfg.drop_path_rate, cfg.depth, B, N, T,
-                                         x.device, cfg.divided, drop_path_rows)
+                                         x.device, cfg.divided, drop_path_rows, cols)
         remat = cfg.remat and torch.is_grad_enabled()
         kw = {}
         if cfg.remat_policy != 'full':
@@ -480,7 +526,7 @@ class TimeSformer(nn.Module):
                 remat_saved_ops(cfg.remat_policy))
         G = cfg.remat_group
         for start in range(0, cfg.depth, G):
-            group = functools.partial(_run_blocks, self.blocks[start:start + G])
+            group = functools.partial(_run_blocks, self.blocks[start:start + G], N)
             group_masks = masks[start:start + G]
             if remat:
                 # G consecutive blocks form one checkpoint region (:780-789). The blocks
@@ -491,6 +537,8 @@ class TimeSformer(nn.Module):
                     preserve_rng_state=False, **kw)
             else:
                 xs, cls = group(xs, cls, group_masks, frame_times)
+        if self.sp is not None:
+            xs = seq_lib.gather_seq(xs, self.sp, 1, N)
 
         if cfg.norm_embeddings:
             xs = self.norm(xs)

@@ -10,7 +10,9 @@ rows, zero-padded up to a multiple of the shard count, with the weights gathered
 their row shards. The output is gathered over the model group; in the backward each rank
 runs the kernel backward on its rows, dx is gathered, and the weight and bias cotangents
 are summed over the model group (the replicated qkv.b / proj.b too: each rank's are its
-rows' part).
+rows' part). Under sequence parallelism too the rows are those this rank's seq coordinate
+holds (its patches' temporal rows, its frames' spatial rows), split again over the model
+group of its (data, seq) line, as JAX's row_axes = (data, seq, model) split them.
 
 The MLP is Megatron's (timesformer.py:319-322 of the JAX package under the layout): fc1
 column-parallel and a local GELU, then fc2 row-parallel, its partial products summed over

@@ -19,7 +19,8 @@ The attention mode is not a flag: on the GPU the driver picks attention_bwd 'ker
 with remat_policy 'dots_nb_out' (24 K1 + 24 K4 launches per step of the configuration of
 record), on the CPU 'res' with 'full', as the JAX driver picks its kernel path only on a
 TPU. At log level debug every step logs one `step_stats` line of JSON at the end of its
-iteration, just before the preemption check: its host wall time, its wait for the batch,
+iteration, just after the preemption check (a SIGTERM sent once a step's line is out
+stops the run after the next step): its host wall time, its wait for the batch,
 the kernel launches it made and, on the GPU, the peak of torch.cuda.max_memory_allocated
 so far. A vis step that ran logs a line of its own after its step's (phase 'vis': its
 host wall time, the overlay rendering included, and launches); its videos are encoded on
@@ -43,6 +44,13 @@ data coordinate) and hold shards of the block weights; the vis step runs on ever
 data row 0 (its forward makes model-axis collectives) and rank 0 renders it; every rank
 gathers the shards for a checkpoint, which rank 0 writes in the one-process layout; the
 checkpoint holds one query-sampling stream per data row.
+
+Sequence parallelism (--seq_shards, tcow_tpu/train/driver.py:186-199): the world is a
+(data, seq, model) mesh of world / (seq_shards x tp_shards) data rows. The seq ranks of a
+data row load the same rows, hold the whole model and split the tokens inside the blocks;
+as under tensor parallelism the vis step runs on every rank of data row 0 (its forward
+makes the seq collectives) and rank 0 renders it and writes the checkpoints. Every
+step_stats line carries the seq coordinate too.
 '''
 
 import json
@@ -163,20 +171,22 @@ class _StopFlag:
 
 
 def join_mesh(args, logger):
-    '''The DataMesh of a --multihost rank (None for one process): world / --tp_shards data
-    rows of --tp_shards ranks, checked against the flags: --mesh_devices, when given, must
-    equal the world size, and batch_size / grad_accum must divide by the data rows (the
-    world is fixed: no ranks are dropped).'''
+    '''The DataMesh of a --multihost rank (None for one process): world / (--seq_shards x
+    --tp_shards) data rows of seq_shards x tp_shards ranks, checked against the flags:
+    --mesh_devices, when given, must equal the world size, and batch_size / grad_accum
+    must divide by the data rows (the world is fixed: no ranks are dropped).'''
     if not args.multihost:
         if args.mesh_devices > 1:
             raise ValueError('--mesh_devices > 1 starts its ranks through train_torch.py; '
                              'each rank runs with --multihost 1')
         return None
     resolve_device(args.device)
-    mesh = mesh_lib.make_mesh(args.device, model=int(getattr(args, 'tp_shards', 1)))
+    mesh = mesh_lib.make_mesh(args.device, model=int(getattr(args, 'tp_shards', 1)),
+                              seq=int(getattr(args, 'seq_shards', 1)))
     logger.info(f'Mesh: rank {mesh.rank} of {mesh.world} on {mesh.device} at (data '
-                f'{mesh.data_rank} of {mesh.n_data}, model {mesh.model_rank} of '
-                f'{mesh.n_model}), backend {mesh.backend} ({mesh.reason})')
+                f'{mesh.data_rank} of {mesh.n_data}, seq {mesh.seq_rank} of {mesh.n_seq}, '
+                f'model {mesh.model_rank} of {mesh.n_model}), backend {mesh.backend} '
+                f'({mesh.reason})')
     try:
         if args.mesh_devices > 0 and args.mesh_devices != mesh.world:
             raise ValueError(f'--mesh_devices {args.mesh_devices} but the world has '
@@ -298,8 +308,9 @@ def _train(args, logger, mesh):
                          f'grad_accum {grad_accum}')
     train_step = step_lib.make_train_step(step_cfg, grad_accum=grad_accum, mesh=mesh)
     eval_step = step_lib.make_eval_step(step_cfg, mesh=mesh)
-    # Rank 0 renders the vis step from its own rows; the other model ranks of its data row
-    # run its forward beside it (model-axis collectives); no data-group collective.
+    # Rank 0 renders the vis step from its own rows; the other seq and model ranks of its
+    # data row run its forward beside it (seq and model-axis collectives); no data-group
+    # collective.
     vis_step = step_lib.make_vis_step(step_cfg) if data_rank == 0 else None
 
     ckpt_thread = [None]
@@ -338,12 +349,12 @@ def _train(args, logger, mesh):
         full = (not getattr(args, 'checkpoint_light', False) or final or epoch < 0
                 or steps_done is not None or epoch % args.checkpoint_every == 0)
         # Every data row samples its own rows' queries: rank 0 saves every row's stream
-        # (the model ranks of a row hold the same one).
+        # (the seq and model ranks of a row hold the same one).
         by_rank = ([collate_rng[0]] if mesh is None
-                   else mesh_lib.gather_objects(collate_rng[0], mesh)[::mesh.n_model])
+                   else mesh_lib.gather_objects(collate_rng[0], mesh)[::mesh.row_ranks])
         loader_state = (None if by_rank[0] is None
                         else {'train_collate_rng_by_rank': by_rank})
-        if rank != 0 and state.model.mesh is None:
+        if rank != 0 and mesh_lib.tp_mesh(state.model.mesh) is None:
             return   # one writer; the state is replicated
         # Taken now, on this thread: the next step updates the state in place. Every rank
         # of a tensor-parallel mesh takes part in the gather, then rank 0 writes alone.
@@ -558,10 +569,12 @@ def _run_one_epoch(args, logger, device, state, train_step, eval_step, loader, p
     num_exceptions = 0
     is_train = (phase == 'train')
     debug = logger.debug_enabled()
-    where = ({'rank': 0, 'world': 1, 'backend': None, 'data_rank': 0, 'model_rank': 0}
+    where = ({'rank': 0, 'world': 1, 'backend': None, 'data_rank': 0, 'seq_rank': 0,
+              'model_rank': 0}
              if mesh is None else
              {'rank': mesh.rank, 'world': mesh.world, 'backend': mesh.backend,
-              'data_rank': mesh.data_rank, 'model_rank': mesh.model_rank})
+              'data_rank': mesh.data_rank, 'seq_rank': mesh.seq_rank,
+              'model_rank': mesh.model_rank})
 
     profile_dir = getattr(args, 'profile_dir', '')
     profile_start = min(2, max(len(loader) - 1, 0))  # short epochs still get a trace
@@ -645,16 +658,17 @@ def _run_one_epoch(args, logger, device, state, train_step, eval_step, loader, p
                     break
                 t_mark = time.time()
                 continue
-            # Logged last in the iteration, just before the preemption check.
+            stopping = stop is not None and stop.check()
+            # Logged last in the iteration, just after the preemption check.
             for record in (stats, vis_stats):
                 if record is not None:
                     logger.debug('step_stats ' + json.dumps(record))
-            if cur_step >= 100 and args.is_debug:
-                logger.warning('Cutting epoch short for debugging...')
-                break
-            if stop is not None and stop.check():
+            if stopping:
                 logger.warning(f'[{phase}] stopping after step {cur_step} '
                                f'(preemption requested).')
+                break
+            if cur_step >= 100 and args.is_debug:
+                logger.warning('Cutting epoch short for debugging...')
                 break
             t_mark = time.time()
     finally:

@@ -17,6 +17,13 @@ the same rows and draw the same drop-path masks; the model is built with the mes
 sums inside the backward, so after it only the data group's sum is left, and the
 gradient norm is the logical tensors' (optim.Optimizer.grad_norm).
 
+Under sequence parallelism (a mesh with n_seq > 1) the seq ranks of one data row hold the
+same rows and the whole model, and the blocks split the tokens (parallel/sequence.py).
+What every seq rank computes alike (the embedding, the heads, the losses) must enter the
+gradient sum once: the loss's backward is seeded with 1 on seq rank 0 and 0 on the others
+(backward_loss), every replicated tensor then carries a partial cotangent, and the
+gradients are summed over the (data x seq) ranks (mesh.all_reduce_grads).
+
 Batch schema (numpy arrays or tensors; the step moves them to the model's device):
   rgb           (B, 3, T, H, W) float32  (or uint8 'rgb_u8', scaled by 1/255 on device)
   segm          (B, T, H, W)    int32    1-based visible instance IDs (or uint8 'segm_u8')
@@ -74,19 +81,21 @@ def init_train_state(seed: int, cfg: StepConfig, tx: OptimizerSpec,
     its optimizer, and a drop-path generator; the two generators are split from `seed`.
     Under a tensor-parallel mesh the full model is initialised on the CPU (the init draws
     there in any case) and the model on `device` gets this rank's shards of it before the
-    optimizer sees its parameters.'''
+    optimizer sees its parameters; under a sequence-parallel one every rank holds the whole
+    model, built with the mesh.'''
     device = resolve_device(device)
     root = torch.Generator().manual_seed(seed)
     init_seed, drop_seed = torch.randint(0, 2 ** 62, (2,), generator=root).tolist()
     tp = mesh_lib.tp_mesh(mesh)
-    model = MaskTracker(cfg.seeker, device='cpu' if tp is not None else device)
+    model = (MaskTracker(cfg.seeker, device='cpu') if tp is not None
+             else MaskTracker(cfg.seeker, device=device, mesh=mesh))
     if params is None:
         model.init_params_(torch.Generator().manual_seed(init_seed))
     else:
         model.load_state_dict(params_from_jax(params))
     if tp is not None:
         full = model.state_dict()
-        model = MaskTracker(cfg.seeker, device=device, mesh=tp)
+        model = MaskTracker(cfg.seeker, device=device, mesh=mesh)
         model.load_state_dict(mesh_lib.shard_params(full, tp))
     return TrainState(model, tx.init(model.named_parameters(), mesh=tp),
                       torch.Generator().manual_seed(drop_seed))
@@ -128,8 +137,8 @@ def _forward_queries(model: MaskTracker, cfg: StepConfig, batch, sup, train: boo
     '''The seeker on all (example, query) pairs as one folded batch (step.py:63-85), every
     query of an example on its clock when rope_time_coords is set (:73-77). Returns
     output_mask (B, Q, C, T, H, W) and output_flags (B, Q, T, F) or None. Under a mesh the
-    B x Q folded rows are those of data coordinate d of the n_data rows' (every model rank
-    of the row draws the same), whose drop-path masks are drawn.'''
+    B x Q folded rows are those of data coordinate d of the n_data rows' (every seq and
+    model rank of the row draws the same), whose drop-path masks are drawn.'''
     B, Q = batch['query_inds'].shape
     rgb = batch['rgb']
     _, _, T, H, W = rgb.shape
@@ -212,20 +221,30 @@ def split_microbatches(batch, grad_accum: int):
     return parts
 
 
+def backward_loss(loss: torch.Tensor, mesh=None):
+    '''loss.backward(), seeded under sequence parallelism with 1 on seq rank 0 and 0 on
+    the others: every seq rank computes the same replicated loss, whose gradient must
+    enter the (data x seq) sum once (module docstring).'''
+    if mesh_lib.sp_mesh(mesh) is None:
+        loss.backward()
+    else:
+        loss.backward(torch.full_like(loss, 1.0 if mesh.seq_rank == 0 else 0.0))
+
+
 def compute_gradients(state: TrainState, cfg: StepConfig, batch, progress,
                       grad_accum: int = 1, mesh=None):
     '''The step up to the update: the gradients of the batch's loss in the parameters'
     .grad and the aux of make_train_step without skipped_nonfinite and grad_norm. Under a
-    mesh the gradients and the metric sums are summed over the data group, so that every
-    rank holds the global batch's (its shards' under tensor parallelism, whose model-axis
-    sums the blocks make in the backward).'''
+    mesh the gradients are summed over the gradient group and the metric sums over the
+    data group, so that every rank holds the global batch's (its shards' under tensor
+    parallelism, whose model-axis sums the blocks make in the backward).'''
     A = int(grad_accum)
     model = state.model
     model.zero_grad(set_to_none=True)
     aux_sum = None
     for part in (split_microbatches(batch, A) if A > 1 else (batch,)):
         loss, aux = loss_and_aux(model, cfg, part, state.generator, progress, True, mesh)
-        loss.backward()
+        backward_loss(loss, mesh)
         aux = {k: ({m: t.detach() for m, t in v.items()} if k == 'metric_sums'
                    else v.detach()) for k, v in aux.items()}
         aux_sum = aux if aux_sum is None else {

@@ -401,7 +401,8 @@ def test_dp_drop_path_masks_are_the_global_batch_s(jax_params, tmp_path, tiny_pr
 # Flags
 # ---------------------------------------------------------------------------------------
 
-@pytest.mark.parametrize('flags', [['--seq_shards', '2'], ['--tp_shards', '2', '--seq_shards', '2'],
+@pytest.mark.parametrize('flags', [['--seq_shards', '2', '--attention_type', 'joint_space_time'],
+                                   ['--tp_shards', '2', '--seq_shards', '2', '--pp_stages', '2'],
                                    ['--pp_stages', '2']])
 def test_sequence_tensor_pipeline_flags_still_raise(flags):
     argv = ['--data_path', 'x', '--device', 'cpu', '--mesh_devices', '2', *flags]

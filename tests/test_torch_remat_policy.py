@@ -85,9 +85,9 @@ def test_pairing_matches_jax_pallas_interpret(jax_params, mode, policy):
     old = pa.INTERPRET
     pa.INTERPRET = True
     try:
-        (jloss, _), jgrads = jax.value_and_grad(jstep._loss_and_aux, has_aux=True)(
-            jax_params, jcfg, {k: jnp.asarray(v) for k, v in b.items()}, None,
-            jnp.float32(PROGRESS), True)
+        (jloss, _), jgrads = jax.jit(jax.value_and_grad(
+            lambda p, jb: jstep._loss_and_aux(p, jcfg, jb, None, jnp.float32(PROGRESS), True),
+            has_aux=True))(jax_params, {k: jnp.asarray(v) for k, v in b.items()})
     finally:
         pa.INTERPRET = old
     loss, grads = port_grads(jax_params, mode, policy)

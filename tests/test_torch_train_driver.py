@@ -284,13 +284,15 @@ def test_port_exception_budget_and_ba_save(synth_root, tmp_path, tiny, monkeypat
         run(make_args(synth_root, tmp_path, name='pbud', extra=['--do_val_aug', '0']))
 
 
-@pytest.mark.parametrize('flags', [['--mesh_devices', '2', '--seq_shards', '2'],
-                                   ['--seq_shards', '2'], ['--tp_shards', '2', '--pp_stages', '2'],
-                                   ['--pp_stages', '2'],
-                                   ['--multihost', '1', '--tp_shards', '2', '--seq_shards', '2']])
+@pytest.mark.parametrize('flags', [
+    ['--mesh_devices', '2', '--seq_shards', '2', '--pp_stages', '2'],
+    ['--seq_shards', '2', '--attention_type', 'joint_space_time'],
+    ['--tp_shards', '2', '--pp_stages', '2'], ['--pp_stages', '2'],
+    ['--multihost', '1', '--tp_shards', '2', '--seq_shards', '2', '--pp_stages', '2']])
 def test_port_unported_flags_raise(synth_root, tmp_path, flags):
-    '''Data parallelism (--mesh_devices, --multihost) parses; the sequence and pipeline
-    layouts raise, alone, beside it or beside tensor parallelism.'''
+    '''Data parallelism (--mesh_devices, --multihost) parses; the pipeline layout raises,
+    alone, beside it or beside tensor and sequence parallelism, and so does joint attention
+    under sequence parallelism.'''
     with pytest.raises(NotImplementedError, match='ROADMAP.md section 1 item'):
         make_args(synth_root, tmp_path, extra=flags)
     dp = [f for f in flags if f in ('--mesh_devices', '--multihost')]

@@ -239,9 +239,9 @@ def test_seeker_args_carry_drop_path_rate():
 def test_loss_and_grads_match_jax(jax_params, remat):
     jcfg, pcfg = configs(seeker_kw=dict(remat=remat))
     b = batch()
-    (jloss, jaux), jgrads = jax.value_and_grad(jstep._loss_and_aux, has_aux=True)(
-        jax_params, jcfg, {k: jnp.asarray(v) for k, v in b.items()}, None,
-        jnp.float32(PROGRESS), True)
+    (jloss, jaux), jgrads = jax.jit(jax.value_and_grad(
+        lambda p, jb: jstep._loss_and_aux(p, jcfg, jb, None, jnp.float32(PROGRESS), True),
+        has_aux=True))(jax_params, {k: jnp.asarray(v) for k, v in b.items()})
     state = pstep.init_train_state(0, pcfg, poptim.make_optimizer(**OPT_KW),
                                    params=jax_params, device='cpu')
     ploss, paux = pstep.loss_and_aux(state.model, pcfg, b, state.generator, PROGRESS, True)
@@ -285,7 +285,7 @@ def test_train_steps_match_jax(jax_params):
 def test_eval_step_matches_jax(jax_params):
     jcfg, pcfg = configs()
     b = batch(seed=1)
-    want = jstep.make_eval_step(jcfg, return_outputs=True)(
+    want = jax.jit(jstep.make_eval_step(jcfg, return_outputs=True))(
         jax_params, {k: jnp.asarray(v) for k, v in b.items()}, jnp.float32(0.5))
     model = pmt.MaskTracker(pcfg.seeker)
     model.load_state_dict(params_from_jax(jax_params))
