@@ -182,7 +182,20 @@ Drives the PyTorch port (tcow_tpu_torch) on one NVIDIA GPU and checks it:
      in the instrumented warm-up step); four ranks as (seq 2, model 2), the f32 depth-2
      gradient against one process; `train_torch.py --multihost 1 --seq_shards 2` as two
      ranks for one epoch of 2 steps at full width and depth 2, its checkpoint loaded into a
-     one-process state on the card, bit for bit.
+     one-process state on the card, bit for bit;
+ 27. pipeline parallelism (phase pp beside tp and sp; pp_grid beside the other grids and
+     pp_driver on a thread while the threads of item 2 run, pp_driver on its own 4-scene
+     dataset): the step of record's batch on one data row of two pipe stages that share
+     the card (gloo), each holding 6 of the 12 blocks, the batch's 6 rows in 2
+     microbatches of 3 (900 x 30 and 90 x 301 a kernel call, recorded): 24 K1 + 24 K4 per
+     rank and step at depth 12 and each other pairing's launches at depth 2 (one block a
+     stage), the replicated tensors by digest, the gradients against train_parity's (bf16
+     ratio, f32 at depth 2), drop-path 0.1 at depth 2 against one process with the same
+     generator, per rank step ms, peak and the stage hops per step (count, bytes, ms in
+     the instrumented warm-up step); four ranks as (model 2, pipe 2), the f32 depth-2
+     gradient against one process; `train_torch.py --multihost 1 --pp_stages 2` as two
+     ranks for one epoch of 2 steps and the vis step at full width and depth 2, its
+     checkpoint loaded into a one-process state on the card, bit for bit.
 
 The Kubric datasets are written on a thread while the kernels build; the inputs of the
 kernel comparisons and timings are drawn on the card.
@@ -236,6 +249,7 @@ from tcow_tpu_torch.ops import _build
 from tcow_tpu_torch.ops import fused_attention as fa
 from tcow_tpu_torch.ops import rope as rope_lib
 from tcow_tpu_torch.parallel import mesh as mesh_lib
+from tcow_tpu_torch.parallel import pipeline as pipe_lib
 from tcow_tpu_torch.parallel import sequence as seq_lib
 from tcow_tpu_torch.parallel import tensor as tensor_lib
 from tcow_tpu_torch.train import driver as train_driver
@@ -804,19 +818,36 @@ def phase_times(params, cfg, inputs):
     return per_geom
 
 
+# The depths with a preset of the package's own, and the holders of each preset that
+# depth_preset registered: the driver threads and the main thread register depth 2 at once.
+OWN_PRESETS = frozenset(tsf.DEPTH_PRESETS)
+_PRESET_LOCK = threading.Lock()
+_PRESET_HOLDERS = {}
+
+
 @contextlib.contextmanager
 def depth_preset(depth, width_heads):
-    '''Registers a backbone preset (network_depth -> (width, heads)) for the block.'''
-    tsf.DEPTH_PRESETS[depth] = width_heads
+    '''Registers a backbone preset (network_depth -> (width, heads)) for the block. Threads
+    may hold one preset at once: the last to leave removes it; another width for a depth
+    held raises.'''
+    with _PRESET_LOCK:
+        if _PRESET_HOLDERS.get(depth) and tsf.DEPTH_PRESETS[depth] != width_heads:
+            raise RuntimeError(f'depth {depth} is held at {tsf.DEPTH_PRESETS[depth]}, not '
+                               f'{width_heads}')
+        tsf.DEPTH_PRESETS[depth] = width_heads
+        _PRESET_HOLDERS[depth] = _PRESET_HOLDERS.get(depth, 0) + 1
     try:
         yield
     finally:
-        del tsf.DEPTH_PRESETS[depth]
+        with _PRESET_LOCK:
+            _PRESET_HOLDERS[depth] -= 1
+            if not _PRESET_HOLDERS[depth]:
+                del tsf.DEPTH_PRESETS[depth]
 
 
 def at_depth(depth):
-    '''depth_preset(depth) at full width, unless depth has a preset of its own.'''
-    return (contextlib.nullcontext() if depth in tsf.DEPTH_PRESETS
+    '''depth_preset(depth) at full width, unless depth has a preset of the package's own.'''
+    return (contextlib.nullcontext() if depth in OWN_PRESETS
             else depth_preset(depth, (D, HEADS)))
 
 
@@ -1450,6 +1481,7 @@ def dataset_specs():
             'pth': ((('train', PTH_TRAIN_SCENES, SEED + 400),), DRIVER_FRAMES),
             'tp_driver': ((('train', TP_DRIVER_SCENES, SEED + 500),), DRIVER_FRAMES),
             'sp_driver': ((('train', TP_DRIVER_SCENES, SEED + 600),), DRIVER_FRAMES),
+            'pp_driver': ((('train', TP_DRIVER_SCENES, SEED + 700),), DRIVER_FRAMES),
             'stream_long': ((('test', STREAM_EVAL_SCENES, SEED + 300),), STREAM_EVAL_FRAMES)}
 
 
@@ -2017,7 +2049,7 @@ def dp_rank_pairing(mesh, pairing, batch, init, depth=12):
         for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            mesh_lib.all_reduce_grads(state.model.parameters(), mesh)
+            mesh_lib.all_reduce_grads(state.model.named_parameters(), mesh)
             torch.cuda.synchronize()
             out['allreduce_ms'].append(1e3 * (time.perf_counter() - t0))
     del state, train_step
@@ -2325,6 +2357,11 @@ TP_TIMEOUT_S = 600
 # Phase sp: one data row of two seq ranks that share the card (gloo); phase sp_grid: one
 # data row of (seq 2, model 2).
 SP_SEQ = 2
+# Phase pp: one data row of two pipe stages that share the card (gloo); phase pp_grid: one
+# data row of (model 2, pipe 2). The step of record's 6 folded rows go through the stages
+# in 2 microbatches of 3 (resolve_pp_microbatches: 2S = 4 does not divide 6).
+PP_STAGES = 2
+PP_MICROBATCHES = pipe_lib.resolve_pp_microbatches(0, PP_STAGES, TRAIN_B * TRAIN_Q)
 # The step of record runs at full width and this depth under tensor parallelism (its
 # 9.8-10.8 s a step at depth 12 are almost all collectives through the host, PERF.md);
 # the parity gradients stay at depth 12.
@@ -2338,15 +2375,26 @@ GLOO_PROBES = ('all_reduce', 'broadcast', 'all_gather_into_tensor', 'reduce_scat
 # model axis, parallel/sequence.py's on the seq axis.
 MODEL_AXIS = (mesh_lib, ('_gather', '_model_sum', '_model_sum_part'))
 SEQ_AXIS = (seq_lib, ('_gather', '_scatter_sum', '_exchange', '_seq_sum', '_from_owner'))
+# The pipe axis's stage hops (parallel/pipeline.py), one broadcast each.
+PIPE_AXIS = (pipe_lib, ('_hop',))
 
 
 def gathered_flat_grad(model, mesh):
-    '''Every parameter gradient of a tensor-parallel model gathered into the one-process
-    layout (a collective), concatenated in f32 in the one-process parameter order.'''
+    '''Every parameter gradient of a tensor- or pipeline-parallel model gathered into the
+    one-process layout (a collective), concatenated in f32 in the one-process parameter
+    order (a one-process model's on the meta device gives it).'''
     grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
              for n, p in model.named_parameters()}
     full = mesh_lib.gather_state_dict(grads, mesh)
-    return torch.cat([full[n].float().flatten() for n in grads])
+    order = [n for n, _ in MaskTracker(model.cfg, device='meta').named_parameters()]
+    return torch.cat([full[n].float().flatten() for n in order])
+
+
+def attention_passes(mesh, depth):
+    '''How many blocks' attention calls a rank makes a step: every block, or under
+    pipeline parallelism its stage's blocks once a microbatch.'''
+    pp = mesh_lib.pp_mesh(mesh)
+    return depth if pp is None else depth // pp.n_pipe * PP_MICROBATCHES
 
 
 @contextlib.contextmanager
@@ -2402,8 +2450,9 @@ def collectives_recorded(stats, axis):
 
 
 def rank_pairing(what, mesh, pairing, batch, init, depth, axis):
-    '''phase_train's steps under one pairing on a tensor- or sequence-parallel rank
-    (`what`: 'tp' or 'sp'; the whole batch, this rank's shards or tokens), from the
+    '''phase_train's steps under one pairing on a tensor-, sequence- or pipeline-parallel
+    rank (`what`: 'tp', 'sp' or 'pp'; the whole batch, this rank's shards, tokens or
+    stage), from the
     JAX-layout tree `init` or the seed: launches checked per step, the rows of each kernel
     call, the axis's collectives per step (count and bytes), the state placed from rank 0
     and its replicas and shards compared after the steps; for the step of record the
@@ -2418,7 +2467,8 @@ def rank_pairing(what, mesh, pairing, batch, init, depth, axis):
     torch.cuda.synchronize()
     place_ms = 1e3 * (time.perf_counter() - t0)
     train_step = step_lib.make_train_step(cfg, mesh=mesh)
-    per_step = {k: PAIRINGS[pairing].get(k, 0) * 2 * depth for k in read_launches()}
+    per_step = {k: PAIRINGS[pairing].get(k, 0) * 2 * attention_passes(mesh, depth)
+                for k in read_launches()}
     stats = dict(calls=0, bytes=0, seconds=0.0, timing=False)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2461,13 +2511,14 @@ def rank_pairing(what, mesh, pairing, batch, init, depth, axis):
     return out
 
 
-def rank_f32_depth2(mesh, batch, **overrides):
+def rank_f32_depth2(mesh, batch, drop_path_rate=0.0, **overrides):
     '''The step of record's first-step gradients in f32 at depth 2, full width, drop-path
-    off (`overrides` other seeker fields), from phase_train_parity's seeded init, on this
-    rank's rows, shards or tokens (one process's without a mesh): the loss, the gradient
-    gathered over the model group (every rank calls it), the launches.'''
+    off (or at drop_path_rate, the masks from a fresh default generator; `overrides`
+    other seeker fields), from phase_train_parity's seeded init, on this rank's rows,
+    shards, tokens or stage (one process's without a mesh): the loss, the gradient
+    gathered over the model and pipe groups (every rank calls it), the launches.'''
     with depth_preset(2, (D, HEADS)):
-        cfg2 = train_config(torch.float32, 0.0, depth=2, **overrides)
+        cfg2 = train_config(torch.float32, drop_path_rate, depth=2, **overrides)
         full = MaskTracker(cfg2.seeker, device='cpu')
         full.init_params_(torch.Generator().manual_seed(SEED))
         model = MaskTracker(cfg2.seeker, device=DEV if mesh is None else mesh.device,
@@ -2625,22 +2676,36 @@ def phase_gloo_probe(workdir):
 PARALLEL_RANKS = {'tp': (MODEL_AXIS, dict(model=TP_MODEL)),
                   'tp_grid': (MODEL_AXIS, dict(model=TP_MODEL)),
                   'sp': (SEQ_AXIS, dict(seq=SP_SEQ)),
-                  'sp_grid': (SEQ_AXIS, dict(seq=SP_SEQ, model=TP_MODEL))}
+                  'sp_grid': (SEQ_AXIS, dict(seq=SP_SEQ, model=TP_MODEL)),
+                  'pp': (PIPE_AXIS, dict(pipe=PP_STAGES)),
+                  'pp_grid': (PIPE_AXIS, dict(model=TP_MODEL, pipe=PP_STAGES))}
 PARALLEL_WORLDS = {'tp': TP_MODEL, 'tp_grid': TP_GRID_WORLD, 'sp': SP_SEQ,
-                   'sp_grid': SP_SEQ * TP_MODEL}
+                   'sp_grid': SP_SEQ * TP_MODEL, 'pp': PP_STAGES,
+                   'pp_grid': TP_MODEL * PP_STAGES}
+# The (data, seq, model, pipe) coordinates of rank r of each kind.
+PARALLEL_COORDS = {'tp': lambda r: (0, 0, r, 0), 'sp': lambda r: (0, r, 0, 0),
+                   'pp': lambda r: (0, 0, 0, r),
+                   'tp_grid': lambda r: (r // TP_MODEL, 0, r % TP_MODEL, 0),
+                   'sp_grid': lambda r: (0, r // TP_MODEL, r % TP_MODEL, 0),
+                   'pp_grid': lambda r: (0, 0, r // PP_STAGES, r % PP_STAGES)}
+# How many parts each kind splits an attention call's rows into: the model or seq ranks'
+# chunks, or the pipeline's microbatches.
+ROW_SPLIT = {'tp': TP_MODEL, 'sp': SP_SEQ, 'pp': PP_MICROBATCHES}
 
 
 def parallel_rank_main(out_dir, kind):
     '''One rank of phase tp (kind 'tp': 2 ranks, model 2), tp_grid ('tp_grid': 4 ranks,
-    data 2 x model 2), sp ('sp': 2 ranks, seq 2) or sp_grid ('sp_grid': 4 ranks, seq 2 x
-    model 2), started by start_parallel: for 'tp' and 'sp' draws the seeded init on the
-    host, waits for <out_dir>/go_<kind>, joins the mesh from the environment (gloo: every
-    rank is on cuda:0) and writes <out_dir>/<kind>_rank<r>.json. 'tp' and 'sp': the step
-    of record (at TP_RECORD_DEPTH for 'tp', depth 12 for 'sp'), the other pairings at
-    PARALLEL_SHORT_DEPTH, the parity gradients (rank 0 saves them); 'sp' also the f32
+    data 2 x model 2), sp ('sp': 2 ranks, seq 2), sp_grid ('sp_grid': 4 ranks, seq 2 x
+    model 2), pp ('pp': 2 ranks, pipe 2) or pp_grid ('pp_grid': 4 ranks, model 2 x pipe 2),
+    started by start_parallel: for 'tp', 'sp' and 'pp' draws the seeded init on the host,
+    waits for <out_dir>/go_<kind>, joins the mesh from the environment (gloo: every rank
+    is on cuda:0) and writes <out_dir>/<kind>_rank<r>.json. 'tp', 'sp' and 'pp': the step
+    of record (at TP_RECORD_DEPTH for 'tp', depth 12 for the others), the other pairings
+    at PARALLEL_SHORT_DEPTH, the parity gradients (rank 0 saves them); 'sp' also the f32
     depth-2 gradients under causal_attention 0 (the cls token the mean over the frames, a
-    sum over the seq ranks), rank 0 holding them against one process on the card. The grids: the
-    f32 depth-2 gradients (rank 0 saves them).'''
+    sum over the seq ranks), 'pp' at drop-path 0.1 (each stage keeps its blocks' rows of
+    the whole batch's masks), rank 0 holding them against one process on the card. The
+    grids: the f32 depth-2 gradients (rank 0 saves them).'''
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_num_threads(2)   # the host init runs beside the main process's phases
@@ -2648,7 +2713,7 @@ def parallel_rank_main(out_dir, kind):
     out_dir = pathlib.Path(out_dir)
     parent = os.getppid()
     init = None
-    if kind in ('tp', 'sp'):
+    if kind in ('tp', 'sp', 'pp'):
         init = params_to_jax(step_lib.init_train_state(
             SEED, train_config(torch.bfloat16), dp_optimizer(),
             device='cpu').model.state_dict())
@@ -2666,11 +2731,12 @@ def parallel_rank_main(out_dir, kind):
             fail(f'{kind} rank {mesh.rank}: backend {mesh.backend} ({mesh.reason}), expected '
                  'gloo for ranks that share one GPU')
         out = dict(rank=mesh.rank, world=mesh.world, data_rank=mesh.data_rank,
-                   seq_rank=mesh.seq_rank, model_rank=mesh.model_rank, backend=mesh.backend,
-                   reason=mesh.reason, device=str(mesh.device))
+                   seq_rank=mesh.seq_rank, model_rank=mesh.model_rank,
+                   pipe_rank=mesh.pipe_rank, backend=mesh.backend, reason=mesh.reason,
+                   device=str(mesh.device))
         batch = mesh_lib.shard_batch(train_batch(host=host_batch), mesh)
         out['rows'] = int(batch['query_inds'].shape[0])
-        if kind in ('tp', 'sp'):
+        if kind in ('tp', 'sp', 'pp'):
             depth = TP_RECORD_DEPTH if kind == 'tp' else SEEKER_ARGS['network_depth']
             with at_depth(depth):
                 out['pairings'] = {'/'.join(STEP_OF_RECORD): rank_pairing(
@@ -2684,12 +2750,14 @@ def parallel_rank_main(out_dir, kind):
                             kind, mesh, pairing, batch, None, PARALLEL_SHORT_DEPTH, axis)
                         print(f'{kind} rank {mesh.rank}: {pairing} done', flush=True)
             out['parity'] = rank_parity(mesh, batch, out_dir, init, kind)
-            if kind == 'sp':
-                loss0, grad0, launches0 = rank_f32_depth2(mesh, batch, causal_attention=0)
-                out['ca0'] = dict(loss=loss0, launches=launches0)
+            if kind in ('sp', 'pp'):
+                # sp: causal_attention 0; pp: drop-path on.
+                extra = dict(causal_attention=0) if kind == 'sp' else dict(drop_path_rate=0.1)
+                loss0, grad0, launches0 = rank_f32_depth2(mesh, batch, **extra)
+                out['extra'] = dict(loss=loss0, launches=launches0)
                 if mesh.rank == 0:
-                    one_loss, one_grad, _ = rank_f32_depth2(None, batch, causal_attention=0)
-                    out['ca0'].update(
+                    one_loss, one_grad, _ = rank_f32_depth2(None, batch, **extra)
+                    out['extra'].update(
                         loss_vs_one_process=abs(loss0 - one_loss) / abs(one_loss),
                         grad_vs_one_process=rel_l2(grad0, one_grad))
         else:
@@ -2725,42 +2793,46 @@ def rank_launches(res, key, name):
     return out
 
 
-PARALLELS = ('tp', 'sp')
+PARALLELS = ('tp', 'sp', 'pp')
+# The extra check of a kind's ranks at depth 2 in f32 against one process, by its name.
+PARALLEL_EXTRA = {'sp': 'ca0', 'pp': 'droppath'}
 
 
 def phase_parallels(ranks, parity, workdir):
-    '''(a) Phases tp and sp, both at once (their ranks are host-bound on gloo and share
+    '''(a) Phases tp, sp and pp, all at once (their ranks are host-bound on gloo and share
     the card): parallel_result checks each. `ranks` are start_parallel's (the kinds of
     PARALLELS among them run). Returns {kind: its launches by path}.'''
     kinds = [kind for kind in PARALLELS if kind in ranks]
     t0 = time.perf_counter()
     for kind in kinds:
         (workdir / f'go_{kind}').touch()
-    wait_ranks([r for kind in kinds for r in ranks[kind]], 'tp and sp', TP_TIMEOUT_S)
+    wait_ranks([r for kind in kinds for r in ranks[kind]], ', '.join(kinds), TP_TIMEOUT_S)
     wall_s = time.perf_counter() - t0
     return {kind: parallel_result(kind, parity, workdir, wall_s) for kind in kinds}
 
 
 def parallel_result(kind, parity, workdir, wall_s):
     '''The step of record's batch (2 clips x 3 queries) on one data row of two ranks that
-    share the card (parallel_rank_main, subprocesses): kind 'tp', two model ranks, or 'sp',
-    two seq ranks; gloo asserted; per rank and step 24 K1 + 24 K4 at the step of record's
-    depth (TP_RECORD_DEPTH under 'tp': 8 + 8) on half the rows (900 x 30 and 90 x 301), and
-    each other pairing's launches at PARALLEL_SHORT_DEPTH; the replicated tensors equal
-    over the world and the shards over their gradient group (check_replicas, inside the ranks); the
-    gathered gradients against phase_train_parity's one-process ones: the bf16 error
-    against the f32 plain path <= TRAIN_BF16_ERR_RATIO x the bf16 plain path's, f32 at
-    depth 2 within TOL_DP_F32 of the one-process step; under 'sp' also causal_attention 0
-    at depth 2 within TOL_DP_F32 of one process; per rank step ms, peak, the axis's
-    collectives per step (count, bytes, and their ms in an instrumented step); wall_s is
-    phase_parallels' for both kinds. Returns the launches by path.'''
+    share the card (parallel_rank_main, subprocesses): kind 'tp', two model ranks, 'sp',
+    two seq ranks, or 'pp', two pipe stages; gloo asserted; per rank and step 24 K1 + 24
+    K4 at the step of record's depth (TP_RECORD_DEPTH under 'tp': 8 + 8; under 'pp' 6
+    blocks a stage, 2 microbatches) on half the rows (900 x 30 and 90 x 301), and each
+    other pairing's launches at PARALLEL_SHORT_DEPTH; the replicated tensors equal over
+    the world and the shards over their gradient group (check_replicas, inside the
+    ranks); the gathered gradients against phase_train_parity's one-process ones: the
+    bf16 error against the f32 plain path <= TRAIN_BF16_ERR_RATIO x the bf16 plain path's,
+    f32 at depth 2 within TOL_DP_F32 of the one-process step; under 'sp' also
+    causal_attention 0, under 'pp' drop-path 0.1, at depth 2 within TOL_DP_F32 of one
+    process; per rank step ms, peak, the axis's collectives per step (count, bytes, and
+    their ms in an instrumented step); wall_s is phase_parallels' for every kind. Returns
+    the launches by path.'''
     world = PARALLEL_WORLDS[kind]
     res = [json.loads((workdir / f'{kind}_rank{r}.json').read_text()) for r in range(world)]
-    coords = [(r['data_rank'], r['seq_rank'], r['model_rank']) for r in res]
-    if coords != [(0, r, 0) if kind == 'sp' else (0, 0, r) for r in range(world)]:
+    coords = [(r['data_rank'], r['seq_rank'], r['model_rank'], r['pipe_rank']) for r in res]
+    if coords != [PARALLEL_COORDS[kind](r) for r in range(world)]:
         fail(f'{kind}: mesh coordinates {coords}')
     record = res[0]['pairings']['/'.join(STEP_OF_RECORD)]
-    want_rows = [[R // world, S] for R, S, _ in TRAIN_GEOMETRIES.values()]
+    want_rows = [[R // ROW_SPLIT[kind], S] for R, S, _ in TRAIN_GEOMETRIES.values()]
     if sorted(record['rows_per_call']) != sorted(want_rows):
         fail(f'{kind}: kernel rows per call {record["rows_per_call"]}, expected {want_rows}')
     for name in res[0]['pairings']:
@@ -2781,9 +2853,9 @@ def parallel_result(kind, parity, workdir, wall_s):
                                                              grads['kernel_f32_depth2']),
             f'loss_{kind}_vs_one_process_f32_depth2': rel(
                 res[0]['parity']['loss_f32_depth2'], losses['kernel_f32_depth2_kernel_x'])}
-    if kind == 'sp':
-        errs.update({f'{w}_sp_vs_one_process_f32_depth2_ca0': res[0]['ca0'][
-            f'{w}_vs_one_process'] for w in ('grad', 'loss')})
+    if kind in PARALLEL_EXTRA:
+        errs.update({f'{w}_{kind}_vs_one_process_f32_depth2_{PARALLEL_EXTRA[kind]}':
+                     res[0]['extra'][f'{w}_vs_one_process'] for w in ('grad', 'loss')})
     ratios = {w: errs[f'{w}_{kind}_bf16'] / errs[f'{w}_plain_bf16'] for w in ('grad', 'loss')}
     for what, ratio in ratios.items():
         if not ratio <= TRAIN_BF16_ERR_RATIO:
@@ -2792,8 +2864,8 @@ def parallel_result(kind, parity, workdir, wall_s):
     for key, err in errs.items():
         if 'f32_depth2' in key and not err <= TOL_DP_F32:
             fail(f'{kind}: f32 {key} {err} > {TOL_DP_F32}')
-    per_rank = [{k: r[k] for k in ('rank', 'data_rank', 'seq_rank', 'model_rank', 'backend',
-                                   'reason', 'rows')} | {'pairings': {
+    per_rank = [{k: r[k] for k in ('rank', 'data_rank', 'seq_rank', 'model_rank', 'pipe_rank',
+                                   'backend', 'reason', 'rows')} | {'pairings': {
                      n: {k: v for k, v in p.items() if k not in ('steps', 'launches')}
                      for n, p in r['pairings'].items()}} for r in res]
     emit({'phase': kind, 'world': world, 'mesh': {'data': 1, **PARALLEL_RANKS[kind][1]},
@@ -2805,22 +2877,23 @@ def parallel_result(kind, parity, workdir, wall_s):
         for k, v in rank_launches([r['pairings'] for r in res], name,
                                 f'{kind}_{name.split("/")[0]}').items():
             launches.setdefault(k, {}).update(v)
-    if kind == 'sp':
-        for k, v in rank_launches(res, 'ca0', 'sp_ca0').items():
+    if kind in PARALLEL_EXTRA:
+        for k, v in rank_launches(res, 'extra', f'{kind}_{PARALLEL_EXTRA[kind]}').items():
             launches.setdefault(k, {}).update(v)
     return launches
 
 
-GRIDS = ('tp_grid', 'sp_grid')
+GRIDS = ('tp_grid', 'sp_grid', 'pp_grid')
 
 
 def phase_grids(ranks, parity, workdir):
-    '''(b) Four ranks on the card as (data 2, model 2) ('tp_grid') and four as (seq 2,
-    model 2) ('sp_grid'), both at once (they time nothing): the f32 depth-2 first-step
-    gradient of the step of record's batch (under 'tp_grid' each data row 1 clip x 3
-    queries), summed over the gradient group and gathered over the model group, within
-    TOL_DP_F32 of the one-process step's (phase_train_parity). `ranks` are
-    start_parallel's (the grids among them run). Returns the launches by path.'''
+    '''(b) Four ranks on the card as (data 2, model 2) ('tp_grid'), four as (seq 2, model
+    2) ('sp_grid') and four as (model 2, pipe 2) ('pp_grid'), all at once (they time
+    nothing): the f32 depth-2 first-step gradient of the step of record's batch (under
+    'tp_grid' each data row 1 clip x 3 queries), summed over the gradient groups and
+    gathered over the model and pipe groups, within TOL_DP_F32 of the one-process step's
+    (phase_train_parity). `ranks` are start_parallel's (the grids among them run).
+    Returns the launches by path.'''
     kinds = [kind for kind in GRIDS if kind in ranks]
     t0 = time.perf_counter()
     for kind in kinds:
@@ -2838,14 +2911,15 @@ def grid_result(kind, parity, workdir, wall_s):
     '''One grid's checks and phase line (phase_grids); its launches by path.'''
     world = PARALLEL_WORLDS[kind]
     res = [json.loads((workdir / f'{kind}_rank{r}.json').read_text()) for r in range(world)]
-    coords = [(r['data_rank'], r['seq_rank'], r['model_rank']) for r in res]
-    outer = (lambda a: (a, 0)) if kind == 'tp_grid' else (lambda a: (0, a))
-    if coords != [(*outer(a), m) for a in range(world // TP_MODEL) for m in range(TP_MODEL)]:
+    coords = [(r['data_rank'], r['seq_rank'], r['model_rank'], r['pipe_rank']) for r in res]
+    if coords != [PARALLEL_COORDS[kind](r) for r in range(world)]:
         fail(f'{kind}: mesh coordinates {coords}')
     grad = torch.load(workdir / f'{kind}_grad_f32_depth2.pt')
     err = rel_l2(grad, parity['grads']['kernel_f32_depth2'])
     loss_err = abs(res[0]['loss_f32_depth2'] - parity['losses']['kernel_f32_depth2_kernel_x']) \
         / abs(parity['losses']['kernel_f32_depth2_kernel_x'])
+    # Two calls a block: both blocks on every rank, or under 'pp_grid' one block a stage
+    # for each of the 2 microbatches.
     want = {'K1': 2 * 2, 'K4': 2 * 2}
     for r in res:
         if r['launches'] != want:
@@ -2855,7 +2929,7 @@ def grid_result(kind, parity, workdir, wall_s):
              f'{TOL_DP_F32}')
     emit({'phase': kind, 'world': world,
           'mesh': {'data': res[-1]['data_rank'] + 1, 'seq': res[-1]['seq_rank'] + 1,
-                   'model': TP_MODEL},
+                   'model': TP_MODEL, 'pipe': res[-1]['pipe_rank'] + 1},
           'ranks_wall_s': wall_s, 'coords': coords, 'rows': [r['rows'] for r in res],
           'peak': [r['peak'] for r in res], 'rel_err': {
               f'grad_{kind}_vs_one_process_f32_depth2': err,
@@ -2864,24 +2938,32 @@ def grid_result(kind, parity, workdir, wall_s):
     return {k: {kind: sum(r['launches'].get(k, 0) for r in res)} for k in want}
 
 
-# Phases tp_driver and sp_driver: train_torch.py --multihost 1 with --tp_shards 2 or
-# --seq_shards 2 as two ranks on the card at PARALLEL_DRIVER_DEPTH (phases tp and sp run
-# the step of record; here each step's collectives go through the host beside the
-# dp_driver ranks), each on its own dataset of TP_DRIVER_SCENES scenes: one epoch of 2
-# global steps without validation, the vis step at step 0 on both ranks.
+# Phases tp_driver, sp_driver and pp_driver: train_torch.py --multihost 1 with --tp_shards
+# 2, --seq_shards 2 or --pp_stages 2 as two ranks on the card at PARALLEL_DRIVER_DEPTH
+# (phases tp, sp and pp run the step of record; here each step's collectives go through
+# the host beside the dp_driver ranks), each on its own dataset of TP_DRIVER_SCENES
+# scenes: one epoch of 2 global steps without validation, the vis step at step 0 on both
+# ranks.
 TP_DRIVER_SCENES = 4
 TP_DRIVER_RECORDS = driver_records(1, steps=TP_DRIVER_SCENES // TRAIN_B, val=False)
-# Each driver phase's flag, run name and the (seq, model) coordinates of rank r.
-PARALLEL_DRIVERS = {'tp': ('--tp_shards', 'tpd', lambda r: (0, r)),
-                    'sp': ('--seq_shards', 'spd', lambda r: (r, 0))}
+# Each driver phase's flag, run name and the (seq, model, pipe) coordinates of rank r.
+PARALLEL_DRIVERS = {'tp': ('--tp_shards', 'tpd', lambda r: (0, r, 0)),
+                    'sp': ('--seq_shards', 'spd', lambda r: (r, 0, 0)),
+                    'pp': ('--pp_stages', 'ppd', lambda r: (0, 0, r))}
+# A pipe stage's launches: its block's two calls once a microbatch (PP_MICROBATCHES in a
+# train step, one in the vis step).
+PP_DRIVER_PER_STEP = {'train': {k: 2 * PARALLEL_DRIVER_DEPTH // PP_STAGES * PP_MICROBATCHES
+                                for k in ('K1', 'K4')},
+                      'vis': {'K1': 2 * PARALLEL_DRIVER_DEPTH // PP_STAGES}}
 
 
 def phase_parallel_driver(kind, root, workdir):
-    '''`train_torch.py --multihost 1 --tp_shards 2` (kind 'tp') or `--seq_shards 2` ('sp')
-    at PARALLEL_DRIVER_DEPTH as two ranks on the card (start_ranks, parallel_driver_cmd) on
-    the dataset at `root`: each rank's log must hold exactly the steps of
-    TP_DRIVER_RECORDS with the launches of PARALLEL_DRIVER_PER_STEP at its coordinates
-    (data 0, and seq r or model r), backend gloo and no traceback; the checkpoint rank 0
+    '''`train_torch.py --multihost 1 --tp_shards 2` (kind 'tp'), `--seq_shards 2` ('sp') or
+    `--pp_stages 2` ('pp') at PARALLEL_DRIVER_DEPTH as two ranks on the card (start_ranks,
+    parallel_driver_cmd) on the dataset at `root`: each rank's log must hold exactly the
+    steps of TP_DRIVER_RECORDS with the launches of PARALLEL_DRIVER_PER_STEP (under 'pp'
+    PP_DRIVER_PER_STEP) at its coordinates (data 0, and seq r, model r or pipe r), backend
+    gloo and no traceback; the checkpoint rank 0
     writes must hold the one-process layout (full-width block weights) and load into a
     one-process state on the card whose parameters and AdamW state are the file's, bit
     for bit. main runs it on a thread beside
@@ -2895,11 +2977,11 @@ def phase_parallel_driver(kind, root, workdir):
     texts = wait_ranks(start_ranks(cmd, workdir, name, 2), name, RUN_TIMEOUT_S)
     wall_s = time.perf_counter() - t0
     steps, runs = [], {}
+    per_step = PP_DRIVER_PER_STEP if kind == 'pp' else PARALLEL_DRIVER_PER_STEP
     for rank, text in enumerate(texts):
-        recs = check_steps(f'{name} rank {rank}', text, TP_DRIVER_RECORDS,
-                           PARALLEL_DRIVER_PER_STEP)
+        recs = check_steps(f'{name} rank {rank}', text, TP_DRIVER_RECORDS, per_step)
         where = {(r['rank'], r['world'], r['backend'], r['data_rank'], r['seq_rank'],
-                  r['model_rank']) for r in recs}
+                  r['model_rank'], r['pipe_rank']) for r in recs}
         if where != {(rank, 2, 'gloo', 0, *coords(rank))}:
             fail(f'{name} rank {rank}: step_stats of {where}')
         steps += recs
@@ -5402,8 +5484,8 @@ def run_phases(ranks):
         _, parity = phase_train_parity(*record_init(), keep=True)
         torch.cuda.empty_cache()
         grid_launches = phase_grids(par_ranks, parity, par_dir)
-        _, dp_driver_launches, tp_driver_launches, sp_driver_launches = [
-            finish() for finish in finishers]
+        _, dp_driver_launches, *par_driver_launches = [finish() for finish in finishers]
+        par_driver_launches = dict(zip(PARALLEL_DRIVERS, par_driver_launches))
     except BaseException:
         ABORT.set()
         for finish in finishers:
@@ -5438,10 +5520,10 @@ def run_phases(ranks):
     finally:
         shutil.rmtree(dp_dir, ignore_errors=True)
     try:
-        tp_launches, sp_launches = phase_parallels(par_ranks, parity, par_dir).values()
+        par_launches = phase_parallels(par_ranks, parity, par_dir)
         for k, by_path in grid_launches.items():
             for path, n in by_path.items():
-                (tp_launches if path == 'tp_grid' else sp_launches).setdefault(k, {})[path] = n
+                par_launches[path.split('_')[0]].setdefault(k, {})[path] = n
     finally:
         shutil.rmtree(par_dir, ignore_errors=True)
     del parity
@@ -5514,8 +5596,8 @@ def run_phases(ranks):
     source = 'tcow_tpu_torch/ops/csrc/fused_attention.cu'
     replaces = 'tcow_tpu/ops/pallas_attention.py:'
     # The device side of training runs the step of record's kernels, K1 and K4, and so
-    # does the driver (train_torch.py; its two-rank runs under dp_driver, tp_driver and
-    # sp_driver);
+    # does the driver (train_torch.py; its two-rank runs under dp_driver, tp_driver,
+    # sp_driver and pp_driver);
     # its rope256 run K1, K1r, K4 and K4r.
     def device_side_launches(kernel):
         return {'train_device_side': device_side['launches'][kernel],
@@ -5523,8 +5605,12 @@ def run_phases(ranks):
                 'train_driver_rope': driver['rope_launches'].get(kernel, 0),
                 'pth': pth['launches'].get(kernel, 0),
                 'dp_driver': dp_driver_launches.get(kernel, 0),
-                'tp_driver': tp_driver_launches.get(kernel, 0),
-                'sp_driver': sp_driver_launches.get(kernel, 0)}
+                **{f'{kind}_driver': par_driver_launches[kind].get(kernel, 0)
+                   for kind in PARALLEL_DRIVERS}}
+
+    def parallel_launches(kernel):
+        return {path: n for kind in PARALLELS
+                for path, n in par_launches.get(kind, {}).get(kernel, {}).items()}
     k1 = kernel_entry('fused_attention', source, replaces + '87',
                       {'inference': inference_launches, **train_launches('K1'),
                        **device_side_launches('K1'),
@@ -5534,8 +5620,7 @@ def run_phases(ranks):
                        'stream_eval': stream['eval_launches']['K1'],
                        **serve['launches'], **joint_launches['K1'], **vitl_launches['K1'],
                        **tools_launches, **dp_launches.get('K1', {}),
-                       **tp_launches.get('K1', {}), **sp_launches.get('K1', {})}, errs,
-                      per_geom)
+                       **parallel_launches('K1')}, errs, per_geom)
     k1['per_geometry_train'] = train_geom['K1']
     # The stream's spatial call (1 x 301) and a 4-session server tick's (4 x 301).
     k1['per_geometry_stream'] = stream['k1']
@@ -5552,8 +5637,7 @@ def run_phases(ranks):
         launches.update(joint_launches.get(kernel, {}))
         launches.update(vitl_launches.get(kernel, {}))
         launches.update(dp_launches.get(kernel, {}))
-        launches.update(tp_launches.get(kernel, {}))
-        launches.update(sp_launches.get(kernel, {}))
+        launches.update(parallel_launches(kernel))
         entries.append(kernel_entry(name, source, replaces + line, launches, kerrs,
                                     train_geom[kernel]))
     # The rope variants: the rotation in _kernel (:120-136) for the forwards, in

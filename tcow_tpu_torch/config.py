@@ -6,15 +6,17 @@ commands run unchanged against train_torch.py and eval_torch.py.
 --device defaults to cuda and accepts cpu. Training runs data-parallel: --mesh_devices N
 (train_torch.py starts N ranks, one per GPU; -1 = every visible GPU, one on the CPU) or
 --multihost 1 (this process is one rank of a world its launcher describes in RANK,
-WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT), sequence-parallel over --seq_shards
-and tensor-parallel over --tp_shards of those ranks (the (data, seq, model) mesh: N /
-(seq_shards x tp_shards) data rows of seq_shards x tp_shards ranks; tp_shards must divide
-the width and the MLP width, seq_shards must leave every seq rank patches and frames, and
-their product must divide the world, else ValueError).
+WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT), sequence-parallel over --seq_shards,
+tensor-parallel over --tp_shards and pipeline-parallel over --pp_stages of those ranks (the
+(data, seq, model, pipe) mesh: N / (seq_shards x tp_shards x pp_stages) data rows of that
+many ranks; tp_shards must divide the width and the MLP width, seq_shards must leave every
+seq rank patches and frames, the product must divide the world, and --pp_manual 1 wants
+neither tp_shards nor seq_shards > 1, else ValueError; the driver checks the pipeline's
+divisibility, parallel/pipeline.py:validate_pp_args).
 Flags of what the port does not run raise NotImplementedError from verify_args, naming
-the ROADMAP.md item that holds them: --pp_stages > 1 (item 7), --seq_shards > 1 with joint
-attention (item 7), and --seq_shards > 1, --tp_shards > 1, --mesh_devices > 1 or
---multihost for evaluation (item 7).
+the ROADMAP.md item that holds them: --seq_shards > 1 with joint attention or with
+--pp_stages > 1 (item 7), and --seq_shards > 1, --tp_shards > 1, --pp_stages > 1,
+--mesh_devices > 1 or --multihost for evaluation (item 7).
 Every other flag parses and behaves as in the JAX package; --resume and
 --tracker_pretrained take a reference .pth too (models/torch_import.py).
 '''
@@ -67,8 +69,7 @@ def shared_args(parser: argparse.ArgumentParser):
     parser.add_argument('--log_path', default='', type=str)
     parser.add_argument('--wandb_group', default='group', type=str)
     # Resource options. Training runs data-, sequence- and tensor-parallel over
-    # --mesh_devices ranks or the --multihost world; the pipeline layout parses and raises
-    # in verify_args.
+    # --mesh_devices ranks or the --multihost world.
     parser.add_argument('--mesh_devices', default=-1, type=int,
                         help='Data-parallel ranks of a train run, one per GPU; -1 = every '
                              'visible GPU (one on the CPU).')
@@ -85,11 +86,18 @@ def shared_args(parser: argparse.ArgumentParser):
                              'average gradients, apply ONE optimizer update. Must divide '
                              'batch_size.')
     parser.add_argument('--pp_stages', default=1, type=int,
-                        help='Pipeline-parallel stages (pipe mesh axis); not ported.')
+                        help='Pipeline-parallel stages (pipe mesh axis) of a train run: the '
+                             'blocks split into contiguous stages, one a rank of each data '
+                             'row, and microbatches stream through them GPipe-style. '
+                             'Requires network_depth %% (pp_stages * remat_group) == 0.')
     parser.add_argument('--pp_microbatches', default=0, type=int,
-                        help='Microbatches for pipeline parallelism (with --pp_stages).')
+                        help='Microbatches for pipeline parallelism; 0 = the largest of '
+                             '4, 2 and 1 x pp_stages dividing batch_size / grad_accum x '
+                             'num_queries.')
     parser.add_argument('--pp_manual', default=0, type=int,
-                        help='Manual pipeline schedule (with --pp_stages).')
+                        help='The manual-pipe layout of the JAX package: (pipe x data) '
+                             'meshes only. The port runs one schedule, its stages local '
+                             'either way.')
     parser.add_argument('--compute_dtype', default='bfloat16', type=str,
                         choices=['bfloat16', 'float32'])
     parser.add_argument('--profile_dir', default='', type=str,
@@ -234,7 +242,10 @@ def _refuse_unported(args, is_train: bool):
          '7, joint attention under sequence parallelism'),
         (not is_train and args.tp_shards > 1, '--tp_shards > 1 for evaluation',
          '7, tensor-parallel evaluation'),
-        (args.pp_stages > 1, '--pp_stages > 1', '7, pipeline parallelism'),
+        (args.pp_stages > 1 and args.seq_shards > 1 and is_train,
+         '--pp_stages > 1 with --seq_shards > 1', '7, pipeline beside sequence parallelism'),
+        (not is_train and args.pp_stages > 1, '--pp_stages > 1 for evaluation',
+         '7, pipeline-parallel evaluation'),
         (not is_train and args.mesh_devices > 1, '--mesh_devices > 1 for evaluation',
          '7, data-parallel evaluation'),
         (not is_train and bool(args.multihost), '--multihost for evaluation',
@@ -244,20 +255,22 @@ def _refuse_unported(args, is_train: bool):
         if bad:
             raise NotImplementedError(f'{flag} is not ported to tcow_tpu_torch '
                                       f'(ROADMAP.md section 1 item {item})')
-    if args.tp_shards > 1 or args.seq_shards > 1:
+    if args.tp_shards > 1 or args.seq_shards > 1 or args.pp_stages > 1:
         _check_shards(args)
 
 
 def _check_shards(args):
     '''Raises ValueError unless --tp_shards divides the backbone's width and MLP width,
-    --seq_shards leaves every seq rank patches and frames, and seq_shards x tp_shards
-    divides the world: --mesh_devices when given, else WORLD_SIZE under --multihost, else
-    the one process (a world of -1 visible GPUs is checked when train_torch.py counts
-    them).'''
+    --seq_shards leaves every seq rank patches and frames, --pp_manual keeps to (pipe x
+    data), and seq_shards x tp_shards x pp_stages divides the world: --mesh_devices when
+    given, else WORLD_SIZE under --multihost, else the one process (a world of -1 visible
+    GPUs is checked when train_torch.py counts them).'''
     from tcow_tpu_torch.models.timesformer import DEPTH_PRESETS
     from tcow_tpu_torch.parallel.mesh import check_tp_widths
+    from tcow_tpu_torch.parallel.pipeline import check_pp_manual
     from tcow_tpu_torch.parallel.sequence import check_seq_split
-    tp, seq = args.tp_shards, args.seq_shards
+    check_pp_manual(args)
+    tp, seq, pp = args.tp_shards, args.seq_shards, args.pp_stages
     if tp > 1:
         if args.network_depth not in DEPTH_PRESETS:
             raise ValueError(f'--network_depth {args.network_depth} has no width preset')
@@ -269,9 +282,9 @@ def _check_shards(args):
     world = (args.mesh_devices if args.mesh_devices > 0
              else int(os.environ.get('WORLD_SIZE', 1)) if args.multihost
              else None if args.device == 'cuda' else 1)
-    if world is not None and world % (seq * tp):
-        what = ' x '.join(f'--{name} {n}' for name, n in (('seq_shards', seq),
-                                                          ('tp_shards', tp)) if n > 1)
+    if world is not None and world % (seq * tp * pp):
+        what = ' x '.join(f'--{name} {n}' for name, n in (
+            ('seq_shards', seq), ('tp_shards', tp), ('pp_stages', pp)) if n > 1)
         raise ValueError(f'{what} does not divide the world of {world} ranks')
 
 

@@ -40,6 +40,9 @@ class SeekerConfig:
     attention_bwd: str = 'res'  # 'res' | 'kernel_qkv' | 'kernel_x' | 'kernel_x_wg'
     temporal_rope: bool = False  # rotary (relative) time encoding on temporal attention
     rope_time_coords: bool = False  # feed true source-frame times into the rope tables
+    # Microbatches of the GPipe schedule under a pipe mesh; 0 resolves the JAX default
+    # (parallel/pipeline.py:resolve_pp_microbatches).
+    pp_microbatches: int = 0
 
     def __post_init__(self):
         '''Raises ValueError as the JAX config does (mask_tracker.py:74-79), and for
@@ -138,8 +141,10 @@ def coarsen_mask(mask: torch.Tensor, stride: int, mode: str) -> torch.Tensor:
 class MaskTracker(nn.Module):
     '''The seeker. With a DataMesh whose model axis has more than one rank (`mesh`), the
     backbone's blocks hold this rank's shards of the block weights and run tensor-parallel;
-    with one whose seq axis has, they split the tokens over the seq ranks (timesformer.py);
-    the heads stay replicated. `self.mesh` is that mesh, or None.'''
+    with one whose seq axis has, they split the tokens over the seq ranks; with one whose
+    pipe axis has, the backbone holds this stage's blocks (timesformer.py) and
+    backbone_input / heads are run by the first / last stage (train/step.py); the heads
+    stay replicated. `self.mesh` is that mesh, or None.'''
 
     def __init__(self, cfg: SeekerConfig, device=None, mesh=None):
         super().__init__()
@@ -170,13 +175,23 @@ class MaskTracker(nn.Module):
         of `total`, whose masks are drawn (timesformer.draw_drop_path_masks).
         frame_times (B, T): true source timestamps for time-calibrated rope, read only
         under cfg.temporal_rope (mask_tracker.py:185-201).'''
-        cfg = self.cfg
-        B, _, T, _, _ = input_frames.shape
-        x = torch.cat([input_frames.float(), query_mask.float()], dim=1)
-        feats, _ = self.backbone(x, train=train, generator=generator, frame_times=frame_times,
+        feats, _ = self.backbone(self.backbone_input(input_frames, query_mask), train=train,
+                                 generator=generator, frame_times=frame_times,
                                  drop_path_rows=drop_path_rows)
+        return self.heads(feats)
+
+    @staticmethod
+    def backbone_input(input_frames: torch.Tensor, query_mask: torch.Tensor) -> torch.Tensor:
+        '''The part before the backbone (a pipeline's first stage): the frames and the query
+        mask as one (B, 3 + 1, T, H, W) f32 input.'''
+        return torch.cat([input_frames.float(), query_mask.float()], dim=1)
+
+    def heads(self, feats: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        '''The part after the backbone (a pipeline's last stage): features (B, D, T, H',
+        W') -> (mask_logits (B, C, T, H, W) f32, flags (B, T, F) f32 or None).'''
+        cfg = self.cfg
         feats = feats.permute(0, 2, 3, 4, 1)                  # (B, T, H', W', D)
-        Ho, Wo = feats.shape[2], feats.shape[3]
+        B, T, Ho, Wo = feats.shape[:4]
         p, C = cfg.patch_size, cfg.output_channels
 
         patches = self.post_linear(feats)                     # (B, T, H', W', C*p*p)

@@ -23,6 +23,14 @@ whole model; the tokens are split over the seq ranks after the embedding, each b
 temporal attention, temporal_fc and the MLP on this rank's patches and spatial attention on
 its frames, with an all-to-all at each swap and the cls token's collectives
 (parallel/sequence.py), and the tokens are gathered before the norm.
+
+Under pipeline parallelism (a mesh whose pipe axis has n > 1 ranks) the model holds this
+stage's blocks only (mesh.stage_blocks: a contiguous chunk of depth / n, numbered from 0
+in its state_dict) and the whole embedding and norm; `embed`, `run_blocks` and `finish`
+are the forward's three parts, which train/step.py runs on the first stage, on every stage
+per microbatch (parallel/pipeline.py) and on the last stage. The drop-path masks are drawn
+for every block (stage_masks) and the stage keeps its blocks', so the generator advances as
+in one process; the checkpoint regions group remat_group of the stage's blocks.
 '''
 
 import dataclasses
@@ -259,6 +267,12 @@ class DropPathMasks:
     spatial: torch.Tensor
     mlp: torch.Tensor
 
+    def rows(self, start: int, stop: int) -> 'DropPathMasks':
+        '''The masks of clips [start, stop) (a pipeline microbatch's).'''
+        return DropPathMasks(self.keep, None if self.temporal is None
+                             else self.temporal[start:stop], self.spatial[start:stop],
+                             self.mlp[start:stop])
+
 
 def draw_drop_path_masks(generator: torch.Generator, rate: float, depth: int, B: int, N: int,
                          T: int, device, divided: bool = True,
@@ -418,16 +432,18 @@ def _run_blocks(blocks, num_patches, xs, cls, masks, frame_times):
 class TimeSformer(nn.Module):
     '''Dense forward: pixels (B, C, T, H, W) -> (features (B, D, T, H', W'), cls (B, D)).
     With a mesh whose model axis has more than one rank the blocks hold this rank's
-    shards; with one whose seq axis has, they split the tokens (module docstring).
-    `self.mesh` is that mesh (None without either), `tp` / `sp` the mesh for each axis
-    that has more than one rank.'''
+    shards; with one whose seq axis has, they split the tokens; with one whose pipe axis
+    has, the model holds this stage's blocks (module docstring). `self.mesh` is that mesh
+    (None without any), `tp` / `sp` / `pp` the mesh for each axis that has more than one
+    rank, `block_ids` the global indices of the blocks held.'''
 
     def __init__(self, cfg: TimeSformerConfig, device=None, mesh=None):
         super().__init__()
         D, p = cfg.embed_dim, cfg.patch_size
         self.cfg = cfg
         self.tp, self.sp = mesh_lib.tp_mesh(mesh), mesh_lib.sp_mesh(mesh)
-        self.mesh = mesh if self.tp is not None or self.sp is not None else None
+        self.pp = mesh_lib.pp_mesh(mesh)
+        self.mesh = mesh if any(m is not None for m in (self.tp, self.sp, self.pp)) else None
         if self.tp is not None:
             mesh_lib.check_tp_widths(self.tp.n_model, D, cfg.mlp_dim)
         if self.sp is not None:
@@ -435,7 +451,16 @@ class TimeSformer(nn.Module):
                 raise NotImplementedError('joint space-time attention under sequence '
                                           'parallelism is not ported to tcow_tpu_torch '
                                           '(ROADMAP.md section 1 item 7)')
+            if self.pp is not None:
+                raise NotImplementedError('pipeline stages beside sequence parallelism are '
+                                          'not ported to tcow_tpu_torch (ROADMAP.md '
+                                          'section 1 item 7)')
             seq_lib.check_seq_split(cfg.num_patches, cfg.num_frames, self.sp.n_seq)
+        self.block_ids = (range(cfg.depth) if self.pp is None
+                          else self.pp.stage_blocks(cfg.depth))
+        if len(self.block_ids) % cfg.remat_group:
+            raise ValueError(f'remat_group {cfg.remat_group} does not divide the '
+                             f'{len(self.block_ids)} blocks of a pipeline stage')
         self.patch_embed = Dense(p * p * cfg.in_channels, D, device)
         self.cls_token = nn.Parameter(torch.zeros(D, device=device))
         self.pos_embed = nn.Parameter(torch.zeros(cfg.num_patches + 1, D, device=device))
@@ -443,15 +468,15 @@ class TimeSformer(nn.Module):
         self.norm = LayerNorm(D, cfg.ln_eps, device)
         self.blocks = nn.ModuleList(
             DividedBlock(cfg, device, self.tp, self.sp) if cfg.divided
-            else JointBlock(cfg, device, self.tp) for _ in range(cfg.depth))
+            else JointBlock(cfg, device, self.tp) for _ in self.block_ids)
 
     def init_params_(self, generator: torch.Generator):
         '''Random init of tcow_tpu timesformer.init_params (:149-188): trunc-normal(0.02)
         linears and embeddings, zero biases, unit LayerNorm, temporal_fc zero for blocks > 0
-        (divided blocks; joint blocks have none). A tensor-parallel model raises: its
-        shards come from the full model's init (mesh.shard_params).'''
-        if self.tp is not None:
-            raise ValueError('initialise the full model and load its shards '
+        (divided blocks; joint blocks have none). A tensor- or pipeline-parallel model
+        raises: its part comes from the full model's init (mesh.shard_params).'''
+        if self.tp is not None or self.pp is not None:
+            raise ValueError('initialise the full model and load its part '
                              '(parallel/mesh.py:shard_params)')
         for name, prm in self.named_parameters():
             leaf = name.rsplit('.', 1)[-1]
@@ -467,19 +492,9 @@ class TimeSformer(nn.Module):
                 for blk in self.blocks[1:]:
                     blk.temporal_fc.w.zero_()
 
-    def forward(self, pixels: torch.Tensor, train: bool = False,
-                generator: torch.Generator = None, frame_times: torch.Tensor = None,
-                drop_path_rows: Optional[Tuple[int, int]] = None):
-        '''train with a generator and drop_path_rate > 0 draws drop-path masks from the
-        generator (for rows drop_path_rows of a larger batch when given,
-        draw_drop_path_masks); with cfg.remat and gradients on, each group of
-        cfg.remat_group blocks is recomputed in the backward pass (torch.utils.checkpoint),
-        except the outputs that cfg.remat_policy keeps (`remat_saved_ops`): under 'full'
-        the attention forwards run again, under the '_out' policies they do not.
-        frame_times (B, T): the clip's true source timestamps, read only under
-        cfg.temporal_rope (None means 0..T-1). Under sequence parallelism the blocks run on
-        this rank's chunk of the patches, split after the embedding and gathered before the
-        norm, and its columns of the drop-path masks.'''
+    def embed(self, pixels: torch.Tensor):
+        '''The part before the blocks: pixels (B, C, T, H, W) -> patch tokens (B, N, T, D)
+        with their position and time embeddings, and the cls token (B, D).'''
         cfg = self.cfg
         B, C, T, H, W = pixels.shape
         p, D = cfg.patch_size, cfg.embed_dim
@@ -506,18 +521,28 @@ class TimeSformer(nn.Module):
             x = x + time[None, :, None, :]
         # Under temporal_rope the rotation is the only time signal: time_embed stays a
         # parameter and gets no gradient (AdamW still decays it, as JAX's zero gradient).
-        frame_times = (frame_times.to(torch.float32) if cfg.temporal_rope
-                       and frame_times is not None else None)
+        return x.transpose(1, 2).contiguous(), cls   # (B, N, T, D)
 
-        xs = x.transpose(1, 2).contiguous()   # (B, N, T, D)
-        cols = None
-        if self.sp is not None:
-            cols = (seq_lib.local_range(N, self.sp), seq_lib.local_range(T, self.sp))
-            xs = seq_lib.split_seq(xs, self.sp, 1)
-        masks = [None] * cfg.depth
-        if train and cfg.drop_path_rate > 0.0 and generator is not None:
-            masks = draw_drop_path_masks(generator, cfg.drop_path_rate, cfg.depth, B, N, T,
-                                         x.device, cfg.divided, drop_path_rows, cols)
+    def block_frame_times(self, frame_times):
+        '''The frame times the blocks read: (B, T) f32 under temporal_rope, else None.'''
+        return (frame_times.to(torch.float32) if self.cfg.temporal_rope
+                and frame_times is not None else None)
+
+    def stage_masks(self, generator: Optional[torch.Generator], train: bool, B: int, N: int,
+                    T: int, device, rows: Optional[Tuple[int, int]] = None, cols=None) -> list:
+        '''The drop-path masks of the blocks held (None each without drop-path): every
+        block's drawn (draw_drop_path_masks), the held ones kept.'''
+        cfg = self.cfg
+        if not (train and cfg.drop_path_rate > 0.0 and generator is not None):
+            return [None] * len(self.block_ids)
+        masks = draw_drop_path_masks(generator, cfg.drop_path_rate, cfg.depth, B, N, T,
+                                     device, cfg.divided, rows, cols)
+        return [masks[i] for i in self.block_ids]
+
+    def run_blocks(self, xs, cls, masks, frame_times, num_patches: int):
+        '''The blocks held, in order, each group of cfg.remat_group of them one checkpoint
+        region under cfg.remat with gradients on (forward's docstring).'''
+        cfg = self.cfg
         remat = cfg.remat and torch.is_grad_enabled()
         kw = {}
         if cfg.remat_policy != 'full':
@@ -525,8 +550,8 @@ class TimeSformer(nn.Module):
                 torch.utils.checkpoint.create_selective_checkpoint_contexts,
                 remat_saved_ops(cfg.remat_policy))
         G = cfg.remat_group
-        for start in range(0, cfg.depth, G):
-            group = functools.partial(_run_blocks, self.blocks[start:start + G], N)
+        for start in range(0, len(self.blocks), G):
+            group = functools.partial(_run_blocks, self.blocks[start:start + G], num_patches)
             group_masks = masks[start:start + G]
             if remat:
                 # G consecutive blocks form one checkpoint region (:780-789). The blocks
@@ -537,11 +562,47 @@ class TimeSformer(nn.Module):
                     preserve_rng_state=False, **kw)
             else:
                 xs, cls = group(xs, cls, group_masks, frame_times)
-        if self.sp is not None:
-            xs = seq_lib.gather_seq(xs, self.sp, 1, N)
+        return xs, cls
 
-        if cfg.norm_embeddings:
+    def finish(self, xs, cls, grid: Tuple[int, int]):
+        '''The part after the blocks: the norm under norm_embeddings, then xs (B, N, T, D)
+        -> features (B, D, T, H', W') on the (H', W') patch grid; and the cls token.'''
+        if self.cfg.norm_embeddings:
             xs = self.norm(xs)
             cls = self.norm(cls)
-        feats = xs.reshape(B, gh, gw, T, D).permute(0, 4, 3, 1, 2)   # (B, D, T, H', W')
+        B, N, T, D = xs.shape
+        feats = xs.reshape(B, grid[0], grid[1], T, D).permute(0, 4, 3, 1, 2)
         return feats, cls
+
+    def forward(self, pixels: torch.Tensor, train: bool = False,
+                generator: torch.Generator = None, frame_times: torch.Tensor = None,
+                drop_path_rows: Optional[Tuple[int, int]] = None):
+        '''train with a generator and drop_path_rate > 0 draws drop-path masks from the
+        generator (for rows drop_path_rows of a larger batch when given,
+        draw_drop_path_masks); with cfg.remat and gradients on, each group of
+        cfg.remat_group blocks is recomputed in the backward pass (torch.utils.checkpoint),
+        except the outputs that cfg.remat_policy keeps (`remat_saved_ops`): under 'full'
+        the attention forwards run again, under the '_out' policies they do not.
+        frame_times (B, T): the clip's true source timestamps, read only under
+        cfg.temporal_rope (None means 0..T-1). Under sequence parallelism the blocks run on
+        this rank's chunk of the patches, split after the embedding and gathered before the
+        norm, and its columns of the drop-path masks. A pipeline stage runs its parts
+        through train/step.py instead.'''
+        if self.pp is not None:
+            raise ValueError('a pipeline stage runs embed / run_blocks / finish through '
+                             'the pipeline schedule (train/step.py)')
+        B, C, T, H, W = pixels.shape
+        p = self.cfg.patch_size
+        gh, gw = H // p, W // p
+        N = gh * gw
+        xs, cls = self.embed(pixels)
+        frame_times = self.block_frame_times(frame_times)
+        cols = None
+        if self.sp is not None:
+            cols = (seq_lib.local_range(N, self.sp), seq_lib.local_range(T, self.sp))
+            xs = seq_lib.split_seq(xs, self.sp, 1)
+        masks = self.stage_masks(generator, train, B, N, T, xs.device, drop_path_rows, cols)
+        xs, cls = self.run_blocks(xs, cls, masks, frame_times, N)
+        if self.sp is not None:
+            xs = seq_lib.gather_seq(xs, self.sp, 1, N)
+        return self.finish(xs, cls, (gh, gw))

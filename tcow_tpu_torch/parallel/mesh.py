@@ -45,10 +45,27 @@ nccl when every rank has a device of its own, gloo when two ranks share one phys
 duplicate GPUs). A backend that fails to start raises: nothing is retried on another one.
 Only all_reduce, broadcast, all_gather_into_tensor, reduce_scatter_tensor and (on the seq
 axis) all_to_all_single are used: gloo moves all five for CUDA tensors (chip_smoke.py's
-phase gloo_probe holds it), but not send / recv.
+phase gloo_probe holds it), but not send / recv, so a pipeline hop is a broadcast in a
+two-rank group.
 
-Not here: the pipe axis (pipeline parallelism, ROADMAP.md section 1 item 7), and
-_relay_probe / shard_state_staged, which pace uploads over the TPU host's relay
+Pipeline parallelism (--pp_stages, the 'pipe' axis, the last of JAX's (data, seq, model,
+pipe) reshape, so it varies fastest: rank r sits at pipe coordinate r % P, model (r // P) %
+M, seq (r // (M P)) % S and data r // (S M P)): the ranks of one (data, seq, model) line
+hold consecutive stages of the blocks, block_pspec's contiguous L / P chunks
+(stage_blocks), and everything outside the blocks whole. A stage's state_dict names its
+blocks from 0 (shard_params / gather_state_dict renumber them), so a JAX-layout tree of a
+stage holds its (L / P, ...) chunk of each stacked block leaf, which fetch_global gathers
+over the pipe group on the leading axis, as block_pspec shards it. More groups:
+  - pipe_group: the ranks of this rank's (data, seq, model) line, by stage;
+  - hop_prev / hop_next: the two-rank groups of this rank and its previous / next stage
+    (parallel/pipeline.py moves the activations and their gradients through them);
+  - grad_group: the ranks with this rank's (model, pipe) coordinates: a block
+    parameter's gradient is summed over it;
+  - rep_group: the ranks with this rank's model coordinate, (data x seq x pipe): the
+    gradient of a parameter outside the blocks (only the first and the last stage reach
+    them) is summed over it.
+
+Not here: _relay_probe / shard_state_staged, which pace uploads over the TPU host's relay
 (tcow_tpu/parallel/mesh.py:141-239): the port places the state by broadcast.
 '''
 
@@ -76,13 +93,17 @@ _DIGEST_CHUNK = 1 << 24
 @dataclasses.dataclass
 class DataMesh:
     '''This process's place in the mesh: `world` ranks, this one `rank` (its device index
-    `local_rank` on its host), the backend, `group` (the ranks with this rank's seq and
-    model coordinates: one a data row), under tensor parallelism (n_model > 1)
-    `model_group` (the ranks of this rank's (data, seq) line), under sequence parallelism
-    (n_seq > 1) `seq_group` (the ranks of its (data, model) line) and `grad_group` (the
-    ranks with its model coordinate; `group` itself when n_seq is 1). Rank r is at data
-    coordinate r // (n_seq n_model), seq coordinate (r // n_model) % n_seq and model
-    coordinate r % n_model.'''
+    `local_rank` on its host), the backend, `group` (the ranks with this rank's seq, model
+    and pipe coordinates: one a data row), under tensor parallelism (n_model > 1)
+    `model_group` (the ranks of this rank's (data, seq, pipe) line), under sequence
+    parallelism (n_seq > 1) `seq_group` (the ranks of its (data, model, pipe) line), under
+    pipeline parallelism (n_pipe > 1) `pipe_group` (its (data, seq, model) line) and the
+    two-rank hop groups `hop_prev` / `hop_next` to its neighbouring stages (None at the
+    ends); `grad_group` (the ranks with its model and pipe coordinates; `group` itself
+    when n_seq is 1) and `rep_group` (the ranks with its model coordinate; grad_group
+    itself when n_pipe is 1). Rank r is at data coordinate r // (n_seq n_model n_pipe), seq
+    coordinate (r // (n_model n_pipe)) % n_seq, model coordinate (r // n_pipe) % n_model
+    and pipe coordinate r % n_pipe.'''
     world: int
     rank: int
     local_rank: int
@@ -95,10 +116,17 @@ class DataMesh:
     n_seq: int = 1
     seq_group: Any = None
     grad_group: Any = None
+    n_pipe: int = 1
+    pipe_group: Any = None
+    hop_prev: Any = None
+    hop_next: Any = None
+    rep_group: Any = None
 
     def __post_init__(self):
         if self.grad_group is None:
             self.grad_group = self.group
+        if self.rep_group is None:
+            self.rep_group = self.grad_group
 
     @property
     def n_data(self) -> int:
@@ -110,22 +138,41 @@ class DataMesh:
 
     @property
     def seq_rank(self) -> int:
-        return (self.rank // self.n_model) % self.n_seq
+        return (self.rank // (self.n_model * self.n_pipe)) % self.n_seq
 
     @property
     def model_rank(self) -> int:
-        return self.rank % self.n_model
+        return (self.rank // self.n_pipe) % self.n_model
+
+    @property
+    def pipe_rank(self) -> int:
+        return self.rank % self.n_pipe
 
     @property
     def row_ranks(self) -> int:
-        '''How many ranks share one data row's rows (n_seq x n_model).'''
-        return self.n_seq * self.n_model
+        '''How many ranks share one data row's rows (n_seq x n_model x n_pipe).'''
+        return self.n_seq * self.n_model * self.n_pipe
 
     @property
     def seq_ranks(self) -> list:
         '''The global ranks of this rank's seq group, by seq coordinate.'''
-        base = self.data_rank * self.row_ranks + self.model_rank
-        return [base + s * self.n_model for s in range(self.n_seq)]
+        step = self.n_model * self.n_pipe
+        base = self.data_rank * self.row_ranks + self.model_rank * self.n_pipe + self.pipe_rank
+        return [base + s * step for s in range(self.n_seq)]
+
+    @property
+    def pipe_ranks(self) -> list:
+        '''The global ranks of this rank's pipe group, by stage.'''
+        base = self.rank - self.pipe_rank
+        return [base + p for p in range(self.n_pipe)]
+
+    def stage_blocks(self, depth: int) -> range:
+        '''The global indices of the blocks this rank's stage holds: block_pspec's
+        contiguous chunk of depth / n_pipe (every block without pipeline parallelism).'''
+        if depth % self.n_pipe:
+            raise ValueError(f'depth {depth} does not split into {self.n_pipe} pipe stages')
+        k = depth // self.n_pipe
+        return range(self.pipe_rank * k, (self.pipe_rank + 1) * k)
 
     def close(self):
         if dist.is_initialized():
@@ -142,12 +189,18 @@ def sp_mesh(mesh: Optional[DataMesh]) -> Optional[DataMesh]:
     return mesh if mesh is not None and mesh.n_seq > 1 else None
 
 
-def rank_layout(world: int, model: int = 1, seq: int = 1) -> np.ndarray:
-    '''The global ranks on the (data, seq, model, pipe) grid with pipe = 1: the device list
-    reshaped as tcow_tpu/parallel/mesh.py:37 reshapes it.'''
-    if world % (seq * model):
-        raise ValueError(f'{world} ranks do not divide into {seq} seq x {model} model shards')
-    return np.arange(world).reshape(world // (seq * model), seq, model, 1)
+def pp_mesh(mesh: Optional[DataMesh]) -> Optional[DataMesh]:
+    '''`mesh` when its pipe axis has more than one rank, else None.'''
+    return mesh if mesh is not None and mesh.n_pipe > 1 else None
+
+
+def rank_layout(world: int, model: int = 1, seq: int = 1, pipe: int = 1) -> np.ndarray:
+    '''The global ranks on the (data, seq, model, pipe) grid: the device list reshaped as
+    tcow_tpu/parallel/mesh.py:37 reshapes it.'''
+    if world % (seq * model * pipe):
+        raise ValueError(f'{world} ranks do not divide into {seq} seq x {model} model x '
+                         f'{pipe} pipe shards')
+    return np.arange(world).reshape(world // (seq * model * pipe), seq, model, pipe)
 
 
 def free_port() -> int:
@@ -179,13 +232,10 @@ def make_mesh(device='cuda', rank: Optional[int] = None, world: Optional[int] = 
     argument left None comes from the environment a launcher sets (RANK, WORLD_SIZE,
     LOCAL_RANK, MASTER_ADDR, MASTER_PORT: torchrun's, or train_torch.py --mesh_devices').
     On CUDA the rank runs on cuda:<local_rank>. The backend follows the module's rule.
-    seq x model > 1 splits the world into world / (seq model) data rows of seq x model
-    ranks (rank_layout); every rank creates every group, in the same order: the data
-    groups, the model groups, the seq groups, the gradient groups. pipe must be 1:
-    pipeline parallelism is not ported.'''
-    if pipe != 1:
-        raise NotImplementedError('the pipe axis is not ported to tcow_tpu_torch '
-                                  '(ROADMAP.md section 1 item 7)')
+    seq x model x pipe > 1 splits the world into world / (seq model pipe) data rows of
+    seq x model x pipe ranks (rank_layout); every rank creates every group, in the same
+    order: the data groups, the model groups, the seq groups, the gradient groups, the pipe
+    groups, the hop groups, the replicated parameters' gradient groups.'''
     env = os.environ
     rank = int(env['RANK']) if rank is None else rank
     world = int(env['WORLD_SIZE']) if world is None else world
@@ -194,7 +244,7 @@ def make_mesh(device='cuda', rank: Optional[int] = None, world: Optional[int] = 
     port = int(env['MASTER_PORT']) if port is None else port
     if not 0 <= rank < world:
         raise ValueError(f'rank {rank} is not in a world of {world}')
-    layout = rank_layout(world, model, seq)[..., 0]          # (data, seq, model)
+    layout = rank_layout(world, model, seq, pipe)            # (data, seq, model, pipe)
     device = torch.device(device)
     if device.type == 'cuda':
         device = torch.device('cuda', local_rank)
@@ -207,21 +257,33 @@ def make_mesh(device='cuda', rank: Optional[int] = None, world: Optional[int] = 
     backend, reason = choose_backend(device, uuids)
     dist.init_process_group(backend, store=store, rank=rank, world_size=world,
                             timeout=TIMEOUT)
-    if model == 1 and seq == 1:
+    if model == 1 and seq == 1 and pipe == 1:
         return DataMesh(world, rank, local_rank, device, backend, reason, dist.group.WORLD)
-    n_data = world // (seq * model)
-    d, s, m = (int(c) for c in np.argwhere(layout == rank)[0])
-    data_groups = {(i, j): dist.new_group(layout[:, i, j].tolist())
-                   for i in range(seq) for j in range(model)}
-    model_groups = {(i, j): dist.new_group(layout[i, j].tolist())
-                    for i in range(n_data) for j in range(seq)} if model > 1 else {}
-    seq_groups = {(i, j): dist.new_group(layout[i, :, j].tolist())
-                  for i in range(n_data) for j in range(model)} if seq > 1 else {}
-    grad_groups = ({j: dist.new_group(layout[:, :, j].reshape(-1).tolist())
-                    for j in range(model)} if seq > 1 and model > 1 else {})
-    grad_group = (None if seq == 1 else grad_groups[m] if model > 1 else dist.group.WORLD)
-    return DataMesh(world, rank, local_rank, device, backend, reason, data_groups[s, m],
-                    model, model_groups.get((d, s)), seq, seq_groups.get((d, m)), grad_group)
+    n_data = world // (seq * model * pipe)
+    d, s, m, p = (int(c) for c in np.argwhere(layout == rank)[0])
+    new = lambda ranks: dist.new_group(np.asarray(ranks).reshape(-1).tolist())
+    data_groups = {(i, j, k): new(layout[:, i, j, k])
+                   for i in range(seq) for j in range(model) for k in range(pipe)}
+    model_groups = {(a, i, k): new(layout[a, i, :, k]) for a in range(n_data)
+                    for i in range(seq) for k in range(pipe)} if model > 1 else {}
+    seq_groups = {(a, j, k): new(layout[a, :, j, k]) for a in range(n_data)
+                  for j in range(model) for k in range(pipe)} if seq > 1 else {}
+    grad_groups = ({(j, k): new(layout[:, :, j, k]) for j in range(model) for k in range(pipe)}
+                   if seq > 1 and model * pipe > 1 else {})
+    pipe_groups = {(a, i, j): new(layout[a, i, j, :]) for a in range(n_data)
+                   for i in range(seq) for j in range(model)} if pipe > 1 else {}
+    hop_groups = {(a, i, j, k): new(layout[a, i, j, k:k + 2]) for a in range(n_data)
+                  for i in range(seq) for j in range(model)
+                  for k in range(pipe - 1)} if pipe > 1 else {}
+    rep_groups = ({j: new(layout[:, :, j, :]) for j in range(model)}
+                  if pipe > 1 and model > 1 else {})
+    grad_group = (None if seq == 1 else grad_groups[m, p] if model * pipe > 1
+                  else dist.group.WORLD)
+    rep_group = (None if pipe == 1 else rep_groups[m] if model > 1 else dist.group.WORLD)
+    return DataMesh(world, rank, local_rank, device, backend, reason, data_groups[s, m, p],
+                    model, model_groups.get((d, s, p)), seq, seq_groups.get((d, m, p)),
+                    grad_group, pipe, pipe_groups.get((d, s, m)),
+                    hop_groups.get((d, s, m, p - 1)), hop_groups.get((d, s, m, p)), rep_group)
 
 
 # ---------------------------------------------------------------------------------------
@@ -348,19 +410,29 @@ def all_min(x: torch.Tensor, group=None, rows: bool = False) -> torch.Tensor:
     return _extremum(x, group, False, rows)
 
 
-def all_reduce_grads(params: Iterable[torch.nn.Parameter], mesh: DataMesh):
-    '''Sums the .grad of `params` in place over the gradient group (the ranks with this
-    rank's model coordinate: the data rows and, under sequence parallelism, the seq ranks,
-    whose gradients are each their tokens' part): one all_reduce of a flat buffer per
-    dtype. Parameters the loss never reaches (no .grad) are left out; every rank has the
-    same ones, since the graph does not depend on the data.'''
-    by_dtype: Dict[torch.dtype, list] = {}
-    for p in params:
+def all_reduce_grads(named_params: Iterable, mesh: DataMesh):
+    '''Sums the .grad of the (name, parameter) pairs in place, one all_reduce of a flat
+    buffer per dtype and group: over the gradient group (the ranks with this rank's model
+    and pipe coordinates: the data rows and, under sequence parallelism, the seq ranks,
+    whose gradients are each their tokens' part). Parameters the loss never reaches (no
+    .grad) are left out; every rank of a group has the same ones, since the graph does not
+    depend on the data. Under pipeline parallelism a block parameter's gradient is summed
+    over the gradient group (the ranks of its stage), any other over rep_group (every
+    stage): only the first and the last stage reach those, so each gets a zero .grad
+    first, and the ranks' flat buffers keep one layout.'''
+    pp = pp_mesh(mesh) is not None
+    by_group: Dict[Any, list] = {}
+    for name, p in named_params:
+        block = is_block_param(name)
+        if pp and not block and p.grad is None:
+            p.grad = torch.zeros_like(p)
         if p.grad is not None:
-            by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
-    for grads in by_dtype.values():
+            key = (pp and not block, p.grad.dtype)
+            by_group.setdefault(key, []).append(p.grad)
+    for (rep, _), grads in by_group.items():
         flat = torch.cat([g.reshape(-1) for g in grads])
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh.grad_group)
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM,
+                        group=mesh.rep_group if rep else mesh.grad_group)
         offset = 0
         for g in grads:
             g.copy_(flat[offset:offset + g.numel()].view_as(g))
@@ -399,6 +471,24 @@ def tp_dim(name: str) -> Optional[int]:
     return dim if after and after[0].isdigit() else dim + 1
 
 
+_BLOCK = re.compile(r'^(.*\bblocks)\.(\d+)\.(.+)$')
+
+
+def is_block_param(name: str) -> bool:
+    '''Whether `name` (a port name, a JAX stacked name or an optax key path) lies under
+    the backbone's blocks: the leaves block_pspec splits over the pipe axis.'''
+    return 'blocks' in _NAME.findall(name)
+
+
+def _stacked_block(name: str) -> bool:
+    '''Whether `name` is a block leaf of the JAX layout, its blocks stacked on axis 0.'''
+    parts = _NAME.findall(name)
+    if 'blocks' not in parts:
+        return False
+    after = parts[parts.index('blocks') + 1:]
+    return bool(after) and not after[0].isdigit()
+
+
 def check_tp_widths(n_model: int, embed_dim: int, mlp_dim: int):
     '''Raises ValueError unless n_model model shards divide the width and the MLP width.'''
     for what, n in (('embed_dim', embed_dim), ('mlp_dim', mlp_dim)):
@@ -407,10 +497,26 @@ def check_tp_widths(n_model: int, embed_dim: int, mlp_dim: int):
 
 
 def shard_params(full: Dict[str, torch.Tensor], mesh: Optional[DataMesh]):
-    '''This rank's shards of a full (one-process) state_dict: each tensor sharded by
-    tp_dim sliced to this rank's model coordinate, the rest as it is; `full` itself
-    without a tensor-parallel mesh.'''
-    if tp_mesh(mesh) is None:
+    '''This rank's part of a full (one-process) state_dict: under pipeline parallelism
+    its stage's blocks only, renumbered from 0 (mesh.stage_blocks), with the rest whole;
+    then each tensor sharded by tp_dim sliced to this rank's model coordinate. `full`
+    itself without a tensor- or pipeline-parallel mesh.'''
+    tp, pp = tp_mesh(mesh), pp_mesh(mesh)
+    if tp is None and pp is None:
+        return full
+    if pp is not None:
+        blocks = [int(_BLOCK.match(n).group(2)) for n in full if _BLOCK.match(n)]
+        depth = max(blocks) + 1 if blocks else 0
+        stage = pp.stage_blocks(depth)
+        kept = {}
+        for name, t in full.items():
+            m = _BLOCK.match(name)
+            if m is None:
+                kept[name] = t
+            elif int(m.group(2)) in stage:
+                kept[f'{m.group(1)}.{int(m.group(2)) - stage.start}.{m.group(3)}'] = t
+        full = kept
+    if tp is None:
         return full
     out = {}
     for name, t in full.items():
@@ -420,13 +526,32 @@ def shard_params(full: Dict[str, torch.Tensor], mesh: Optional[DataMesh]):
 
 
 def gather_state_dict(shards: Dict[str, torch.Tensor], mesh: Optional[DataMesh]):
-    '''The full tensors of a state_dict of this rank's shards (a collective every rank
+    '''The full tensors of a state_dict of this rank's part (a collective every rank
     calls, in the same order): the inverse of shard_params; `shards` itself without a
-    tensor-parallel mesh.'''
-    if tp_mesh(mesh) is None:
+    tensor- or pipeline-parallel mesh.'''
+    tp, pp = tp_mesh(mesh), pp_mesh(mesh)
+    if tp is not None:
+        shards = {name: (t if tp_dim(name) is None else _gather(t.detach(), mesh, tp_dim(name)))
+                  for name, t in shards.items()}
+    if pp is None:
         return shards
-    return {name: (t if tp_dim(name) is None else _gather(t.detach(), mesh, tp_dim(name)))
-            for name, t in shards.items()}
+    out = {name: t for name, t in shards.items() if not _BLOCK.match(name)}
+    local = sorted((n for n in shards if _BLOCK.match(n)),
+                   key=lambda n: (int(_BLOCK.match(n).group(2)), n))
+    k = 1 + max((int(_BLOCK.match(n).group(2)) for n in local), default=-1)
+    for dtype in sorted({shards[n].dtype for n in local}, key=str):
+        names = [n for n in local if shards[n].dtype == dtype]
+        flat = torch.cat([shards[n].detach().reshape(-1) for n in names])
+        joined = _gather_over(flat, pp, pp.pipe_group, pp.n_pipe, 0).view(pp.n_pipe, -1)
+        for stage in range(pp.n_pipe):
+            offset = 0
+            for n in names:
+                t = shards[n]
+                m = _BLOCK.match(n)
+                out[f'{m.group(1)}.{stage * k + int(m.group(2))}.{m.group(3)}'] = \
+                    joined[stage, offset:offset + t.numel()].view_as(t).to(t.device)
+                offset += t.numel()
+    return out
 
 
 # ---------------------------------------------------------------------------------------
@@ -436,10 +561,15 @@ def gather_state_dict(shards: Dict[str, torch.Tensor], mesh: Optional[DataMesh])
 def _gather(t: torch.Tensor, mesh: DataMesh, dim: int) -> torch.Tensor:
     '''The model group's parts of `t` joined along `dim`, rank order (one
     all_gather_into_tensor, which moves the bytes as they are).'''
+    return _gather_over(t, mesh, mesh.model_group, mesh.n_model, dim)
+
+
+def _gather_over(t: torch.Tensor, mesh: DataMesh, group, n: int, dim: int) -> torch.Tensor:
+    '''The parts of `t` on the n ranks of `group` joined along `dim`, rank order.'''
     part = _on_backend(t, mesh).contiguous()
-    n, shape = mesh.n_model, list(part.shape)
+    shape = list(part.shape)
     full = part.new_empty([n * shape[0]] + shape[1:])     # the parts one after another
-    dist.all_gather_into_tensor(full, part, group=mesh.model_group)
+    dist.all_gather_into_tensor(full, part, group=group)
     joined = full.view([n] + shape).movedim(0, dim)
     shape[dim] *= n
     return joined.reshape(shape).to(t.device)
@@ -581,17 +711,19 @@ def replicate_tree(tensors: Iterable[torch.Tensor], mesh: DataMesh, group=None, 
 
 
 def _state_tensors(state):
-    '''The tensors of a TrainState in a fixed order, each with whether it is sharded over
-    the model axis: parameters and buffers, each parameter's optimizer state (its moments
+    '''The tensors of a TrainState in a fixed order, each with whether it is a shard
+    (its tp_dim slice under tensor parallelism, or its stage's block under pipeline
+    parallelism): parameters and buffers, each parameter's optimizer state (its moments
     follow the parameter's layout, its step count is replicated), the drop-path
     generator's state, the counts.'''
     model, opt = state.model, state.optimizer
-    tp = tp_mesh(getattr(model, 'mesh', None)) is not None
-    out = [(tp and tp_dim(n) is not None, t)
-           for n, t in sorted(model.state_dict(keep_vars=True).items())]
+    mesh = getattr(model, 'mesh', None)
+    tp, pp = tp_mesh(mesh) is not None, pp_mesh(mesh) is not None
+    part = lambda n: (tp and tp_dim(n) is not None) or (pp and is_block_param(n))
+    out = [(part(n), t) for n, t in sorted(model.state_dict(keep_vars=True).items())]
     for n, p in zip(opt.names, opt.params):
         st = opt.torch_opt.state.get(p, {})
-        out += [(tp and tp_dim(n) is not None and st[k].shape == p.shape, st[k])
+        out += [(part(n) and st[k].shape == p.shape, st[k])
                 for k in sorted(st) if isinstance(st[k], torch.Tensor)]
     out += [(False, state.generator.get_state()),
             (False, torch.tensor([state.step, state.optimizer.count], dtype=torch.int64))]
@@ -603,13 +735,13 @@ def shard_state(state, mesh: DataMesh):
     every process initialise the same seed, tcow_tpu/parallel/mesh.py:95-119): parameters,
     optimizer moments, the drop-path generator, the step and update counts, the
     replicated tensors from rank 0 over the world and each shard from the first rank of
-    its gradient group (its model coordinate); then checks the replicas (check_replicas).
-    Returns the state.'''
+    its gradient group (its model and pipe coordinates); then checks the replicas
+    (check_replicas). Returns the state.'''
     tensors = _state_tensors(state)
     gen, counts = tensors[-2][1], tensors[-1][1]
     replicate_tree([t for s, t in tensors if not s], mesh, group=dist.group.WORLD)
     replicate_tree([t for s, t in tensors if s], mesh, group=mesh.grad_group,
-                   src=mesh.model_rank)
+                   src=mesh.model_rank * mesh.n_pipe + mesh.pipe_rank)
     state.generator.set_state(gen)
     state.step, state.optimizer.count = (int(c) for c in counts)
     check_replicas(state, mesh)
@@ -636,8 +768,8 @@ def _digest(tensors) -> int:
 
 def state_digests(state):
     '''(replicated, shards): the digest of the TrainState's tensors that every rank holds
-    alike (all of them without tensor parallelism) and of this rank's shards (0 when
-    none).'''
+    alike (all of them without tensor or pipeline parallelism) and of this rank's shards
+    (0 when none).'''
     tensors = _state_tensors(state)
     return (_digest([t for s, t in tensors if not s]), _digest([t for s, t in tensors if s]))
 
@@ -663,7 +795,7 @@ def _same_everywhere(d: int, mesh: DataMesh, group, what: str):
 def check_replicas(state, mesh: DataMesh) -> int:
     '''Raises unless the replicated tensors of every rank's state have the same digest
     over the world, and the shards over each gradient group (the ranks with one model
-    coordinate); returns state_digest(state).'''
+    and pipe coordinate); returns state_digest(state).'''
     rep, shards = state_digests(state)
     _same_everywhere(rep, mesh, dist.group.WORLD, 'replicated tensors')
     _same_everywhere(shards, mesh, mesh.grad_group, 'shards')
@@ -679,19 +811,26 @@ def _host(t) -> np.ndarray:
 def fetch_global(tree, mesh: Optional[DataMesh] = None):
     '''Host numpy copies of a tree (nested dicts, or flat dicts keyed by path) of tensors
     or arrays. Under tensor parallelism the leaves tp_dim names sharded (by their path)
-    are gathered over the model group into the one-process layout, so every rank must
-    call it, in the same order (a checkpoint's writer then writes alone); without it
-    every rank holds the whole state and no collective is made.'''
-    tp = tp_mesh(mesh)
+    are gathered over the model group, under pipeline parallelism the stacked block leaves
+    over the pipe group on their leading axis, into the one-process layout, so every rank
+    must call it, in the same order (a checkpoint's writer then writes alone); without
+    either every rank holds the whole state and no collective is made.'''
+    tp, pp = tp_mesh(mesh), pp_mesh(mesh)
 
     def fetch(node, path):
         if isinstance(node, dict):
             return {k: fetch(v, f'{path}.{k}') for k, v in node.items()}
         dim = None if tp is None else tp_dim(path)
-        if dim is None:
+        stage = pp is not None and _stacked_block(path)
+        if dim is None and not stage:
             return _host(node)
         t = node if isinstance(node, torch.Tensor) else torch.from_numpy(np.asarray(node))
-        return _host(_gather(t.detach().contiguous(), tp, dim))
+        t = t.detach().contiguous()
+        if dim is not None:
+            t = _gather(t, tp, dim)
+        if stage:
+            t = _gather_over(t, pp, pp.pipe_group, pp.n_pipe, 0)
+        return _host(t)
     return fetch(tree, '')
 
 

@@ -15,10 +15,11 @@ torch.Generator, saved under GENERATOR_KEY. The JAX loader selects its subtrees 
 (k.startswith('params' / 'opt_state' / 'rng' / 'step')), so that key starts with none of
 them and the JAX loader passes it by.
 
-Under tensor parallelism every rank calls save_train_state, which gathers the shards of
-the parameters and the optimizer moments over the model group (parallel/mesh.py
-fetch_global), and global rank 0 writes the one-process layout; a load slices what each
-rank holds (shard_params), so a checkpoint resumes at any --tp_shards.
+Under tensor or pipeline parallelism every rank calls save_train_state, which gathers the
+shards of the parameters and the optimizer moments over the model group and the stages'
+blocks over the pipe group (parallel/mesh.py fetch_global), and global rank 0 writes the
+one-process layout; a load slices what each rank holds (shard_params), so a checkpoint
+resumes at any --tp_shards and --pp_stages, or in one process.
 
 A directory holds checkpoint.npz (the latest save, replaced atomically), model_{epoch}.npz
 snapshots every `checkpoint_every` epochs, and the checkpoint_epoch.txt /
@@ -105,8 +106,8 @@ def opt_state_to_jax(optimizer) -> Dict[str, np.ndarray]:
 def load_opt_state(optimizer, flat: Dict[str, np.ndarray]):
     '''Restores into `optimizer` what `opt_state_to_jax` writes (and the JAX package
     saves for the same optimizer): the count of applied updates, and the moments with
-    torch's per-parameter step set to Adam's count; under tensor parallelism the shards
-    of the moments that this rank's parameters are.'''
+    torch's per-parameter step set to Adam's count; under tensor or pipeline parallelism
+    the parts of the moments that this rank's parameters are.'''
     adam, sched = _optax_prefixes(optimizer)
     optimizer.count = int(flat[f'{sched}.count'])
     if adam is None:
@@ -195,9 +196,9 @@ def save_checkpoint(checkpoint_dir: str, epoch: int, name: str, params,
 def save_train_state(checkpoint_dir: str, epoch: int, name: str, state,
                      **kwargs) -> Optional[str]:
     '''save_checkpoint of a train/step.py TrainState: its model's parameters, its
-    optimizer's state under optax's paths, its step and its generator. Under tensor
-    parallelism every rank calls it: the shards are gathered, global rank 0 writes and
-    returns the path, the others return None.'''
+    optimizer's state under optax's paths, its step and its generator. Under tensor or
+    pipeline parallelism every rank calls it: the shards and stages are gathered, global
+    rank 0 writes and returns the path, the others return None.'''
     mesh = state.model.mesh
     params = params_to_jax(state.model.state_dict())
     opt_state = opt_state_to_jax(state.optimizer)
@@ -217,7 +218,8 @@ def load_checkpoint(path: str, state_template=None) -> Dict[str, Any]:
     'opt_restored' (whether optimizer state is present). With `state_template`, a
     train/step.py TrainState built for the same model and optimizer, also restores into
     it, in place, and returns it as 'state': the parameters (this rank's shards of them
-    under tensor parallelism); the optimizer state when
+    under tensor parallelism, its stage's blocks under pipeline parallelism); the
+    optimizer state when
     present (a light save keeps the template's); the step; and the generator. A port
     checkpoint restores the generator's saved state. A JAX checkpoint holds a threefry
     key instead, which no torch generator can continue: the generator is then seeded

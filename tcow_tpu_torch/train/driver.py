@@ -51,6 +51,21 @@ data row load the same rows, hold the whole model and split the tokens inside th
 as under tensor parallelism the vis step runs on every rank of data row 0 (its forward
 makes the seq collectives) and rank 0 renders it and writes the checkpoints. Every
 step_stats line carries the seq coordinate too.
+
+Pipeline parallelism (--pp_stages, --pp_microbatches, --pp_manual;
+tcow_tpu/train/driver.py:40-126): validate_pp_args (parallel/pipeline.py) runs before the
+mesh is built, and the world is a (data, model, pipe) mesh of world / (tp_shards x
+pp_stages) data rows (beside --seq_shards it raises in config.py). The stages of a data row
+load the same rows and hold their own blocks; each step is a GPipe flush
+(train/step.py); the vis step runs on every rank of data row 0, the example through the
+stages as one microbatch, and the last stage's payload goes to rank 0, which renders it;
+every rank gathers the stages for a checkpoint, which rank 0 writes in the one-process
+layout. The attention pairing stays the kernel path on the GPU, so K1 and K4 run on every
+stage: the port's stages are local, as in JAX's manual pipe, where JAX's GSPMD pipe runs
+XLA attention with 'res' / 'dots_nb' for the same gradients (:50-90). --pp_manual 1 runs
+the same schedule and keeps the manual pipe's (pipe x data) layout rule
+(pipeline.check_pp_manual); the port has no other schedule to fall back to. Every
+step_stats line carries the pipe coordinate too.
 '''
 
 import json
@@ -72,6 +87,7 @@ from tcow_tpu_torch.objectives import metrics as metrics_lib
 from tcow_tpu_torch.objectives.losses import LossConfig
 from tcow_tpu_torch.ops import fused_attention as fa
 from tcow_tpu_torch.parallel import mesh as mesh_lib
+from tcow_tpu_torch.parallel import pipeline
 from tcow_tpu_torch.train import checkpoint as ckpt_lib
 from tcow_tpu_torch.train import optim, step as step_lib
 from tcow_tpu_torch.weights import params_from_jax, params_to_jax
@@ -94,7 +110,8 @@ def build_seeker_config(args, seeker_args: Dict[str, Any],
     '''The seeker of seeker_args with the driver's choices: on the GPU the kernel path
     ('kernel_x': the in-kernel attention backward, probabilities recomputed from x, the
     forward never re-run; 'dots_nb_out' keeps the GEMM outputs), on the CPU the plain
-    saved-residual backward under full remat.'''
+    saved-residual backward under full remat. Under --pp_stages too (module docstring),
+    with --pp_microbatches.'''
     on_card = device.type == 'cuda'
     return seeker_config_from_args(
         seeker_args,
@@ -102,7 +119,8 @@ def build_seeker_config(args, seeker_args: Dict[str, Any],
                        else torch.float32),
         remat=bool(args.remat), remat_group=int(args.remat_group),
         remat_policy='dots_nb_out' if on_card else 'full',
-        attention_bwd='kernel_x' if on_card else 'res')
+        attention_bwd='kernel_x' if on_card else 'res',
+        pp_microbatches=int(getattr(args, 'pp_microbatches', 0)))
 
 
 def init_seeker_params(model, cfg: SeekerConfig, seeker_args: Dict[str, Any], logger):
@@ -142,7 +160,8 @@ def _host_state(state: step_lib.TrainState, full: bool, copy: bool):
     state in place: the JAX-layout parameters and, when full, the optax-layout optimizer
     state, the step and the generator's bytes. copy: CPU tensors share their memory with
     the arrays, so those are copied. A tensor-parallel model's shards are gathered over
-    the model group (fetch_global, which every rank calls).'''
+    the model group, a pipeline stage's blocks over the pipe group (fetch_global, which
+    every rank calls).'''
     mesh = state.model.mesh
     own = (lambda tree: mesh_lib.fetch_global(tree, mesh)) if copy or mesh is not None \
         else (lambda tree: tree)
@@ -172,7 +191,7 @@ class _StopFlag:
 
 def join_mesh(args, logger):
     '''The DataMesh of a --multihost rank (None for one process): world / (--seq_shards x
-    --tp_shards) data rows of seq_shards x tp_shards ranks, checked against the flags:
+    --tp_shards x --pp_stages) data rows of that many ranks, checked against the flags:
     --mesh_devices, when given, must equal the world size, and batch_size / grad_accum
     must divide by the data rows (the world is fixed: no ranks are dropped).'''
     if not args.multihost:
@@ -182,11 +201,12 @@ def join_mesh(args, logger):
         return None
     resolve_device(args.device)
     mesh = mesh_lib.make_mesh(args.device, model=int(getattr(args, 'tp_shards', 1)),
-                              seq=int(getattr(args, 'seq_shards', 1)))
+                              seq=int(getattr(args, 'seq_shards', 1)),
+                              pipe=int(getattr(args, 'pp_stages', 1)))
     logger.info(f'Mesh: rank {mesh.rank} of {mesh.world} on {mesh.device} at (data '
                 f'{mesh.data_rank} of {mesh.n_data}, seq {mesh.seq_rank} of {mesh.n_seq}, '
-                f'model {mesh.model_rank} of {mesh.n_model}), backend {mesh.backend} '
-                f'({mesh.reason})')
+                f'model {mesh.model_rank} of {mesh.n_model}, pipe {mesh.pipe_rank} of '
+                f'{mesh.n_pipe}), backend {mesh.backend} ({mesh.reason})')
     try:
         if args.mesh_devices > 0 and args.mesh_devices != mesh.world:
             raise ValueError(f'--mesh_devices {args.mesh_devices} but the world has '
@@ -200,6 +220,8 @@ def join_mesh(args, logger):
 
 
 def main(args, logger):
+    pipeline.validate_pp_args(args)
+    pipeline.check_pp_manual(args)
     mesh = join_mesh(args, logger)
     try:
         return _train(args, logger, mesh)
@@ -308,10 +330,10 @@ def _train(args, logger, mesh):
                          f'grad_accum {grad_accum}')
     train_step = step_lib.make_train_step(step_cfg, grad_accum=grad_accum, mesh=mesh)
     eval_step = step_lib.make_eval_step(step_cfg, mesh=mesh)
-    # Rank 0 renders the vis step from its own rows; the other seq and model ranks of its
-    # data row run its forward beside it (seq and model-axis collectives); no data-group
-    # collective.
-    vis_step = step_lib.make_vis_step(step_cfg) if data_rank == 0 else None
+    # Rank 0 renders the vis step from its own rows; the other seq, model and pipe ranks of
+    # its data row run its forward beside it (seq and model-axis collectives, the stages'
+    # hops and the last stage's payload); no data-group collective.
+    vis_step = step_lib.make_vis_step(step_cfg, mesh=mesh) if data_rank == 0 else None
 
     ckpt_thread = [None]
     # The train loader's query-sampling stream after the last batch a step consumed:
@@ -354,10 +376,12 @@ def _train(args, logger, mesh):
                    else mesh_lib.gather_objects(collate_rng[0], mesh)[::mesh.row_ranks])
         loader_state = (None if by_rank[0] is None
                         else {'train_collate_rng_by_rank': by_rank})
-        if rank != 0 and mesh_lib.tp_mesh(state.model.mesh) is None:
+        if rank != 0 and mesh_lib.tp_mesh(state.model.mesh) is None \
+                and mesh_lib.pp_mesh(state.model.mesh) is None:
             return   # one writer; the state is replicated
         # Taken now, on this thread: the next step updates the state in place. Every rank
-        # of a tensor-parallel mesh takes part in the gather, then rank 0 writes alone.
+        # of a tensor- or pipeline-parallel mesh takes part in the gather, then rank 0
+        # writes alone.
         params, opt_state, step, generator_state = _host_state(
             state, full, copy=device.type == 'cpu')
         if rank != 0:
@@ -570,11 +594,11 @@ def _run_one_epoch(args, logger, device, state, train_step, eval_step, loader, p
     is_train = (phase == 'train')
     debug = logger.debug_enabled()
     where = ({'rank': 0, 'world': 1, 'backend': None, 'data_rank': 0, 'seq_rank': 0,
-              'model_rank': 0}
+              'model_rank': 0, 'pipe_rank': 0}
              if mesh is None else
              {'rank': mesh.rank, 'world': mesh.world, 'backend': mesh.backend,
               'data_rank': mesh.data_rank, 'seq_rank': mesh.seq_rank,
-              'model_rank': mesh.model_rank})
+              'model_rank': mesh.model_rank, 'pipe_rank': mesh.pipe_rank})
 
     profile_dir = getattr(args, 'profile_dir', '')
     profile_start = min(2, max(len(loader) - 1, 0))  # short epochs still get a trace

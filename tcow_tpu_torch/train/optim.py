@@ -13,7 +13,10 @@ Under tensor parallelism each rank's optimizer holds the moments of its paramete
 shards (AdamW is elementwise, so its update of a shard is the shard of its update), and
 the norms that span a tensor are the logical tensor's: the squares of the sharded
 parameters summed over the model group, a replicated parameter counted once (the global
-norm of clipping and of grad_norm, LAMB's per-leaf ||p|| and ||u||).
+norm of clipping and of grad_norm, LAMB's per-leaf ||p|| and ||u||). Under pipeline
+parallelism each rank's optimizer holds the moments of its stage's blocks and of every
+parameter outside the blocks (one copy on each rank, updated alike); a norm counts each
+stage's block tensors once, by a sum over the pipe group, and the others once.
 '''
 
 import dataclasses
@@ -22,7 +25,7 @@ from typing import Callable, Iterable, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from tcow_tpu_torch.parallel.mesh import tp_dim, tp_mesh
+from tcow_tpu_torch.parallel.mesh import is_block_param, pp_mesh, tp_dim, tp_mesh
 from tcow_tpu_torch.weights import jax_leaf_name
 
 Schedule = Callable[[int], float]
@@ -50,23 +53,34 @@ def multistep_schedule(learn_rate: float, lr_decay: float, num_epochs: int,
 
 
 def global_norm(tensors: Iterable[torch.Tensor], sharded: Optional[Iterable[bool]] = None,
-                group=None) -> torch.Tensor:
+                group=None, staged: Optional[Iterable[bool]] = None,
+                pipe_group=None) -> torch.Tensor:
     '''sqrt of the sum of squares of every element, in f32 (optax.global_norm). With a
     model group, the tensors flagged in `sharded` are this rank's shards of larger ones:
-    their squares are summed over the group, the others' counted once.'''
+    their squares are summed over the group. With a pipe group, the tensors flagged in
+    `staged` are this stage's part of the blocks: their squares (the sharded ones' summed
+    over the model group first) are summed over the pipe group. The others are counted
+    once.'''
     tensors = list(tensors)
-    if group is None:
+    if group is None and pipe_group is None:
         return torch.linalg.vector_norm(torch.stack(
             torch._foreach_norm([t.float() for t in tensors])))
-    sharded = list(sharded)
+    sharded = list(sharded) if sharded is not None else [False] * len(tensors)
+    staged = list(staged) if staged is not None else [False] * len(tensors)
 
     def squares(ts):
         if not ts:
             return torch.zeros((), dtype=torch.float32, device=tensors[0].device)
         return torch.stack(torch._foreach_norm([t.float() for t in ts])).square().sum()
-    parts = squares([t for t, s in zip(tensors, sharded) if s])
-    dist.all_reduce(parts, op=dist.ReduceOp.SUM, group=group)
-    return torch.sqrt(parts + squares([t for t, s in zip(tensors, sharded) if not s]))
+    parts = squares([t for t, s in zip(tensors, sharded) if s and group is not None])
+    if group is not None:
+        dist.all_reduce(parts, op=dist.ReduceOp.SUM, group=group)
+    local = [not (s and group is not None) for s in sharded]
+    if pipe_group is not None:
+        parts = parts + squares([t for t, l, p in zip(tensors, local, staged) if l and p])
+        dist.all_reduce(parts, op=dist.ReduceOp.SUM, group=pipe_group)
+        local = [l and not p for l, p in zip(local, staged)]
+    return torch.sqrt(parts + squares([t for t, l in zip(tensors, local) if l]))
 
 
 class Lamb(torch.optim.Optimizer):
@@ -79,11 +93,13 @@ class Lamb(torch.optim.Optimizer):
     updated by foreach ops. The moments and the count sit in each parameter's state under
     torch.optim.Adam's names (exp_avg, exp_avg_sq, step), so checkpoints read both
     optimizers alike. A group flagged 'sharded' holds this rank's shards of its leaf: its
-    norms are summed over `group`, the model group.'''
+    norms are summed over `group`, the model group; one flagged 'staged' this stage's
+    blocks of its leaf: its norms are summed over `pipe_group` too.'''
 
-    def __init__(self, params, lr: float, group=None):
-        super().__init__(params, dict(lr=lr, sharded=False))
+    def __init__(self, params, lr: float, group=None, pipe_group=None):
+        super().__init__(params, dict(lr=lr, sharded=False, staged=False))
         self.model_group = group
+        self.pipe_group = pipe_group
 
     @torch.no_grad()
     def step(self):
@@ -111,8 +127,10 @@ class Lamb(torch.optim.Optimizer):
             updates = torch._foreach_div(torch._foreach_div(mus, 1 - LAMB_B1 ** count), denom)
             flags = [group['sharded']] * len(params)
             model_group = self.model_group if group['sharded'] else None
-            p_norm = global_norm(params, flags, model_group)
-            u_norm = global_norm(updates, flags, model_group)
+            pipe_group = self.pipe_group if group['staged'] else None
+            stage = [group['staged']] * len(params)
+            p_norm = global_norm(params, flags, model_group, stage, pipe_group)
+            u_norm = global_norm(updates, flags, model_group, stage, pipe_group)
             ratio = torch.where((p_norm == 0) | (u_norm == 0), torch.ones_like(p_norm),
                                 p_norm / u_norm)
             torch._foreach_mul_(updates, ratio * -group['lr'])
@@ -135,13 +153,18 @@ class Optimizer:
     model.named_parameters()), its schedule and its clipping. The names place each
     parameter in the JAX package's tree (weights.py): LAMB's trust ratio and the optax
     state of a checkpoint go by them. Under a tensor-parallel `mesh` (parallel/mesh.py)
-    the parameters tp_dim names sharded are this rank's shards.'''
+    the parameters tp_dim names sharded are this rank's shards; under a pipeline-parallel
+    one the block parameters are this stage's (`staged`).'''
 
     def __init__(self, spec: OptimizerSpec, named_params, mesh=None):
         self.spec = spec
         self.names, self.params = map(list, zip(*named_params))
-        self.mesh = tp_mesh(mesh)
-        self.sharded = [self.mesh is not None and tp_dim(n) is not None for n in self.names]
+        tp, pp = tp_mesh(mesh), pp_mesh(mesh)
+        self.mesh = mesh if tp is not None or pp is not None else None
+        self.model_group = None if tp is None else tp.model_group
+        self.pipe_group = None if pp is None else pp.pipe_group
+        self.sharded = [tp is not None and tp_dim(n) is not None for n in self.names]
+        self.staged = [pp is not None and is_block_param(n) for n in self.names]
         params = self.params
         lr = spec.schedule(0)
         if spec.name == 'sgd':
@@ -157,10 +180,11 @@ class Optimizer:
             leaves = {}
             for n, p in zip(self.names, params):
                 leaves.setdefault(jax_leaf_name(n), []).append(p)
-            self.torch_opt = Lamb([{'params': ps, 'sharded': self.mesh is not None
-                                    and tp_dim(leaf) is not None}
+            self.torch_opt = Lamb([{'params': ps, 'sharded': tp is not None
+                                    and tp_dim(leaf) is not None,
+                                    'staged': pp is not None and is_block_param(leaf)}
                                    for leaf, ps in leaves.items()], lr=lr,
-                                  group=None if self.mesh is None else self.mesh.model_group)
+                                  group=self.model_group, pipe_group=self.pipe_group)
         else:
             raise ValueError(f'unknown optimizer: {spec.name}')
         self.count = 0   # updates applied
@@ -177,10 +201,12 @@ class Optimizer:
 
     def grad_norm(self) -> torch.Tensor:
         '''The global norm of the gradients of self.params that have one (of the logical
-        tensors under tensor parallelism).'''
-        have = [(p.grad, s) for p, s in zip(self.params, self.sharded) if p.grad is not None]
-        return global_norm([g for g, _ in have], [s for _, s in have],
-                           None if self.mesh is None else self.mesh.model_group)
+        tensors under tensor parallelism, of every stage's blocks under pipeline
+        parallelism).'''
+        have = [(p.grad, s, t) for p, s, t in zip(self.params, self.sharded, self.staged)
+                if p.grad is not None]
+        return global_norm([g for g, _, _ in have], [s for _, s, _ in have],
+                           self.model_group, [t for _, _, t in have], self.pipe_group)
 
     def step(self, grad_norm: Optional[torch.Tensor] = None):
         '''Clips the gradients of self.params (grad_norm: their global norm, computed when

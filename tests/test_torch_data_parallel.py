@@ -401,9 +401,11 @@ def test_dp_drop_path_masks_are_the_global_batch_s(jax_params, tmp_path, tiny_pr
 # Flags
 # ---------------------------------------------------------------------------------------
 
+# --pp_stages trains since pipeline parallelism was ported; beside --seq_shards it still
+# raises (tests/test_torch_pipeline_parallel.py holds the layouts that parse).
 @pytest.mark.parametrize('flags', [['--seq_shards', '2', '--attention_type', 'joint_space_time'],
                                    ['--tp_shards', '2', '--seq_shards', '2', '--pp_stages', '2'],
-                                   ['--pp_stages', '2']])
+                                   ['--pp_stages', '2', '--seq_shards', '2']])
 def test_sequence_tensor_pipeline_flags_still_raise(flags):
     argv = ['--data_path', 'x', '--device', 'cpu', '--mesh_devices', '2', *flags]
     with pytest.raises(NotImplementedError, match='item 7'):

@@ -94,7 +94,7 @@ def test_params_from_jax_round_trips(jax_params, tiny_preset):
 def test_import_without_jax_or_tcow_tpu():
     '''Every module of the port, chip_smoke.py, train_torch.py, eval_torch.py, the ranks of
     the multi-process tests (tests/test_torch_dp_ranks.py, test_torch_tp_ranks.py,
-    test_torch_sp_ranks.py) and every
+    test_torch_sp_ranks.py, test_torch_pp_ranks.py) and every
     tools/torch_*.py import with jax, optax, cv2, PIL, matplotlib and pandas made
     unimportable, and none of them pulls in tcow_tpu.'''
     code = (
@@ -115,11 +115,13 @@ def test_import_without_jax_or_tcow_tpu():
         "            'data.plugin', 'evaluation.inference', 'evaluation.test_driver',\n"
         "            'evaluation.pick_represent', 'models.streaming', 'serving',\n"
         "            'models.torch_import', 'models.resnet', 'utils.misc',\n"
-        "            'parallel.mesh', 'parallel.tensor', 'parallel.sequence')}\n"
+        "            'parallel.mesh', 'parallel.tensor', 'parallel.sequence',\n"
+        "            'parallel.pipeline')}\n"
         "assert named <= set(mods), named - set(mods)\n"
         "import chip_smoke, train_torch, eval_torch\n"
         "sys.path.insert(0, 'tests')\n"
         "import test_torch_dp_ranks, test_torch_tp_ranks, test_torch_sp_ranks\n"
+        "import test_torch_pp_ranks\n"
         "sys.path.insert(0, 'tools')\n"
         "tools = sorted(f[:-3] for f in os.listdir('tools')\n"
         "               if f.startswith('torch_') and f.endswith('.py'))\n"

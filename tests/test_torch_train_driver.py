@@ -287,17 +287,34 @@ def test_port_exception_budget_and_ba_save(synth_root, tmp_path, tiny, monkeypat
 @pytest.mark.parametrize('flags', [
     ['--mesh_devices', '2', '--seq_shards', '2', '--pp_stages', '2'],
     ['--seq_shards', '2', '--attention_type', 'joint_space_time'],
-    ['--tp_shards', '2', '--pp_stages', '2'], ['--pp_stages', '2'],
     ['--multihost', '1', '--tp_shards', '2', '--seq_shards', '2', '--pp_stages', '2']])
 def test_port_unported_flags_raise(synth_root, tmp_path, flags):
-    '''Data parallelism (--mesh_devices, --multihost) parses; the pipeline layout raises,
-    alone, beside it or beside tensor and sequence parallelism, and so does joint attention
-    under sequence parallelism.'''
+    '''Data parallelism (--mesh_devices, --multihost) parses; the pipeline layout beside
+    sequence parallelism raises, alone or beside tensor parallelism, and so does joint
+    attention under sequence parallelism.'''
     with pytest.raises(NotImplementedError, match='ROADMAP.md section 1 item'):
         make_args(synth_root, tmp_path, extra=flags)
     dp = [f for f in flags if f in ('--mesh_devices', '--multihost')]
     if dp:
         make_args(synth_root, tmp_path, extra=[dp[0], flags[flags.index(dp[0]) + 1]])
+
+
+@pytest.mark.parametrize('flags', [
+    ['--mesh_devices', '2', '--pp_stages', '2'],
+    ['--mesh_devices', '4', '--tp_shards', '2', '--pp_stages', '2']])
+def test_port_pipeline_flags_parse(synth_root, tmp_path, monkeypatch, flags):
+    '''The pipeline layout parses for training, alone or beside tensor parallelism, when
+    the world (--mesh_devices) holds its stages.'''
+    monkeypatch.setitem(ptsf.DEPTH_PRESETS, 2, (32, 4))   # the width tp_shards divides
+    args = make_args(synth_root, tmp_path, extra=flags)
+    assert (args.pp_stages, args.tp_shards) == (2, 2 if '--tp_shards' in flags else 1)
+
+
+def test_port_pipeline_evaluation_raises():
+    '''Pipeline-parallel evaluation is not queued: the eval flags raise, naming ROADMAP
+    item 7, as data-, tensor- and sequence-parallel evaluation do.'''
+    with pytest.raises(NotImplementedError, match='ROADMAP.md section 1 item 7'):
+        pconfig.test_args(['--data_path', 'x', '--device', 'cpu', '--pp_stages', '2'])
 
 
 def test_port_driver_trains_with_host_colour_augs(synth_root, tmp_path, tiny):

@@ -20,12 +20,19 @@ becomes their count times S x M. On the CPU:
   python train_torch.py --device cpu --mesh_devices 2 --seq_shards 2 ...
   python train_torch.py --device cpu --mesh_devices 4 --seq_shards 2 --tp_shards 2 ...
 
+Pipeline parallelism: --pp_stages P splits each data row's blocks into P stages, one a
+rank, with --pp_microbatches M microbatches a step (0: the JAX default) and --tp_shards
+beside it (each data row then tp_shards x pp_stages ranks); --pp_manual 1 is accepted on
+(pipe x data) layouts. On the CPU:
+  python train_torch.py --device cpu --mesh_devices 2 --pp_stages 2 ...
+  python train_torch.py --device cpu --mesh_devices 8 --tp_shards 2 --pp_stages 2 ...
+
 Example (the configuration of record):
   python train_torch.py --name v1 --data_path /path/to/kubric_random/ --batch_size 2 \
       --num_queries 3 --num_frames 30 --causal_attention 1
 On two GPUs of one host: the same with --mesh_devices 2 (or torchrun --nproc_per_node 2
 train_torch.py ... --multihost 1); add --seq_shards 2 (or --tp_shards 2) for one data row
-of two sequence- (or tensor-) parallel ranks.
+of two sequence- (or tensor-) parallel ranks, or --pp_stages 2 for two pipeline stages.
 A synthetic Kubric-format dataset: python -m tcow_tpu_torch.data.synthetic --out DIR
 '''
 
@@ -44,10 +51,10 @@ STOP_GRACE_S = 30
 def ranks_to_start(args, logger) -> int:
     '''How many ranks --mesh_devices asks of this host: -1 means every visible GPU (one
     on the CPU); more GPUs than the host has raises, and so does a count that
-    --seq_shards x --tp_shards does not divide; the data rows (the count / (seq_shards x
-    tp_shards)) shrink, with a warning, until they divide batch_size / grad_accum
-    (tcow_tpu/train/driver.py:186-199), and the count is their number times seq_shards x
-    tp_shards.'''
+    --seq_shards x --tp_shards x --pp_stages does not divide; the data rows (the count /
+    that product) shrink, with a warning, until they divide batch_size / grad_accum
+    (tcow_tpu/train/driver.py:186-199), and the count is their number times the
+    product.'''
     import torch
     n = args.mesh_devices
     if args.device == 'cuda':
@@ -56,10 +63,11 @@ def ranks_to_start(args, logger) -> int:
             raise ValueError(f'--mesh_devices {n} but this host has {have} CUDA devices')
         n = have if n <= 0 else n
     n = max(n, 1)
-    row = max(1, int(args.tp_shards)) * max(1, int(args.seq_shards))
+    row = (max(1, int(args.tp_shards)) * max(1, int(args.seq_shards))
+           * max(1, int(args.pp_stages)))
     if n % row:
-        raise ValueError(f'--seq_shards {args.seq_shards} x --tp_shards {args.tp_shards} do '
-                         f'not divide the {n} ranks')
+        raise ValueError(f'--seq_shards {args.seq_shards} x --tp_shards {args.tp_shards} x '
+                         f'--pp_stages {args.pp_stages} do not divide the {n} ranks')
     rows = args.batch_size // max(1, int(args.grad_accum))
     n_data = n // row
     while rows % n_data:
