@@ -195,7 +195,27 @@ Drives the PyTorch port (tcow_tpu_torch) on one NVIDIA GPU and checks it:
      the instrumented warm-up step); four ranks as (model 2, pipe 2), the f32 depth-2
      gradient against one process; `train_torch.py --multihost 1 --pp_stages 2` as two
      ranks for one epoch of 2 steps and the vis step at full width and depth 2, its
-     checkpoint loaded into a one-process state on the card, bit for bit.
+     checkpoint loaded into a one-process state on the card, bit for bit;
+ 28. joint attention under sequence parallelism (phase sp_joint, with pp_sp after tp, sp
+     and pp): the step of record's batch under joint attention on one data row of two seq
+     ranks that share the card (gloo), each running whole joint blocks on its 3 of the 6
+     folded clips (3 x 9001 a call, recorded): 12 K1 + 12 K4 per rank and step at depth 12
+     and each other pairing's launches at depth 2 (`res` at 1 clip x 2 queries, one row a
+     rank), the replicated tensors by digest, the 2 seq collectives a step (the rows'
+     gather and its reduce-scatter); phase joint's parity pass (1 x 3: 2 rows, and 1 +
+     padding) on the two ranks, its gathered bf16 gradient held against phase joint's f32
+     plain path (the ratio limit of the one-process step), f32 at depth 2 against one
+     process;
+ 29. pipeline stages beside sequence parallelism (phase pp_sp beside sp_joint, pp_sp_driver
+     on a thread beside both, on its own 4-scene dataset): four ranks as (seq 2, pipe 2),
+     each stage's seq rank holding its 150 patches or 15 frames of each of 2 microbatches
+     of 3 rows (450 x 30 and 45 x 301 a call, recorded): 24 K1 + 24 K4 per rank and step
+     at depth 12, 4 hops a rank and step, the seq collectives per step (count, bytes, ms
+     in the instrumented warm-up step), the gradients against train_parity's (bf16 ratio,
+     f32 at depth 2), drop-path 0.1 at depth 2 against one process; `train_torch.py --multihost 1
+     --seq_shards 2 --pp_stages 2` as four ranks for one epoch of 2 steps and the vis step
+     at full width and depth 2, its checkpoint loaded into a one-process state on the card,
+     bit for bit.
 
 The Kubric datasets are written on a thread while the kernels build; the inputs of the
 kernel comparisons and timings are drawn on the card.
@@ -1412,6 +1432,13 @@ DRIVER_PER_STEP = {'train': {'K1': 24, 'K4': 24}, 'val_aug': {'K1': 24},
                    'val_noaug': {'K1': 24}, 'vis': {'K1': 24}}
 DRIVER_PER_ROPE_STEP = {'train': {'K1': 12, 'K1r': 12, 'K4': 12, 'K4r': 12},
                         'vis': {'K1': 12, 'K1r': 12}}
+# Runs 1, 2, 3 and 5 of phase train_driver run at the configuration of record's width but
+# this depth, as the parallel phases' driver runs (their time is the run's start, its
+# loaders and its 1.5 GB checkpoints at depth 12); pth's run and run 4 keep depth 12.
+DRIVER_DEPTH = 2
+DRIVER_DEPTH_PER_STEP = {phase: {k: 2 * DRIVER_DEPTH for k in per}
+                         for phase, per in DRIVER_PER_STEP.items()}
+DRIVER_DEPTH_ARGS = ('--network_depth', str(DRIVER_DEPTH))
 # A driver log must hold none of these: a step the driver tolerated and skipped leaves a
 # traceback, a failed vis step or overlay a warning, a non-finite loss a skipped update.
 DRIVER_LOG_FAULTS = ('Traceback', 'visualization failed', 'overlay rendering failed',
@@ -1482,6 +1509,7 @@ def dataset_specs():
             'tp_driver': ((('train', TP_DRIVER_SCENES, SEED + 500),), DRIVER_FRAMES),
             'sp_driver': ((('train', TP_DRIVER_SCENES, SEED + 600),), DRIVER_FRAMES),
             'pp_driver': ((('train', TP_DRIVER_SCENES, SEED + 700),), DRIVER_FRAMES),
+            'pp_sp_driver': ((('train', TP_DRIVER_SCENES, SEED + 800),), DRIVER_FRAMES),
             'stream_long': ((('test', STREAM_EVAL_SCENES, SEED + 300),), STREAM_EVAL_FRAMES)}
 
 
@@ -1566,15 +1594,27 @@ def epoch_stats(steps, log_text):
     return out
 
 
-def run_driver(argv, log_fp, sigterm_after_step=None):
-    '''python train_torch.py argv as a subprocess (real argv, real signals), its output to
-    log_fp; with sigterm_after_step=k, SIGTERM is sent once train step k of epoch 0
-    (0-based) has logged, which the driver does after that step's preemption check: step
-    k + 1 is then in flight or waiting for its batch, and the run stops after it. Returns
-    (log text, wall seconds); fails on a non-zero exit or after RUN_TIMEOUT_S.'''
+def train_torch_cmd(depth=None):
+    '''The command that runs train_torch.py: the script, or for a `depth` without a preset
+    of the package, train_torch.main once the depth's preset at full width is registered.'''
+    if depth is None:
+        return [sys.executable, 'train_torch.py']
+    launch = ('import sys; from tcow_tpu_torch.models import timesformer; '
+              f'timesformer.DEPTH_PRESETS[{depth}] = ({D}, {HEADS}); '
+              'import train_torch; sys.exit(train_torch.main())')
+    return [sys.executable, '-c', launch]
+
+
+def run_driver(argv, log_fp, sigterm_after_step=None, depth=None):
+    '''python train_torch.py argv as a subprocess (real argv, real signals; at `depth`,
+    train_torch_cmd's), its output to log_fp; with sigterm_after_step=k, SIGTERM is sent
+    once train step k of epoch 0 (0-based) has logged, which the driver does after that
+    step's preemption check: step k + 1 is then in flight or waiting for its batch, and the
+    run stops after it. Returns (log text, wall seconds); fails on a non-zero exit or after
+    RUN_TIMEOUT_S.'''
     t0 = time.perf_counter()
     with open(log_fp, 'w') as log:
-        proc = subprocess.Popen([sys.executable, 'train_torch.py', *argv], stdout=log,
+        proc = subprocess.Popen([*train_torch_cmd(depth), *argv], stdout=log,
                                 stderr=subprocess.STDOUT,
                                 cwd=os.path.dirname(os.path.abspath(__file__)))
         try:
@@ -1781,7 +1821,7 @@ def check_vis_videos(log_dir, frames):
 def check_run(name, text, workdir):
     '''A driver run's steps and launches (check_steps against DRIVER_RUN_RECORDS) and,
     by run, its checkpoints, losses and vis-step videos.'''
-    steps = check_steps(name, text, DRIVER_RUN_RECORDS[name], DRIVER_PER_STEP)
+    steps = check_steps(name, text, DRIVER_RUN_RECORDS[name], DRIVER_DEPTH_PER_STEP)
     out = dict(steps=steps, epochs=epoch_stats(steps, text),
                peak_bytes=max(r.get('max_memory_allocated', 0) for r in steps))
     ckpt = workdir / 'checkpoints' / ('run2' if name == 'run3' else name)
@@ -1813,11 +1853,12 @@ def host_augs_run(root, workdir):
     '''Run 5: train_torch.py with --device_augs 0, the colour augmentations applied by
     the loader on the host: 1 epoch of HOST_AUGS_STEPS steps on half the train scenes, no
     val; each step's launches, a finite loss, the loader-wait share.'''
-    argv = driver_argv(root, workdir, 'host5', '--device_augs', '0', '--num_epochs', '1',
-                       '--use_data_frac', '0.5', '--do_val_aug', '0', '--do_val_noaug', '0')
-    text, wall_s = run_driver(argv, workdir / 'host5.log')
+    argv = driver_argv(root, workdir, 'host5', *DRIVER_DEPTH_ARGS, '--device_augs', '0',
+                       '--num_epochs', '1', '--use_data_frac', '0.5', '--do_val_aug', '0',
+                       '--do_val_noaug', '0')
+    text, wall_s = run_driver(argv, workdir / 'host5.log', depth=DRIVER_DEPTH)
     steps = check_steps('host5', text, driver_records(1, HOST_AUGS_STEPS, val=False),
-                        DRIVER_PER_STEP)
+                        DRIVER_DEPTH_PER_STEP)
     ckpt = load_checkpoint(str(workdir / 'checkpoints' / 'host5' / 'checkpoint.npz'))
     if ckpt['dset_args']['kubric']['device_color_jitter'] is not False:
         fail(f'host5: dset_args {ckpt["dset_args"]}')
@@ -1831,14 +1872,16 @@ def host_augs_run(root, workdir):
                 peak_bytes=max(r.get('max_memory_allocated', 0) for r in steps))
 
 
-def phase_train_driver(workdir):
-    '''The training path's host side at the step of record: a synthetic Kubric dataset
-    written by the port (DRIVER_SPLITS), then train_torch.py as a subprocess: run 1 trains
-    2 epochs of 4 steps with both val phases; run 2 is run 1 under another name, sent
-    SIGTERM during step PREEMPT_STEPS_DONE of epoch 0; run 3 resumes run 2 and must end
-    where run 1 ended; run 5 trains 2 steps with --device_augs 0 (the host colour path);
-    runs 1, 2 then 3, and 5 go at once; run 4 is rope256 through train_torch.main in this
-    process, after them. Every step's launches are
+def phase_train_driver(workdir, beside):
+    '''The training path's host side at the step of record's width: a synthetic Kubric
+    dataset written by the port (DRIVER_SPLITS), then train_torch.py as a subprocess at
+    DRIVER_DEPTH: run 1 trains 2 epochs of 4 steps with both val phases; run 2 is run 1
+    under another name, sent SIGTERM during step PREEMPT_STEPS_DONE of epoch 0; run 3
+    resumes run 2 and must end where run 1 ended; run 5 trains 2 steps with --device_augs
+    0 (the host colour path); runs 1, 2 then 3, and 5 go at once, on threads, while this
+    thread runs `beside()` (phase train_device_side), then run 4, rope256 at depth 12
+    through train_torch.main in this process. Returns (the launches, beside's result).
+    Every step's launches are
     checked (DRIVER_PER_*), every loss finite, every epoch's checkpoint full, run 1's
     vis-step videos decoded. Prints item times, the host->device copy of a batch,
     per-step host times, the loader-wait share and peak memory of each run.'''
@@ -1853,8 +1896,9 @@ def phase_train_driver(workdir):
     runs = {}
 
     def run(name, extra=(), sig=None):
-        argv = driver_argv(root, workdir, 'run2' if name == 'run3' else name, *extra)
-        text, wall_s = run_driver(argv, workdir / f'{name}.log', sig)
+        argv = driver_argv(root, workdir, 'run2' if name == 'run3' else name,
+                           *DRIVER_DEPTH_ARGS, *extra)
+        text, wall_s = run_driver(argv, workdir / f'{name}.log', sig, DRIVER_DEPTH)
         runs[name] = dict(wall_s=wall_s, **check_run(name, text, workdir))
         emit({'phase': f'train_driver_{name}',
               **{k: v for k, v in runs[name].items() if k != 'steps'}})
@@ -1864,29 +1908,31 @@ def phase_train_driver(workdir):
         emit({'phase': 'train_driver_host5',
               **{k: v for k, v in runs['host5'].items() if k != 'steps'}})
 
-    # Runs 1, 2 (then 3) and 5 at once, each a subprocess waited for on a thread: they
-    # share the host and the card, so their host times are no measurement.
+    # Runs 1, 2 (then 3) and 5 at once, each a subprocess waited for on a thread, beside
+    # `beside` and run 4 in this thread: they share the host and the card, so their host
+    # times (and beside's) are no measurement.
     with concurrent.futures.ThreadPoolExecutor(3) as pool:
         done = [pool.submit(run, 'run1'),
                 pool.submit(lambda: (run('run2', sig=PREEMPT_STEPS_DONE - 2),
                                      run('run3', ('--resume', 'run2')))),
                 pool.submit(host5)]
+        side = beside()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()   # run 4 shares this process with every phase
+        runs['rope4'] = rope_driver_run(rope_root, workdir)
+        emit({'phase': 'train_driver_rope4',
+              **{k: v for k, v in runs['rope4'].items() if k != 'steps'}})
         for future in done:
             future.result()
     resume = compare_final_states(workdir / 'checkpoints' / 'run1' / 'checkpoint.npz',
                                   workdir / 'checkpoints' / 'run2' / 'checkpoint.npz')
     emit({'phase': 'train_driver_resume', **resume})
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()   # run 4 shares this process with every phase
-    runs['rope4'] = rope_driver_run(rope_root, workdir)
-    emit({'phase': 'train_driver_rope4',
-          **{k: v for k, v in runs['rope4'].items() if k != 'steps'}})
     launches = sum_launches([r for n in ('run1', 'run2', 'run3', 'host5')
                              for r in runs[n]['steps']])
     rope_launches = sum_launches(runs['rope4']['steps'])
     emit({'phase': 'train_driver', 'launches': launches, 'rope_launches': rope_launches,
           'resume_bit_equal': resume['bit_equal']})
-    return {'launches': launches, 'rope_launches': rope_launches}
+    return {'launches': launches, 'rope_launches': rope_launches}, side
 
 
 # ---------------------------------------------------------------------------------------
@@ -1897,7 +1943,7 @@ def phase_train_driver(workdir):
 # backend rule picks gloo.
 DP_WORLD = 2
 DP_TIMEOUT_S = 300
-# Seconds a rank of phases dp, tp and sp, started beside the build, waits for its go.
+# Seconds a rank of phases dp, tp, sp and pp, started beside the build, waits for its go.
 RANK_GO_TIMEOUT_S = 900
 # The pairings other than the step of record run at full width and this depth under data,
 # tensor and sequence parallelism.
@@ -2246,10 +2292,7 @@ PARALLEL_DRIVER_PER_STEP = {phase: {k: 2 * PARALLEL_DRIVER_DEPTH for k in per}
 def parallel_driver_cmd(root, workdir, name, *extra):
     '''The command of one rank of a two-rank train_torch.py run at PARALLEL_DRIVER_DEPTH
     (one epoch; driver_argv's flags, then `extra`).'''
-    launch = ('import sys; from tcow_tpu_torch.models import timesformer; '
-              f'timesformer.DEPTH_PRESETS[{PARALLEL_DRIVER_DEPTH}] = ({D}, {HEADS}); '
-              'import train_torch; sys.exit(train_torch.main())')
-    return [sys.executable, '-c', launch, *driver_argv(
+    return [*train_torch_cmd(PARALLEL_DRIVER_DEPTH), *driver_argv(
         root, workdir, name, '--num_epochs', '1', '--network_depth',
         str(PARALLEL_DRIVER_DEPTH), *extra), '--multihost', '1']
 
@@ -2362,10 +2405,19 @@ SP_SEQ = 2
 # in 2 microbatches of 3 (resolve_pp_microbatches: 2S = 4 does not divide 6).
 PP_STAGES = 2
 PP_MICROBATCHES = pipe_lib.resolve_pp_microbatches(0, PP_STAGES, TRAIN_B * TRAIN_Q)
-# The step of record runs at full width and this depth under tensor parallelism (its
-# 9.8-10.8 s a step at depth 12 are almost all collectives through the host, PERF.md);
-# the parity gradients stay at depth 12.
-TP_RECORD_DEPTH = 4
+# Phase sp_joint: one data row of two seq ranks under joint attention, each running whole
+# joint blocks on its 3 of the 6 folded clips (3 x 9001 a call); phase pp_sp: one data row
+# of (seq 2, pipe 2), each stage's seq rank holding its 150 patches or 15 frames of a
+# microbatch (450 x 30 and 45 x 301 a call). Their (clips, queries) where the step of
+# record's is not theirs: `res` under joint attention keeps K3's (rows, 12, S, S)
+# probabilities and f32 copies in its backward (~18.6 GB a row), so one clip x 2 queries,
+# one row a seq rank; the parity pass is phase joint's (JOINT_PARITY_BATCH: 3 rows, 2 and
+# 1 + padding a seq rank).
+SP_JOINT_BATCH = {('res', 'dots_nb'): (1, 2)}
+# The step of record runs at full width and these depths under tensor and sequence
+# parallelism (their steps at depth 12, 9.8-10.8 s and 3.4-7.8 s, are almost all
+# collectives through the host, PERF.md); the parity gradients stay at depth 12.
+RECORD_DEPTH_CUT = {'tp': 2, 'sp': 4}
 # The collectives whose handling of CUDA tensors on gloo phase gloo_probe records (the
 # pipeline-parallel slice needs send / recv); all_reduce and broadcast are the controls,
 # and the port uses every one but send / recv.
@@ -2377,6 +2429,8 @@ MODEL_AXIS = (mesh_lib, ('_gather', '_model_sum', '_model_sum_part'))
 SEQ_AXIS = (seq_lib, ('_gather', '_scatter_sum', '_exchange', '_seq_sum', '_from_owner'))
 # The pipe axis's stage hops (parallel/pipeline.py), one broadcast each.
 PIPE_AXIS = (pipe_lib, ('_hop',))
+# Where phase sp_joint's bf16 parity gradient waits for phase joint's f32 plain one.
+SP_JOINT_GRAD = _build.BUILD_DIR / 'chip_smoke_sp_joint_grad_bf16.pt'
 
 
 def gathered_flat_grad(model, mesh):
@@ -2395,6 +2449,10 @@ def attention_passes(mesh, depth):
     pipeline parallelism its stage's blocks once a microbatch.'''
     pp = mesh_lib.pp_mesh(mesh)
     return depth if pp is None else depth // pp.n_pipe * PP_MICROBATCHES
+
+
+def fresh_stats():
+    return dict(calls=0, bytes=0, seconds=0.0, timing=False)
 
 
 @contextlib.contextmanager
@@ -2449,16 +2507,17 @@ def collectives_recorded(stats, axis):
             setattr(module, name, fn)
 
 
-def rank_pairing(what, mesh, pairing, batch, init, depth, axis):
+def rank_pairing(what, mesh, pairing, batch, init, depth, axis, seq_axis=None, joint=False):
     '''phase_train's steps under one pairing on a tensor-, sequence- or pipeline-parallel
-    rank (`what`: 'tp', 'sp' or 'pp'; the whole batch, this rank's shards, tokens or
-    stage), from the
+    rank (`what`: 'tp', 'sp', 'pp', 'sp_joint' or 'pp_sp'; the whole batch, this rank's
+    shards, tokens or stage; with joint, joint attention: one call a block), from the
     JAX-layout tree `init` or the seed: launches checked per step, the rows of each kernel
-    call, the axis's collectives per step (count and bytes), the state placed from rank 0
-    and its replicas and shards compared after the steps; for the step of record the
-    collectives of the warm-up step timed (the device synchronised around each; the timed
-    steps run without).'''
-    cfg = train_config(torch.bfloat16, pairing=pairing, depth=depth)
+    call, the axis's collectives per step (count and bytes; with seq_axis those of the seq
+    axis beside them, as seq_*), the state placed from rank 0 and its replicas and shards
+    compared after the steps; for the step of record the collectives of the warm-up step
+    timed (the device synchronised around each; the timed steps run without).'''
+    cfg = train_config(torch.bfloat16, pairing=pairing, depth=depth, joint=joint,
+                       queries=int(batch['query_inds'].shape[1]))
     state = step_lib.init_train_state(SEED, cfg, dp_optimizer(), params=init,
                                       device=mesh.device, mesh=mesh)
     torch.cuda.synchronize()
@@ -2467,28 +2526,35 @@ def rank_pairing(what, mesh, pairing, batch, init, depth, axis):
     torch.cuda.synchronize()
     place_ms = 1e3 * (time.perf_counter() - t0)
     train_step = step_lib.make_train_step(cfg, mesh=mesh)
-    per_step = {k: PAIRINGS[pairing].get(k, 0) * 2 * attention_passes(mesh, depth)
+    calls = 1 if joint else 2
+    per_step = {k: PAIRINGS[pairing].get(k, 0) * calls * attention_passes(mesh, depth)
                 for k in read_launches()}
-    stats = dict(calls=0, bytes=0, seconds=0.0, timing=False)
+    stats, seq_stats = fresh_stats(), fresh_stats()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     steps, rows = [], set()
-    with attention_rows_recorded(rows), collectives_recorded(stats, axis):
+    with attention_rows_recorded(rows), collectives_recorded(stats, axis), \
+            (collectives_recorded(seq_stats, seq_axis) if seq_axis else contextlib.nullcontext()):
         for i in range(1 + TRAIN_STEPS):
             counts = read_launches()
-            stats.update(calls=0, bytes=0, seconds=0.0,
-                         timing=i == 0 and pairing == STEP_OF_RECORD)
+            for st in (stats, seq_stats):
+                st.update(fresh_stats(), timing=i == 0 and pairing == STEP_OF_RECORD)
             state, aux, ms, host_ms = timed_step(train_step, state, batch)
             if i == 0 and pairing == STEP_OF_RECORD:
                 instrumented = dict(instrumented_step_ms=ms,
                                     collective_ms_per_step=1e3 * stats['seconds'],
                                     collective_gb_per_s=stats['bytes'] / stats['seconds'] / 1e9)
+                if seq_axis:
+                    instrumented['seq_collective_ms_per_step'] = 1e3 * seq_stats['seconds']
             rec = dict(step=i, step_ms=ms, host_ms=host_ms, loss=float(aux['total_seeker']),
                        grad_norm=float(aux['grad_norm']),
                        skipped_nonfinite=float(aux['skipped_nonfinite']),
                        collectives=stats['calls'], collective_bytes=stats['bytes'],
                        launches={k: n - counts[k] for k, n in read_launches().items()})
+            if seq_axis:
+                rec.update(seq_collectives=seq_stats['calls'],
+                           seq_collective_bytes=seq_stats['bytes'])
             steps.append(rec)
             if not np.isfinite(rec['loss']) or rec['skipped_nonfinite'] != 0.0:
                 fail(f'{what} {pairing} rank {mesh.rank} step {i}: loss {rec["loss"]}')
@@ -2502,6 +2568,9 @@ def rank_pairing(what, mesh, pairing, batch, init, depth, axis):
                peak=torch.cuda.max_memory_allocated(), place_ms=place_ms,
                collectives_per_step=steps[-1]['collectives'],
                collective_bytes_per_step=steps[-1]['collective_bytes'])
+    if seq_axis:
+        out.update(seq_collectives_per_step=steps[-1]['seq_collectives'],
+                   seq_collective_bytes_per_step=steps[-1]['seq_collective_bytes'])
     if pairing == STEP_OF_RECORD:
         out.update(instrumented)
     out['digest'] = mesh_lib.check_replicas(state, mesh)
@@ -2511,14 +2580,16 @@ def rank_pairing(what, mesh, pairing, batch, init, depth, axis):
     return out
 
 
-def rank_f32_depth2(mesh, batch, drop_path_rate=0.0, **overrides):
+def rank_f32_depth2(mesh, batch, drop_path_rate=0.0, joint=False, **overrides):
     '''The step of record's first-step gradients in f32 at depth 2, full width, drop-path
-    off (or at drop_path_rate, the masks from a fresh default generator; `overrides`
-    other seeker fields), from phase_train_parity's seeded init, on this rank's rows,
-    shards, tokens or stage (one process's without a mesh): the loss, the gradient
-    gathered over the model and pipe groups (every rank calls it), the launches.'''
+    off (or at drop_path_rate, the masks from a fresh default generator; with joint, joint
+    attention; `overrides` other seeker fields), from phase_train_parity's seeded init, on
+    this rank's rows, shards, tokens or stage (one process's without a mesh): the loss,
+    the gradient gathered over the model and pipe groups (every rank calls it), the
+    launches.'''
     with depth_preset(2, (D, HEADS)):
-        cfg2 = train_config(torch.float32, drop_path_rate, depth=2, **overrides)
+        cfg2 = train_config(torch.float32, drop_path_rate, depth=2, joint=joint,
+                            queries=int(batch['query_inds'].shape[1]), **overrides)
         full = MaskTracker(cfg2.seeker, device='cpu')
         full.init_params_(torch.Generator().manual_seed(SEED))
         model = MaskTracker(cfg2.seeker, device=DEV if mesh is None else mesh.device,
@@ -2671,41 +2742,51 @@ def phase_gloo_probe(workdir):
     return out
 
 
-# The ranks of each tensor- and sequence-parallel phase: their axis's collectives and
-# their mesh (every rank on cuda:0, so gloo).
+# The ranks of each tensor-, sequence- and pipeline-parallel phase: their axis's
+# collectives and their mesh (every rank on cuda:0, so gloo).
 PARALLEL_RANKS = {'tp': (MODEL_AXIS, dict(model=TP_MODEL)),
                   'tp_grid': (MODEL_AXIS, dict(model=TP_MODEL)),
                   'sp': (SEQ_AXIS, dict(seq=SP_SEQ)),
                   'sp_grid': (SEQ_AXIS, dict(seq=SP_SEQ, model=TP_MODEL)),
                   'pp': (PIPE_AXIS, dict(pipe=PP_STAGES)),
-                  'pp_grid': (PIPE_AXIS, dict(model=TP_MODEL, pipe=PP_STAGES))}
+                  'pp_grid': (PIPE_AXIS, dict(model=TP_MODEL, pipe=PP_STAGES)),
+                  'sp_joint': (SEQ_AXIS, dict(seq=SP_SEQ)),
+                  'pp_sp': (PIPE_AXIS, dict(seq=SP_SEQ, pipe=PP_STAGES))}
 PARALLEL_WORLDS = {'tp': TP_MODEL, 'tp_grid': TP_GRID_WORLD, 'sp': SP_SEQ,
                    'sp_grid': SP_SEQ * TP_MODEL, 'pp': PP_STAGES,
-                   'pp_grid': TP_MODEL * PP_STAGES}
+                   'pp_grid': TP_MODEL * PP_STAGES, 'sp_joint': SP_SEQ,
+                   'pp_sp': SP_SEQ * PP_STAGES}
 # The (data, seq, model, pipe) coordinates of rank r of each kind.
 PARALLEL_COORDS = {'tp': lambda r: (0, 0, r, 0), 'sp': lambda r: (0, r, 0, 0),
                    'pp': lambda r: (0, 0, 0, r),
                    'tp_grid': lambda r: (r // TP_MODEL, 0, r % TP_MODEL, 0),
                    'sp_grid': lambda r: (0, r // TP_MODEL, r % TP_MODEL, 0),
-                   'pp_grid': lambda r: (0, 0, r // PP_STAGES, r % PP_STAGES)}
+                   'pp_grid': lambda r: (0, 0, r // PP_STAGES, r % PP_STAGES),
+                   'sp_joint': lambda r: (0, r, 0, 0),
+                   'pp_sp': lambda r: (0, r // PP_STAGES, 0, r % PP_STAGES)}
 # How many parts each kind splits an attention call's rows into: the model or seq ranks'
-# chunks, or the pipeline's microbatches.
-ROW_SPLIT = {'tp': TP_MODEL, 'sp': SP_SEQ, 'pp': PP_MICROBATCHES}
+# chunks, the pipeline's microbatches, or both.
+ROW_SPLIT = {'tp': TP_MODEL, 'sp': SP_SEQ, 'pp': PP_MICROBATCHES,
+             'pp_sp': SP_SEQ * PP_MICROBATCHES}
 
 
 def parallel_rank_main(out_dir, kind):
     '''One rank of phase tp (kind 'tp': 2 ranks, model 2), tp_grid ('tp_grid': 4 ranks,
     data 2 x model 2), sp ('sp': 2 ranks, seq 2), sp_grid ('sp_grid': 4 ranks, seq 2 x
-    model 2), pp ('pp': 2 ranks, pipe 2) or pp_grid ('pp_grid': 4 ranks, model 2 x pipe 2),
-    started by start_parallel: for 'tp', 'sp' and 'pp' draws the seeded init on the host,
-    waits for <out_dir>/go_<kind>, joins the mesh from the environment (gloo: every rank
-    is on cuda:0) and writes <out_dir>/<kind>_rank<r>.json. 'tp', 'sp' and 'pp': the step
-    of record (at TP_RECORD_DEPTH for 'tp', depth 12 for the others), the other pairings
-    at PARALLEL_SHORT_DEPTH, the parity gradients (rank 0 saves them); 'sp' also the f32
-    depth-2 gradients under causal_attention 0 (the cls token the mean over the frames, a
-    sum over the seq ranks), 'pp' at drop-path 0.1 (each stage keeps its blocks' rows of
-    the whole batch's masks), rank 0 holding them against one process on the card. The
-    grids: the f32 depth-2 gradients (rank 0 saves them).'''
+    model 2), pp ('pp': 2 ranks, pipe 2), pp_grid ('pp_grid': 4 ranks, model 2 x pipe 2),
+    sp_joint ('sp_joint': 2 ranks, seq 2, joint attention) or pp_sp ('pp_sp': 4 ranks, seq
+    2 x pipe 2), started by start_parallel: for all but the grids draws the seeded init on
+    the host, waits for <out_dir>/go_<kind>, joins the mesh from the environment (gloo:
+    every rank is on cuda:0) and writes <out_dir>/<kind>_rank<r>.json. 'tp', 'sp', 'pp'
+    and 'pp_sp': the step of record (at RECORD_DEPTH_CUT's depth for 'tp' and 'sp', 12 for
+    the others),
+    the other pairings at PARALLEL_SHORT_DEPTH (not under 'pp_sp', whose pipe and seq
+    paths 'pp' and 'sp' run them on), the parity gradients (rank 0 saves them);
+    'sp' also the f32 depth-2 gradients under causal_attention 0 (the cls token the mean
+    over the frames, a sum over the seq ranks), 'pp' and 'pp_sp' at drop-path 0.1 (each
+    stage keeps its blocks' rows, and each seq rank its columns, of the whole batch's
+    masks), rank 0 holding them against one process on the card. 'sp_joint':
+    sp_joint_rank. The grids: the f32 depth-2 gradients (rank 0 saves them).'''
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_num_threads(2)   # the host init runs beside the main process's phases
@@ -2713,9 +2794,9 @@ def parallel_rank_main(out_dir, kind):
     out_dir = pathlib.Path(out_dir)
     parent = os.getppid()
     init = None
-    if kind in ('tp', 'sp', 'pp'):
+    if kind not in GRIDS:
         init = params_to_jax(step_lib.init_train_state(
-            SEED, train_config(torch.bfloat16), dp_optimizer(),
+            SEED, train_config(torch.bfloat16, joint=kind == 'sp_joint'), dp_optimizer(),
             device='cpu').model.state_dict())
     T, H, W = (SEEKER_ARGS[k] for k in ('num_total_frames', 'frame_height', 'frame_width'))
     host_batch = synthetic_device_batch(0, B=TRAIN_B, Q=TRAIN_Q, T=T, H=H, W=W, M=TRAIN_M,
@@ -2736,22 +2817,26 @@ def parallel_rank_main(out_dir, kind):
                    device=str(mesh.device))
         batch = mesh_lib.shard_batch(train_batch(host=host_batch), mesh)
         out['rows'] = int(batch['query_inds'].shape[0])
-        if kind in ('tp', 'sp', 'pp'):
-            depth = TP_RECORD_DEPTH if kind == 'tp' else SEEKER_ARGS['network_depth']
+        seq_axis = SEQ_AXIS if kind == 'pp_sp' else None
+        if kind == 'sp_joint':
+            out.update(sp_joint_rank(mesh, batch, init, out_dir))
+        elif kind not in GRIDS:
+            depth = RECORD_DEPTH_CUT.get(kind, SEEKER_ARGS['network_depth'])
             with at_depth(depth):
                 out['pairings'] = {'/'.join(STEP_OF_RECORD): rank_pairing(
-                    kind, mesh, STEP_OF_RECORD, batch, None if kind == 'tp' else init, depth,
-                    axis)}
+                    kind, mesh, STEP_OF_RECORD, batch,
+                    None if kind in RECORD_DEPTH_CUT else init, depth, axis, seq_axis)}
             print(f'{kind} rank {mesh.rank}: step of record done', flush=True)
             with at_depth(PARALLEL_SHORT_DEPTH):
                 for pairing in PAIRINGS:
-                    if pairing != STEP_OF_RECORD:
+                    if pairing != STEP_OF_RECORD and kind != 'pp_sp':
                         out['pairings']['/'.join(pairing)] = rank_pairing(
-                            kind, mesh, pairing, batch, None, PARALLEL_SHORT_DEPTH, axis)
+                            kind, mesh, pairing, batch, None, PARALLEL_SHORT_DEPTH, axis,
+                            seq_axis)
                         print(f'{kind} rank {mesh.rank}: {pairing} done', flush=True)
             out['parity'] = rank_parity(mesh, batch, out_dir, init, kind)
-            if kind in ('sp', 'pp'):
-                # sp: causal_attention 0; pp: drop-path on.
+            if kind in PARALLEL_EXTRA:
+                # sp: causal_attention 0; pp, pp_sp: drop-path on.
                 extra = dict(causal_attention=0) if kind == 'sp' else dict(drop_path_rate=0.1)
                 loss0, grad0, launches0 = rank_f32_depth2(mesh, batch, **extra)
                 out['extra'] = dict(loss=loss0, launches=launches0)
@@ -2772,11 +2857,61 @@ def parallel_rank_main(out_dir, kind):
     (out_dir / f'{kind}_rank{mesh.rank}.json').write_text(json.dumps(out))
 
 
-def start_parallel(workdir, kinds):
-    '''Starts the ranks of each of `kinds` (parallel_rank_main), which wait for their go:
-    {kind: ranks}.'''
-    shutil.rmtree(workdir, ignore_errors=True)
-    workdir.mkdir(parents=True)
+def sp_joint_rank(mesh, batch, init, out_dir):
+    '''Phase sp_joint's work on one of its two seq ranks (joint attention, each rank
+    running whole joint blocks on its chunk of the folded clips): the step of record at
+    depth 12 on its 3 of the 6 rows from `init`, the other pairings at PARALLEL_SHORT_DEPTH
+    (`res` at SP_JOINT_BATCH's 1 x 2, one row a rank); then phase joint's parity pass at
+    JOINT_PARITY_BATCH (1 x 3: 2 rows, and 1 + padding), drop-path off: the bf16 kernel
+    path's gradient from phase joint's seeded init (rank 0 saves it for phase joint to hold
+    against its f32 plain path) and the f32 gradient at depth 2, which rank 0 holds against
+    one process on the card.'''
+    out = {}
+    with at_depth(SEEKER_ARGS['network_depth']):
+        out['pairings'] = {'/'.join(STEP_OF_RECORD): rank_pairing(
+            'sp_joint', mesh, STEP_OF_RECORD, batch, init, SEEKER_ARGS['network_depth'],
+            SEQ_AXIS, joint=True)}
+    print(f'sp_joint rank {mesh.rank}: step of record done', flush=True)
+    with at_depth(PARALLEL_SHORT_DEPTH):
+        for pairing in PAIRINGS:
+            if pairing != STEP_OF_RECORD:
+                b = (batch if pairing not in SP_JOINT_BATCH
+                     else mesh_lib.shard_batch(joint_batch(*SP_JOINT_BATCH[pairing]), mesh))
+                out['pairings']['/'.join(pairing)] = rank_pairing(
+                    'sp_joint', mesh, pairing, b, None, PARALLEL_SHORT_DEPTH, SEQ_AXIS,
+                    joint=True)
+                print(f'sp_joint rank {mesh.rank}: {pairing} done', flush=True)
+    pbatch = mesh_lib.shard_batch(joint_batch(*JOINT_PARITY_BATCH), mesh)
+    cfg = train_config(torch.bfloat16, 0.0, joint=True, queries=JOINT_PARITY_BATCH[1])
+    full = MaskTracker(cfg.seeker, device='cpu')
+    full.init_params_(torch.Generator().manual_seed(SEED + 11))     # joint_parity's init
+    model = MaskTracker(cfg.seeker, device=mesh.device, mesh=mesh)
+    model.load_state_dict(full.state_dict())
+    del full
+    counts = read_launches()
+    loss = float(step_lib.compute_gradients(step_lib.TrainState(model, None, torch.Generator()),
+                                            cfg, pbatch, TRAIN_PROGRESS,
+                                            mesh=mesh)['total_seeker'])
+    out['parity'] = dict(loss_bf16=loss, launches=launches_since(counts))
+    if mesh.rank == 0:
+        torch.save(gathered_flat_grad(model, mesh).cpu(), out_dir / 'sp_joint_grad_bf16.pt')
+    del model
+    torch.cuda.empty_cache()
+    loss2, grad2, launches2 = rank_f32_depth2(mesh, pbatch, joint=True)
+    out['extra'] = dict(loss=loss2, launches=launches2)
+    if mesh.rank == 0:
+        one_loss, one_grad, _ = rank_f32_depth2(None, pbatch, joint=True)
+        out['extra'].update(loss_vs_one_process=abs(loss2 - one_loss) / abs(one_loss),
+                            grad_vs_one_process=rel_l2(grad2, one_grad))
+    return out
+
+
+def start_parallel(workdir, kinds, fresh=True):
+    '''Starts the ranks of each of `kinds` (parallel_rank_main), which wait for their go, in
+    `workdir` (made anew unless not `fresh`): {kind: ranks}.'''
+    if fresh:
+        shutil.rmtree(workdir, ignore_errors=True)
+        workdir.mkdir(parents=True)
     cmd = lambda kind: [sys.executable, '-c', f'import chip_smoke as c; '
                         f'c.parallel_rank_main({str(workdir)!r}, {kind!r})']
     return {kind: start_ranks(cmd(kind), workdir, kind, PARALLEL_WORLDS[kind])
@@ -2794,29 +2929,35 @@ def rank_launches(res, key, name):
 
 
 PARALLELS = ('tp', 'sp', 'pp')
+# The layouts of the last device paths, run at once after PARALLELS (their ranks' peaks
+# beside those of PARALLELS would not fit in 80 GB: sp_joint's `res` holds ~19 GB a rank).
+LATE_PARALLELS = ('sp_joint', 'pp_sp')
 # The extra check of a kind's ranks at depth 2 in f32 against one process, by its name.
-PARALLEL_EXTRA = {'sp': 'ca0', 'pp': 'droppath'}
+PARALLEL_EXTRA = {'sp': 'ca0', 'pp': 'droppath', 'pp_sp': 'droppath'}
 
 
-def phase_parallels(ranks, parity, workdir):
-    '''(a) Phases tp, sp and pp, all at once (their ranks are host-bound on gloo and share
-    the card): parallel_result checks each. `ranks` are start_parallel's (the kinds of
-    PARALLELS among them run). Returns {kind: its launches by path}.'''
-    kinds = [kind for kind in PARALLELS if kind in ranks]
+def phase_parallels(ranks, parity, workdir, kinds=PARALLELS):
+    '''(a) Phases tp, sp and pp (or `kinds`), all at once (their ranks are host-bound on
+    gloo and share the card): parallel_result checks each (sp_joint_result sp_joint, whose
+    gradient parity phase joint completes). `ranks` are start_parallel's (the kinds among
+    them run). Returns {kind: its launches by path}.'''
+    kinds = [kind for kind in kinds if kind in ranks]
+    torch.cuda.empty_cache()     # the card is the ranks'
     t0 = time.perf_counter()
     for kind in kinds:
         (workdir / f'go_{kind}').touch()
     wait_ranks([r for kind in kinds for r in ranks[kind]], ', '.join(kinds), TP_TIMEOUT_S)
     wall_s = time.perf_counter() - t0
-    return {kind: parallel_result(kind, parity, workdir, wall_s) for kind in kinds}
+    return {kind: (sp_joint_result if kind == 'sp_joint' else parallel_result)(
+        kind, parity, workdir, wall_s) for kind in kinds}
 
 
 def parallel_result(kind, parity, workdir, wall_s):
     '''The step of record's batch (2 clips x 3 queries) on one data row of two ranks that
     share the card (parallel_rank_main, subprocesses): kind 'tp', two model ranks, 'sp',
     two seq ranks, or 'pp', two pipe stages; gloo asserted; per rank and step 24 K1 + 24
-    K4 at the step of record's depth (TP_RECORD_DEPTH under 'tp': 8 + 8; under 'pp' 6
-    blocks a stage, 2 microbatches) on half the rows (900 x 30 and 90 x 301), and each
+    K4 at the step of record's depth (RECORD_DEPTH_CUT's under 'tp' and 'sp': 4 + 4 and
+    8 + 8; under 'pp' 6 blocks a stage, 2 microbatches) on half the rows (900 x 30 and 90 x 301), and each
     other pairing's launches at PARALLEL_SHORT_DEPTH; the replicated tensors equal over
     the world and the shards over their gradient group (check_replicas, inside the
     ranks); the gathered gradients against phase_train_parity's one-process ones: the
@@ -2835,6 +2976,12 @@ def parallel_result(kind, parity, workdir, wall_s):
     want_rows = [[R // ROW_SPLIT[kind], S] for R, S, _ in TRAIN_GEOMETRIES.values()]
     if sorted(record['rows_per_call']) != sorted(want_rows):
         fail(f'{kind}: kernel rows per call {record["rows_per_call"]}, expected {want_rows}')
+    if PARALLEL_RANKS[kind][0] is PIPE_AXIS:
+        # Each stage sends or receives every microbatch once forward and once backward.
+        hops = [r['pairings']['/'.join(STEP_OF_RECORD)]['collectives_per_step'] for r in res]
+        if hops != [2 * PP_MICROBATCHES * (PP_STAGES - 1)] * world:
+            fail(f'{kind}: stage hops per rank and step {hops}, expected '
+                 f'{2 * PP_MICROBATCHES * (PP_STAGES - 1)}')
     for name in res[0]['pairings']:
         if len({r['pairings'][name]['digests']['replicated'] for r in res}) != 1:
             fail(f'{kind} {name}: the replicated tensors differ between the ranks')
@@ -2907,6 +3054,73 @@ def phase_grids(ranks, parity, workdir):
     return launches
 
 
+def sp_joint_result(kind, parity, workdir, wall_s):
+    '''Phase sp_joint's checks but the bf16 parity (its ranks: sp_joint_rank): the mesh
+    coordinates, per rank and step 12 K1 + 12 K4 on 3 x 9001 rows at the step of record and
+    each other pairing's launches (checked in the ranks), the replicated tensors equal, the
+    parity pass's 12 K1 + 12 K4 a rank, the f32 depth-2 gradient and loss within TOL_DP_F32
+    of one process; moves rank 0's bf16 parity gradient to SP_JOINT_GRAD. Returns the
+    launches by path and the phase's line, which main completes with phase joint's
+    parity (sp_joint_parity) and emits.'''
+    world = PARALLEL_WORLDS[kind]
+    res = [json.loads((workdir / f'{kind}_rank{r}.json').read_text()) for r in range(world)]
+    coords = [(r['data_rank'], r['seq_rank'], r['model_rank'], r['pipe_rank']) for r in res]
+    if coords != [PARALLEL_COORDS[kind](r) for r in range(world)]:
+        fail(f'{kind}: mesh coordinates {coords}')
+    rows = -(-TRAIN_B * TRAIN_Q // SP_SEQ)
+    for r in res:
+        record = r['pairings']['/'.join(STEP_OF_RECORD)]
+        if record['rows_per_call'] != [[rows, JOINT_S]]:
+            fail(f'{kind} rank {r["rank"]}: kernel rows per call {record["rows_per_call"]}, '
+                 f'expected {rows} x {JOINT_S}')
+        depth = SEEKER_ARGS['network_depth']
+        if r['parity']['launches'] != {'K1': depth, 'K4': depth}:
+            fail(f'{kind} rank {r["rank"]}: parity launches {r["parity"]["launches"]}')
+    for name in res[0]['pairings']:
+        if len({r['pairings'][name]['digests']['replicated'] for r in res}) != 1:
+            fail(f'{kind} {name}: the replicated tensors differ between the ranks')
+    errs = {f'{w}_{kind}_vs_one_process_f32_depth2': res[0]['extra'][f'{w}_vs_one_process']
+            for w in ('grad', 'loss')}
+    for key, err in errs.items():
+        if not err <= TOL_DP_F32:
+            fail(f'{kind}: f32 {key} {err} > {TOL_DP_F32}')
+    shutil.move(str(workdir / 'sp_joint_grad_bf16.pt'), SP_JOINT_GRAD)
+    per_rank = [{k: r[k] for k in ('rank', 'data_rank', 'seq_rank', 'model_rank', 'pipe_rank',
+                                   'backend', 'reason', 'rows')} | {'pairings': {
+                     n: {k: v for k, v in p.items() if k not in ('steps', 'launches')}
+                     for n, p in r['pairings'].items()}} for r in res]
+    line = {'phase': kind, 'world': world, 'mesh': {'data': 1, **PARALLEL_RANKS[kind][1]},
+            'ranks_wall_s': wall_s, 'ranks': per_rank, 'rel_err': errs,
+            'parity_losses_bf16': [r['parity']['loss_bf16'] for r in res],
+            'tol_f32_depth2': TOL_DP_F32}
+    launches = {}
+    for name in res[0]['pairings']:
+        for k, v in rank_launches([r['pairings'] for r in res], name,
+                                  f'{kind}_{name.split("/")[0]}').items():
+            launches.setdefault(k, {}).update(v)
+    for key, path in (('parity', 'sp_joint_parity'), ('extra', 'sp_joint_f32')):
+        for k, v in rank_launches(res, key, path).items():
+            launches.setdefault(k, {}).update(v)
+    return {'launches': launches, 'line': line}
+
+
+def sp_joint_parity(line, joint_parity):
+    '''Completes and emits phase sp_joint's line with phase joint's parity pass: the two
+    seq ranks' gathered bf16 gradient (SP_JOINT_GRAD) against joint_parity's f32 plain path
+    from the same init and batch, its error at most TRAIN_BF16_ERR_RATIO x the bf16 plain
+    path's.'''
+    errs = joint_parity['rel_err']
+    err = joint_parity['extra_grad_err']['sp_joint']
+    ratio = err / errs['grad_plain_bf16']
+    line['rel_err'].update(grad_sp_joint_bf16=err, grad_plain_bf16=errs['grad_plain_bf16'],
+                           grad_one_process_bf16=errs['grad_kernel_bf16'])
+    line.update(bf16_err_ratio={'grad': ratio}, bf16_err_ratio_limit=TRAIN_BF16_ERR_RATIO)
+    if not ratio <= TRAIN_BF16_ERR_RATIO:
+        fail(f'sp_joint: bf16 gradient error of the two seq ranks {err} > '
+             f'{TRAIN_BF16_ERR_RATIO} x the plain path\'s {errs["grad_plain_bf16"]}')
+    emit(line)
+
+
 def grid_result(kind, parity, workdir, wall_s):
     '''One grid's checks and phase line (phase_grids); its launches by path.'''
     world = PARALLEL_WORLDS[kind]
@@ -2938,18 +3152,21 @@ def grid_result(kind, parity, workdir, wall_s):
     return {k: {kind: sum(r['launches'].get(k, 0) for r in res)} for k in want}
 
 
-# Phases tp_driver, sp_driver and pp_driver: train_torch.py --multihost 1 with --tp_shards
-# 2, --seq_shards 2 or --pp_stages 2 as two ranks on the card at PARALLEL_DRIVER_DEPTH
-# (phases tp, sp and pp run the step of record; here each step's collectives go through
-# the host beside the dp_driver ranks), each on its own dataset of TP_DRIVER_SCENES
-# scenes: one epoch of 2 global steps without validation, the vis step at step 0 on both
-# ranks.
+# Phases tp_driver, sp_driver, pp_driver and pp_sp_driver: train_torch.py --multihost 1
+# with --tp_shards 2, --seq_shards 2, --pp_stages 2 or both of the last as two (four) ranks
+# on the card at PARALLEL_DRIVER_DEPTH (phases tp, sp, pp and pp_sp run the step of record;
+# here each step's collectives go through the host beside the dp_driver ranks), each on its
+# own dataset of TP_DRIVER_SCENES scenes: one epoch of 2 global steps without validation,
+# the vis step at step 0 on every rank.
 TP_DRIVER_SCENES = 4
 TP_DRIVER_RECORDS = driver_records(1, steps=TP_DRIVER_SCENES // TRAIN_B, val=False)
-# Each driver phase's flag, run name and the (seq, model, pipe) coordinates of rank r.
-PARALLEL_DRIVERS = {'tp': ('--tp_shards', 'tpd', lambda r: (0, r, 0)),
-                    'sp': ('--seq_shards', 'spd', lambda r: (r, 0, 0)),
-                    'pp': ('--pp_stages', 'ppd', lambda r: (0, 0, r))}
+# Each driver phase's flags, run name, world and the (seq, model, pipe) coordinates of rank
+# r.
+PARALLEL_DRIVERS = {'tp': (('--tp_shards', '2'), 'tpd', 2, lambda r: (0, r, 0)),
+                    'sp': (('--seq_shards', '2'), 'spd', 2, lambda r: (r, 0, 0)),
+                    'pp': (('--pp_stages', '2'), 'ppd', 2, lambda r: (0, 0, r)),
+                    'pp_sp': (('--seq_shards', '2', '--pp_stages', '2'), 'ppspd', 4,
+                              lambda r: (r // 2, 0, r % 2))}
 # A pipe stage's launches: its block's two calls once a microbatch (PP_MICROBATCHES in a
 # train step, one in the vis step).
 PP_DRIVER_PER_STEP = {'train': {k: 2 * PARALLEL_DRIVER_DEPTH // PP_STAGES * PP_MICROBATCHES
@@ -2957,32 +3174,46 @@ PP_DRIVER_PER_STEP = {'train': {k: 2 * PARALLEL_DRIVER_DEPTH // PP_STAGES * PP_M
                       'vis': {'K1': 2 * PARALLEL_DRIVER_DEPTH // PP_STAGES}}
 
 
+# The driver phase that runs beside LATE_PARALLELS, not in the threads' window: its four
+# ranks beside the grids, the parity passes and the other drivers' ranks ran the card out
+# of memory (a cublasCreate that could not allocate).
+LATE_DRIVER = 'pp_sp'
+
+
+def start_parallel_driver(kind):
+    '''phase_parallel_driver(kind) on a thread (start_host_run), on its dataset.'''
+    return start_host_run(functools.partial(phase_parallel_driver, kind),
+                          dataset(f'{kind}_driver')[0],
+                          _build.BUILD_DIR / f'chip_smoke_{kind}_driver')
+
+
 def phase_parallel_driver(kind, root, workdir):
-    '''`train_torch.py --multihost 1 --tp_shards 2` (kind 'tp'), `--seq_shards 2` ('sp') or
-    `--pp_stages 2` ('pp') at PARALLEL_DRIVER_DEPTH as two ranks on the card (start_ranks,
-    parallel_driver_cmd) on the dataset at `root`: each rank's log must hold exactly the
-    steps of TP_DRIVER_RECORDS with the launches of PARALLEL_DRIVER_PER_STEP (under 'pp'
-    PP_DRIVER_PER_STEP) at its coordinates (data 0, and seq r, model r or pipe r), backend
-    gloo and no traceback; the checkpoint rank 0
+    '''`train_torch.py --multihost 1 --tp_shards 2` (kind 'tp'), `--seq_shards 2` ('sp'),
+    `--pp_stages 2` ('pp') or `--seq_shards 2 --pp_stages 2` ('pp_sp', four ranks) at
+    PARALLEL_DRIVER_DEPTH as ranks on the card (start_ranks, parallel_driver_cmd) on the
+    dataset at `root`: each rank's log must hold exactly the steps of TP_DRIVER_RECORDS
+    with the launches of PARALLEL_DRIVER_PER_STEP (under the pipe PP_DRIVER_PER_STEP) at
+    its coordinates (data 0, and seq r, model r or pipe r; (seq r // 2, pipe r % 2)),
+    backend gloo and no traceback; the checkpoint rank 0
     writes must hold the one-process layout (full-width block weights) and load into a
     one-process state on the card whose parameters and AdamW state are the file's, bit
     for bit. main runs it on a thread beside
     phases that time nothing (start_host_run). Returns its launches.'''
-    flag, name, coords = PARALLEL_DRIVERS[kind]
+    flags, name, world, coords = PARALLEL_DRIVERS[kind]
     shutil.rmtree(workdir, ignore_errors=True)
     workdir.mkdir(parents=True)
     t0 = time.perf_counter()
     cmd = parallel_driver_cmd(root, workdir, name, '--do_val_aug', '0', '--do_val_noaug', '0',
-                              flag, '2')
-    texts = wait_ranks(start_ranks(cmd, workdir, name, 2), name, RUN_TIMEOUT_S)
+                              *flags)
+    texts = wait_ranks(start_ranks(cmd, workdir, name, world), name, RUN_TIMEOUT_S)
     wall_s = time.perf_counter() - t0
     steps, runs = [], {}
-    per_step = PP_DRIVER_PER_STEP if kind == 'pp' else PARALLEL_DRIVER_PER_STEP
+    per_step = PP_DRIVER_PER_STEP if '--pp_stages' in flags else PARALLEL_DRIVER_PER_STEP
     for rank, text in enumerate(texts):
         recs = check_steps(f'{name} rank {rank}', text, TP_DRIVER_RECORDS, per_step)
         where = {(r['rank'], r['world'], r['backend'], r['data_rank'], r['seq_rank'],
                   r['model_rank'], r['pipe_rank']) for r in recs}
-        if where != {(rank, 2, 'gloo', 0, *coords(rank))}:
+        if where != {(rank, world, 'gloo', 0, *coords(rank))}:
             fail(f'{name} rank {rank}: step_stats of {where}')
         steps += recs
         runs[f'{name}_rank{rank}'] = epoch_stats(recs, text)
@@ -4359,7 +4590,7 @@ def trees_equal(a, b):
                                                   for k in flat_a)
 
 
-def phase_pth(workdir):
+def phase_pth(workdir, bootstrap):
     '''A reference-layout TCOW checkpoint (.pth: net_seeker with
     tracker_backbone.timesformer.model.*, tracker_post_linear.*, flag_post_linear.*, and
     seeker_args, an argparse train_args, dset_args, epoch) of the configuration of record
@@ -4370,7 +4601,8 @@ def phase_pth(workdir):
     video's two usage modes, one plugin step of 24 K1, finite CSV rows); (3) a seeded
     random ViT-B/16 state dict as `python train_torch.py --tracker_pretrained` for one
     step (24 K1 + 24 K4, and its vis step): the weights saved before training are the
-    inflated file applied over the init, bit for bit.'''
+    inflated file applied over the init, bit for bit; (3) is pth_bootstrap, which runs on
+    a thread beside (1), (2) and phase eval (start_host_run): `bootstrap` waits for it.'''
     shutil.rmtree(workdir, ignore_errors=True)
     out = {}
     cfg0 = seeker_config_from_args(SEEKER_ARGS)
@@ -4441,8 +4673,21 @@ def phase_pth(workdir):
         fail(f'eval_torch.py on the .pth: CSV rows {rows}')
     out['eval_dir'] = dict(wall_s=wall_s, rows=len(rows), step_wall_ms=steps[0]['wall_ms'],
                            launches=steps[0]['launches'])
+    boot, steps = bootstrap()
+    out.update(boot)
+    launches = sum_launches(steps + [{'launches': launched}, out['eval_dir']])
+    emit({'phase': 'pth', 'launches': launches, **out})
+    return {'launches': launches}
 
-    # (3) train_torch.py --tracker_pretrained <ViT-B/16 .pth>, one step.
+
+def pth_bootstrap(workdir):
+    '''Phase pth's (3): train_torch.py --tracker_pretrained <a seeded ViT-B/16 .pth> for
+    one step and its vis step, the weights saved before training checked. Returns
+    ({dataset_write_s, bootstrap}, the run's step_stats records).'''
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    out = {}
+    cfg0 = seeker_config_from_args(SEEKER_ARGS)
     root, out['dataset_write_s'], _ = dataset('pth')
     vit = imagenet_vit_b16(SEED + 8)
     vit_fp = workdir / 'vit_b16.pth'
@@ -4466,9 +4711,7 @@ def phase_pth(workdir):
     out['bootstrap'] = dict(wall_s=wall_s, steps=[{k: r.get(k) for k in (
         'phase', 'step', 'wall_ms', 'launches', 'max_memory_allocated')} for r in steps],
         epoch=final['epoch'], vit_bytes=vit_fp.stat().st_size, pretrained_bit_equal=True)
-    launches = sum_launches(steps + [{'launches': launched}, out['eval_dir']])
-    emit({'phase': 'pth', 'launches': launches, **out})
-    return {'launches': launches}
+    return out, steps
 
 
 # ---------------------------------------------------------------------------------------
@@ -4757,10 +5000,12 @@ def joint_forward_flops(rows):
     return 2 * rows * T * N * p * p * 4 * D + 12 * block + heads
 
 
-def joint_parity():
+def joint_parity(extra_grads=()):
     '''The kernel_x step's first-step gradient with drop-path off at JOINT_PARITY_BATCH:
     the bf16 kernel path and the bf16 plain path against the f32 plain path; the kernel
-    path's error may be at most TRAIN_BF16_ERR_RATIO x the plain path's.'''
+    path's error may be at most TRAIN_BF16_ERR_RATIO x the plain path's. `extra_grads`:
+    (name, file) of other runs' gradients of the same init and batch (phase sp_joint's),
+    whose errors against the f32 plain path go under extra_grad_err.'''
     B, Q = JOINT_PARITY_BATCH
     batch = joint_batch(B, Q)
     rel = lambda a, b: abs(a - b) / abs(b)
@@ -4775,6 +5020,8 @@ def joint_parity():
     loss_r, grad_r = loss_and_flat_grad(model, cfg32, batch, plain=True)
     peak_f32_plain = torch.cuda.max_memory_allocated()
     del model
+    extra = {name: rel_l2(torch.load(path).to(grad_r.device), grad_r)
+             for name, path in extra_grads}
     model = model_from(cfg16, init_state)
     loss_p, grad_p = loss_and_flat_grad(model, cfg16, batch, plain=True)
     del model
@@ -4797,15 +5044,16 @@ def joint_parity():
              f'{errs["grad_plain_bf16"]}')
     return dict(clips=B, queries=Q, rows=B * Q, losses={'plain_f32': loss_r,
                 'plain_bf16': loss_p, 'kernel_bf16': loss_k}, rel_err=errs,
+                extra_grad_err=extra,
                 grad_err_ratio=ratio, grad_err_ratio_limit=TRAIN_BF16_ERR_RATIO,
                 max_memory_allocated_f32_plain_bytes=peak_f32_plain), launched
 
 
-def phase_joint():
+def phase_joint(extra_grads=()):
     '''Joint space-time attention through the main paths at the configuration of record:
     inference through run_plugin (joint_inference), one timed step of every pairing
-    (joint_train), and the kernel_x gradient parity (joint_parity); each part's wall
-    seconds. Returns each kernel's launches by path.'''
+    (joint_train), and the kernel_x gradient parity (joint_parity, with `extra_grads`);
+    each part's wall seconds. Returns each kernel's launches by path and the parity.'''
     out = {}
     t0 = time.perf_counter()
     out['inference'], inference_launches = joint_inference()
@@ -4820,12 +5068,12 @@ def phase_joint():
         for k, n in rec['launches_per_step'].items():
             launches.setdefault(k, {})[f'joint_train_{pairing[0]}'] = 2 * n
     t0 = time.perf_counter()
-    out['parity'], parity_launches = joint_parity()
+    out['parity'], parity_launches = joint_parity(extra_grads)
     out['parity_wall_s'] = time.perf_counter() - t0
     for k, n in parity_launches.items():
         launches.setdefault(k, {})['joint_parity'] = n
     emit({'phase': 'joint', **out})
-    return launches
+    return launches, out['parity']
 
 
 # ---------------------------------------------------------------------------------------
@@ -5033,15 +5281,24 @@ def vitl_inference(ckpt_dir):
                 rel_l2=errs, tol_rel_l2=TOL_SEEKER_BF16), sum(r.get('K1', 0) for r in per_request)
 
 
-def vitl_probe():
-    '''tools/torch_vitl_probe.py over VITL_LADDER as a subprocess: every rung must fit,
-    with a finite loss and each step's launches exactly VITL_PER_CALL's per attention call
-    (two calls a block); ms/step, clips/s and peak of each. Returns (rungs, launches of
-    each kernel by rung).'''
+def start_vitl_probe():
+    '''tools/torch_vitl_probe.py over VITL_LADDER as a subprocess (run_tool) on a thread;
+    it runs beside the tools, phase eval and phase pth, which time nothing on the card, so
+    its ms/step and clips/s are no measurement. Returns the future of (stdout, wall s).'''
     spec = ';'.join(','.join(str(v) for v in rung) for rung in VITL_LADDER)
-    text, wall_s = run_tool('torch_vitl_probe.py', ['--geoms', spec, '--steps', VITL_STEPS,
-                                                    '--device', DEV],
-                            timeout=VITL_PROBE_TIMEOUT_S)
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    future = pool.submit(run_tool, 'torch_vitl_probe.py',
+                         ['--geoms', spec, '--steps', VITL_STEPS, '--device', DEV],
+                         VITL_PROBE_TIMEOUT_S)
+    pool.shutdown(wait=False)
+    return future
+
+
+def vitl_probe(started):
+    '''The run of start_vitl_probe: every rung must fit, with a finite loss and each
+    step's launches exactly VITL_PER_CALL's per attention call (two calls a block);
+    ms/step, clips/s and peak of each. Returns (rungs, launches of each kernel by rung).'''
+    text, wall_s = started.result()
     rungs = [json.loads(ln) for ln in text.splitlines() if ln.startswith('{"probe"')]
     if len(rungs) != len(VITL_LADDER):
         fail(f'vitl probe printed {len(rungs)} rungs, expected {len(VITL_LADDER)}')
@@ -5100,10 +5357,11 @@ def vitl_parity():
                 grad_err_ratio=ratio, grad_err_ratio_limit=TRAIN_BF16_ERR_RATIO)
 
 
-def phase_vitl(workdir):
+def phase_vitl(workdir, probe):
     '''The stretch configuration through the main paths: the request (vitl_inference),
-    the training ladder (vitl_probe) and the gradient parity at ViT-L width
-    (vitl_parity); each part's wall seconds. Returns each kernel's launches by path.'''
+    the training ladder (vitl_probe of start_vitl_probe's `probe`) and the gradient parity
+    at ViT-L width (vitl_parity); each part's wall seconds (the ladder's its subprocess's).
+    Returns each kernel's launches by path.'''
     shutil.rmtree(workdir, ignore_errors=True)
     out = {}
     t0 = time.perf_counter()
@@ -5111,9 +5369,8 @@ def phase_vitl(workdir):
     shutil.rmtree(workdir, ignore_errors=True)
     out['inference_wall_s'] = time.perf_counter() - t0
     launches = {'K1': {'vitl_inference': inference_launches}}
-    t0 = time.perf_counter()
-    out['train'], train_launches = vitl_probe()
-    out['train_wall_s'] = time.perf_counter() - t0
+    out['train'], train_launches = vitl_probe(probe)
+    out['train_wall_s'] = out['train']['wall_s']
     for k, by_rung in train_launches.items():
         launches.setdefault(k, {}).update(by_rung)
     t0 = time.perf_counter()
@@ -5461,19 +5718,19 @@ def run_phases(ranks):
     dp_dir = _build.BUILD_DIR / 'chip_smoke_dp'
     par_dir = _build.BUILD_DIR / 'chip_smoke_parallel'
     try:
-        # The ranks of phases dp, tp and sp draw their init on the host beside the build
-        # and wait for their go.
+        # The ranks of phases dp, tp, sp and pp draw their init on the host beside the
+        # build and wait for their go; the grids' ranks wait for theirs. (Started after
+        # the build, they lengthened the threads' window by more than the build shrank.)
         dp_ranks = start_dp(dp_dir)
         ranks += dp_ranks
-        par_ranks = start_parallel(par_dir, PARALLEL_RANKS)
-        ranks += [r for kind in PARALLEL_RANKS for r in par_ranks[kind]]
+        par_ranks = start_parallel(par_dir, [k for k in PARALLEL_RANKS
+                                             if k not in LATE_PARALLELS])
+        ranks += [r for kind in par_ranks for r in par_ranks[kind]]
         smi = phase_device()
         finishers += [start_host_run(phase_dp_driver, dataset('driver')[0],
                                      _build.BUILD_DIR / 'chip_smoke_dp_driver')]
-        finishers += [start_host_run(functools.partial(phase_parallel_driver, kind),
-                                     dataset(f'{kind}_driver')[0],
-                                     _build.BUILD_DIR / f'chip_smoke_{kind}_driver')
-                      for kind in PARALLEL_DRIVERS]
+        finishers += [start_parallel_driver(kind) for kind in PARALLEL_DRIVERS
+                      if kind != LATE_DRIVER]
         errs = phase_kernel_vs_plain()
         k4_errs = phase_k4_vs_plain()
         new_errs = phase_new_kernels_vs_plain()
@@ -5485,7 +5742,8 @@ def run_phases(ranks):
         torch.cuda.empty_cache()
         grid_launches = phase_grids(par_ranks, parity, par_dir)
         _, dp_driver_launches, *par_driver_launches = [finish() for finish in finishers]
-        par_driver_launches = dict(zip(PARALLEL_DRIVERS, par_driver_launches))
+        par_driver_launches = dict(zip([k for k in PARALLEL_DRIVERS if k != LATE_DRIVER],
+                                       par_driver_launches))
     except BaseException:
         ABORT.set()
         for finish in finishers:
@@ -5520,26 +5778,49 @@ def run_phases(ranks):
     finally:
         shutil.rmtree(dp_dir, ignore_errors=True)
     try:
+        # The late kinds' ranks draw their init on the host while tp, sp and pp run (which
+        # time nothing): beside the build they slowed it and the threads' window.
+        late_ranks = start_parallel(par_dir, LATE_PARALLELS, fresh=False)
+        ranks += [r for kind in late_ranks for r in late_ranks[kind]]
+        par_ranks.update(late_ranks)
         par_launches = phase_parallels(par_ranks, parity, par_dir)
         for k, by_path in grid_launches.items():
             for path, n in by_path.items():
                 par_launches[path.split('_')[0]].setdefault(k, {})[path] = n
+        finish_late_driver = start_parallel_driver(LATE_DRIVER)
+        try:
+            late = phase_parallels(par_ranks, parity, par_dir, LATE_PARALLELS)
+        except BaseException:
+            ABORT.set()
+            with contextlib.suppress(BaseException):
+                finish_late_driver()
+            raise
+        par_driver_launches[LATE_DRIVER] = finish_late_driver()
+        sp_joint = late.pop('sp_joint')
+        par_launches.update(late, sp_joint=sp_joint['launches'])
     finally:
         shutil.rmtree(par_dir, ignore_errors=True)
     del parity
-    try:
-        device_side = phase_train_device_side(ckpt_dir)
-    finally:
-        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    def device_side_phase():
+        try:
+            return phase_train_device_side(ckpt_dir)
+        finally:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
     driver_dir = _build.BUILD_DIR / 'chip_smoke_driver'
     try:
-        driver = phase_train_driver(driver_dir)
+        # The device side of training runs in this thread beside the driver's runs.
+        driver, device_side = phase_train_driver(driver_dir, device_side_phase)
         data_tools = data_tools_run(dataset('driver')[0])
     finally:
         shutil.rmtree(driver_dir, ignore_errors=True)
-    # The tools' subprocesses run beside eval and pth, which time nothing on the card.
+    # The tools' subprocesses, the ViT-L ladder and pth's train_torch.py run run beside
+    # eval and pth, which time nothing on the card.
+    torch.cuda.empty_cache()
     tools_dir = _build.BUILD_DIR / 'chip_smoke_tools'
     tools = start_tools(tools_dir)
+    vitl_probe_run = start_vitl_probe()
+    finish_bootstrap = start_host_run(pth_bootstrap, _build.BUILD_DIR / 'chip_smoke_pth_boot')
     try:
         eval_dir = _build.BUILD_DIR / 'chip_smoke_eval'
         try:
@@ -5548,12 +5829,17 @@ def run_phases(ranks):
             shutil.rmtree(eval_dir, ignore_errors=True)
         pth_dir = _build.BUILD_DIR / 'chip_smoke_pth'
         try:
-            pth = phase_pth(pth_dir)
+            pth = phase_pth(pth_dir, finish_bootstrap)
         finally:
             shutil.rmtree(pth_dir, ignore_errors=True)
         tools_launches = phase_tools(tools_dir, data_tools, tools)
+    except BaseException:
+        ABORT.set()
+        with contextlib.suppress(BaseException):
+            finish_bootstrap()
+        raise
     finally:
-        concurrent.futures.wait(tools[1].values())
+        concurrent.futures.wait([*tools[1].values(), vitl_probe_run])
         shutil.rmtree(tools_dir, ignore_errors=True)
     stream_dir = _build.BUILD_DIR / 'chip_smoke_stream'
     try:
@@ -5579,12 +5865,17 @@ def run_phases(ranks):
     gemm = phase_gemm_times()
     torch.cuda.empty_cache()
     joint_errs, joint_geom = phase_joint_kernels()
-    joint_launches = phase_joint()
+    try:
+        joint_launches, joint_parity_out = phase_joint(extra_grads=(('sp_joint',
+                                                                     SP_JOINT_GRAD),))
+    finally:
+        SP_JOINT_GRAD.unlink(missing_ok=True)
+    sp_joint_parity(sp_joint['line'], joint_parity_out)
     torch.cuda.empty_cache()
     vitl_errs, vitl_geom = phase_vitl_kernels()
     vitl_dir = _build.BUILD_DIR / 'chip_smoke_vitl'
     try:
-        vitl_launches = phase_vitl(vitl_dir)
+        vitl_launches = phase_vitl(vitl_dir, vitl_probe_run)
     finally:
         shutil.rmtree(vitl_dir, ignore_errors=True)
     phase_resnet()
@@ -5609,7 +5900,7 @@ def run_phases(ranks):
                    for kind in PARALLEL_DRIVERS}}
 
     def parallel_launches(kernel):
-        return {path: n for kind in PARALLELS
+        return {path: n for kind in PARALLELS + LATE_PARALLELS
                 for path, n in par_launches.get(kind, {}).get(kernel, {}).items()}
     k1 = kernel_entry('fused_attention', source, replaces + '87',
                       {'inference': inference_launches, **train_launches('K1'),

@@ -9,14 +9,16 @@ commands run unchanged against train_torch.py and eval_torch.py.
 WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT), sequence-parallel over --seq_shards,
 tensor-parallel over --tp_shards and pipeline-parallel over --pp_stages of those ranks (the
 (data, seq, model, pipe) mesh: N / (seq_shards x tp_shards x pp_stages) data rows of that
-many ranks; tp_shards must divide the width and the MLP width, seq_shards must leave every
-seq rank patches and frames, the product must divide the world, and --pp_manual 1 wants
-neither tp_shards nor seq_shards > 1, else ValueError; the driver checks the pipeline's
-divisibility, parallel/pipeline.py:validate_pp_args).
+many ranks; every combination of the axes trains, with either attention type. tp_shards
+must divide the width and the MLP width, seq_shards must leave every seq rank patches and
+frames under divided attention (joint attention splits the clips, zero-padded), and the
+product must divide the world, else ValueError; the driver checks the pipeline's
+divisibility, parallel/pipeline.py:validate_pp_args. --pp_manual 1 parses on every layout,
+as JAX's CLI does: the port runs one schedule, its stages local either way.
 Flags of what the port does not run raise NotImplementedError from verify_args, naming
-the ROADMAP.md item that holds them: --seq_shards > 1 with joint attention or with
---pp_stages > 1 (item 7), and --seq_shards > 1, --tp_shards > 1, --pp_stages > 1,
---mesh_devices > 1 or --multihost for evaluation (item 7).
+the ROADMAP.md item that holds them: --seq_shards > 1, --tp_shards > 1, --pp_stages > 1,
+--mesh_devices > 1 or --multihost for evaluation (item 7), which the JAX package does not
+run either.
 Every other flag parses and behaves as in the JAX package; --resume and
 --tracker_pretrained take a reference .pth too (models/torch_import.py).
 '''
@@ -95,9 +97,9 @@ def shared_args(parser: argparse.ArgumentParser):
                              '4, 2 and 1 x pp_stages dividing batch_size / grad_accum x '
                              'num_queries.')
     parser.add_argument('--pp_manual', default=0, type=int,
-                        help='The manual-pipe layout of the JAX package: (pipe x data) '
-                             'meshes only. The port runs one schedule, its stages local '
-                             'either way.')
+                        help='The JAX package\'s manual-pipe schedule, which it takes on '
+                             '(pipe x data) meshes only and turns off elsewhere. The port '
+                             'runs one schedule, its stages local either way.')
     parser.add_argument('--compute_dtype', default='bfloat16', type=str,
                         choices=['bfloat16', 'float32'])
     parser.add_argument('--profile_dir', default='', type=str,
@@ -237,13 +239,8 @@ def _refuse_unported(args, is_train: bool):
     unported = [
         (not is_train and args.seq_shards > 1, '--seq_shards > 1 for evaluation',
          '7, sequence-parallel evaluation'),
-        (args.seq_shards > 1 and is_train and args.attention_type != 'divided_space_time',
-         '--seq_shards > 1 with joint attention',
-         '7, joint attention under sequence parallelism'),
         (not is_train and args.tp_shards > 1, '--tp_shards > 1 for evaluation',
          '7, tensor-parallel evaluation'),
-        (args.pp_stages > 1 and args.seq_shards > 1 and is_train,
-         '--pp_stages > 1 with --seq_shards > 1', '7, pipeline beside sequence parallelism'),
         (not is_train and args.pp_stages > 1, '--pp_stages > 1 for evaluation',
          '7, pipeline-parallel evaluation'),
         (not is_train and args.mesh_devices > 1, '--mesh_devices > 1 for evaluation',
@@ -261,22 +258,21 @@ def _refuse_unported(args, is_train: bool):
 
 def _check_shards(args):
     '''Raises ValueError unless --tp_shards divides the backbone's width and MLP width,
-    --seq_shards leaves every seq rank patches and frames, --pp_manual keeps to (pipe x
-    data), and seq_shards x tp_shards x pp_stages divides the world: --mesh_devices when
-    given, else WORLD_SIZE under --multihost, else the one process (a world of -1 visible
-    GPUs is checked when train_torch.py counts them).'''
+    --seq_shards leaves every seq rank patches and frames (divided attention only: joint
+    attention splits the clips, which may leave a rank padding), and seq_shards x
+    tp_shards x pp_stages divides the world: --mesh_devices when given, else WORLD_SIZE
+    under --multihost, else the one process (a world of -1 visible GPUs is checked when
+    train_torch.py counts them).'''
     from tcow_tpu_torch.models.timesformer import DEPTH_PRESETS
     from tcow_tpu_torch.parallel.mesh import check_tp_widths
-    from tcow_tpu_torch.parallel.pipeline import check_pp_manual
     from tcow_tpu_torch.parallel.sequence import check_seq_split
-    check_pp_manual(args)
     tp, seq, pp = args.tp_shards, args.seq_shards, args.pp_stages
     if tp > 1:
         if args.network_depth not in DEPTH_PRESETS:
             raise ValueError(f'--network_depth {args.network_depth} has no width preset')
         width = DEPTH_PRESETS[args.network_depth][0]
         check_tp_widths(tp, width, 4 * width)
-    if seq > 1:
+    if seq > 1 and args.attention_type == 'divided_space_time':
         check_seq_split((args.frame_height // args.patch_size)
                         * (args.frame_width // args.patch_size), args.num_frames, seq)
     world = (args.mesh_devices if args.mesh_devices > 0

@@ -19,18 +19,22 @@ row-parallel and its MLP as Megatron's (parallel/tensor.py); without a mesh, or 
 model rank, every path is the one-process one.
 
 Under sequence parallelism (a mesh whose seq axis has n > 1 ranks) every rank holds the
-whole model; the tokens are split over the seq ranks after the embedding, each block runs
-temporal attention, temporal_fc and the MLP on this rank's patches and spatial attention on
-its frames, with an all-to-all at each swap and the cls token's collectives
-(parallel/sequence.py), and the tokens are gathered before the norm.
+whole model; the tokens are split over the seq ranks after the embedding (seq_split) and
+gathered before the norm (seq_gather). A divided block runs temporal attention,
+temporal_fc and the MLP on this rank's patches and spatial attention on its frames, with an
+all-to-all at each swap and the cls token's collectives (parallel/sequence.py). Joint
+blocks split the folded clips instead, zero-padded to a multiple of n (the rows of JAX's
+fused_attention_rows): each rank runs whole blocks on its rows, with no collective inside
+them.
 
 Under pipeline parallelism (a mesh whose pipe axis has n > 1 ranks) the model holds this
 stage's blocks only (mesh.stage_blocks: a contiguous chunk of depth / n, numbered from 0
 in its state_dict) and the whole embedding and norm; `embed`, `run_blocks` and `finish`
 are the forward's three parts, which train/step.py runs on the first stage, on every stage
-per microbatch (parallel/pipeline.py) and on the last stage. The drop-path masks are drawn
-for every block (stage_masks) and the stage keeps its blocks', so the generator advances as
-in one process; the checkpoint regions group remat_group of the stage's blocks.
+per microbatch (parallel/pipeline.py) and on the last stage, with seq_split after `embed`
+and seq_gather before `finish` under sequence parallelism beside it. The drop-path masks
+are drawn for every block (stage_masks) and the stage keeps its blocks', so the generator
+advances as in one process; the checkpoint regions group remat_group of the stage's blocks.
 '''
 
 import dataclasses
@@ -268,10 +272,16 @@ class DropPathMasks:
     mlp: torch.Tensor
 
     def rows(self, start: int, stop: int) -> 'DropPathMasks':
-        '''The masks of clips [start, stop) (a pipeline microbatch's).'''
-        return DropPathMasks(self.keep, None if self.temporal is None
-                             else self.temporal[start:stop], self.spatial[start:stop],
-                             self.mlp[start:stop])
+        '''The masks of clips [start, stop) (a pipeline microbatch's); rows past the batch
+        (a seq rank's zero padding, seq_lib.split_rows) keep theirs.'''
+        def part(m):
+            if m is None:
+                return None
+            pad = stop - max(start, m.shape[0])
+            return m[start:stop] if pad <= 0 else torch.cat(
+                [m[start:stop], m.new_ones((pad,) + tuple(m.shape[1:]))])
+        return DropPathMasks(self.keep, part(self.temporal), part(self.spatial),
+                             part(self.mlp))
 
 
 def draw_drop_path_masks(generator: torch.Generator, rate: float, depth: int, B: int, N: int,
@@ -388,7 +398,7 @@ class JointBlock(nn.Module):
                 num_patches: Optional[int] = None):
         '''xs (B, N, T, D), cls (B, D), drop-path masks or None -> updated (xs, cls).
         frame_times and num_patches are unused: rope needs the divided temporal axis, and
-        joint attention has no sequence-parallel path.'''
+        under sequence parallelism the rows are this rank's whole clips.'''
         B, N, T, D = xs.shape
 
         def dp(x, which):
@@ -446,15 +456,7 @@ class TimeSformer(nn.Module):
         self.mesh = mesh if any(m is not None for m in (self.tp, self.sp, self.pp)) else None
         if self.tp is not None:
             mesh_lib.check_tp_widths(self.tp.n_model, D, cfg.mlp_dim)
-        if self.sp is not None:
-            if not cfg.divided:
-                raise NotImplementedError('joint space-time attention under sequence '
-                                          'parallelism is not ported to tcow_tpu_torch '
-                                          '(ROADMAP.md section 1 item 7)')
-            if self.pp is not None:
-                raise NotImplementedError('pipeline stages beside sequence parallelism are '
-                                          'not ported to tcow_tpu_torch (ROADMAP.md '
-                                          'section 1 item 7)')
+        if self.sp is not None and cfg.divided:
             seq_lib.check_seq_split(cfg.num_patches, cfg.num_frames, self.sp.n_seq)
         self.block_ids = (range(cfg.depth) if self.pp is None
                           else self.pp.stage_blocks(cfg.depth))
@@ -529,15 +531,55 @@ class TimeSformer(nn.Module):
                 and frame_times is not None else None)
 
     def stage_masks(self, generator: Optional[torch.Generator], train: bool, B: int, N: int,
-                    T: int, device, rows: Optional[Tuple[int, int]] = None, cols=None) -> list:
+                    T: int, device, rows: Optional[Tuple[int, int]] = None) -> list:
         '''The drop-path masks of the blocks held (None each without drop-path): every
-        block's drawn (draw_drop_path_masks), the held ones kept.'''
+        block's drawn for the B clips (draw_drop_path_masks; `rows` as there), the held
+        ones kept; under sequence parallelism this rank's part, as seq_split splits the
+        tokens: its patches' and frames' columns, or its chunk of the padded clips.'''
         cfg = self.cfg
         if not (train and cfg.drop_path_rate > 0.0 and generator is not None):
             return [None] * len(self.block_ids)
+        cols = None
+        if self.sp is not None and cfg.divided:
+            cols = (seq_lib.local_range(N, self.sp), seq_lib.local_range(T, self.sp))
         masks = draw_drop_path_masks(generator, cfg.drop_path_rate, cfg.depth, B, N, T,
                                      device, cfg.divided, rows, cols)
-        return [masks[i] for i in self.block_ids]
+        held = [masks[i] for i in self.block_ids]
+        if self.sp is not None and not cfg.divided:
+            held = [m.rows(*seq_lib.row_range(B, self.sp)) for m in held]
+        return held
+
+    def seq_split(self, xs, cls):
+        '''This rank's part of the embedded (xs (B, N, T, D), cls (B, D)) under sequence
+        parallelism: its chunk of the patches (divided), or of the zero-padded clips and
+        their cls tokens (joint); both whole otherwise.'''
+        if self.sp is None:
+            return xs, cls
+        if self.cfg.divided:
+            return seq_lib.split_seq(xs, self.sp, 1), cls
+        return seq_lib.split_rows(xs, self.sp), seq_lib.split_rows(cls, self.sp)
+
+    def seq_gather(self, xs, cls, B: int, N: int):
+        '''The inverse of seq_split after the blocks: the N patches of every rank joined
+        (the cls token is replicated), or the B clips, tokens and cls in one gather.'''
+        if self.sp is None:
+            return xs, cls
+        if self.cfg.divided:
+            return seq_lib.gather_seq(xs, self.sp, 1, N), cls
+        _, _, T, D = xs.shape
+        flat = torch.cat([cls[:, None], xs.reshape(xs.shape[0], N * T, D)], dim=1)
+        flat = seq_lib.gather_rows(flat, self.sp, B)
+        return flat[:, 1:].reshape(B, N, T, D), flat[:, 0]
+
+    def local_shape(self, B: int, N: int) -> Tuple[int, int]:
+        '''(clips, patches) of this rank's part of B clips of N patches (seq_split).'''
+        if self.sp is None:
+            return B, N
+        if self.cfg.divided:
+            lo, hi = seq_lib.local_range(N, self.sp)
+            return B, hi - lo
+        lo, hi = seq_lib.row_range(B, self.sp)
+        return hi - lo, N
 
     def run_blocks(self, xs, cls, masks, frame_times, num_patches: int):
         '''The blocks held, in order, each group of cfg.remat_group of them one checkpoint
@@ -585,9 +627,9 @@ class TimeSformer(nn.Module):
         the attention forwards run again, under the '_out' policies they do not.
         frame_times (B, T): the clip's true source timestamps, read only under
         cfg.temporal_rope (None means 0..T-1). Under sequence parallelism the blocks run on
-        this rank's chunk of the patches, split after the embedding and gathered before the
-        norm, and its columns of the drop-path masks. A pipeline stage runs its parts
-        through train/step.py instead.'''
+        this rank's part of the tokens (seq_split after the embedding, seq_gather before the
+        norm) with its part of the drop-path masks. A pipeline stage runs its parts through
+        train/step.py instead.'''
         if self.pp is not None:
             raise ValueError('a pipeline stage runs embed / run_blocks / finish through '
                              'the pipeline schedule (train/step.py)')
@@ -595,14 +637,7 @@ class TimeSformer(nn.Module):
         p = self.cfg.patch_size
         gh, gw = H // p, W // p
         N = gh * gw
-        xs, cls = self.embed(pixels)
-        frame_times = self.block_frame_times(frame_times)
-        cols = None
-        if self.sp is not None:
-            cols = (seq_lib.local_range(N, self.sp), seq_lib.local_range(T, self.sp))
-            xs = seq_lib.split_seq(xs, self.sp, 1)
-        masks = self.stage_masks(generator, train, B, N, T, xs.device, drop_path_rows, cols)
-        xs, cls = self.run_blocks(xs, cls, masks, frame_times, N)
-        if self.sp is not None:
-            xs = seq_lib.gather_seq(xs, self.sp, 1, N)
-        return self.finish(xs, cls, (gh, gw))
+        xs, cls = self.seq_split(*self.embed(pixels))
+        masks = self.stage_masks(generator, train, B, N, T, xs.device, drop_path_rows)
+        xs, cls = self.run_blocks(xs, cls, masks, self.block_frame_times(frame_times), N)
+        return self.finish(*self.seq_gather(xs, cls, B, N), (gh, gw))

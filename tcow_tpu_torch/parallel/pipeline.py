@@ -71,16 +71,27 @@ def validate_pp_args(args) -> int:
     return pp_stages
 
 
-def check_pp_manual(args):
-    '''--pp_manual 1 keeps the JAX manual pipe's layout rule (timesformer.py:646-648):
-    a (pipe x data) mesh only, so ValueError beside --tp_shards or --seq_shards > 1. The
-    port has one schedule, whose stages are local either way, so the flag selects nothing
-    else.'''
-    if int(getattr(args, 'pp_manual', 0)) and int(getattr(args, 'pp_stages', 1)) > 1:
-        for flag in ('tp_shards', 'seq_shards'):
-            if int(getattr(args, flag, 1)) > 1:
-                raise ValueError(f'--pp_manual supports (pipe x data) meshes only; '
-                                 f'--{flag} is {getattr(args, flag)}')
+def check_pp_manual(args, n_data: int, logger=None) -> bool:
+    '''Whether the JAX driver would run its manual pipe for --pp_manual 1
+    (tcow_tpu/train/driver.py:60-78): on a (pipe x data) mesh only, beside --tp_shards or
+    --seq_shards > 1 the flag is off without a word; and when a microbatch's folded rows
+    divide over the n_data data rows, else it warns (on `logger`) and falls back. The port
+    runs one schedule, its stages local either way, so nothing raises and the answer
+    selects nothing.'''
+    if not (int(getattr(args, 'pp_manual', 0)) and int(getattr(args, 'pp_stages', 1)) > 1):
+        return False
+    if any(int(getattr(args, flag, 1)) > 1 for flag in ('tp_shards', 'seq_shards')):
+        return False
+    rows = (args.batch_size // max(1, int(getattr(args, 'grad_accum', 1)))) * args.num_queries
+    mbs = resolve_pp_microbatches(int(getattr(args, 'pp_microbatches', 0)),
+                                  int(args.pp_stages), rows)
+    if rows % mbs != 0 or (rows // mbs) % n_data != 0:
+        if logger is not None:
+            logger.warning(f'--pp_manual: microbatch rows {rows}//{mbs} do not divide the '
+                           f'data axis ({n_data} shards); JAX falls back to its GSPMD GPipe '
+                           f'path, and the port runs its one schedule.')
+        return False
+    return True
 
 
 def microbatches(rows: int, n: int) -> List[Tuple[int, int]]:

@@ -31,6 +31,13 @@ to the true one. The train step seeds the replicated loss on seq rank 0 only
 Megatron's copy of a replicated input, which gives every rank the whole cotangent and sums
 the input's gradient, would count the cls token's MLP once per seq rank.
 
+Joint space-time attention (one call over a clip's 1 + N T tokens) has no axis to swap: as
+JAX's fused_attention_rows partitions its rows over (data, seq, model), each seq rank runs
+whole joint blocks on its chunk of the folded clips. split_rows zero-pads the rows to a
+multiple of n_seq (ceil-sized chunks; 6 rows over 4 ranks leave the last rank padding only)
+and takes this rank's; gather_rows joins them (one all-gather) and slices the padding off, so
+the padded rows get zero cotangents; its backward is a reduce-scatter, as gather_seq's.
+
 Every collective goes through _gather, _scatter_sum, _exchange, _seq_sum or _from_owner
 (looked up at call time, so chip_smoke.py can count them).
 '''
@@ -58,9 +65,17 @@ def local_range(length: int, mesh) -> Tuple[int, int]:
 
 
 def check_seq_split(num_patches: int, num_frames: int, n_seq: int):
-    '''Raises ValueError unless n_seq seq shards leave every rank patches and frames.'''
+    '''Raises ValueError unless n_seq seq shards leave every rank patches and frames (the
+    divided blocks' rule; the joint blocks split rows, which may leave a rank padding).'''
     chunks(num_patches, n_seq)
     chunks(num_frames, n_seq)
+
+
+def row_range(rows: int, mesh) -> Tuple[int, int]:
+    '''This rank's [start, stop) of `rows` zero-padded to a multiple of n_seq: ceil(rows /
+    n_seq) each; the ones from `rows` on are padding.'''
+    k = -(-rows // mesh.n_seq)
+    return mesh.seq_rank * k, (mesh.seq_rank + 1) * k
 
 
 # ---------------------------------------------------------------------------------------
@@ -83,13 +98,16 @@ def _gather(t: torch.Tensor, mesh, length: int) -> torch.Tensor:
     return full[:length]
 
 
-def _scatter_sum(t: torch.Tensor, mesh) -> torch.Tensor:
+def _scatter_sum(t: torch.Tensor, mesh, padded: bool = False) -> torch.Tensor:
     '''This rank's chunk of t's dim 0 summed over the seq group: one reduce_scatter_tensor
-    of t padded to n_seq x the ceil size.'''
+    of t padded to n_seq x the ceil size; with `padded` the whole ceil-sized chunk, its
+    padding included (split_rows' chunk).'''
     length = t.shape[0]
     size = -(-length // mesh.n_seq)
     y = t.new_empty((size,) + tuple(t.shape[1:]))
     dist.reduce_scatter_tensor(y, _pad0(t, size * mesh.n_seq), group=mesh.seq_group)
+    if padded:
+        return y
     lo, hi = local_range(length, mesh)
     return y[:hi - lo]
 
@@ -139,17 +157,18 @@ def _from_owner(t: torch.Tensor, mesh) -> torch.Tensor:
 
 class _GatherSeq(torch.autograd.Function):
     '''Every rank's chunk of `dim` joined into the replicated tensor; the backward sums
-    the ranks' partial cotangents and keeps this rank's chunk (a reduce-scatter).'''
+    the ranks' partial cotangents and keeps this rank's chunk (a reduce-scatter), with
+    `padded` its padding too.'''
 
     @staticmethod
-    def forward(ctx, x, mesh, dim, length):
-        ctx.mesh, ctx.dim = mesh, dim
+    def forward(ctx, x, mesh, dim, length, padded):
+        ctx.mesh, ctx.dim, ctx.padded = mesh, dim, padded
         return _gather(x.movedim(dim, 0), mesh, length).movedim(0, dim)
 
     @staticmethod
     def backward(ctx, g):
-        part = _scatter_sum(g.movedim(ctx.dim, 0).contiguous(), ctx.mesh)
-        return part.movedim(0, ctx.dim), None, None, None
+        part = _scatter_sum(g.movedim(ctx.dim, 0).contiguous(), ctx.mesh, ctx.padded)
+        return part.movedim(0, ctx.dim), None, None, None, None
 
 
 class _Exchange(torch.autograd.Function):
@@ -209,7 +228,19 @@ def split_seq(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
 
 def gather_seq(x: torch.Tensor, mesh, dim: int, length: int) -> torch.Tensor:
     '''The replicated tensor whose `dim` (of `length`) the seq ranks hold in chunks.'''
-    return _GatherSeq.apply(x, mesh, dim, length)
+    return _GatherSeq.apply(x, mesh, dim, length, False)
+
+
+def split_rows(x: torch.Tensor, mesh) -> torch.Tensor:
+    '''This rank's chunk (row_range) of the replicated x's rows (dim 0), zero-padded to a
+    multiple of n_seq (differentiable: the padding's cotangent is dropped).'''
+    lo, hi = row_range(x.shape[0], mesh)
+    return _pad0(x, (hi - lo) * mesh.n_seq)[lo:hi]
+
+
+def gather_rows(x: torch.Tensor, mesh, rows: int) -> torch.Tensor:
+    '''The replicated `rows` rows whose padded chunks (split_rows) the seq ranks hold.'''
+    return _GatherSeq.apply(x, mesh, 0, rows, True)
 
 
 def patches_to_frames(x: torch.Tensor, mesh, num_patches: int) -> torch.Tensor:

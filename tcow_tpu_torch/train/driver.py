@@ -47,25 +47,26 @@ checkpoint holds one query-sampling stream per data row.
 
 Sequence parallelism (--seq_shards, tcow_tpu/train/driver.py:186-199): the world is a
 (data, seq, model) mesh of world / (seq_shards x tp_shards) data rows. The seq ranks of a
-data row load the same rows, hold the whole model and split the tokens inside the blocks;
+data row load the same rows, hold the whole model and split the tokens inside the blocks
+(under joint attention the folded clips);
 as under tensor parallelism the vis step runs on every rank of data row 0 (its forward
 makes the seq collectives) and rank 0 renders it and writes the checkpoints. Every
 step_stats line carries the seq coordinate too.
 
 Pipeline parallelism (--pp_stages, --pp_microbatches, --pp_manual;
 tcow_tpu/train/driver.py:40-126): validate_pp_args (parallel/pipeline.py) runs before the
-mesh is built, and the world is a (data, model, pipe) mesh of world / (tp_shards x
-pp_stages) data rows (beside --seq_shards it raises in config.py). The stages of a data row
-load the same rows and hold their own blocks; each step is a GPipe flush
-(train/step.py); the vis step runs on every rank of data row 0, the example through the
-stages as one microbatch, and the last stage's payload goes to rank 0, which renders it;
-every rank gathers the stages for a checkpoint, which rank 0 writes in the one-process
-layout. The attention pairing stays the kernel path on the GPU, so K1 and K4 run on every
-stage: the port's stages are local, as in JAX's manual pipe, where JAX's GSPMD pipe runs
-XLA attention with 'res' / 'dots_nb' for the same gradients (:50-90). --pp_manual 1 runs
-the same schedule and keeps the manual pipe's (pipe x data) layout rule
-(pipeline.check_pp_manual); the port has no other schedule to fall back to. Every
-step_stats line carries the pipe coordinate too.
+mesh is built, and the world is a (data, seq, model, pipe) mesh of world / (seq_shards x
+tp_shards x pp_stages) data rows. The stages of a data row load the same rows and hold
+their own blocks (beside --seq_shards each stage's seq ranks split its tokens); each step is
+a GPipe flush (train/step.py); the vis step runs on every rank of data row 0, the example
+through the stages as one microbatch, and the last stage's payload goes to rank 0, which
+renders it; every rank gathers the stages for a checkpoint, which rank 0 writes in the
+one-process layout. The attention pairing stays the kernel path on the GPU, so K1 and K4
+run on every stage: the port's stages are local, as in JAX's manual pipe, where JAX's GSPMD
+pipe runs XLA attention with 'res' / 'dots_nb' for the same gradients (:50-90). --pp_manual
+1 runs the same schedule on every layout; where JAX's driver would fall back from its
+manual pipe for an indivisible microbatch it logs JAX's warning
+(pipeline.check_pp_manual). Every step_stats line carries the pipe coordinate too.
 '''
 
 import json
@@ -221,8 +222,8 @@ def join_mesh(args, logger):
 
 def main(args, logger):
     pipeline.validate_pp_args(args)
-    pipeline.check_pp_manual(args)
     mesh = join_mesh(args, logger)
+    pipeline.check_pp_manual(args, 1 if mesh is None else mesh.n_data, logger)
     try:
         return _train(args, logger, mesh)
     finally:

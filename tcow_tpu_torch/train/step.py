@@ -35,6 +35,12 @@ drop-path masks and keeps its blocks' rows of each microbatch, so the step equal
 one-process step. The losses and metric sums are broadcast from the last stage over the
 pipe group, so every rank logs, clips and skips alike; a block parameter's gradient is
 summed over its stage's data rows, any other over every stage (mesh.all_reduce_grads).
+Beside sequence parallelism each (data, seq, model) line is such a pipe: the first stage
+splits the embedded tokens (TimeSformer.seq_split), each hop carries one seq rank's chunk
+of a microbatch to the same seq rank of the next stage, the stages' blocks make the seq
+collectives, the last stage gathers the tokens (seq_gather) and seeds the replicated loss
+on seq rank 0 alone (backward_loss), and the gradients are summed over the (data x seq)
+ranks of a stage, or over every stage.
 
 Batch schema (numpy arrays or tensors; the step moves them to the model's device):
   rgb           (B, 3, T, H, W) float32  (or uint8 'rgb_u8', scaled by 1/255 on device)
@@ -235,7 +241,9 @@ def _pipeline_pass(model, cfg: StepConfig, batch, generator, progress, train: bo
     last stage runs the norm, the heads and the losses over `group` on the whole batch;
     with `backward` then the backward of the loss, the microbatches', and the first
     stage's of the embedding (parameter gradients in .grad, not yet summed over ranks).
-    Returns what _outputs_and_losses returns on the last stage, None on the others.'''
+    Returns what _outputs_and_losses returns on the last stage, None on the others. Beside
+    sequence parallelism the stages' microbatches are of this rank's part of the tokens
+    (TimeSformer.seq_split: its patches, or its chunk of the padded clips).'''
     bb = model.backbone
     device = next(model.parameters()).device
     batch = unpack_batch(batch, device)
@@ -251,9 +259,10 @@ def _pipeline_pass(model, cfg: StepConfig, batch, generator, progress, train: bo
                            (mesh.data_rank * R, mesh.n_data * R))
     if n_micro is None:
         n_micro = pipeline.microbatch_count(cfg.seeker.pp_microbatches, mesh, R)
-    parts = pipeline.microbatches(R, n_micro)
+    rows, n_local = bb.local_shape(R, N)
+    parts = pipeline.microbatches(rows, n_micro)
     first, last = mesh.pipe_rank == 0, mesh.pipe_rank == mesh.n_pipe - 1
-    emb = bb.embed(model.backbone_input(rgb_q, qmask)) if first else None
+    emb = bb.seq_split(*bb.embed(model.backbone_input(rgb_q, qmask))) if first else None
 
     def stage_fn(m, xs, cls):
         r0, r1 = parts[m]
@@ -262,19 +271,20 @@ def _pipeline_pass(model, cfg: StepConfig, batch, generator, progress, train: bo
 
     inputs, outputs = pipeline.run_stages(
         stage_fn, parts, lambda m: (emb[0][slice(*parts[m])], emb[1][slice(*parts[m])]),
-        lambda m: ((parts[m][1] - parts[m][0], N, T, D), (parts[m][1] - parts[m][0], D)),
+        lambda m: ((parts[m][1] - parts[m][0], n_local, T, D), (parts[m][1] - parts[m][0], D)),
         bb.cfg.compute_dtype, device, mesh, grad=backward)
     result, last_grads = None, None
     if last:
         xs = torch.cat([o[0].detach() for o in outputs])
         if backward:
             xs.requires_grad_()
-        feats, _ = bb.finish(xs, torch.cat([o[1].detach() for o in outputs]), grid)
+        feats, _ = bb.finish(*bb.seq_gather(xs, torch.cat([o[1].detach() for o in outputs]),
+                                            R, N), grid)
         out_mask, out_flags = _unfold(cfg, B, Q, *model.heads(feats))
         loss_retval, msums = _losses(cfg, batch, sup, out_mask, progress, False, group)
         result = (loss_retval, msums, out_mask, out_flags, sup)
         if backward:
-            loss_retval['total_seeker'].backward()
+            _seeded_backward(loss_retval['total_seeker'], mesh)
             g = xs.grad if xs.grad is not None else torch.zeros_like(xs)
             last_grads = [g[r0:r1] for r0, r1 in parts]
     if backward:
@@ -326,6 +336,10 @@ def backward_loss(loss: torch.Tensor, mesh=None):
     whose backward _pipeline_pass drives.'''
     if mesh_lib.pp_mesh(mesh) is not None:
         raise ValueError('a pipeline stage runs its backward through _pipeline_pass')
+    _seeded_backward(loss, mesh)
+
+
+def _seeded_backward(loss: torch.Tensor, mesh):
     if mesh_lib.sp_mesh(mesh) is None:
         loss.backward()
     else:

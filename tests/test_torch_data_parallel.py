@@ -401,13 +401,21 @@ def test_dp_drop_path_masks_are_the_global_batch_s(jax_params, tmp_path, tiny_pr
 # Flags
 # ---------------------------------------------------------------------------------------
 
-# --pp_stages trains since pipeline parallelism was ported; beside --seq_shards it still
-# raises (tests/test_torch_pipeline_parallel.py holds the layouts that parse).
-@pytest.mark.parametrize('flags', [['--seq_shards', '2', '--attention_type', 'joint_space_time'],
-                                   ['--tp_shards', '2', '--seq_shards', '2', '--pp_stages', '2'],
-                                   ['--pp_stages', '2', '--seq_shards', '2']])
-def test_sequence_tensor_pipeline_flags_still_raise(flags):
+# Every training layout trains since joint attention under --seq_shards and --pp_stages
+# beside it were ported: over 2 data-parallel ranks joint attention at seq 2 parses, and the
+# layouts of 8 or 4 ranks raise ValueError, the world being 2
+# (tests/test_torch_sp_joint_pp.py holds the layouts that train).
+@pytest.mark.parametrize('flags,error', [
+    (['--seq_shards', '2', '--attention_type', 'joint_space_time'], None),
+    (['--tp_shards', '2', '--seq_shards', '2', '--pp_stages', '2'],
+     '--seq_shards 2 x --tp_shards 2 x --pp_stages 2 does not divide the world of 2 ranks'),
+    (['--pp_stages', '2', '--seq_shards', '2'],
+     '--seq_shards 2 x --pp_stages 2 does not divide the world of 2 ranks')])
+def test_sequence_tensor_pipeline_flags_still_raise(flags, error):
     argv = ['--data_path', 'x', '--device', 'cpu', '--mesh_devices', '2', *flags]
-    with pytest.raises(NotImplementedError, match='item 7'):
-        pconfig.train_args(argv)
+    if error is None:
+        assert pconfig.train_args(argv).seq_shards == 2
+    else:
+        with pytest.raises(ValueError, match=error):
+            pconfig.train_args(argv)
     assert pconfig.train_args(argv[:6]).mesh_devices == 2

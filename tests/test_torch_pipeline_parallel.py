@@ -246,14 +246,17 @@ def test_pp_stage_split_matches_block_pspec(model, pipe):
     (['--mesh_devices', '4', '--pp_stages', '2', '--pp_manual', '1'], None),
     (['--mesh_devices', '2', '--pp_stages', '2', '--pp_microbatches', '3'], None),
     (['--mesh_devices', '4', '--tp_shards', '2', '--pp_stages', '2', '--pp_manual', '1'],
-     r'--pp_manual supports \(pipe x data\) meshes only; --tp_shards is 2'),
+     None),
+    (['--mesh_devices', '4', '--seq_shards', '2', '--pp_stages', '2', '--pp_manual', '1'],
+     None),
     (['--mesh_devices', '4', '--tp_shards', '2', '--pp_stages', '4'],
      '--tp_shards 2 x --pp_stages 4 does not divide the world of 4 ranks'),
     (['--pp_stages', '2'], 'does not divide the world of 1 ranks')])
 def test_pp_flags_parse_when_they_divide_and_pp_manual_keeps_jax_layout(flags, error):
-    '''--pp_stages parses for training, alone or beside --tp_shards, when tp_shards x
-    pp_stages divides the world; --pp_manual 1 keeps JAX's manual-pipe rule of (pipe x
-    data) meshes only (tcow_tpu/models/timesformer.py:646-648), else ValueError.'''
+    '''--pp_stages parses for training, alone or beside --tp_shards or --seq_shards, when
+    the product divides the world, else ValueError; --pp_manual 1 parses beside them, as
+    JAX's CLI does: its driver turns the manual pipe off there (tcow_tpu/train/driver.py:
+    60-61), and the port runs its one schedule (pipeline.check_pp_manual).'''
     argv = ['--data_path', 'x', '--device', 'cpu', *flags]
     if error is None:
         assert pconfig.train_args(argv).pp_stages == 2

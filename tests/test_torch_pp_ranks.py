@@ -1,7 +1,8 @@
 '''
-The ranks of tests/test_torch_pipeline_parallel.py: each runs as its own process
-(`rank_main(jobs, inp, out)`) and takes its jobs in turn; a job joins a CPU gloo group of
-job['world'] ranks as a (data, model, pipe) mesh, runs one of RANK_KINDS on a payload of
+The ranks of tests/test_torch_pipeline_parallel.py and tests/test_torch_sp_joint_pp.py:
+each runs as its own process (`rank_main(jobs, inp, out)`) and takes its jobs in turn; a job
+joins a CPU gloo group of job['world'] ranks as a (data, seq, model, pipe) mesh, runs one of
+RANK_KINDS on a payload of
 the pickled file `inp` and leaves the group, so one process can serve several meshes. The
 results, by job name, are written to `out` as a pickle. It imports torch and the port only,
 so the forkserver that preloads it holds no JAX. It holds no tests of its own.
@@ -27,10 +28,11 @@ LOSS_KEYS = ('track', 'occl_mask', 'cont_mask', 'total_seeker')
 
 def rank_main(jobs, inp, out):
     '''This process's jobs, in order: each joins the gloo group on the CPU at
-    (job['world'], job['rank'], job['port']) with job['model'] model and job['pipe'] pipe
-    ranks a data row, registers job['preset'] as the width of depths 2 and 4, runs
-    RANK_KINDS[job['kind']] on payload job['payload'] and leaves; writes {job name:
-    result}, or {'error': traceback} when a job raised.'''
+    (job['world'], job['rank'], job['port']) with job['model'] model, job['pipe'] pipe and
+    job.get('seq', 1) seq ranks a data row, registers job['preset'] as the width of depths 2
+    and 4, runs RANK_KINDS[job['kind']] on payload job['payload'] and leaves; writes {job
+    name: result} (its seq coordinate under 'seq'), or {'error': traceback} when a job
+    raised.'''
     torch.set_num_threads(1)
     results = {}
     try:
@@ -39,11 +41,13 @@ def rank_main(jobs, inp, out):
         for job in jobs:
             ptsf.DEPTH_PRESETS[2] = ptsf.DEPTH_PRESETS[4] = tuple(job['preset'])
             mesh = pmesh.make_mesh('cpu', job['rank'], job['world'], 0, '127.0.0.1',
-                                   job['port'], model=job['model'], pipe=job['pipe'])
+                                   job['port'], model=job['model'], pipe=job['pipe'],
+                                   seq=job.get('seq', 1))
             try:
                 assert mesh.backend == 'gloo', mesh
                 result = RANK_KINDS[job['kind']](mesh, payloads[job['payload']])
                 result['coords'] = (mesh.data_rank, mesh.model_rank, mesh.pipe_rank)
+                result['seq'] = mesh.seq_rank
             finally:
                 mesh.close()
             results[job['name']] = result

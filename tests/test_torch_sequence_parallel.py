@@ -487,15 +487,29 @@ def test_seq_shards_parse_for_training_when_they_divide(flags, error):
             pconfig.train_args(argv)
 
 
-@pytest.mark.parametrize('flags', [
-    ['--seq_shards', '2', '--attention_type', 'joint_space_time'],
-    ['--seq_shards', '2', '--pp_stages', '2']])
-def test_seq_shards_with_unported_layouts_raise(flags):
-    '''Joint attention and pipeline stages beside --seq_shards raise, naming ROADMAP item
-    7.'''
-    argv = ['--data_path', 'x', '--device', 'cpu', '--mesh_devices', '2', *flags]
-    with pytest.raises(NotImplementedError, match='item 7'):
-        pconfig.train_args(argv)
+@pytest.mark.parametrize('flags,error', [
+    (['--mesh_devices', '2', '--seq_shards', '2', '--attention_type', 'joint_space_time'],
+     None),
+    (['--mesh_devices', '4', '--seq_shards', '4', '--num_frames', '6', '--attention_type',
+      'joint_space_time'], None),
+    (['--mesh_devices', '4', '--seq_shards', '2', '--pp_stages', '2'], None),
+    (['--mesh_devices', '8', '--seq_shards', '2', '--tp_shards', '2', '--pp_stages', '2'],
+     None),
+    (['--mesh_devices', '2', '--seq_shards', '2', '--pp_stages', '2'],
+     '--seq_shards 2 x --pp_stages 2 does not divide the world of 2 ranks'),
+    (['--mesh_devices', '6', '--seq_shards', '4', '--attention_type', 'joint_space_time'],
+     'does not divide the world of 6 ranks')])
+def test_seq_shards_with_joint_attention_and_pipeline_stages_parse(flags, error):
+    '''Joint attention and pipeline stages beside --seq_shards parse for training when the
+    product of the axes divides the world, else ValueError; joint attention splits the
+    clips, not the frames, so 6 frames over 4 seq ranks parse there.'''
+    argv = ['--data_path', 'x', '--device', 'cpu', *flags]
+    if error is None:
+        args = pconfig.train_args(argv)
+        assert args.seq_shards == int(flags[flags.index('--seq_shards') + 1])
+    else:
+        with pytest.raises(ValueError, match=error):
+            pconfig.train_args(argv)
 
 
 def test_seq_shards_still_raise_for_evaluation():

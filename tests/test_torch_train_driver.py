@@ -284,19 +284,34 @@ def test_port_exception_budget_and_ba_save(synth_root, tmp_path, tiny, monkeypat
         run(make_args(synth_root, tmp_path, name='pbud', extra=['--do_val_aug', '0']))
 
 
-@pytest.mark.parametrize('flags', [
-    ['--mesh_devices', '2', '--seq_shards', '2', '--pp_stages', '2'],
-    ['--seq_shards', '2', '--attention_type', 'joint_space_time'],
-    ['--multihost', '1', '--tp_shards', '2', '--seq_shards', '2', '--pp_stages', '2']])
-def test_port_unported_flags_raise(synth_root, tmp_path, flags):
-    '''Data parallelism (--mesh_devices, --multihost) parses; the pipeline layout beside
-    sequence parallelism raises, alone or beside tensor parallelism, and so does joint
-    attention under sequence parallelism.'''
-    with pytest.raises(NotImplementedError, match='ROADMAP.md section 1 item'):
-        make_args(synth_root, tmp_path, extra=flags)
+@pytest.mark.parametrize('flags,world,error', [
+    (['--mesh_devices', '4', '--seq_shards', '2', '--pp_stages', '2'], None, None),
+    (['--mesh_devices', '2', '--seq_shards', '2', '--attention_type', 'joint_space_time'],
+     None, None),
+    (['--multihost', '1', '--tp_shards', '2', '--seq_shards', '2', '--pp_stages', '2'], 8,
+     None),
+    (['--mesh_devices', '2', '--seq_shards', '2', '--pp_stages', '2'], None,
+     '--seq_shards 2 x --pp_stages 2 does not divide the world of 2 ranks'),
+    (['--multihost', '1', '--tp_shards', '2', '--seq_shards', '2', '--pp_stages', '2'], 4,
+     'does not divide the world of 4 ranks')])
+def test_port_parallel_layouts_parse_when_they_divide(synth_root, tmp_path, monkeypatch,
+                                                      flags, world, error):
+    '''Data parallelism (--mesh_devices, --multihost) parses, and so do the pipeline layout
+    beside sequence parallelism, alone or beside tensor parallelism, and joint attention
+    under sequence parallelism, when their product divides the world (--mesh_devices, or
+    WORLD_SIZE under --multihost); else ValueError.'''
+    monkeypatch.setitem(ptsf.DEPTH_PRESETS, 2, (32, 4))   # the width tp_shards divides
+    if world is not None:
+        monkeypatch.setenv('WORLD_SIZE', str(world))
+    if error is not None:
+        with pytest.raises(ValueError, match=error):
+            make_args(synth_root, tmp_path, extra=flags)
+        return
+    args = make_args(synth_root, tmp_path, extra=flags)
+    assert (args.seq_shards, args.attention_type == 'joint_space_time') == (
+        2, 'joint_space_time' in flags)
     dp = [f for f in flags if f in ('--mesh_devices', '--multihost')]
-    if dp:
-        make_args(synth_root, tmp_path, extra=[dp[0], flags[flags.index(dp[0]) + 1]])
+    make_args(synth_root, tmp_path, extra=[dp[0], flags[flags.index(dp[0]) + 1]])
 
 
 @pytest.mark.parametrize('flags', [

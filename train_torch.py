@@ -20,11 +20,18 @@ becomes their count times S x M. On the CPU:
   python train_torch.py --device cpu --mesh_devices 2 --seq_shards 2 ...
   python train_torch.py --device cpu --mesh_devices 4 --seq_shards 2 --tp_shards 2 ...
 
+Joint attention (--attention_type joint_space_time) under --seq_shards S splits the folded
+clips of a data row over its S seq ranks, zero-padded to a multiple of S. On the CPU:
+  python train_torch.py --device cpu --mesh_devices 2 --seq_shards 2 \
+      --attention_type joint_space_time ...
+
 Pipeline parallelism: --pp_stages P splits each data row's blocks into P stages, one a
-rank, with --pp_microbatches M microbatches a step (0: the JAX default) and --tp_shards
-beside it (each data row then tp_shards x pp_stages ranks); --pp_manual 1 is accepted on
-(pipe x data) layouts. On the CPU:
+rank, with --pp_microbatches M microbatches a step (0: the JAX default) and --seq_shards
+and --tp_shards beside it (each data row then seq_shards x tp_shards x pp_stages ranks);
+--pp_manual 1 parses on every layout, as the JAX CLI's does, and runs the same schedule.
+On the CPU:
   python train_torch.py --device cpu --mesh_devices 2 --pp_stages 2 ...
+  python train_torch.py --device cpu --mesh_devices 4 --seq_shards 2 --pp_stages 2 ...
   python train_torch.py --device cpu --mesh_devices 8 --tp_shards 2 --pp_stages 2 ...
 
 Example (the configuration of record):
@@ -32,7 +39,8 @@ Example (the configuration of record):
       --num_queries 3 --num_frames 30 --causal_attention 1
 On two GPUs of one host: the same with --mesh_devices 2 (or torchrun --nproc_per_node 2
 train_torch.py ... --multihost 1); add --seq_shards 2 (or --tp_shards 2) for one data row
-of two sequence- (or tensor-) parallel ranks, or --pp_stages 2 for two pipeline stages.
+of two sequence- (or tensor-) parallel ranks, or --pp_stages 2 for two pipeline stages;
+on four, --seq_shards 2 --pp_stages 2.
 A synthetic Kubric-format dataset: python -m tcow_tpu_torch.data.synthetic --out DIR
 '''
 
