@@ -1,0 +1,8 @@
+'''idle_share.joint: what metrics/idle_share.train.py reads, in train.joint, whose clips per
+second are train_clips_per_s.joint.'''
+
+from perfbench.core import readers
+
+
+def read(rec):
+    return readers.idle_share(rec, 'train')
